@@ -20,6 +20,28 @@ Hopper (``src/repro_torch/kernels/csrc/``).  Phases, one JSON line each:
               launched once per step, weights bounded, state finite, rate
               in the asynchronous-irregular band; then a profiled window.
 
+The neuron-model zoo, on the same card (``python3 chip_smoke.py`` runs
+every phase; each path's launch counts are set to 0 just before it and
+read just after):
+
+6. kernel       - K4 ``izhikevich_step`` and K5 ``adex_step`` at 10 000
+                  neurons, the ``model_demo`` tables: against their plain
+                  twins, deterministic, timed;
+7. zoo_lockstep - ``model_demo("izhikevich"|"adex", 1.0, stdp=True)``, 120
+                  steps where the ``"cuda"`` and ``"flat"`` backends start
+                  every step from the same state: identical spikes away
+                  from ``v_peak``;
+8. zoo_main     - the same two networks, 2000 steps each through
+                  ``engine.run``: K1, K3 and K4 or K5 once per step, state
+                  finite, the rate per 250 steps inside a band around the
+                  JAX reference's own CPU run
+                  (``scripts/reference_zoo_rates.py``);
+9. composite    - ``brunel(1.0, poisson_input=True)`` ("lif+poisson"),
+                  2000 steps on the port's own emitter draws: K1 and K2
+                  once per step, the emitter rate within 4 sigma, E and I
+                  rates inside a band around the reference's, emitter
+                  state frozen.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -47,8 +69,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.core import backends, builder, engine, models, snn  # noqa: E402
+from repro_torch.core import neuron_models  # noqa: E402
 from repro_torch.core.decomposition import AreaSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import adex_step as adex_mod  # noqa: E402
+from repro_torch.kernels import izhikevich_step as izh_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
 from repro_torch.kernels import synaptic_gather as gather_mod  # noqa: E402
@@ -60,10 +85,47 @@ SEED = 0
 SLEEP_CYCLES = 10_000_000      # ~5 ms at H100 clocks: covers one enqueue
 KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "lif_step": lif_mod.lif_step,
-              "stdp_update": stdp_mod.stdp_update}
+              "stdp_update": stdp_mod.stdp_update,
+              "izhikevich_step": izh_mod.izhikevich_step,
+              "adex_step": adex_mod.adex_step}
 REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "lif_step": "src/repro/kernels/lif_step.py:71",
-            "stdp_update": "src/repro/kernels/stdp_update.py:66"}
+            "stdp_update": "src/repro/kernels/stdp_update.py:66",
+            "izhikevich_step": "src/repro/kernels/izhikevich_step.py:101",
+            "adex_step": "src/repro/kernels/adex_step.py:108"}
+#: the kernels of the hpc_benchmark main path (phase 5)
+MAIN_KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
+#: the zoo's two-variable kernels: model -> (kernel module, its wrapper)
+ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
+               "adex": (adex_mod, adex_mod.adex_step)}
+#: the JAX reference's own run of each zoo network on the CPU
+#: (``scripts/reference_zoo_rates.py --scale 1.0 --steps 2000``: flat
+#: backend, jax.random.key(0), drive off): per population, the rate [Hz]
+#: per 250 steps and over steps 500-2000
+ZOO_REFERENCE = {
+    "izhikevich": {
+        "E": ([8710.36, 8275.65, 6091.31, 6675.82, 6553.41, 6505.555,
+               6518.715, 6508.91], 6475.62),
+        "I": ([8407.12, 8098.02, 5907.96, 6511.82, 6366.16, 6326.84,
+               6347.68, 6340.96], 6300.236666666667)},
+    "adex": {
+        "E": ([40.0, 10.36, 409.79, 455.545, 462.41, 443.42, 467.05,
+               450.125], 448.0566666666667),
+        "I": ([56.04, 19.36, 407.1, 440.0, 480.0, 440.0, 440.0, 480.0],
+              447.85)},
+    "lif+poisson": {
+        "E": ([27.532, 31.9, 31.1, 33.916, 35.692, 34.264, 32.296, 33.628],
+              33.48266666666667),
+        "I": ([26.912, 32.704, 31.408, 33.936, 35.152, 34.032, 32.304,
+               33.152], 33.330666666666666)},
+}
+#: the card's rates against the reference's: each 250-step window within
+#: [0.5, 2] x the reference's (the first windows are transients whose
+#: timing may shift by a few steps), steps 500-2000 within 10 % for the
+#: deterministic model_demo networks and 15 % for the composite, whose
+#: emitters draw other random numbers than the reference's
+WINDOW_BAND = (0.5, 2.0)
+MEAN_BAND = {"izhikevich": 0.10, "adex": 0.10, "lif+poisson": 0.15}
 
 
 def emit(record: dict) -> None:
@@ -370,7 +432,7 @@ def _profile(g, table, cfg, spec, n_steps: int = 50) -> dict:
     """Device time by kernel over a short steady window."""
     from torch.profiler import ProfilerActivity, profile
     st = engine.init_state(g, list(spec.groups), SEED + 2, sweep="cuda",
-                           device=DEV)
+                           neuron_model=cfg.neuron_model, device=DEV)
     st, _ = engine.run(st, g, table, cfg, 5, device=DEV)   # warm
     st = engine.state_with_weights_layout(st, g, "blocked",
                                           backend=backends.get_backend("cuda"))
@@ -415,7 +477,8 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
     launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
     peak = torch.cuda.max_memory_allocated()
     for k, c in launches.items():
-        check(c == n_steps, f"main: {k} launched {c} times in {n_steps} "
+        want = n_steps if k in MAIN_KERNELS else 0
+        check(c == want, f"main: {k} launched {c} times in {n_steps} "
               "steps")
     w = fin.weights
     plastic = g.plastic & (g.delay > 0)
@@ -447,6 +510,280 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phases 6-9: the neuron-model zoo
+# --------------------------------------------------------------------------
+
+def phase_zoo_kernels(n: int = 10_000) -> dict:
+    """K4 and K5 at a zoo network's width, on the model_demo tables."""
+    rng = np.random.default_rng(SEED + 3)
+    ranges = {"izhikevich": ((-70, 25), (-16, 0), (0, 30), (-30, 0),
+                             (0, 20), (-20, 0)),
+              "adex": ((-75, -35), (0, 100), (0, 300), (-300, 0), (0, 50),
+                       (-50, 0))}
+    out = {}
+    for model, (mod, kernel) in ZOO_KERNELS.items():
+        spec, _ = models.model_demo(model, 1.0)
+        table = neuron_models.get_model(model).make_param_table(
+            list(spec.groups), models.DT_MS, device=DEV)
+        f32 = [torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32))
+               .to(DEV) for lo, hi in ranges[model]]
+        rc = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(DEV)
+        gid = torch.from_numpy(rng.integers(0, table.shape[0], n)
+                               .astype(np.int32)).to(DEV)
+        args = (*f32[:4], rc, gid, *f32[4:], table)
+        plain = getattr(mod, f"{model}_step_plain")
+        k1, k2, pl = kernel(*args), kernel(*args), plain(*args)
+        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+              f"{model}: kernel not bitwise deterministic")
+        check(k1[5].any() and (rc > 0).any(), f"{model}: vacuous inputs")
+        check(torch.equal(k1[4], pl[4]) and torch.equal(k1[5], pl[5]),
+              f"{model}: ref_count or spikes differ from the twin")
+        errs = {name: max_abs(a, b) for name, a, b in zip(
+            ("v", "x", "syn_ex", "syn_in"), k1[:4], pl[:4])}
+        if model == "izhikevich":
+            tol = "bitwise equal"
+            check(all(torch.equal(a, b) for a, b in zip(k1, pl)),
+                  f"izhikevich differs from its twin: {errs}")
+        else:
+            tol = "spikes, ref_count exact; floats within 8 ulp of max |x|"
+            for a, b in zip(k1[:4], pl[:4]):
+                lim = 8 * 2.0 ** -23 * float(b.abs().max())
+                check(max_abs(a, b) <= lim, f"adex differs from its twin: "
+                      f"{errs}")
+        k_ms = median_ms(lambda: kernel(*args))
+        p_ms = median_ms(lambda: plain(*args))
+        nbytes = n * (6 * 4 + 2 * 4) + table.numel() * 4 + n * (4 * 4 + 5)
+        b_ms, b_by = bound(nbytes, (25 if model == "izhikevich" else 35) * n)
+        name = f"{model}_step"
+        out[name] = dict(max_abs_err=max(errs.values()), ms=k_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes)
+        emit({"phase": "kernel", "name": name, "n": n,
+              "groups": table.shape[0], "max_abs_err": errs,
+              "tolerance": tol, "deterministic": True, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "bound_ms": b_ms, "bytes": nbytes})
+    return out
+
+
+def build_network(spec, what: str):
+    """One shard of ``spec`` on the card and its model's table."""
+    t0 = time.perf_counter()
+    g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(DEV)
+    table = neuron_models.get_model(spec.neuron_model).make_param_table(
+        list(spec.groups), models.DT_MS, device=DEV)
+    emit({"phase": "build", "network": what, "neurons": spec.n_neurons,
+          "n_local": g.n_local, "edges": int((g.delay > 0).sum()),
+          "nb": g.blocked.nb, "eb": g.blocked.eb, "max_delay": g.max_delay,
+          "host_build_s": time.perf_counter() - t0})
+    return g, table
+
+
+def phase_zoo_lockstep(model, spec, stdp, g, table, n_steps: int = 120):
+    """The kernel and flat backends step from one state every step: the
+    same spikes except within ``v_tol`` of ``v_peak``."""
+    mod, _ = ZOO_KERNELS[model]
+    (x_name,) = neuron_models.get_model(model).extra_fields
+    cb, fb = backends.get_backend("cuda"), backends.get_backend("flat")
+    lc, lf = cb.prepare(g), fb.prepare(g)
+    cfg_c = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
+                                external_drive=False, neuron_model=model)
+    cfg_f = dataclasses.replace(cfg_c, sweep="flat")
+    st = engine.init_state(g, list(spec.groups), SEED, sweep="cuda",
+                           neuron_model=model, device=DEV)
+    # the proposed membrane (before threshold and reset) is what the twin
+    # returns when nothing can spike: v_peak at infinity, ref_count 0
+    no_peak = table.clone()
+    no_peak[:, mod.COL["v_peak"]] = float("inf")
+    v_peak = table[g.group_id.long(), mod.COL["v_peak"]]
+    plain = getattr(mod, f"{model}_step_plain")
+    v_tol, n_near, n_flip, n_spk = 1e-3, 0, 0, 0
+    worst = dict(i_ex=0.0, i_in=0.0, v_m=0.0, x=0.0, weights=0.0,
+                 k_pre=0.0, k_post=0.0)
+    real = g.delay > 0
+    for _ in range(n_steps):
+        stf = engine.state_with_weights_layout(st, g, "flat")
+        ex_c, in_c, _ = cb.sweep(lc, st.weights, st.ring, st.t)
+        ex_f, in_f, _ = fb.sweep(lf, stf.weights, stf.ring, stf.t)
+        new_c, sp_c = engine.engine_step(st, g, table, cfg_c)
+        new_f, sp_f = engine.engine_step(stf, g, table, cfg_f)
+        nv = st.neurons
+        v_prop = plain(nv.v_m, nv.extra[x_name], nv.syn_ex, nv.syn_in,
+                       torch.zeros_like(nv.ref_count), nv.group_id, ex_c,
+                       in_c, no_peak)[0]
+        near = ((v_prop - v_peak).abs() < v_tol) & (nv.ref_count == 0)
+        flip = sp_c != sp_f
+        check(not bool((flip & ~near).any()),
+              f"zoo_lockstep {model}: spikes differ away from v_peak")
+        n_near += int(near.sum())
+        n_flip += int(flip.sum())
+        n_spk += int(sp_c.sum())
+        same = ~flip
+        wc = engine.state_with_weights_layout(new_c, g, "flat").weights
+        # a row sums hundreds of same-signed inputs in another order on
+        # each backend: its error scales with the sum, so it is relative
+        for key, a, b in (("i_ex", ex_c, ex_f), ("i_in", in_c, in_f)):
+            rel = max_abs(a, b) / max(1.0, float(b.abs().max()))
+            worst[key] = max(worst[key], rel)
+        for key, a, b in (
+                ("v_m", new_c.neurons.v_m[same], new_f.neurons.v_m[same]),
+                ("x", new_c.neurons.extra[x_name][same],
+                 new_f.neurons.extra[x_name][same]),
+                ("weights", wc[real], new_f.weights[real]),
+                ("k_pre", new_c.traces.k_pre, new_f.traces.k_pre),
+                ("k_post", new_c.traces.k_post, new_f.traces.k_post)):
+            worst[key] = max(worst[key], max_abs(a, b))
+        st = new_c
+    tol = dict(i_ex=1e-5, i_in=1e-5, v_m=1e-4, x=1e-4, weights=1e-4,
+               k_pre=1e-5, k_post=1e-5)
+    for key, lim in tol.items():
+        check(worst[key] <= lim, f"zoo_lockstep {model}: {key} differs by "
+              f"{worst[key]} > {lim}")
+    check(n_spk > 0, f"zoo_lockstep {model}: nothing spiked - vacuous")
+    emit({"phase": "zoo_lockstep", "model": model, "steps": n_steps,
+          "spikes": n_spk, "near_v_peak": n_near, "flipped": n_flip,
+          "v_peak_tol_mV": v_tol, "extra_variable": x_name,
+          "max_err": worst, "tolerance": tol,
+          "relative": ["i_ex", "i_in"]})
+
+
+def population_rates(spec, spikes, window: int = 250) -> dict:
+    """Per population: the rate per ``window`` steps and over 500-end."""
+    sp = spikes.cpu()
+    off = spec.pop_offsets()
+    out = {}
+    for i, pop in enumerate(spec.populations):
+        s = sp[:, off[i]:off[i + 1]]
+        out[pop.name] = ([models.firing_rate_hz(s[j:j + window])
+                          for j in range(0, s.shape[0], window)],
+                         models.firing_rate_hz(s[500:]))
+    return out
+
+
+def check_rates(what: str, rates: dict, reference: dict,
+                mean_band: float) -> None:
+    lo, hi = WINDOW_BAND
+    for pop, (ref_windows, ref_mean) in reference.items():
+        windows, mean = rates[pop]
+        for i, (a, b) in enumerate(zip(windows, ref_windows)):
+            check(lo * b <= a <= hi * b, f"{what}: {pop} rate {a} Hz in "
+                  f"window {i} outside [{lo}, {hi}] x the reference's {b}")
+        check(abs(mean - ref_mean) <= mean_band * ref_mean,
+              f"{what}: {pop} rate {mean} Hz over steps 500-end is not "
+              f"within {mean_band:.0%} of the reference's {ref_mean}")
+
+
+def run_counted(what, spec, stdp, g, table, n_steps, kernels):
+    """``engine.run`` on the kernel backend with every launch count set to
+    0 just before and read just after; each kernel of ``kernels`` must
+    have launched once per step."""
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
+                              external_drive=False,
+                              neuron_model=spec.neuron_model)
+    st = engine.init_state(g, list(spec.groups), SEED,
+                           neuron_model=spec.neuron_model, device=DEV)
+    init = st.neurons
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNEL_FNS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    fin, spikes = engine.run(st, g, table, cfg, n_steps, device=DEV)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for k in kernels:
+        check(launches[k] == n_steps, f"{what}: {k} launched "
+              f"{launches[k]} times in {n_steps} steps")
+    leaves = [("v_m", fin.neurons.v_m), ("syn_ex", fin.neurons.syn_ex),
+              ("syn_in", fin.neurons.syn_in), ("weights", fin.weights),
+              ("ring", fin.ring), *fin.neurons.extra.items()]
+    if stdp is not None:
+        plastic = g.plastic & (g.delay > 0)
+        w = fin.weights[plastic]
+        check(bool(((w >= stdp.w_min) & (w <= stdp.w_max)).all()),
+              f"{what}: plastic weights left [w_min, w_max]")
+        leaves += [("k_pre", fin.traces.k_pre), ("k_post", fin.traces.k_post)]
+    for name, x in leaves:
+        check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
+    return cfg, init, fin, spikes, dict(
+        steps=n_steps, wall_s=wall, steps_per_s=n_steps / wall,
+        peak_device_mem_bytes=peak, launches=launches)
+
+
+def phase_zoo_main(model, spec, stdp, g, table, n_steps: int = 2000,
+                   reference=None) -> int:
+    _, kernel = ZOO_KERNELS[model]
+    cfg, _, _, spikes, rec = run_counted(
+        f"zoo_main {model}", spec, stdp, g, table, n_steps,
+        ("synaptic_gather", "stdp_update", kernel.__name__))
+    check(rec["launches"]["lif_step"] == 0, f"zoo_main {model}: K2 ran")
+    rates = population_rates(spec, spikes)
+    if reference is not None:
+        check_rates(f"zoo_main {model}", rates, reference, MEAN_BAND[model])
+    emit({"phase": "zoo_main", "model": model, "neurons": spec.n_neurons,
+          "synapses": int((g.delay > 0).sum()),
+          "rate_hz_500_2000": models.firing_rate_hz(spikes[500:],
+                                                    spec.n_neurons),
+          "rate_hz_per_250_steps": {p: r[0] for p, r in rates.items()},
+          "rate_band": {"window": WINDOW_BAND,
+                        "steps_500_2000": MEAN_BAND[model]},
+          **rec, "profile": _profile(g, table, cfg, spec)})
+    return rec["launches"][kernel.__name__]
+
+
+def phase_composite(spec, g, table, n_steps: int = 2000,
+                    reference=None) -> None:
+    """brunel + Poisson emitter population on the port's own draws."""
+    cfg, init, fin, spikes, rec = run_counted(
+        "composite", spec, None, g, table, n_steps,
+        ("synaptic_gather", "lif_step"))
+    off = spec.pop_offsets()
+    emit_rows = slice(off[2], off[3])
+    p = float(table[spec.populations[2].group, -1])
+    n = spikes[:, emit_rows].numel()
+    got = int(spikes[:, emit_rows].sum())
+    sigma = float(np.sqrt(n * p * (1 - p)))
+    check(abs(got - n * p) <= 4 * sigma, f"composite: {got} emitter "
+          f"spikes, expected {n * p} +- 4 x {sigma}")
+    for name in ("v_m", "syn_ex", "syn_in", "ref_count"):
+        check(torch.equal(getattr(fin.neurons, name)[emit_rows],
+                          getattr(init, name)[emit_rows]),
+              f"composite: emitter {name} changed")
+    rates = population_rates(spec, spikes)
+    if reference is not None:
+        check_rates("composite", rates, reference, MEAN_BAND["lif+poisson"])
+    emit({"phase": "composite", "model": spec.neuron_model,
+          "neurons": spec.n_neurons, "synapses": int((g.delay > 0).sum()),
+          "emitters": n // n_steps, "emitter_spikes": got,
+          "emitter_expected": n * p, "emitter_sigma": sigma,
+          "rate_hz_per_250_steps": {p_: r[0] for p_, r in rates.items()},
+          "rate_hz_500_2000": {p_: r[1] for p_, r in rates.items()},
+          "rate_band": {"window": WINDOW_BAND,
+                        "steps_500_2000": MEAN_BAND["lif+poisson"]},
+          **rec, "profile": _profile(g, table, cfg, spec)})
+
+
+def zoo(scale: float = 1.0, n_steps: int = 2000, with_bands: bool = True):
+    """Phases 6-9; returns (kernel numbers, launches of K4 and K5)."""
+    kern = phase_zoo_kernels()
+    launches = {}
+    for model in ZOO_KERNELS:
+        spec, stdp = models.model_demo(model, scale, stdp=True)
+        g, table = build_network(spec, f"model_demo {model}")
+        phase_zoo_lockstep(model, spec, stdp, g, table)
+        launches[f"{model}_step"] = phase_zoo_main(
+            model, spec, stdp, g, table, n_steps,
+            ZOO_REFERENCE[model] if with_bands else None)
+        del g, table
+    spec, _ = models.brunel(scale, poisson_input=True)
+    g, table = build_network(spec, "brunel poisson_input")
+    phase_composite(spec, g, table, n_steps,
+                    ZOO_REFERENCE[spec.neuron_model] if with_bands else None)
+    return kern, launches
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -463,6 +800,10 @@ def main() -> None:
     phase_lockstep(spec, stdp, g, table)
     phase_mixed()
     launches = phase_main(spec, stdp, g, table)
+    del g, table
+    zoo_kern, zoo_launches = zoo()
+    kern.update(zoo_kern)
+    launches.update(zoo_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

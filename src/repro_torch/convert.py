@@ -8,7 +8,8 @@ tests use these functions so that both packages start from the same state.
   ``.to(device)`` next) from the reference ``ShardGraph``'s fields;
 * :func:`state_from_numpy` - a port :class:`EngineState` from the
   reference ``EngineState``'s leaves, weights re-expressed in the chosen
-  backend's native layout;
+  backend's native layout, for any neuron model (its ``extra`` variables
+  are leaves ``neurons.extra.<name>``, :func:`state_leaves`);
 * :func:`state_to_numpy` - the inverse, weights returned flat.
 """
 
@@ -21,18 +22,28 @@ import torch
 
 from repro_torch.core import backends as backends_mod
 from repro_torch.core import engine as engine_mod
+from repro_torch.core import neuron_models as neuron_models_mod
 from repro_torch.core import snn
 from repro_torch.core import stdp as stdp_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedGraph
 
 __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
-           "STATE_LEAVES"]
+           "state_leaves", "STATE_LEAVES"]
 
-#: leaf names of a single-shard engine state, as dataclass paths
+#: leaf names of a single-shard engine state, as dataclass paths (a LIF
+#: state; other models add their extra variables, :func:`state_leaves`)
 STATE_LEAVES = ("neurons.v_m", "neurons.syn_ex", "neurons.syn_in",
                 "neurons.ref_count", "neurons.spike", "ring", "weights",
                 "traces.k_pre", "traces.k_post", "t")
+
+
+def state_leaves(neuron_model: str = "lif") -> tuple[str, ...]:
+    """Leaf names of a state of ``neuron_model``: :data:`STATE_LEAVES` and
+    ``neurons.extra.<name>`` for each of the model's extra variables."""
+    model = neuron_models_mod.get_model(neuron_model)
+    return STATE_LEAVES + tuple(f"neurons.extra.{k}"
+                                for k in model.extra_fields)
 
 
 def _field(src, name):
@@ -67,21 +78,24 @@ def graph_from_numpy(fields) -> engine_mod.ShardGraph:
 
 
 def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
-                     sweep: str, device="cuda",
-                     seed=0) -> engine_mod.EngineState:
+                     sweep: str, device="cuda", seed=0,
+                     neuron_model: str = "lif") -> engine_mod.EngineState:
     """Port ``EngineState`` from the reference state's leaves.
 
-    ``arrays`` maps every name of :data:`STATE_LEAVES` to a numpy array
-    (``weights`` in FLAT order).  ``graph`` is the port graph on
-    ``device``; the weights are re-expressed in backend ``sweep``'s native
-    layout through ``edge_perm``.  ``seed`` seeds the port's own drive
-    generator (the reference's ``jax.random`` key has no torch twin).
+    ``arrays`` maps every name of :func:`state_leaves` (``neuron_model``)
+    to a numpy array (``weights`` in FLAT order).  ``graph`` is the port
+    graph on ``device``; the weights are re-expressed in backend
+    ``sweep``'s native layout through ``edge_perm``.  ``seed`` seeds the
+    port's own drive generator and a stochastic model's draws (the
+    reference's ``jax.random`` keys have no torch twin).
     """
     dev = resolve_device(device)
-    missing = [k for k in STATE_LEAVES if k not in arrays]
+    model = neuron_models_mod.get_model(neuron_model)
+    leaves = state_leaves(model)
+    missing = [k for k in leaves if k not in arrays]
     if missing:
         raise KeyError(f"state arrays lack {missing}")
-    a = {k: np.array(arrays[k]) for k in STATE_LEAVES}   # owned copies
+    a = {k: np.array(arrays[k]) for k in leaves}   # owned copies
     dtype = getattr(torch, str(a["neurons.v_m"].dtype))   # float32/64
     tens = lambda k, dt=dtype: torch.as_tensor(a[k], dtype=dt, device=dev)
     neurons = snn.NeuronState(
@@ -90,7 +104,9 @@ def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
         ref_count=tens("neurons.ref_count", torch.int32),
         spike=tens("neurons.spike", torch.bool),
         group_id=torch.as_tensor(np.asarray(graph.group_id.cpu()),
-                                 dtype=torch.int32, device=dev))
+                                 dtype=torch.int32, device=dev),
+        extra={k: tens(f"neurons.extra.{k}") for k in model.extra_fields})
+    model.check_state(neurons)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     state = engine_mod.EngineState(
@@ -98,7 +114,8 @@ def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
         traces=stdp_mod.TraceState(k_pre=tens("traces.k_pre"),
                                    k_post=tens("traces.k_post")),
         t=torch.as_tensor(a["t"], dtype=torch.int32, device=dev).reshape(()),
-        generator=gen, weights_layout="flat")
+        generator=gen, weights_layout="flat", neuron_model=model.name,
+        model_seed=int(seed) if model.stochastic else None)
     backend = backends_mod.get_backend(sweep)
     return engine_mod.state_with_weights_layout(
         state, graph, backend.weights_layout, backend=backend)
@@ -107,10 +124,13 @@ def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
 def state_to_numpy(state: engine_mod.EngineState,
                    graph: engine_mod.ShardGraph) -> dict:
     """Inverse of :func:`state_from_numpy`: the leaves of
-    :data:`STATE_LEAVES` as numpy arrays, weights in FLAT order."""
+    :func:`state_leaves` (the state's model) as numpy arrays, weights in
+    FLAT order."""
     flat = engine_mod.state_with_weights_layout(state, graph, "flat")
     np_ = lambda x: x.detach().cpu().numpy()
-    return {
+    extra = {f"neurons.extra.{k}": np_(v)
+             for k, v in flat.neurons.extra.items()}
+    return extra | {
         "neurons.v_m": np_(flat.neurons.v_m),
         "neurons.syn_ex": np_(flat.neurons.syn_ex),
         "neurons.syn_in": np_(flat.neurons.syn_in),

@@ -14,8 +14,10 @@ picks one by name:
   post-block ELL layout: K1 (:mod:`repro_torch.kernels.synaptic_gather`),
   K2 (:mod:`repro_torch.kernels.lif_step`) and K3
   (:mod:`repro_torch.kernels.stdp_update`); the mirror of the reference's
-  ``PallasBackend``.  On CPU tensors each kernel wrapper runs its plain
-  twin, which is how the CPU tests drive this backend.
+  ``PallasBackend``; the neuron update goes through the model's kernel
+  (K2 for lif, K4 for izhikevich, K5 for adex).  On CPU tensors each
+  kernel wrapper runs its plain twin, which is how the CPU tests drive
+  this backend.
 * ``"flat"`` - plain torch on the flat owner-sorted arrays, the twin of the
   reference's ``flat``.
 
@@ -315,12 +317,15 @@ class SweepBackend:
     def neuron_update(self, layout: EdgeLayout, neurons, table, input_ex,
                       input_in, *,
                       synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                      model=None):
+                      model=None, seed=None, t=None, gid=None, uniform=None):
         """Fused propagate/threshold/reset/refractory for one dt, through
-        the NeuronModel registry (``model`` None = "lif")."""
+        the NeuronModel registry (``model`` None = "lif").  ``seed``,
+        ``t``, ``gid`` (global ids) and ``uniform`` feed stochastic models'
+        draws; deterministic models ignore them."""
         m = neuron_models_mod.get_model("lif" if model is None else model)
         return m.step(neurons, table, input_ex, input_in,
-                      synapse_model=synapse_model)
+                      synapse_model=synapse_model, seed=seed, t=t, gid=gid,
+                      uniform=uniform)
 
     # -- plasticity -------------------------------------------------------
     def stdp_update(self, layout: EdgeLayout, weights, arrived, post_spike,
@@ -346,9 +351,9 @@ class FlatBackend(SweepBackend):
 
 
 class CudaBackend(SweepBackend):
-    """Kernel path: K1 edge pass, K2 LIF update and K3 blocked STDP update
-    on the post-block ELL layout - the mirror of the reference's
-    ``PallasBackend``.
+    """Kernel path: K1 edge pass, the neuron model's kernel (K2 LIF, K4
+    Izhikevich, K5 AdEx) and K3 blocked STDP update on the post-block ELL
+    layout - the mirror of the reference's ``PallasBackend``.
 
     The blocked layout is the RESIDENT hot-path representation: run-time
     weights live in ELL slot order, K1 emits the per-slot arrivals from its
@@ -393,13 +398,14 @@ class CudaBackend(SweepBackend):
 
     def neuron_update(self, layout, neurons, table, input_ex, input_in, *,
                       synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                      model=None):
+                      model=None, seed=None, t=None, gid=None, uniform=None):
+        # the kernel when the model has one (lif K2, izhikevich K4, adex
+        # K5, and their +poisson composites); poisson runs its plain draw
         m = neuron_models_mod.get_model("lif" if model is None else model)
-        if m.kernel_step is None:
-            return m.step(neurons, table, input_ex, input_in,
-                          synapse_model=synapse_model)
-        return m.kernel_step(neurons, table, input_ex, input_in,
-                             synapse_model=synapse_model)
+        step = m.step if m.kernel_step is None else m.kernel_step
+        return step(neurons, table, input_ex, input_in,
+                    synapse_model=synapse_model, seed=seed, t=t, gid=gid,
+                    uniform=uniform)
 
     def stdp_update(self, layout, weights, arrived, post_spike, traces,
                     params: stdp_mod.STDPParams):

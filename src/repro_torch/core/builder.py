@@ -5,7 +5,7 @@ Mirrors CORTEX's build pipeline (paper Fig. 6a-c): connectome-level spec
 per-device indegree sub-graph data instances.
 
 A numpy copy of the reference package's ``core/builder.py`` that imports
-the port's own ``ShardGraph`` and ``LIFParams``; it emits the same arrays
+the port's own ``ShardGraph`` and parameter classes; it emits the same arrays
 bit for bit (``tests/test_torch_build.py``).
 
 Determinism: every projection's edge set is a pure function of the spec
@@ -48,6 +48,8 @@ from repro_torch.core.decomposition import (AreaSpec, Decomposition,
 from repro_torch.core.engine import ShardGraph
 from repro_torch.core.layout import (blocked_eb, blocked_layout,
                                      blocked_layout_streamed)
+from repro_torch.core.neuron_models import (AdExParams, IzhikevichParams,
+                                            PoissonParams)
 from repro_torch.core.snn import LIFParams
 
 __all__ = ["Population", "Projection", "NetworkSpec", "build_shards",
@@ -700,10 +702,10 @@ def spec_to_dict(spec: NetworkSpec) -> dict:
 
 
 def _resolve_param_class(name: str):
-    if name == LIFParams.__name__:
-        return LIFParams
-    raise ValueError(f"unknown group parameter class {name!r} (the port "
-                     "has the LIF model only)")
+    for cls in (LIFParams, IzhikevichParams, AdExParams, PoissonParams):
+        if name == cls.__name__:
+            return cls
+    raise ValueError(f"unknown group parameter class {name!r}")
 
 
 def spec_from_dict(d: dict) -> NetworkSpec:

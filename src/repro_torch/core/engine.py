@@ -21,6 +21,12 @@ Differences from the reference, by design:
   state's ``torch.Generator`` - it cannot reproduce ``jax.random``'s stream,
   so :func:`engine_step` and :func:`run` take the drive as an optional
   input, which is how the parity tests feed the reference's draws;
+* so do the stochastic neuron models' per-neuron uniforms
+  (``model_uniform``); without them a stochastic model draws
+  :func:`~repro_torch.core.neuron_models.gid_uniform`, a hash of (the
+  state's ``model_seed``, ``t``, global id) that leaves the drive's
+  generator untouched, as the reference's deterministic models leave its
+  key stream;
 * the pre trace is incremented with ``scatter_reduce_(..., "amax")`` from
   zeros, where the reference's ``segment_max`` leaves ``-inf`` on mirrors
   with no edge; no weight reads those entries.
@@ -138,6 +144,9 @@ class EngineState:
     weights_layout: str = "flat"
     #: which NeuronModel ``neurons`` was built for
     neuron_model: str = "lif"
+    #: seed of a stochastic model's per-neuron draws (None for
+    #: deterministic models)
+    model_seed: int | None = None
 
 
 def _on(dev: torch.device, x: torch.Tensor) -> bool:
@@ -163,9 +172,11 @@ def init_state(graph: ShardGraph, groups, seed: int = 0, *,
 
     ``graph`` must already be on that device (:meth:`ShardGraph.to`).
     ``seed`` seeds the state's ``torch.Generator``, the stream of the
-    external drive.  ``sweep`` (a backend name) stores the weights in that
-    backend's native layout up front; without it the state is flat and
-    :func:`engine_step` converts at the boundary.
+    external drive, and a stochastic model's draws (``model_seed``).
+    ``neuron_model`` picks the dynamics (DESIGN.md §12): ``groups`` must be
+    that model's parameter class.  ``sweep`` (a backend name) stores the
+    weights in that backend's native layout up front; without it the state
+    is flat and :func:`engine_step` converts at the boundary.
     """
     dev = resolve_device(device)
     _require_on(dev, pre_idx=graph.pre_idx, weight_init=graph.weight_init)
@@ -193,7 +204,8 @@ def init_state(graph: ShardGraph, groups, seed: int = 0, *,
         t=torch.zeros((), dtype=torch.int32, device=dev),
         generator=gen,
         weights_layout=weights_layout,
-        neuron_model=model.name)
+        neuron_model=model.name,
+        model_seed=int(seed) if model.stochastic else None)
 
 
 def state_with_weights_layout(state: EngineState, graph: ShardGraph,
@@ -220,6 +232,7 @@ def _poisson_drive(generator, graph: ShardGraph, dt: float, dtype):
 
 def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                 cfg: EngineConfig, *, drive: torch.Tensor | None = None,
+                model_uniform: torch.Tensor | None = None,
                 backend: "backends_mod.SweepBackend | None" = None,
                 layout: "backends_mod.EdgeLayout | None" = None,
                 model: "neuron_models_mod.NeuronModel | None" = None):
@@ -227,8 +240,9 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     Returns ``(new_state, spike_bits)``; ``state`` is not modified.
 
     ``drive`` ((n_local,), the state dtype) replaces this step's own
-    Poisson draw.  ``backend``/``layout``/``model`` may be pre-resolved by
-    callers that step in a loop (:func:`run` does).
+    Poisson draw; ``model_uniform`` ((n_local,) float32) a stochastic
+    model's own uniforms.  ``backend``/``layout``/``model`` may be
+    pre-resolved by callers that step in a loop (:func:`run` does).
     """
     dtype = state.weights.dtype
     if backend is None:
@@ -242,6 +256,7 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
             f"state was initialized for neuron_model="
             f"{state.neuron_model!r} but cfg selects {model.name!r}; "
             "re-init with init_state(neuron_model=...)")
+    model.check_state(state.neurons)
 
     # weights in the backend's native layout; converting here is the
     # compatibility path for states built without ``sweep=``
@@ -262,7 +277,9 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     # (3) neuron dynamics
     neurons = backend.neuron_update(layout, state.neurons, table, input_ex,
                                     input_in, synapse_model=cfg.synapse_model,
-                                    model=model)
+                                    model=model, seed=state.model_seed,
+                                    t=state.t, gid=graph.global_id,
+                                    uniform=model_uniform)
     spike_bits = neurons.spike
 
     # (4) plasticity: weights first (traces exclude this step's spikes:
@@ -293,13 +310,15 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                             traces=traces, t=state.t + 1,
                             generator=state.generator,
                             weights_layout=state.weights_layout,
-                            neuron_model=state.neuron_model)
+                            neuron_model=state.neuron_model,
+                            model_seed=state.model_seed)
     return new_state, spike_bits
 
 
 def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
         cfg: EngineConfig, n_steps: int, *,
-        drive: torch.Tensor | None = None, device="cuda"):
+        drive: torch.Tensor | None = None,
+        model_uniform: torch.Tensor | None = None, device="cuda"):
     """Step ``n_steps`` times on ``device`` (the card unless
     ``device="cpu"``); returns ``(final_state, spikes)``, spikes
     (n_steps, n_local) bool.
@@ -307,15 +326,17 @@ def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     Flat-facing: whatever layout ``state`` arrives in, the loop carries the
     backend's NATIVE weights (one conversion in) and the returned state is
     FLAT (one conversion out).  ``drive`` ((n_steps, n_local)) replaces the
-    per-step Poisson draws.  The loop never syncs with the host; ``run``
-    synchronises the device once, at the end.
+    per-step Poisson draws, ``model_uniform`` ((n_steps, n_local)) a
+    stochastic model's per-step uniforms.  The loop never syncs with the
+    host; ``run`` synchronises the device once, at the end.
     """
     dev = resolve_device(device)
     _require_on(dev, weights=state.weights, ring=state.ring,
                 pre_idx=graph.pre_idx, table=table)
-    if drive is not None and tuple(drive.shape) != (n_steps, graph.n_local):
-        raise ValueError(f"drive must be ({n_steps}, {graph.n_local}), got "
-                         f"{tuple(drive.shape)}")
+    for name, x in (("drive", drive), ("model_uniform", model_uniform)):
+        if x is not None and tuple(x.shape) != (n_steps, graph.n_local):
+            raise ValueError(f"{name} must be ({n_steps}, {graph.n_local}), "
+                             f"got {tuple(x.shape)}")
     backend = backends_mod.get_backend(cfg.sweep)
     layout = backend.prepare(graph)
     model = neuron_models_mod.get_model(cfg.neuron_model)
@@ -333,6 +354,7 @@ def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
         state, spikes[i] = engine_step(
             state, graph, table, cfg,
             drive=None if drive is None else drive[i],
+            model_uniform=None if model_uniform is None else model_uniform[i],
             backend=backend, layout=layout, model=model)
     if state.weights_layout != "flat":
         state = dataclasses.replace(

@@ -62,6 +62,10 @@ class NeuronState:
     ref_count: torch.Tensor  # remaining refractory steps (int32)
     spike: torch.Tensor      # bool: spiked at the *last* step
     group_id: torch.Tensor   # int32 index into the parameter table
+    #: model-specific per-neuron variables (``NeuronModel.extra_fields``):
+    #: ``{}`` for LIF, ``{"u": ...}`` for izhikevich, ``{"w_ad": ...}`` for
+    #: adex (DESIGN.md §12)
+    extra: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 # Parameter-table row layout (columns of the (G, NCOL) table), identical to
@@ -120,8 +124,10 @@ def make_param_table(groups: list[LIFParams], dt: float,
 
 
 def init_state(n: int, group_id, groups: list[LIFParams], *,
-               dtype=torch.float32, device="cpu") -> NeuronState:
-    """Resting state: ``v_m = e_l`` of each neuron's group, no input."""
+               dtype=torch.float32, device="cuda") -> NeuronState:
+    """Resting state: ``v_m = e_l`` of each neuron's group, no input; on
+    ``device`` (the card unless ``device="cpu"``; raises without one)."""
+    device = resolve_device(device)
     e_l = np.asarray([g.e_l for g in groups], dtype=np.float64)
     gid = np.asarray(group_id, dtype=np.int32)
     zeros = lambda dt: torch.zeros((n,), dtype=dt, device=device)
@@ -172,4 +178,4 @@ def lif_step(state: NeuronState, table: torch.Tensor,
                             torch.clamp(state.ref_count - 1, min=0))
     return NeuronState(v_m=v_new, syn_ex=syn_ex, syn_in=syn_in,
                        ref_count=ref_count.to(torch.int32), spike=spike,
-                       group_id=state.group_id)
+                       group_id=state.group_id, extra=state.extra)

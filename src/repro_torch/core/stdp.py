@@ -18,8 +18,11 @@ backend, in the reference's op order; the kernel path is
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+
+from repro_torch.core.device import resolve_device
 
 __all__ = ["STDPParams", "TraceState", "init_traces", "update_traces",
            "stdp_edge_update"]
@@ -46,19 +49,30 @@ class TraceState:
 
 
 def init_traces(n_pre: int, n_post: int, dtype=torch.float32,
-                device="cpu") -> TraceState:
+                device="cuda") -> TraceState:
+    """Zero traces on ``device`` (the card unless ``device="cpu"``; raises
+    without one)."""
+    device = resolve_device(device)
     return TraceState(k_pre=torch.zeros((n_pre,), dtype=dtype, device=device),
                       k_post=torch.zeros((n_post,), dtype=dtype,
                                          device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _decay(arg: float, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``exp(arg)`` as a 0-d tensor, computed on ``device`` in ``dtype``
+    (as the reference's ``jnp.exp`` is) once per value: a fresh
+    ``torch.tensor(..., device="cuda")`` every step would copy from
+    pageable host memory and synchronise the host with the card."""
+    return torch.exp(torch.tensor(arg, dtype=dtype, device=device))
 
 
 def update_traces(tr: TraceState, p: STDPParams, dt: float,
                   pre_spike: torch.Tensor,
                   post_spike: torch.Tensor) -> TraceState:
     """Decay-then-increment trace update (order matches NEST archiving)."""
-    def decay(tau, like):
-        return torch.exp(torch.tensor(-dt / tau, dtype=like.dtype,
-                                      device=like.device))
+    decay = lambda tau, like: _decay(-dt / tau, like.dtype, like.device)
     return TraceState(
         k_pre=tr.k_pre * decay(p.tau_plus, tr.k_pre)
         + pre_spike.to(tr.k_pre.dtype),

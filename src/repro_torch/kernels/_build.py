@@ -32,12 +32,13 @@ from pathlib import Path
 import torch
 
 __all__ = ["load", "build_all", "check", "check_tensor", "dispatch_device",
-           "KERNELS", "BUILD_DIR", "CSRC"]
+           "launch_two_variable_step", "KERNELS", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: sources under csrc/ (one shared library each)
-KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
+KERNELS = ("synaptic_gather", "lif_step", "stdp_update", "izhikevich_step",
+           "adex_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -143,3 +144,48 @@ def dispatch_device(x):
         raise ValueError(f"kernels run on cpu (plain version) or cuda, "
                          f"got a tensor on {x.device}")
     return x.device.type
+
+
+def launch_two_variable_step(name: str, v, x, syn_ex, syn_in, ref_count,
+                             group_id, input_ex, input_in, table,
+                             ncol: int):
+    """Validate and launch ``csrc/<name>.cu``, a neuron update over two
+    state variables (membrane ``v`` and one more, ``x``) that all take the
+    same C interface (K4, K5):
+
+        int <name>_launch(v, x, syn_ex, syn_in, ref_count, group_id,
+                          input_ex, input_in, table, int n,
+                          v_out, x_out, se_out, si_out, rc_out, spike_out,
+                          stream)
+
+    Returns the new ``(v, x, syn_ex, syn_in, ref_count, spike)``."""
+    dev = v.device
+    n = v.shape[0]
+    if v.dim() != 1 or n < 1:
+        raise ValueError(f"v must be a non-empty vector, got "
+                         f"{tuple(v.shape)}")
+    for arg, t in (("v", v), ("x", x), ("syn_ex", syn_ex),
+                   ("syn_in", syn_in), ("input_ex", input_ex),
+                   ("input_in", input_in)):
+        check_tensor(t, arg, torch.float32, (n,), dev)
+    for arg, t in (("ref_count", ref_count), ("group_id", group_id)):
+        check_tensor(t, arg, torch.int32, (n,), dev)
+    check_tensor(table, "table", torch.float32, (table.shape[0], ncol), dev)
+
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 7)
+        fn.restype = ctypes.c_int
+    outs = [torch.empty(n, dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    outs += [torch.empty(n, dtype=torch.int32, device=dev),
+             torch.empty(n, dtype=torch.bool, device=dev)]
+    with torch.cuda.device(dev):
+        err = fn(v.data_ptr(), x.data_ptr(), syn_ex.data_ptr(),
+                 syn_in.data_ptr(), ref_count.data_ptr(), group_id.data_ptr(),
+                 input_ex.data_ptr(), input_in.data_ptr(), table.data_ptr(),
+                 n, *(o.data_ptr() for o in outs),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    check(err, name)
+    return tuple(outs)

@@ -31,7 +31,7 @@ from repro.core import models as ref_models
 from repro.core import snn as ref_snn
 from repro_torch import convert
 from repro_torch.core import backends, builder, decomposition, engine
-from repro_torch.core import models, neuron_models, snn
+from repro_torch.core import models, neuron_models, snn, stdp
 
 CPU = "cpu"
 SRC = str(Path(__file__).resolve().parents[1] / "src")
@@ -264,10 +264,11 @@ def test_registries_and_defaults():
     assert engine.EngineConfig().sweep == "cuda"
     with pytest.raises(ValueError, match="unknown sweep backend"):
         backends.get_backend("pallas")
-    assert neuron_models.available_models() == ("lif",)
+    assert neuron_models.available_models() == ("adex", "izhikevich", "lif",
+                                                "poisson")
+    assert engine.EngineConfig().neuron_model == "lif"
     for name in ("izhikevich", "adex", "poisson", "lif+poisson"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            neuron_models.get_model(name)
+        assert neuron_models.get_model(name).name == name
     assert set(ref_backends.available_backends()) >= {"flat", "pallas"}
 
 
@@ -279,6 +280,20 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         g.to()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         snn.make_param_table(list(spec.groups), 0.1)
+    gid = np.zeros(4, np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        snn.init_state(4, gid, list(spec.groups))
+    assert snn.init_state(4, gid, list(spec.groups),
+                          device=CPU).v_m.device.type == CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stdp.init_traces(3, 4)
+    assert stdp.init_traces(3, 4, device=CPU).k_pre.device.type == CPU
+    izh = neuron_models.get_model("izhikevich")
+    izh_groups = [neuron_models.IzhikevichParams()]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        izh.make_param_table(izh_groups, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        izh.init_state(4, gid, izh_groups)
     gc = g.to(CPU)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.init_state(gc, list(spec.groups))
@@ -302,7 +317,10 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.kernels.synaptic_gather' in sys.modules\n")
+        "for m in ('kernels.synaptic_gather', 'kernels.izhikevich_step',\n"
+        "          'kernels.adex_step', 'core.neuron_models',\n"
+        "          'core.models'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)

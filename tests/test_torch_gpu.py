@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import builder, engine, models, snn
+from repro_torch.core import builder, engine, models, neuron_models, snn
+from repro_torch.kernels import adex_step as adex_mod
+from repro_torch.kernels import izhikevich_step as izh_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import stdp_update as stdp_mod
 from repro_torch.kernels import synaptic_gather as gather_mod
@@ -158,3 +160,107 @@ def test_cuda_backend_steps_through_the_kernels(cuda):
     assert sf.sum() > 0, "no spikes - vacuous"
     assert torch.equal(sc, sf)
     torch.testing.assert_close(fc.weights, ff.weights, rtol=0, atol=1e-4)
+
+
+def _two_variable_inputs(model, rng, n, cuda):
+    """Seeded (v, x, syn_ex, syn_in, ref_count, group_id, input_ex,
+    input_in, table) for K4 or K5, over 3 groups."""
+    m = neuron_models.get_model(model)
+    if model == "izhikevich":
+        gs = [neuron_models.IzhikevichParams(a=0.02 + 0.04 * i, d=8.0 - 3 * i,
+                                             t_ref=0.3 * i)
+              for i in range(3)]
+        lo_hi = ((-70, 25), (-16, 0), (0, 30), (-30, 0), (0, 20), (-20, 0))
+    else:
+        gs = [neuron_models.AdExParams(i_e=400.0 * i, t_ref=2.0 - 0.7 * i)
+              for i in range(3)]
+        lo_hi = ((-75, -35), (0, 100), (0, 300), (-300, 0), (0, 50),
+                 (-50, 0))
+    f32 = [torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32))
+           .to(cuda) for lo, hi in lo_hi]
+    ints = [torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
+            for _ in range(2)]
+    return (*f32[:4], *ints, *f32[4:],
+            m.make_param_table(gs, 0.1, device=cuda))
+
+
+@pytest.mark.parametrize("n", [1000, 10000])
+@pytest.mark.parametrize("model", ["izhikevich", "adex"])
+def test_two_variable_kernels_match_plain(cuda, model, n):
+    """K4 equals its twin bitwise (the same op order, no contraction, no
+    transcendental).  K5's expf and torch's exp kernel may differ by ulps,
+    so its floats are held within 8 ulps of their largest magnitude;
+    spikes and ref_count are exact for both."""
+    mod = izh_mod if model == "izhikevich" else adex_mod
+    kernel = getattr(mod, f"{model}_step")
+    plain = getattr(mod, f"{model}_step_plain")
+    args = _two_variable_inputs(model, np.random.default_rng(n), n, cuda)
+    launches = kernel.launches
+    out_k = [kernel(*args) for _ in range(2)]
+    assert kernel.launches == launches + 2
+    out_p = plain(*args)
+    assert out_k[0][5].any() and (args[4] > 0).any(), "vacuous"
+    for a, b in zip(*out_k):
+        assert torch.equal(a, b)          # deterministic
+    for i, (k, p) in enumerate(zip(out_k[0], out_p)):
+        if model == "izhikevich" or i >= 4:
+            assert torch.equal(k, p), i
+        else:
+            tol = 8 * 2.0 ** -23 * float(p.abs().max())
+            torch.testing.assert_close(k, p, rtol=8 * 2.0 ** -23, atol=tol)
+
+
+@pytest.mark.parametrize("model", ["izhikevich", "adex"])
+def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
+    """model_demo(model, 0.02, stdp=True) on the card, 200 steps: the
+    kernel and flat backends give the same spikes, and K1, K3 and the
+    model's kernel each launch once per step."""
+    spec, stdp = models.model_demo(model, 0.02, stdp=True)
+    g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
+    table = neuron_models.get_model(model).make_param_table(
+        list(spec.groups), 0.1, device=cuda)
+    fns = (gather_mod.synaptic_gather, stdp_mod.stdp_update,
+           getattr(izh_mod if model == "izhikevich" else adex_mod,
+                   f"{model}_step"))
+    runs = {}
+    for sweep in ("cuda", "flat"):
+        before = [f.launches for f in fns]
+        st = engine.init_state(g, list(spec.groups), 0, neuron_model=model,
+                               device=cuda)
+        cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep,
+                                  neuron_model=model)
+        runs[sweep] = engine.run(st, g, table, cfg, 200, device=cuda)
+        want = 200 if sweep == "cuda" else 0
+        assert [f.launches - b for f, b in zip(fns, before)] == [want] * 3
+    (fc, sc), (ff, sf) = runs["cuda"], runs["flat"]
+    assert sf.sum() > 0, "no spikes - vacuous"
+    assert torch.equal(sc, sf)
+    torch.testing.assert_close(fc.weights, ff.weights, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("scenario", ["hpc_benchmark", "brunel"])
+def test_a_step_never_waits_for_the_card(cuda, scenario):
+    """``engine_step`` issues no host synchronisation (the engine's
+    contract): under ``torch.cuda.set_sync_debug_mode("error")`` every
+    synchronising call raises.  hpc_benchmark covers STDP and the drive,
+    brunel with Poisson emitters the composite model and its draws."""
+    spec, stdp = models.get_scenario(scenario, scale=0.02,
+                                     **({"stdp": True}
+                                        if scenario == "hpc_benchmark"
+                                        else {"poisson_input": True}))
+    g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
+    table = neuron_models.get_model(spec.neuron_model).make_param_table(
+        list(spec.groups), 0.1, device=cuda)
+    cfg = engine.EngineConfig(dt=0.1, stdp=stdp,
+                              neuron_model=spec.neuron_model)
+    st = engine.init_state(g, list(spec.groups), 0, sweep="cuda",
+                           neuron_model=spec.neuron_model, device=cuda)
+    st, _ = engine.engine_step(st, g, table, cfg)   # builds the layout
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            st, _ = engine.engine_step(st, g, table, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.t) == 6
