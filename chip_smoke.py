@@ -35,7 +35,9 @@ read just after):
                   ``engine.run``: K1, K3 and K4 or K5 once per step, state
                   finite, the rate per 250 steps inside a band around the
                   JAX reference's own CPU run
-                  (``scripts/reference_zoo_rates.py``);
+                  (``scripts/reference_zoo_rates.json``, written by
+                  ``scripts/reference_zoo_rates.py``, which also sets each
+                  network's scale and length here);
 9. composite    - ``brunel(1.0, poisson_input=True)`` ("lif+poisson"),
                   2000 steps on the port's own emitter draws: K1 and K2
                   once per step, the emitter rate within 4 sigma, E and I
@@ -65,8 +67,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
              "is False")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import backends, builder, engine, models, snn  # noqa: E402
 from repro_torch.core import neuron_models  # noqa: E402
@@ -98,30 +100,16 @@ MAIN_KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
 #: the zoo's two-variable kernels: model -> (kernel module, its wrapper)
 ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
                "adex": (adex_mod, adex_mod.adex_step)}
-#: the JAX reference's own run of each zoo network on the CPU
-#: (``scripts/reference_zoo_rates.py --scale 1.0 --steps 2000``: flat
-#: backend, jax.random.key(0), drive off): per population, the rate [Hz]
-#: per 250 steps and over steps 500-2000
-ZOO_REFERENCE = {
-    "izhikevich": {
-        "E": ([8710.36, 8275.65, 6091.31, 6675.82, 6553.41, 6505.555,
-               6518.715, 6508.91], 6475.62),
-        "I": ([8407.12, 8098.02, 5907.96, 6511.82, 6366.16, 6326.84,
-               6347.68, 6340.96], 6300.236666666667)},
-    "adex": {
-        "E": ([40.0, 10.36, 409.79, 455.545, 462.41, 443.42, 467.05,
-               450.125], 448.0566666666667),
-        "I": ([56.04, 19.36, 407.1, 440.0, 480.0, 440.0, 440.0, 480.0],
-              447.85)},
-    "lif+poisson": {
-        "E": ([27.532, 31.9, 31.1, 33.916, 35.692, 34.264, 32.296, 33.628],
-              33.48266666666667),
-        "I": ([26.912, 32.704, 31.408, 33.936, 35.152, 34.032, 32.304,
-               33.152], 33.330666666666666)},
-}
+#: the JAX reference's own run of each zoo network on the CPU, by network:
+#: its scale, steps, rate window, and per population the rate [Hz] per
+#: window and from ``mean_from_step`` on (written by
+#: ``scripts/reference_zoo_rates.py``: flat backend, jax.random.key(0),
+#: drive off)
+with open(os.path.join(ROOT, "scripts", "reference_zoo_rates.json")) as f:
+    ZOO_REFERENCE = json.load(f)
 #: the card's rates against the reference's: each 250-step window within
 #: [0.5, 2] x the reference's (the first windows are transients whose
-#: timing may shift by a few steps), steps 500-2000 within 10 % for the
+#: timing may shift by a few steps), the mean rate within 10 % for the
 #: deterministic model_demo networks and 15 % for the composite, whose
 #: emitters draw other random numbers than the reference's
 WINDOW_BAND = (0.5, 2.0)
@@ -464,9 +452,16 @@ def _profile(g, table, cfg, spec, n_steps: int = 50) -> dict:
             "ms_per_step_by_kernel": {k: v / n_steps for k, v in top}}
 
 
-def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
-    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
-    st = engine.init_state(g, list(spec.groups), SEED, device=DEV)
+def run_counted(what, spec, g, table, cfg, n_steps, kernels):
+    """``engine.run`` of ``cfg`` (the kernel backend) from a fresh state,
+    with every launch count set to 0 just before and read just after: each
+    kernel of ``kernels`` must have launched once per step and every other
+    kernel never.  Plastic weights must stay in [w_min, w_max], every other
+    weight unchanged, and the state finite.  Returns the initial neurons,
+    the final state, the spikes and the run's numbers."""
+    st = engine.init_state(g, list(spec.groups), SEED,
+                           neuron_model=cfg.neuron_model, device=DEV)
+    init = st.neurons
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNEL_FNS.values():
@@ -477,38 +472,49 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
     launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
     peak = torch.cuda.max_memory_allocated()
     for k, c in launches.items():
-        want = n_steps if k in MAIN_KERNELS else 0
-        check(c == want, f"main: {k} launched {c} times in {n_steps} "
+        want = n_steps if k in kernels else 0
+        check(c == want, f"{what}: {k} launched {c} times in {n_steps} "
               "steps")
+    real, w = g.delay > 0, fin.weights
+    fixed = real & ~g.plastic if cfg.stdp is not None else real
+    check(torch.equal(w[fixed], g.weight_init[fixed]),
+          f"{what}: a non-plastic weight changed")
+    leaves = [("v_m", fin.neurons.v_m), ("syn_ex", fin.neurons.syn_ex),
+              ("syn_in", fin.neurons.syn_in), ("weights", w),
+              ("ring", fin.ring), *fin.neurons.extra.items()]
+    if cfg.stdp is not None:
+        plastic = real & g.plastic
+        check(bool(((w[plastic] >= cfg.stdp.w_min)
+                    & (w[plastic] <= cfg.stdp.w_max)).all()),
+              f"{what}: plastic weights left [w_min, w_max]")
+        leaves += [("k_pre", fin.traces.k_pre), ("k_post", fin.traces.k_post)]
+    for name, x in leaves:
+        check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
+    return init, fin, spikes, dict(
+        steps=n_steps, wall_s=wall, steps_per_s=n_steps / wall,
+        peak_device_mem_bytes=peak, launches=launches)
+
+
+def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
+    _, fin, spikes, rec = run_counted("main", spec, g, table, cfg, n_steps,
+                                      MAIN_KERNELS)
     w = fin.weights
     plastic = g.plastic & (g.delay > 0)
     fixed = ~g.plastic & (g.delay > 0)
-    check(bool(((w[plastic] >= stdp.w_min) & (w[plastic] <= stdp.w_max))
-               .all()), "main: plastic weights left [w_min, w_max]")
-    check(torch.equal(w[fixed], g.weight_init[fixed]),
-          "main: a non-plastic weight changed")
-    for name, x in (("v_m", fin.neurons.v_m), ("syn_ex", fin.neurons.syn_ex),
-                    ("syn_in", fin.neurons.syn_in), ("weights", w),
-                    ("k_pre", fin.traces.k_pre),
-                    ("k_post", fin.traces.k_post), ("ring", fin.ring)):
-        check(bool(torch.isfinite(x).all()), f"main: {name} not finite")
     rate = models.firing_rate_hz(spikes[500:], spec.n_neurons)
     check(3.0 <= rate <= 15.0, f"main: rate {rate} Hz outside [3, 15]")
     windows = [models.firing_rate_hz(spikes[i:i + 250], spec.n_neurons)
                for i in range(0, n_steps, 250)]
     prof = _profile(g, table, cfg, spec)
-    emit({"phase": "main", "steps": n_steps, "neurons": spec.n_neurons,
+    emit({"phase": "main", "neurons": spec.n_neurons,
           "synapses": int((g.delay > 0).sum()),
           "plastic_synapses": int(plastic.sum()),
           "rate_hz_500_2000": rate, "rate_hz_per_250_steps": windows,
           "plastic_w_min": float(w[plastic].min()),
           "plastic_w_max": float(w[plastic].max()),
-          "inhibitory_w": float(w[fixed].min()),
-          "wall_s": wall, "steps_per_s": n_steps / wall,
-          "peak_device_mem_bytes": peak, "launches": launches,
-          "profile": prof})
-    return launches
-
+          "inhibitory_w": float(w[fixed].min()), **rec, "profile": prof})
+    return rec["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -567,10 +573,15 @@ def phase_zoo_kernels(n: int = 10_000) -> dict:
     return out
 
 
-def build_network(spec, what: str):
-    """One shard of ``spec`` on the card and its model's table."""
+def build_network(spec, what: str, ref: dict):
+    """One shard of ``spec`` on the card and its model's table; ``spec``
+    must be the network of the reference record ``ref``."""
     t0 = time.perf_counter()
     g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(DEV)
+    check(spec.neuron_model == ref["network"]
+          and spec.n_neurons == ref["neurons"]
+          and int((g.delay > 0).sum()) == ref["synapses"],
+          f"{what}: not the network of the reference record")
     table = neuron_models.get_model(spec.neuron_model).make_param_table(
         list(spec.groups), models.DT_MS, device=DEV)
     emit({"phase": "build", "network": what, "neurons": spec.n_neurons,
@@ -648,97 +659,63 @@ def phase_zoo_lockstep(model, spec, stdp, g, table, n_steps: int = 120):
           "relative": ["i_ex", "i_in"]})
 
 
-def population_rates(spec, spikes, window: int = 250) -> dict:
-    """Per population: the rate per ``window`` steps and over 500-end."""
-    sp = spikes.cpu()
+def population_rates(spec, spikes, ref: dict) -> dict:
+    """Per population, in the reference record's windows: the rate per
+    window and from ``mean_from_step`` on."""
+    sp, win, start = spikes.cpu(), ref["window_steps"], ref["mean_from_step"]
     off = spec.pop_offsets()
     out = {}
     for i, pop in enumerate(spec.populations):
         s = sp[:, off[i]:off[i + 1]]
-        out[pop.name] = ([models.firing_rate_hz(s[j:j + window])
-                          for j in range(0, s.shape[0], window)],
-                         models.firing_rate_hz(s[500:]))
+        out[pop.name] = {"per_window_hz": [
+            models.firing_rate_hz(s[j:j + win])
+            for j in range(0, s.shape[0], win)],
+            "mean_hz": models.firing_rate_hz(s[start:])}
     return out
 
 
-def check_rates(what: str, rates: dict, reference: dict,
-                mean_band: float) -> None:
+def check_rates(what: str, rates: dict, ref: dict, mean_band: float) -> None:
     lo, hi = WINDOW_BAND
-    for pop, (ref_windows, ref_mean) in reference.items():
-        windows, mean = rates[pop]
-        for i, (a, b) in enumerate(zip(windows, ref_windows)):
+    for pop, want in ref["populations"].items():
+        got = rates[pop]
+        for i, (a, b) in enumerate(zip(got["per_window_hz"],
+                                       want["per_window_hz"])):
             check(lo * b <= a <= hi * b, f"{what}: {pop} rate {a} Hz in "
                   f"window {i} outside [{lo}, {hi}] x the reference's {b}")
-        check(abs(mean - ref_mean) <= mean_band * ref_mean,
-              f"{what}: {pop} rate {mean} Hz over steps 500-end is not "
-              f"within {mean_band:.0%} of the reference's {ref_mean}")
+        a, b = got["mean_hz"], want["mean_hz"]
+        check(abs(a - b) <= mean_band * b, f"{what}: {pop} mean rate {a} Hz "
+              f"is not within {mean_band:.0%} of the reference's {b}")
 
 
-def run_counted(what, spec, stdp, g, table, n_steps, kernels):
-    """``engine.run`` on the kernel backend with every launch count set to
-    0 just before and read just after; each kernel of ``kernels`` must
-    have launched once per step."""
-    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
-                              external_drive=False,
-                              neuron_model=spec.neuron_model)
-    st = engine.init_state(g, list(spec.groups), SEED,
-                           neuron_model=spec.neuron_model, device=DEV)
-    init = st.neurons
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in KERNEL_FNS.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    fin, spikes = engine.run(st, g, table, cfg, n_steps, device=DEV)
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
-    peak = torch.cuda.max_memory_allocated()
-    for k in kernels:
-        check(launches[k] == n_steps, f"{what}: {k} launched "
-              f"{launches[k]} times in {n_steps} steps")
-    leaves = [("v_m", fin.neurons.v_m), ("syn_ex", fin.neurons.syn_ex),
-              ("syn_in", fin.neurons.syn_in), ("weights", fin.weights),
-              ("ring", fin.ring), *fin.neurons.extra.items()]
-    if stdp is not None:
-        plastic = g.plastic & (g.delay > 0)
-        w = fin.weights[plastic]
-        check(bool(((w >= stdp.w_min) & (w <= stdp.w_max)).all()),
-              f"{what}: plastic weights left [w_min, w_max]")
-        leaves += [("k_pre", fin.traces.k_pre), ("k_post", fin.traces.k_post)]
-    for name, x in leaves:
-        check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
-    return cfg, init, fin, spikes, dict(
-        steps=n_steps, wall_s=wall, steps_per_s=n_steps / wall,
-        peak_device_mem_bytes=peak, launches=launches)
-
-
-def phase_zoo_main(model, spec, stdp, g, table, n_steps: int = 2000,
-                   reference=None) -> int:
+def phase_zoo_main(model, spec, stdp, g, table, ref: dict) -> int:
     _, kernel = ZOO_KERNELS[model]
-    cfg, _, _, spikes, rec = run_counted(
-        f"zoo_main {model}", spec, stdp, g, table, n_steps,
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
+                              external_drive=False, neuron_model=model)
+    _, _, spikes, rec = run_counted(
+        f"zoo_main {model}", spec, g, table, cfg, ref["steps"],
         ("synaptic_gather", "stdp_update", kernel.__name__))
-    check(rec["launches"]["lif_step"] == 0, f"zoo_main {model}: K2 ran")
-    rates = population_rates(spec, spikes)
-    if reference is not None:
-        check_rates(f"zoo_main {model}", rates, reference, MEAN_BAND[model])
+    rates = population_rates(spec, spikes, ref)
+    check_rates(f"zoo_main {model}", rates, ref, MEAN_BAND[model])
     emit({"phase": "zoo_main", "model": model, "neurons": spec.n_neurons,
           "synapses": int((g.delay > 0).sum()),
-          "rate_hz_500_2000": models.firing_rate_hz(spikes[500:],
-                                                    spec.n_neurons),
-          "rate_hz_per_250_steps": {p: r[0] for p, r in rates.items()},
-          "rate_band": {"window": WINDOW_BAND,
-                        "steps_500_2000": MEAN_BAND[model]},
+          "mean_from_step": ref["mean_from_step"],
+          "mean_rate_hz": models.firing_rate_hz(
+              spikes[ref["mean_from_step"]:], spec.n_neurons),
+          "rates_hz": rates,
+          "rate_band": {"window": WINDOW_BAND, "mean": MEAN_BAND[model]},
           **rec, "profile": _profile(g, table, cfg, spec)})
     return rec["launches"][kernel.__name__]
 
 
-def phase_composite(spec, g, table, n_steps: int = 2000,
-                    reference=None) -> None:
+def phase_composite(spec, g, table, ref: dict) -> None:
     """brunel + Poisson emitter population on the port's own draws."""
-    cfg, init, fin, spikes, rec = run_counted(
-        "composite", spec, None, g, table, n_steps,
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=None, sweep="cuda",
+                              external_drive=False,
+                              neuron_model=spec.neuron_model)
+    init, fin, spikes, rec = run_counted(
+        "composite", spec, g, table, cfg, ref["steps"],
         ("synaptic_gather", "lif_step"))
+    n_steps = ref["steps"]
     off = spec.pop_offsets()
     emit_rows = slice(off[2], off[3])
     p = float(table[spec.populations[2].group, -1])
@@ -751,36 +728,35 @@ def phase_composite(spec, g, table, n_steps: int = 2000,
         check(torch.equal(getattr(fin.neurons, name)[emit_rows],
                           getattr(init, name)[emit_rows]),
               f"composite: emitter {name} changed")
-    rates = population_rates(spec, spikes)
-    if reference is not None:
-        check_rates("composite", rates, reference, MEAN_BAND["lif+poisson"])
+    rates = population_rates(spec, spikes, ref)
+    check_rates("composite", rates, ref, MEAN_BAND[spec.neuron_model])
     emit({"phase": "composite", "model": spec.neuron_model,
           "neurons": spec.n_neurons, "synapses": int((g.delay > 0).sum()),
           "emitters": n // n_steps, "emitter_spikes": got,
           "emitter_expected": n * p, "emitter_sigma": sigma,
-          "rate_hz_per_250_steps": {p_: r[0] for p_, r in rates.items()},
-          "rate_hz_500_2000": {p_: r[1] for p_, r in rates.items()},
+          "mean_from_step": ref["mean_from_step"], "rates_hz": rates,
           "rate_band": {"window": WINDOW_BAND,
-                        "steps_500_2000": MEAN_BAND["lif+poisson"]},
+                        "mean": MEAN_BAND[spec.neuron_model]},
           **rec, "profile": _profile(g, table, cfg, spec)})
 
 
-def zoo(scale: float = 1.0, n_steps: int = 2000, with_bands: bool = True):
-    """Phases 6-9; returns (kernel numbers, launches of K4 and K5)."""
+def zoo():
+    """Phases 6-9, each network at the scale and length of the reference's
+    record; returns (kernel numbers, launches of K4 and K5)."""
     kern = phase_zoo_kernels()
     launches = {}
     for model in ZOO_KERNELS:
-        spec, stdp = models.model_demo(model, scale, stdp=True)
-        g, table = build_network(spec, f"model_demo {model}")
+        ref = ZOO_REFERENCE[model]
+        spec, stdp = models.model_demo(model, ref["scale"], stdp=True)
+        g, table = build_network(spec, f"model_demo {model}", ref)
         phase_zoo_lockstep(model, spec, stdp, g, table)
-        launches[f"{model}_step"] = phase_zoo_main(
-            model, spec, stdp, g, table, n_steps,
-            ZOO_REFERENCE[model] if with_bands else None)
+        launches[f"{model}_step"] = phase_zoo_main(model, spec, stdp, g,
+                                                   table, ref)
         del g, table
-    spec, _ = models.brunel(scale, poisson_input=True)
-    g, table = build_network(spec, "brunel poisson_input")
-    phase_composite(spec, g, table, n_steps,
-                    ZOO_REFERENCE[spec.neuron_model] if with_bands else None)
+    ref = ZOO_REFERENCE["lif+poisson"]
+    spec, _ = models.brunel(ref["scale"], poisson_input=True)
+    g, table = build_network(spec, "brunel poisson_input", ref)
+    phase_composite(spec, g, table, ref)
     return kern, launches
 
 

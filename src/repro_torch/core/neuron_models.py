@@ -33,7 +33,6 @@ reference) belongs to the differentiable slice of the port: ``step`` raises
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -448,12 +447,9 @@ class PoissonDriveModel(NeuronModel):
 
     The table is the base model's with one trailing ``p_spike`` column (0
     for dynamical groups).  Emitter rows keep their initial state; only
-    their spike bit is drawn.  The kernel path runs the base kernel, then
-    the same elementwise overlay as the plain path.  The base kernels take
-    a contiguous (G, NCOL) table, and ``table[:, :-1]`` is a strided view:
-    its contiguous copy is made once per table (at
-    :meth:`make_param_table`, or at the first step of a table made
-    elsewhere) and reused.
+    their spike bit is drawn.  The kernel path runs the base kernel on the
+    view ``table[:, :-1]`` (the kernels take the row stride), then the same
+    elementwise overlay as the plain path.
     """
 
     def __init__(self, base: NeuronModel):
@@ -467,8 +463,6 @@ class PoissonDriveModel(NeuronModel):
         self.stochastic = True
         self.kernel_step = (None if base.kernel_step is None
                             else self._kernel_step)
-        # id(table) -> (weakref(table), contiguous base table)
-        self._base_tables: dict[int, tuple] = {}
 
     def _split(self, groups):
         """Substitute emitter groups with base defaults; emit rate row."""
@@ -497,20 +491,7 @@ class PoissonDriveModel(NeuronModel):
                                               device=device)
         p = torch.as_tensor(np.asarray([_spike_prob(r, dt) for r in rates]),
                             dtype=dtype, device=base_tbl.device)
-        table = torch.cat([base_tbl, p[:, None]], dim=1)
-        self._base_table(table)
-        return table
-
-    def _base_table(self, table):
-        """The contiguous base columns of ``table``, made once per table."""
-        hit = self._base_tables.get(id(table))
-        if hit is not None and hit[0]() is table:
-            return hit[1]
-        base = table[:, :-1].contiguous()
-        self._base_tables = {k: v for k, v in self._base_tables.items()
-                             if v[0]() is not None}
-        self._base_tables[id(table)] = (weakref.ref(table), base)
-        return base
+        return torch.cat([base_tbl, p[:, None]], dim=1)
 
     def init_vars(self, group_id, groups):
         base_groups, _ = self._split(groups)
@@ -543,8 +524,8 @@ class PoissonDriveModel(NeuronModel):
     def _kernel_step(self, state, table, input_ex, input_in, *,
                      synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None,
                      t=None, gid=None, uniform=None):
-        new = self.base.kernel_step(state, self._base_table(table), input_ex,
-                                    input_in, synapse_model=synapse_model)
+        new = self.base.kernel_step(state, table[:, :-1], input_ex, input_in,
+                                    synapse_model=synapse_model)
         return self._overlay(state, new, table, seed, t, gid, uniform)
 
 

@@ -16,8 +16,8 @@ a membrane potential across the threshold (K2) or a weight by an ulp
 
 A library is rebuilt when its source is newer.  :func:`build_all` starts
 one ``nvcc`` per source, all at once, and waits for them.  The wrappers
-validate every tensor with :func:`check_tensor` before its pointer goes to
-C, and raise on the error code each entry point returns (:func:`check`).
+validate every tensor with :func:`check_tensor` (a parameter table with
+:func:`check_table`) before its pointer goes to C, and raise on the error code each entry point returns (:func:`check`).
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load", "build_all", "check", "check_tensor", "dispatch_device",
-           "launch_two_variable_step", "KERNELS", "BUILD_DIR", "CSRC"]
+__all__ = ["load", "build_all", "check", "check_tensor", "check_table",
+           "dispatch_device", "KERNELS", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -137,6 +137,26 @@ def check_tensor(x, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_table(table, ncol: int, device) -> int:
+    """Validate a (G, ``ncol``) float32 parameter table on ``device`` whose
+    rows may lie further apart than ``ncol`` (a composite model's base
+    columns, ``table[:, :-1]``); returns the row stride the kernel takes."""
+    if not isinstance(table, torch.Tensor):
+        raise TypeError(f"table must be a tensor, got {type(table).__name__}")
+    if table.device != device:
+        raise ValueError(f"table is on {table.device}, expected {device}")
+    if table.dtype != torch.float32:
+        raise TypeError(f"table has dtype {table.dtype}, expected "
+                        f"{torch.float32}")
+    if table.dim() != 2 or table.shape[0] < 1 or table.shape[1] != ncol:
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected "
+                         f"(G, {ncol})")
+    if table.stride(1) != 1 or table.stride(0) < ncol:
+        raise ValueError(f"table rows must be contiguous and not overlap, "
+                         f"got strides {table.stride()}")
+    return table.stride(0)
+
+
 def dispatch_device(x):
     """Which path a wrapper takes for tensor ``x``: ``"cpu"`` (the plain
     version) or ``"cuda"`` (the kernel).  Anything else raises."""
@@ -145,47 +165,3 @@ def dispatch_device(x):
                          f"got a tensor on {x.device}")
     return x.device.type
 
-
-def launch_two_variable_step(name: str, v, x, syn_ex, syn_in, ref_count,
-                             group_id, input_ex, input_in, table,
-                             ncol: int):
-    """Validate and launch ``csrc/<name>.cu``, a neuron update over two
-    state variables (membrane ``v`` and one more, ``x``) that all take the
-    same C interface (K4, K5):
-
-        int <name>_launch(v, x, syn_ex, syn_in, ref_count, group_id,
-                          input_ex, input_in, table, int n,
-                          v_out, x_out, se_out, si_out, rc_out, spike_out,
-                          stream)
-
-    Returns the new ``(v, x, syn_ex, syn_in, ref_count, spike)``."""
-    dev = v.device
-    n = v.shape[0]
-    if v.dim() != 1 or n < 1:
-        raise ValueError(f"v must be a non-empty vector, got "
-                         f"{tuple(v.shape)}")
-    for arg, t in (("v", v), ("x", x), ("syn_ex", syn_ex),
-                   ("syn_in", syn_in), ("input_ex", input_ex),
-                   ("input_in", input_in)):
-        check_tensor(t, arg, torch.float32, (n,), dev)
-    for arg, t in (("ref_count", ref_count), ("group_id", group_id)):
-        check_tensor(t, arg, torch.int32, (n,), dev)
-    check_tensor(table, "table", torch.float32, (table.shape[0], ncol), dev)
-
-    fn = getattr(load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 7)
-        fn.restype = ctypes.c_int
-    outs = [torch.empty(n, dtype=torch.float32, device=dev)
-            for _ in range(4)]
-    outs += [torch.empty(n, dtype=torch.int32, device=dev),
-             torch.empty(n, dtype=torch.bool, device=dev)]
-    with torch.cuda.device(dev):
-        err = fn(v.data_ptr(), x.data_ptr(), syn_ex.data_ptr(),
-                 syn_in.data_ptr(), ref_count.data_ptr(), group_id.data_ptr(),
-                 input_ex.data_ptr(), input_in.data_ptr(), table.data_ptr(),
-                 n, *(o.data_ptr() for o in outs),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    check(err, name)
-    return tuple(outs)

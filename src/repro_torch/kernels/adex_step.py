@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _two_variable
 
 __all__ = ["adex_step", "adex_step_plain", "COL", "NCOL", "_COLS",
            "EXP_CLAMP"]
@@ -82,13 +82,14 @@ def adex_step_plain(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
 def adex_step(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
               input_in, table):
     """All neuron arrays (N,): f32 ``v``, ``w_ad``, synaptic state and
-    inputs, int32 ``ref_count`` and ``group_id``; ``table`` (G, NCOL) f32.
-    Returns the new ``(v, w_ad, syn_ex, syn_in, ref_count, spike)``,
-    ``spike`` bool.  Group ids are not range-checked on the card."""
+    inputs, int32 ``ref_count`` and ``group_id``; ``table`` (G, NCOL) f32,
+    its rows contiguous but possibly further apart.  Returns the new
+    ``(v, w_ad, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group
+    ids are not range-checked on the card."""
     if _build.dispatch_device(v) == "cpu":
         return adex_step_plain(v, w_ad, syn_ex, syn_in, ref_count, group_id,
                                input_ex, input_in, table)
-    out = _build.launch_two_variable_step(
+    out = _two_variable.launch(
         "adex_step", v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
         input_in, table, NCOL)
     adex_step.launches += 1

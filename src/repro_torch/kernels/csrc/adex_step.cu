@@ -27,7 +27,8 @@
 namespace {
 
 // column order of repro_torch.kernels.adex_step._COLS (the wrapper checks
-// NCOL == 14)
+// NCOL == 14); rows lie table_stride >= kNcol floats apart, so that a
+// composite model's table, which carries one more column, is read in place
 enum Col {
   kPee = 0, kPii, kDtCm, kGl, kEl, kVt, kDeltaT, kVpeak, kVreset, kDtTw, kA,
   kB, kRefSteps, kIe, kNcol
@@ -43,7 +44,8 @@ __global__ void adex_step_kernel(const float* __restrict__ v,
                                  const int* __restrict__ group_id,
                                  const float* __restrict__ input_ex,
                                  const float* __restrict__ input_in,
-                                 const float* __restrict__ table, int n,
+                                 const float* __restrict__ table,
+                                 int table_stride, int n,
                                  float* __restrict__ v_out,
                                  float* __restrict__ w_out,
                                  float* __restrict__ se_out,
@@ -52,7 +54,7 @@ __global__ void adex_step_kernel(const float* __restrict__ v,
                                  bool* __restrict__ spike_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* tb = table + static_cast<size_t>(group_id[i]) * kNcol;
+  const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
   const float vm = v[i], wm = w_ad[i], se = syn_ex[i], si = syn_in[i];
   const int rc = ref_count[i];
 
@@ -85,8 +87,9 @@ __global__ void adex_step_kernel(const float* __restrict__ v,
 extern "C" int adex_step_launch(
     const void* v, const void* w_ad, const void* syn_ex, const void* syn_in,
     const void* ref_count, const void* group_id, const void* input_ex,
-    const void* input_in, const void* table, int n, void* v_out, void* w_out,
-    void* se_out, void* si_out, void* rc_out, void* spike_out, void* stream) {
+    const void* input_in, const void* table, int table_stride, int n,
+    void* v_out, void* w_out, void* se_out, void* si_out, void* rc_out,
+    void* spike_out, void* stream) {
   constexpr int kThreads = 256;
   adex_step_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
@@ -94,9 +97,9 @@ extern "C" int adex_step_launch(
       static_cast<const float*>(syn_ex), static_cast<const float*>(syn_in),
       static_cast<const int*>(ref_count), static_cast<const int*>(group_id),
       static_cast<const float*>(input_ex), static_cast<const float*>(input_in),
-      static_cast<const float*>(table), n, static_cast<float*>(v_out),
-      static_cast<float*>(w_out), static_cast<float*>(se_out),
-      static_cast<float*>(si_out), static_cast<int*>(rc_out),
-      static_cast<bool*>(spike_out));
+      static_cast<const float*>(table), table_stride, n,
+      static_cast<float*>(v_out), static_cast<float*>(w_out),
+      static_cast<float*>(se_out), static_cast<float*>(si_out),
+      static_cast<int*>(rc_out), static_cast<bool*>(spike_out));
   return static_cast<int>(cudaGetLastError());
 }

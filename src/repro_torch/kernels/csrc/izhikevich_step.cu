@@ -27,7 +27,9 @@
 namespace {
 
 // column order of repro_torch.kernels.izhikevich_step._COLS (the wrapper
-// checks NCOL == 11)
+// checks NCOL == 11); rows lie table_stride >= kNcol floats apart, so that
+// a composite model's table, which carries one more column, is read in
+// place
 enum Col {
   kPee = 0, kPii, kDt, kA, kB, kC, kD, kVpeak, kRefSteps, kIe, kIscale,
   kNcol
@@ -41,7 +43,8 @@ __global__ void izhikevich_step_kernel(const float* __restrict__ v,
                                        const int* __restrict__ group_id,
                                        const float* __restrict__ input_ex,
                                        const float* __restrict__ input_in,
-                                       const float* __restrict__ table, int n,
+                                       const float* __restrict__ table,
+                                       int table_stride, int n,
                                        float* __restrict__ v_out,
                                        float* __restrict__ u_out,
                                        float* __restrict__ se_out,
@@ -50,7 +53,7 @@ __global__ void izhikevich_step_kernel(const float* __restrict__ v,
                                        bool* __restrict__ spike_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* tb = table + static_cast<size_t>(group_id[i]) * kNcol;
+  const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
   const float vm = v[i], um = u[i], se = syn_ex[i], si = syn_in[i];
   const int rc = ref_count[i];
   const float dt = __ldg(tb + kDt);
@@ -79,8 +82,9 @@ __global__ void izhikevich_step_kernel(const float* __restrict__ v,
 extern "C" int izhikevich_step_launch(
     const void* v, const void* u, const void* syn_ex, const void* syn_in,
     const void* ref_count, const void* group_id, const void* input_ex,
-    const void* input_in, const void* table, int n, void* v_out, void* u_out,
-    void* se_out, void* si_out, void* rc_out, void* spike_out, void* stream) {
+    const void* input_in, const void* table, int table_stride, int n,
+    void* v_out, void* u_out, void* se_out, void* si_out, void* rc_out,
+    void* spike_out, void* stream) {
   constexpr int kThreads = 256;
   izhikevich_step_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -88,9 +92,9 @@ extern "C" int izhikevich_step_launch(
       static_cast<const float*>(syn_ex), static_cast<const float*>(syn_in),
       static_cast<const int*>(ref_count), static_cast<const int*>(group_id),
       static_cast<const float*>(input_ex), static_cast<const float*>(input_in),
-      static_cast<const float*>(table), n, static_cast<float*>(v_out),
-      static_cast<float*>(u_out), static_cast<float*>(se_out),
-      static_cast<float*>(si_out), static_cast<int*>(rc_out),
-      static_cast<bool*>(spike_out));
+      static_cast<const float*>(table), table_stride, n,
+      static_cast<float*>(v_out), static_cast<float*>(u_out),
+      static_cast<float*>(se_out), static_cast<float*>(si_out),
+      static_cast<int*>(rc_out), static_cast<bool*>(spike_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,9 @@
 
 namespace {
 
-// column order of repro_torch.core.snn._COLS (the wrapper checks NCOL == 12)
+// column order of repro_torch.core.snn._COLS (the wrapper checks NCOL == 12);
+// rows lie table_stride >= kNcol floats apart, so that a composite model's
+// table, which carries one more column, is read in place
 enum Col {
   kPvv = 0, kPee, kPii, kPve, kPvi, kPvconst, kVth, kVreset, kRefSteps,
   kEex, kEin, kInvCmDt, kNcol
@@ -36,15 +38,16 @@ __global__ void lif_step_kernel(const float* __restrict__ v,
                                 const int* __restrict__ group_id,
                                 const float* __restrict__ input_ex,
                                 const float* __restrict__ input_in,
-                                const float* __restrict__ table, int n,
-                                int cond, float* __restrict__ v_out,
+                                const float* __restrict__ table,
+                                int table_stride, int n, int cond,
+                                float* __restrict__ v_out,
                                 float* __restrict__ se_out,
                                 float* __restrict__ si_out,
                                 int* __restrict__ rc_out,
                                 bool* __restrict__ spike_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* tb = table + static_cast<size_t>(group_id[i]) * kNcol;
+  const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
   const float vm = v[i], se = syn_ex[i], si = syn_in[i];
   const int rc = ref_count[i];
 
@@ -73,9 +76,10 @@ __global__ void lif_step_kernel(const float* __restrict__ v,
 extern "C" int lif_step_launch(const void* v, const void* syn_ex,
                                const void* syn_in, const void* ref_count,
                                const void* group_id, const void* input_ex,
-                               const void* input_in, const void* table, int n,
-                               int cond, void* v_out, void* se_out,
-                               void* si_out, void* rc_out, void* spike_out,
+                               const void* input_in, const void* table,
+                               int table_stride, int n, int cond,
+                               void* v_out, void* se_out, void* si_out,
+                               void* rc_out, void* spike_out,
                                void* stream) {
   constexpr int kThreads = 256;
   lif_step_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
@@ -84,8 +88,8 @@ extern "C" int lif_step_launch(const void* v, const void* syn_ex,
       static_cast<const float*>(syn_in), static_cast<const int*>(ref_count),
       static_cast<const int*>(group_id), static_cast<const float*>(input_ex),
       static_cast<const float*>(input_in), static_cast<const float*>(table),
-      n, cond, static_cast<float*>(v_out), static_cast<float*>(se_out),
-      static_cast<float*>(si_out), static_cast<int*>(rc_out),
-      static_cast<bool*>(spike_out));
+      table_stride, n, cond, static_cast<float*>(v_out),
+      static_cast<float*>(se_out), static_cast<float*>(si_out),
+      static_cast<int*>(rc_out), static_cast<bool*>(spike_out));
   return static_cast<int>(cudaGetLastError());
 }

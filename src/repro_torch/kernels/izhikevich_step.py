@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _two_variable
 
 __all__ = ["izhikevich_step", "izhikevich_step_plain", "COL", "NCOL",
            "_COLS"]
@@ -75,14 +75,14 @@ def izhikevich_step_plain(v, u, syn_ex, syn_in, ref_count, group_id,
 def izhikevich_step(v, u, syn_ex, syn_in, ref_count, group_id, input_ex,
                     input_in, table):
     """All neuron arrays (N,): f32 ``v``, ``u``, synaptic state and inputs,
-    int32 ``ref_count`` and ``group_id``; ``table`` (G, NCOL) f32.
-    Returns the new ``(v, u, syn_ex, syn_in, ref_count, spike)``, ``spike``
-    bool.  Group ids are not range-checked on the card (that would sync
-    every step)."""
+    int32 ``ref_count`` and ``group_id``; ``table`` (G, NCOL) f32, its
+    rows contiguous but possibly further apart.  Returns the new
+    ``(v, u, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group
+    ids are not range-checked on the card (that would sync every step)."""
     if _build.dispatch_device(v) == "cpu":
         return izhikevich_step_plain(v, u, syn_ex, syn_in, ref_count,
                                      group_id, input_ex, input_in, table)
-    out = _build.launch_two_variable_step(
+    out = _two_variable.launch(
         "izhikevich_step", v, u, syn_ex, syn_in, ref_count, group_id,
         input_ex, input_in, table, NCOL)
     izhikevich_step.launches += 1

@@ -54,7 +54,7 @@ def lif_step_plain(v, syn_ex, syn_in, ref_count, group_id, input_ex,
 def _launcher():
     fn = _build.load("lif_step").lif_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
     return fn
@@ -63,7 +63,8 @@ def _launcher():
 def lif_step(v, syn_ex, syn_in, ref_count, group_id, input_ex, input_in,
              table, *, cond: bool = False):
     """All neuron arrays (N,): f32 state and inputs, int32 ``ref_count`` and
-    ``group_id``; ``table`` (G, NCOL) f32.  Returns the new
+    ``group_id``; ``table`` (G, NCOL) f32, its rows contiguous but possibly
+    further apart (a composite's ``table[:, :-1]``).  Returns the new
     ``(v, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group ids
     are not range-checked on the card (that would sync every step)."""
     if _build.dispatch_device(v) == "cpu":
@@ -79,8 +80,7 @@ def lif_step(v, syn_ex, syn_in, ref_count, group_id, input_ex, input_in,
         _build.check_tensor(x, name, torch.float32, (n,), dev)
     for name, x in (("ref_count", ref_count), ("group_id", group_id)):
         _build.check_tensor(x, name, torch.int32, (n,), dev)
-    _build.check_tensor(table, "table", torch.float32,
-                        (table.shape[0], NCOL), dev)
+    stride = _build.check_table(table, NCOL, dev)
 
     f32 = lambda: torch.empty(n, dtype=torch.float32, device=dev)
     v_out, se_out, si_out = f32(), f32(), f32()
@@ -90,7 +90,8 @@ def lif_step(v, syn_ex, syn_in, ref_count, group_id, input_ex, input_in,
         err = _launcher()(
             v.data_ptr(), syn_ex.data_ptr(), syn_in.data_ptr(),
             ref_count.data_ptr(), group_id.data_ptr(), input_ex.data_ptr(),
-            input_in.data_ptr(), table.data_ptr(), n, int(bool(cond)),
+            input_in.data_ptr(), table.data_ptr(), stride, n,
+            int(bool(cond)),
             v_out.data_ptr(), se_out.data_ptr(), si_out.data_ptr(),
             rc_out.data_ptr(), spike.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

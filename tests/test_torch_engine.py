@@ -318,7 +318,8 @@ def test_port_imports_neither_jax_nor_reference():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('kernels.synaptic_gather', 'kernels.izhikevich_step',\n"
-        "          'kernels.adex_step', 'core.neuron_models',\n"
+        "          'kernels.adex_step', 'kernels._two_variable',\n"
+        "          'core.neuron_models',\n"
         "          'core.models'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,

@@ -210,6 +210,26 @@ def test_two_variable_kernels_match_plain(cuda, model, n):
             torch.testing.assert_close(k, p, rtol=8 * 2.0 ** -23, atol=tol)
 
 
+@pytest.mark.parametrize("model", ["lif", "izhikevich", "adex"])
+def test_kernels_read_a_composite_table_in_place(cuda, model):
+    """``<model>+poisson`` hands the base kernel ``table[:, :-1]``, whose
+    rows lie one column further apart: the kernel reads it in place and
+    returns what it returns for a contiguous copy."""
+    rng = np.random.default_rng(5)
+    if model == "lif":
+        args, table = _lif_inputs(rng, 1000, 3, cuda)
+        kernel = lif_mod.lif_step
+    else:
+        *args, table = _two_variable_inputs(model, rng, 1000, cuda)
+        kernel = getattr(izh_mod if model == "izhikevich" else adex_mod,
+                         f"{model}_step")
+    wide = torch.cat([table, torch.rand(table.shape[0], 1, device=cuda)], 1)
+    view = wide[:, :-1]
+    assert not view.is_contiguous()
+    for a, b in zip(kernel(*args, view), kernel(*args, table)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("model", ["izhikevich", "adex"])
 def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
     """model_demo(model, 0.02, stdp=True) on the card, 200 steps: the

@@ -17,6 +17,7 @@ from repro.kernels.stdp_update import stdp_update_kernel as ref_stdp_update
 from repro.kernels.synaptic_gather import synaptic_gather as ref_gather
 from repro.core import snn as ref_snn
 from repro_torch.core import snn
+from repro_torch.kernels import _build
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import stdp_update as stdp_mod
 from repro_torch.kernels import synaptic_gather as gather_mod
@@ -202,3 +203,22 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cpu .* or cuda"):
         stdp_mod.stdp_update(meta, meta, meta, meta, meta, meta, meta, meta,
                              params=STDP_PARAMS, eb=4)
+
+
+@pytest.mark.parametrize("ncol", [snn.NCOL, 11, 14])
+def test_check_table_takes_a_composite_view(ncol):
+    """A composite model's base columns ``table[:, :-1]`` go to the kernels
+    in place: their row stride is ``ncol + 1``.  Overlapping or
+    column-strided tables are refused."""
+    cpu = torch.device("cpu")
+    full = torch.zeros(3, ncol + 1)
+    assert _build.check_table(full[:, :-1], ncol, cpu) == ncol + 1
+    assert _build.check_table(full[:, :-1].contiguous(), ncol, cpu) == ncol
+    with pytest.raises(ValueError, match="shape"):
+        _build.check_table(full, ncol, cpu)
+    with pytest.raises(ValueError, match="strides"):
+        _build.check_table(torch.zeros(ncol, 3).t(), ncol, cpu)
+    with pytest.raises(ValueError, match="strides"):
+        _build.check_table(torch.zeros(ncol).expand(3, ncol), ncol, cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        _build.check_table(full[:, :-1].double(), ncol, cpu)
