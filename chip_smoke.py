@@ -44,6 +44,31 @@ read just after):
                   rates inside a band around the reference's, emitter
                   state frozen.
 
+The activity gate (``"cuda:sparse"``, kernels K6 and K7):
+
+10. kernel        - K6 ``blocked_reduce_sweep`` and K7
+                    ``stdp_update_worklist`` at the main path's shapes, on
+                    a worklist of 8 random blocks of 44 with sentinel
+                    padding, the empty list, the identity list, a saturated
+                    list and (K6) no list: each against its plain twin,
+                    twice for bitwise determinism, K6 bitwise equal to K1's
+                    sums and K7 to K3's weights on the listed blocks,
+                    timed;
+11. gate_main     - ``hpc_benchmark(1.0, stdp=True)``, 2000 steps of
+                    ``engine.run`` with ``"cuda:sparse"`` (capacity 44: the
+                    dense reduce, no branch) and with
+                    ``"cuda:sparse:1e-7"`` (capacity 8), from the ``main``
+                    phase's seed: spikes, ``v_m`` and weights bitwise equal
+                    to the ``main`` run; ``gate_overflow`` equal to the
+                    saturated steps recomputed from the raster, with steps
+                    on both branches and K7 updating live blocks;
+12. gate_activity - the reference's area-localized gate geometry
+                    (``benchmarks/bench_snn.py::_area_localized_layout``)
+                    widened to NB 64 x EB 196 608 (12.58 M slots): dense
+                    ``"cuda"`` (K1 + K3) against ``"cuda:sparse"`` (pre-pass
+                    + K6 + K7) at active fractions 1 to 1/32, bitwise
+                    equal, timed.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -72,7 +97,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import backends, builder, engine, models, snn  # noqa: E402
 from repro_torch.core import neuron_models  # noqa: E402
+from repro_torch.core import stdp as stdp_mod_core  # noqa: E402
 from repro_torch.core.decomposition import AreaSpec  # noqa: E402
+from repro_torch.core.layout import BlockedGraph  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import adex_step as adex_mod  # noqa: E402
 from repro_torch.kernels import izhikevich_step as izh_mod  # noqa: E402
@@ -89,14 +116,26 @@ KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "lif_step": lif_mod.lif_step,
               "stdp_update": stdp_mod.stdp_update,
               "izhikevich_step": izh_mod.izhikevich_step,
-              "adex_step": adex_mod.adex_step}
+              "adex_step": adex_mod.adex_step,
+              "blocked_reduce_sweep": gather_mod.blocked_reduce_sweep,
+              "stdp_update_worklist": stdp_mod.stdp_update_worklist}
 REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "lif_step": "src/repro/kernels/lif_step.py:71",
             "stdp_update": "src/repro/kernels/stdp_update.py:66",
             "izhikevich_step": "src/repro/kernels/izhikevich_step.py:101",
-            "adex_step": "src/repro/kernels/adex_step.py:108"}
+            "adex_step": "src/repro/kernels/adex_step.py:108",
+            "blocked_reduce_sweep":
+                "src/repro/kernels/synaptic_gather.py:195",
+            "stdp_update_worklist": "src/repro/kernels/stdp_update.py:137"}
 #: the kernels of the hpc_benchmark main path (phase 5)
 MAIN_KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
+#: the kernels of the gated main path (phase 11), by backend: the
+#: full-capacity gate reduces densely through K6 and updates through K3,
+#: the forced gate (capacity 8 of 44) runs K6 and K7 on every step
+GATE_KERNELS = {"cuda:sparse": ("blocked_reduce_sweep", "lif_step",
+                                "stdp_update"),
+                "cuda:sparse:1e-7": ("blocked_reduce_sweep", "lif_step",
+                                     "stdp_update_worklist")}
 #: the zoo's two-variable kernels: model -> (kernel module, its wrapper)
 ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
                "adex": (adex_mod, adex_mod.adex_step)}
@@ -419,11 +458,11 @@ def phase_mixed(n_steps: int = 120) -> None:
 def _profile(g, table, cfg, spec, n_steps: int = 50) -> dict:
     """Device time by kernel over a short steady window."""
     from torch.profiler import ProfilerActivity, profile
-    st = engine.init_state(g, list(spec.groups), SEED + 2, sweep="cuda",
+    st = engine.init_state(g, list(spec.groups), SEED + 2, sweep=cfg.sweep,
                            neuron_model=cfg.neuron_model, device=DEV)
     st, _ = engine.run(st, g, table, cfg, 5, device=DEV)   # warm
-    st = engine.state_with_weights_layout(st, g, "blocked",
-                                          backend=backends.get_backend("cuda"))
+    st = engine.state_with_weights_layout(
+        st, g, "blocked", backend=backends.get_backend(cfg.sweep))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -495,7 +534,10 @@ def run_counted(what, spec, g, table, cfg, n_steps, kernels):
         peak_device_mem_bytes=peak, launches=launches)
 
 
-def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
+def phase_main(spec, stdp, g, table, n_steps: int = 2000):
+    """Returns the launches, and on the host the spikes, final ``v_m`` and
+    final weights (the gated runs of phase 11 must reproduce them
+    bitwise; kept off the card so as not to count in their peak memory)."""
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
     _, fin, spikes, rec = run_counted("main", spec, g, table, cfg, n_steps,
                                       MAIN_KERNELS)
@@ -514,7 +556,9 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000) -> dict:
           "plastic_w_min": float(w[plastic].min()),
           "plastic_w_max": float(w[plastic].max()),
           "inhibitory_w": float(w[fixed].min()), **rec, "profile": prof})
-    return rec["launches"]
+    return rec["launches"], {"spikes": spikes.cpu(),
+                             "v_m": fin.neurons.v_m.cpu(),
+                             "weights": fin.weights.cpu()}
 
 
 # --------------------------------------------------------------------------
@@ -760,6 +804,360 @@ def zoo():
     return kern, launches
 
 
+# --------------------------------------------------------------------------
+# phases 10-12: the activity gate (K6, K7)
+# --------------------------------------------------------------------------
+
+def _lists(nb: int, rng) -> dict:
+    """The worklists of phase 10, each ``(worklist, n_active)``: 8 random
+    blocks of ``nb`` with sentinel padding (capacity 12), the empty list,
+    the identity list, and a saturated list (n_active > capacity: every
+    block is walked)."""
+    cap = 12
+    wl8 = np.full(cap, nb, np.int32)
+    wl8[:8] = np.sort(rng.choice(nb, 8, replace=False))
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
+    return {"worklist_8": (i32(wl8), i32(8)),
+            "empty": (i32(np.full(cap, nb)), i32(0)),
+            "identity": (i32(np.arange(nb)), i32(nb)),
+            "saturated": (i32(wl8), i32(max(nb, cap + 1)))}
+
+
+def phase_gate_kernels(g) -> dict:
+    """K6 and K7 at the main path's shapes against their twins, K1 and
+    K3."""
+    rng = np.random.default_rng(SEED + 5)
+    bg = g.blocked
+    nb, eb, pb, d, m, n = bg.nb, bg.eb, bg.pb, g.max_delay, g.n_mirror, \
+        g.n_local
+    bounds = gather_mod.segment_bounds(bg.post_rel, bg.delay, pb=pb,
+                                       max_delay=d)
+    w = torch.from_numpy(rng.normal(0, 50, (nb, eb)).astype(np.float32)
+                         ).to(DEV)
+    ring = torch.from_numpy((rng.uniform(size=(d, m)) < 0.05)
+                            .astype(np.float32)).to(DEV)
+    t = torch.tensor(7, dtype=torch.int32, device=DEV)
+    # K1's sums and arrivals: the arrivals are what the gate's pre-pass
+    # hands K6, and K6 must reproduce K1's sums bitwise
+    ex1, in1, arrived = gather_mod.synaptic_gather(
+        bg.pre_idx, bg.post_rel, w, bg.delay, bg.channel, ring, t,
+        max_delay=d, pb=pb, bounds=bounds)
+    live_per_block = (bg.delay > 0).sum(dim=1)
+    plastic_per_block = (bg.plastic & (bg.delay > 0)).sum(dim=1)
+    lists = _lists(nb, rng)
+    out, lines = {}, {}
+
+    # K6
+    rargs = (bg.post_rel, bg.delay, w, arrived, bg.channel)
+    for name, (wl, na) in [("no_list", (None, None)), *lists.items()]:
+        kw = dict(max_delay=d, pb=pb, worklist=wl, n_active=na,
+                  bounds=bounds)
+        k1, k2 = (gather_mod.blocked_reduce_sweep(*rargs, **kw)
+                  for _ in range(2))
+        pl = gather_mod.blocked_reduce_sweep_plain(
+            bg.post_rel, w, arrived, bg.channel, pb=pb, worklist=wl,
+            n_active=na)
+        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+              f"K6 ({name}) not bitwise deterministic")
+        err = max(max_abs(k1[0], pl[0]), max_abs(k1[1], pl[1]))
+        check(err <= 1e-2, f"K6 ({name}) differs from its twin by {err}")
+        listed = (torch.ones(nb, dtype=torch.bool, device=DEV) if wl is None
+                  else gather_mod.listed_blocks(wl, na, nb))
+        rows = listed.repeat_interleave(pb)
+        check(torch.equal(k1[0][rows], ex1[rows])
+              and torch.equal(k1[1][rows], in1[rows]),
+              f"K6 ({name}) sums differ from K1's")
+        check(not bool(k1[0][~rows].any() or k1[1][~rows].any()),
+              f"K6 ({name}) wrote an unlisted block")
+        k_ms = median_ms(lambda: gather_mod.blocked_reduce_sweep(*rargs,
+                                                                 **kw))
+        p_ms = median_ms(lambda: gather_mod.blocked_reduce_sweep_plain(
+            bg.post_rel, w, arrived, bg.channel, pb=pb, worklist=wl,
+            n_active=na))
+        live = int(live_per_block[listed].sum())
+        n_listed = int(listed.sum())
+        nbytes = (live * 12 + n_listed * (d * pb + 1) * 4 + 2 * nb * pb * 4
+                  + (0 if wl is None else wl.numel() * 4 + 4))
+        b_ms, b_by = bound(nbytes, 2 * live)
+        lines[name] = dict(blocks_walked=n_listed, live_slots=live,
+                           max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        if name == "no_list":   # the full-capacity gate's shape
+            out["blocked_reduce_sweep"] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes)
+    emit({"phase": "kernel", "name": "blocked_reduce_sweep", "nb": nb,
+          "eb": eb, "pb": pb, "d": d, "capacity": 12,
+          "tolerance": "twin atol 1e-2; K1's sums bitwise; unlisted rows 0",
+          "deterministic": True, "lists": lines})
+
+    # K7
+    e = nb * eb
+    w0 = torch.from_numpy(rng.uniform(1, 100, e).astype(np.float32)).to(DEV)
+    sargs = (bg.pre_idx.reshape(-1), bg.post_rel.reshape(-1),
+             bg.plastic.reshape(-1), arrived.reshape(-1))
+    sp = (torch.rand(n, device=DEV) < 0.05).float()
+    k_pre, k_post = torch.rand(m, device=DEV) * 3, torch.rand(n, device=DEV) * 3
+    params = (models.HPC_STDP.lam, models.HPC_STDP.alpha, models.HPC_STDP.mu,
+              models.HPC_STDP.w0, models.HPC_STDP.w_min,
+              models.HPC_STDP.w_max)
+    kw = dict(params=params, eb=eb, pb=pb)
+    w3 = stdp_mod.stdp_update(w0, *sargs, sp, k_pre, k_post, **kw)
+    lines = {}
+    for name, (wl, na) in lists.items():
+        ka, kb, wp = w0.clone(), w0.clone(), w0.clone()
+        for x in (ka, kb):
+            check(stdp_mod.stdp_update_worklist(x, *sargs, wl, na, sp, k_pre,
+                                                k_post, **kw) is x,
+                  "K7 did not update in place")
+        stdp_mod.stdp_update_worklist_plain(wp, *sargs, wl, na, sp, k_pre,
+                                            k_post, **kw)
+        check(torch.equal(ka, kb), f"K7 ({name}) not bitwise deterministic")
+        err = max_abs(ka, wp)
+        check(torch.allclose(ka, wp, rtol=2e-6, atol=0),
+              f"K7 ({name}) differs from its twin by {err}")
+        listed = gather_mod.listed_blocks(wl, na, nb)
+        slots = listed.repeat_interleave(eb)
+        check(torch.equal(ka[slots], w3[slots]),
+              f"K7 ({name}) weights differ from K3's on listed blocks")
+        check(torch.equal(ka[~slots], w0[~slots]),
+              f"K7 ({name}) touched an unlisted block")
+        check(name == "empty" or not torch.equal(ka, w0),
+              f"K7 ({name}) changed nothing - vacuous")
+        scratch = w0.clone()
+        k_ms = median_ms(lambda: stdp_mod.stdp_update_worklist(
+            scratch, *sargs, wl, na, sp, k_pre, k_post, **kw))
+        p_ms = median_ms(lambda: stdp_mod.stdp_update_worklist_plain(
+            scratch, *sargs, wl, na, sp, k_pre, k_post, **kw))
+        n_listed = int(listed.sum())
+        n_slots = n_listed * eb
+        n_plastic = int(plastic_per_block[listed].sum())
+        nbytes = (n_slots + n_plastic * 20 + (2 * n + m) * 4
+                  + wl.numel() * 4 + 4)
+        b_ms, b_by = bound(nbytes, 20 * n_plastic)
+        lines[name] = dict(blocks_walked=n_listed,
+                           plastic_slots=n_plastic, max_abs_err=err,
+                           kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes)
+        if name == "saturated":   # the forced gate's step once ignited
+            out["stdp_update_worklist"] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes)
+    emit({"phase": "kernel", "name": "stdp_update_worklist", "nb": nb,
+          "eb": eb, "pb": pb, "capacity": 12,
+          "tolerance": "twin rtol 2e-6; K3's weights bitwise on listed "
+                       "blocks; others untouched",
+          "deterministic": True, "in_place": True, "lists": lines})
+    return out
+
+
+def gate_branches(g, spikes, cap: int) -> dict:
+    """The gate's decisions of a run, recomputed on the host from its
+    raster: per step the blocks with an arrival (a pre spike ``delay``
+    steps earlier, read through the blocked layout) and, for plasticity,
+    also those with a post spike; a step saturates when more blocks than
+    ``cap`` are active.  (On the host, so that the check's matrix product
+    leaves no cuBLAS workspace on the card to count in later phases' peak
+    memory.)"""
+    bg = g.blocked
+    delay, pre = bg.delay.cpu(), bg.pre_idx.cpu().long()
+    spikes = spikes.cpu()
+    nb, pb, n_steps = bg.nb, bg.pb, spikes.shape[0]
+    bits = spikes[:, g.mirror_src_idx.cpu().long()].float()     # (T, M)
+    hits = torch.zeros(n_steps, nb)
+    blk = torch.arange(nb)[:, None].expand(nb, bg.eb)
+    for dly in torch.unique(delay[delay > 0]).tolist():
+        sel = delay == dly
+        a = torch.zeros(nb, g.n_mirror)
+        a[blk[sel], pre[sel]] = 1.0
+        if dly < n_steps:
+            hits[dly:] += bits[:-dly] @ a.t()
+    arr = hits > 0
+    post = torch.nn.functional.pad(spikes, (0, nb * pb - g.n_local)
+                                   ).reshape(n_steps, nb, pb).any(dim=2)
+    n_sweep, n_stdp = arr.sum(dim=1), (arr | post).sum(dim=1)
+    return {"sweep_saturated": int((n_sweep > cap).sum()),
+            "sweep_gated": int((n_sweep <= cap).sum()),
+            "sweep_gated_live": int(((n_sweep > 0) & (n_sweep <= cap)).sum()),
+            "stdp_saturated": int((n_stdp > cap).sum()),
+            "stdp_gated_live": int(((n_stdp > 0) & (n_stdp <= cap)).sum())}
+
+
+def phase_gate_main(spec, stdp, g, table, main_out: dict,
+                    n_steps: int = 2000) -> dict:
+    """The gate on the main path: both runs must give the ``main`` run's
+    spikes, voltages and weights (``main_out``, on the host) bitwise.
+    Returns the forced run's launches."""
+    launches = {}
+    for sweep, kernels in GATE_KERNELS.items():
+        cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=sweep)
+        backend = backends.get_backend(sweep)
+        cap = backend.gate_capacity(backend.prepare(g))
+        _, fin, spikes, rec = run_counted(f"gate_main {sweep}", spec, g,
+                                          table, cfg, n_steps, kernels)
+        for name, a in (("spikes", spikes), ("v_m", fin.neurons.v_m),
+                        ("weights", fin.weights)):
+            check(torch.equal(a.cpu(), main_out[name]),
+                  f"gate_main {sweep}: {name} differ from the cuda run's")
+        branches = gate_branches(g, spikes, cap)
+        overflow = int(fin.gate_overflow)
+        if cap >= g.blocked.nb:
+            check(overflow == 0, f"gate_main {sweep}: overflow {overflow} "
+                  "at full capacity")
+        else:
+            check(overflow == branches["sweep_saturated"],
+                  f"gate_main {sweep}: gate_overflow {overflow} != "
+                  f"{branches['sweep_saturated']} saturated steps in the "
+                  "raster")
+            check(overflow > 0 and branches["sweep_gated"] > 0,
+                  f"gate_main {sweep}: a branch never ran: {branches}")
+            check(branches["stdp_gated_live"] > 0,
+                  f"gate_main {sweep}: K7 never updated a live block on "
+                  f"the gated branch: {branches}")
+        rec["launches_per_step"] = {k: v / n_steps
+                                    for k, v in rec["launches"].items() if v}
+        emit({"phase": "gate_main", "sweep": sweep, "capacity": cap,
+              "nb": g.blocked.nb, "gate_overflow": overflow,
+              "steps_by_branch": branches, "bitwise_equal_to_main": True,
+              **rec, "profile": _profile(g, table, cfg, spec)})
+        launches = rec["launches"]
+    return launches
+
+
+def area_localized_graph(nb=64, pb=256, eb=196_608, *, max_delay=8,
+                         pres_per_block=32, seed=0):
+    """The reference's gate geometry (``benchmarks/bench_snn.py::
+    _area_localized_layout``, same draws): block b's edges come only from
+    its own area's ``pres_per_block`` mirrors, a ragged tail block, 16
+    padding slots a block.  Each block's slots are then sorted by
+    (delay, post), padding at the tail, weights alongside, so that the run
+    table of K1 and K6 applies.  Returns a one-shard graph on the card."""
+    rng = np.random.default_rng(seed)
+    n_local = nb * pb - pb // 2
+    names = ("pre", "post", "delay", "channel", "plastic", "weight")
+    a = {k: np.zeros((nb, eb), dt) for k, dt in zip(
+        names, (np.int32, np.int32, np.int32, np.int32, bool, np.float32))}
+    for b in range(nb):
+        ne = eb - 16
+        a["pre"][b, :ne] = rng.integers(b * pres_per_block,
+                                        (b + 1) * pres_per_block, ne)
+        hi = pb if (b + 1) * pb <= n_local else n_local - b * pb
+        a["post"][b, :ne] = rng.integers(0, hi, ne)
+        a["delay"][b, :ne] = rng.integers(1, max_delay + 1, ne)
+        a["channel"][b, :ne] = rng.integers(0, 2, ne)
+        a["plastic"][b, :ne] = rng.uniform(size=ne) < 0.7
+        a["weight"][b, :ne] = rng.uniform(1.0, 50.0, ne)
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in a.items()}
+    key = torch.where(t["delay"] > 0, t["delay"] * pb + t["post"],
+                      (max_delay + 1) * pb)
+    order = torch.sort(key, dim=1, stable=True).indices
+    t = {k: torch.gather(v, 1, order) for k, v in t.items()}
+    bg = BlockedGraph(nb=nb, eb=eb, pb=pb, n_local=n_local,
+                      pre_idx=t["pre"], post_rel=t["post"],
+                      delay=t["delay"], channel=t["channel"],
+                      plastic=t["plastic"],
+                      edge_perm=torch.arange(nb * eb, dtype=torch.int32,
+                                             device=DEV).reshape(nb, eb),
+                      weight=None)
+    flat = lambda k: t[k].reshape(-1)
+    return engine.ShardGraph(
+        n_local=n_local, n_mirror=nb * pres_per_block, max_delay=max_delay,
+        pre_idx=flat("pre"), post_idx=flat("post"), delay=flat("delay"),
+        channel=flat("channel"), plastic=flat("plastic"),
+        weight_init=flat("weight"), bucket_ptr=None, mirror_src_shard=None,
+        mirror_src_idx=None, group_id=None, blocked=bg)
+
+
+def phase_gate_activity(nb=64, pb=256, eb=196_608,
+                        fracs=(1.0, 0.25, 0.0625, 0.03125)) -> None:
+    """Dense against gated sweep + STDP where the gate has leverage, at the
+    reference's active fractions (``bench_snn.py::bench_gate_activity``:
+    ~3 % of an active area's neurons fire per step, 5 % of its post rows
+    spike, capacity ~1.5x the active blocks, floor 2)."""
+    t0 = time.perf_counter()
+    g = area_localized_graph(nb, pb, eb)
+    bg = g.blocked
+    nb, pb, eb, d, m, n = bg.nb, bg.pb, bg.eb, g.max_delay, g.n_mirror, \
+        g.n_local
+    dense = backends.get_backend("cuda")
+    ld = dense.prepare(g)
+    w = g.weight_init
+    params = models.HPC_STDP
+    rng = np.random.default_rng(3)
+    traces = stdp_mod_core.TraceState(
+        k_pre=torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32)
+                               ).to(DEV),
+        k_post=torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)
+                                ).to(DEV))
+    t5 = torch.tensor(5, dtype=torch.int32, device=DEV)
+    ppb = m // nb
+    build_s = time.perf_counter() - t0
+    rows = []
+    for frac in fracs:
+        n_act = max(int(np.ceil(frac * nb)), 1)
+        act = rng.choice(nb, size=n_act, replace=False)
+        pre_mask = np.zeros(m, np.float32)
+        post_mask = np.zeros(n, np.float32)
+        for b in act:
+            pre_mask[b * ppb:(b + 1) * ppb] = 1.0
+            post_mask[b * pb:min((b + 1) * pb, n)] = 1.0
+        ring = torch.from_numpy((rng.uniform(size=(d, m)) < 0.03)
+                                .astype(np.float32) * pre_mask).to(DEV)
+        spk = torch.from_numpy((rng.uniform(size=n) < 0.05)
+                               .astype(np.float32) * post_mask).to(DEV)
+        cap_target = min(max(int(np.ceil(1.5 * frac * nb)), 2), nb)
+        k = (nb * eb) / nb
+        rate = float(1.0 - (1.0 - min(cap_target / nb, 1.0 - 1e-9))
+                     ** (1.0 / k))
+        gated = backends.CudaSparseBackend(gate_rate=max(rate, 1e-9),
+                                           min_capacity=2)
+        lg = gated.prepare(g)
+        cap = gated.gate_capacity(lg)
+        ex_d, in_d, ar_d = dense.sweep(ld, w, ring, t5)
+        ex_s, in_s, ar_s, ovf = gated.sweep_with_stats(lg, w, ring, t5)
+        _, n_active, _ = gated.gate_stats(lg, ring, t5)
+        check(torch.equal(ex_d, ex_s) and torch.equal(in_d, in_s)
+              and torch.equal(ar_d, ar_s),
+              f"gate_activity {frac}: gated sweep differs from dense")
+        w_d = dense.stdp_update(ld, w, ar_d, spk, traces, params)
+        w_s = gated.stdp_update(lg, w.clone(), ar_s, spk, traces, params)
+        check(torch.equal(w_d, w_s),
+              f"gate_activity {frac}: gated STDP differs from dense")
+        check(not torch.equal(w_d, w), f"gate_activity {frac}: STDP "
+              "changed nothing - vacuous")
+        # the oracle: blocks with a slot whose pre fired ``delay`` steps
+        # ago (an active area may draw no spike at all)
+        fired = ring[torch.remainder(5 - bg.delay.long(), d),
+                     bg.pre_idx.long()] > 0
+        want = int((fired & (bg.delay > 0)).any(dim=1).sum())
+        n_active, ovf = int(n_active), int(ovf)
+        check(n_active == want and 0 < want <= n_act and ovf == 0,
+              f"gate_activity {frac}: n_active {n_active} (want {want} of "
+              f"{n_act} active areas), overflow {ovf}")
+        scratch = w.clone()
+        ms = {}
+        for name, be, lay in (("dense", dense, ld), ("gated", gated, lg)):
+            sweep = lambda: be.sweep(lay, w, ring, t5)
+            stdp_ = lambda: be.stdp_update(lay, scratch, ar_d, spk, traces,
+                                           params)
+
+            def both():
+                arr = be.sweep(lay, w, ring, t5)[2]
+                be.stdp_update(lay, scratch, arr, spk, traces, params)
+            ms[name] = {"sweep": median_ms(sweep), "stdp": median_ms(stdp_),
+                        "sweep_plus_stdp": median_ms(both)}
+        rows.append(dict(active_fraction=frac, active_areas=n_act,
+                         n_active=n_active,
+                         capacity=cap, overflow=ovf, ms=ms,
+                         gated_over_dense=ms["gated"]["sweep_plus_stdp"]
+                         / ms["dense"]["sweep_plus_stdp"]))
+    emit({"phase": "gate_activity", "nb": nb, "pb": pb, "eb": eb,
+          "slots": nb * eb, "live_slots": int((bg.delay > 0).sum()),
+          "n_local": n, "n_mirror": m, "max_delay": d,
+          "host_build_s": build_s, "bitwise_equal": True,
+          "fractions": rows})
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -775,11 +1173,16 @@ def main() -> None:
     kern = phase_kernels(g)
     phase_lockstep(spec, stdp, g, table)
     phase_mixed()
-    launches = phase_main(spec, stdp, g, table)
-    del g, table
+    launches, main_out = phase_main(spec, stdp, g, table)
+    kern.update(phase_gate_kernels(g))
+    gate_launches = phase_gate_main(spec, stdp, g, table, main_out)
+    del g, table, main_out
+    phase_gate_activity()
     zoo_kern, zoo_launches = zoo()
     kern.update(zoo_kern)
     launches.update(zoo_launches)
+    for name in ("blocked_reduce_sweep", "stdp_update_worklist"):
+        launches[name] = gate_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

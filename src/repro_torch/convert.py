@@ -9,7 +9,8 @@ tests use these functions so that both packages start from the same state.
 * :func:`state_from_numpy` - a port :class:`EngineState` from the
   reference ``EngineState``'s leaves, weights re-expressed in the chosen
   backend's native layout, for any neuron model (its ``extra`` variables
-  are leaves ``neurons.extra.<name>``, :func:`state_leaves`);
+  are leaves ``neurons.extra.<name>``, :func:`state_leaves`) and with the
+  gate's saturation count ``gate_overflow`` (0 when absent);
 * :func:`state_to_numpy` - the inverse, weights returned flat.
 """
 
@@ -35,7 +36,10 @@ __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
 #: state; other models add their extra variables, :func:`state_leaves`)
 STATE_LEAVES = ("neurons.v_m", "neurons.syn_ex", "neurons.syn_in",
                 "neurons.ref_count", "neurons.spike", "ring", "weights",
-                "traces.k_pre", "traces.k_post", "t")
+                "traces.k_pre", "traces.k_post", "t", "gate_overflow")
+#: leaves a state may lack: ``gate_overflow`` then counts from 0, as the
+#: reference reads a state made without it
+_OPTIONAL_LEAVES = ("gate_overflow",)
 
 
 def state_leaves(neuron_model: str = "lif") -> tuple[str, ...]:
@@ -92,10 +96,12 @@ def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
     dev = resolve_device(device)
     model = neuron_models_mod.get_model(neuron_model)
     leaves = state_leaves(model)
-    missing = [k for k in leaves if k not in arrays]
+    missing = [k for k in leaves
+               if k not in arrays and k not in _OPTIONAL_LEAVES]
     if missing:
         raise KeyError(f"state arrays lack {missing}")
-    a = {k: np.array(arrays[k]) for k in leaves}   # owned copies
+    a = {k: np.array(arrays[k]) for k in leaves if k in arrays}  # copies
+    a.setdefault("gate_overflow", np.zeros((), np.int32))
     dtype = getattr(torch, str(a["neurons.v_m"].dtype))   # float32/64
     tens = lambda k, dt=dtype: torch.as_tensor(a[k], dtype=dt, device=dev)
     neurons = snn.NeuronState(
@@ -114,7 +120,10 @@ def state_from_numpy(arrays, graph: engine_mod.ShardGraph, *,
         traces=stdp_mod.TraceState(k_pre=tens("traces.k_pre"),
                                    k_post=tens("traces.k_post")),
         t=torch.as_tensor(a["t"], dtype=torch.int32, device=dev).reshape(()),
-        generator=gen, weights_layout="flat", neuron_model=model.name,
+        generator=gen,
+        gate_overflow=torch.as_tensor(a["gate_overflow"], dtype=torch.int32,
+                                      device=dev).reshape(()),
+        weights_layout="flat", neuron_model=model.name,
         model_seed=int(seed) if model.stochastic else None)
     backend = backends_mod.get_backend(sweep)
     return engine_mod.state_with_weights_layout(
@@ -141,4 +150,7 @@ def state_to_numpy(state: engine_mod.EngineState,
         "traces.k_pre": np_(flat.traces.k_pre),
         "traces.k_post": np_(flat.traces.k_post),
         "t": np_(flat.t),
+        "gate_overflow": (np.zeros((), np.int32)
+                          if flat.gate_overflow is None
+                          else np_(flat.gate_overflow)),
     }

@@ -18,6 +18,13 @@ picks one by name:
   (K2 for lif, K4 for izhikevich, K5 for adex).  On CPU tensors each
   kernel wrapper runs its plain twin, which is how the CPU tests drive
   this backend.
+* ``"cuda:sparse"`` - the activity gate (DESIGN.md §13), the mirror of the
+  reference's ``pallas:sparse``: a plain-torch arrival pre-pass, then K6
+  (:func:`~repro_torch.kernels.synaptic_gather.blocked_reduce_sweep`) and
+  K7 (:func:`~repro_torch.kernels.stdp_update.stdp_update_worklist`) over
+  a fixed-capacity worklist of active post blocks, bit-identical to
+  ``"cuda"``.  ``"cuda:sparse:<rate>"`` and ``"cuda:sparse:measured:<path>"``
+  pick its capacity (:class:`CudaSparseBackend`).
 * ``"flat"`` - plain torch on the flat owner-sorted arrays, the twin of the
   reference's ``flat``.
 
@@ -40,16 +47,19 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import neuron_models as neuron_models_mod
 from repro_torch.core import snn
 from repro_torch.core import stdp as stdp_mod
 from repro_torch.core.layout import BlockedGraph
 from repro_torch.kernels.stdp_update import stdp_update as stdp_update_kernel
-from repro_torch.kernels.synaptic_gather import (segment_bounds,
+from repro_torch.kernels.stdp_update import stdp_update_worklist
+from repro_torch.kernels.synaptic_gather import (blocked_reduce_sweep,
+                                                 segment_bounds,
                                                  synaptic_gather)
 
 __all__ = ["EdgeLayout", "SweepBackend", "FlatBackend", "CudaBackend",
-           "get_backend", "available_backends",
+           "CudaSparseBackend", "get_backend", "available_backends",
            "layout_of", "to_native_weights", "to_flat_weights",
            "flat_edge_values", "convert_weights", "layout_tag",
            "layout_kind", "resolve_runtime_weights"]
@@ -66,7 +76,9 @@ class EdgeLayout:
     ``blocked`` carries the ELL layout for the kernel path.  ``arrival_pre``
     and ``seg_bounds`` are filled by :meth:`SweepBackend.prepare`: the int64
     pre index aligned with the backend's ``arrived`` (the index
-    ``scatter_reduce_`` needs) and K1's run table.
+    ``scatter_reduce_`` needs) and the run table of K1 and K6.  The gated
+    backend also fills ``gate_index``, ``ring_offsets`` and ``block_ids``
+    for its pre-pass and worklist.
     """
 
     n_local: int
@@ -79,7 +91,12 @@ class EdgeLayout:
     plastic: Any       # (E,) bool
     blocked: BlockedGraph | None = None
     arrival_pre: Any = None   # (native E,) int64
-    seg_bounds: Any = None    # (NB, D*PB + 1) int32, kernel backend only
+    seg_bounds: Any = None    # (NB, D*PB + 1) int32, kernel backends only
+    # gated backend only: per slot, (D - delay)*M + pre into the step's
+    # rolled ring (D*M on padding); -D..-1; 0..NB-1
+    gate_index: Any = None    # (NB, EB) int32
+    ring_offsets: Any = None  # (D,) int32
+    block_ids: Any = None     # (NB,) int32
 
     @property
     def n_edges(self) -> int:
@@ -269,14 +286,19 @@ class SweepBackend:
 
     def prepare(self, graph) -> EdgeLayout:
         """ShardGraph (on its device) -> the layout this backend consumes;
-        cached per graph object."""
-        hit = self._layouts.get(id(graph))
+        cached per graph object, and dropped when the graph is freed (the
+        layout holds device tensors as large as the graph's)."""
+        key = id(graph)
+        hit = self._layouts.get(key)
         if hit is not None and hit[0]() is graph:
             return hit[1]
         layout = self._prepare(graph)
-        self._layouts = {k: v for k, v in self._layouts.items()
-                         if v[0]() is not None}
-        self._layouts[id(graph)] = (weakref.ref(graph), layout)
+
+        def drop(ref, cache=self._layouts):
+            if cache.get(key, (None,))[0] is ref:
+                del cache[key]
+
+        self._layouts[key] = (weakref.ref(graph, drop), layout)
         return layout
 
     def _prepare(self, graph) -> EdgeLayout:
@@ -312,6 +334,32 @@ class SweepBackend:
                            torch.remainder(t - 1, layout.max_delay))
         ex, inh, arrived = self.sweep(layout, weights, ring, t)
         return ex, inh, arrived, ring
+
+    # -- gate telemetry ---------------------------------------------------
+    #: True iff the sweep is activity-gated: the ``*_with_stats`` variants
+    #: then report real saturation counts (DESIGN.md §13)
+    gated: bool = False
+
+    def sweep_with_stats(self, layout: EdgeLayout, weights, ring, t):
+        """:meth:`sweep` plus this step's gate-saturation count: 1 when an
+        activity gate overflowed its worklist and fell back to the dense
+        pass, else 0 - a () int32 device tensor where a gate can saturate,
+        the int 0 elsewhere (no launch).  The engine accumulates it into
+        ``EngineState.gate_overflow``."""
+        ex, inh, arrived = self.sweep(layout, weights, ring, t)
+        return ex, inh, arrived, 0
+
+    def sweep_overlap_with_stats(self, layout: EdgeLayout, weights, ring,
+                                 t, fresh_bits):
+        """:meth:`sweep_overlap` plus the gate-saturation count."""
+        ex, inh, arrived, ring = self.sweep_overlap(layout, weights, ring,
+                                                    t, fresh_bits)
+        return ex, inh, arrived, ring, 0
+
+    def stdp_in_place(self, layout: EdgeLayout) -> bool:
+        """True iff :meth:`stdp_update` writes into the weights it is given
+        (and returns that tensor) instead of returning a new one."""
+        return False
 
     # -- neuron dynamics --------------------------------------------------
     def neuron_update(self, layout: EdgeLayout, neurons, table, input_ex,
@@ -419,14 +467,252 @@ class CudaBackend(SweepBackend):
             eb=bg.eb, pb=bg.pb)
 
 
+class CudaSparseBackend(CudaBackend):
+    """Activity-gated sweep: the step's edge work scales with activity, not
+    topology (DESIGN.md §13) - the mirror of the reference's
+    ``SparsePallasBackend``.
+
+    * A plain-torch pre-pass gathers every slot's arrival exactly as K1
+      does in-kernel (same ring row, same
+      ``delay == 1`` fresh overlay, 0 on padding) into one (NB, EB)
+      array, in one gather (:meth:`_blocked_arrivals`); a post block is
+      active when one of its slots has an arrival.
+    * The active blocks are compacted into a fixed-capacity worklist
+      without a host sync: a ``cumsum`` gives each active block its
+      position and one scatter writes it into a (cap,) buffer prefilled
+      with the sentinel NB.  Capacity comes from
+      :func:`repro_torch.core.autotune.gate_capacity`.
+    * K6 sums the listed blocks' rows in K1's order (bitwise K1's sums);
+      dead blocks' rows stay +0.0.  K7 updates the listed blocks' weights
+      IN PLACE, a block being active for plasticity when it has an arrival
+      OR a post spike; the other blocks keep their weights, bit-identical
+      to K3 while plastic weights sit inside [w_min, w_max] (the dense
+      update's only effect on such a block is the clip).
+    * Saturation (more active blocks than capacity) is decided on the
+      device: K6 and K7 read ``n_active`` and walk every block instead -
+      never a dropped spike - and :meth:`sweep_with_stats` reports 1.
+    * ``capacity >= NB`` is decided on the host, once: the gate is then the
+      dense pass with no branch - K6 over every block and K3 out of place.
+
+    Launches per step: K6 once; K7 once when ``capacity < NB``, else K3
+    once; K1 never.  The step reads no device value on the host.
+    """
+
+    name = "cuda:sparse"
+    gated = True
+
+    def __init__(self, gate_rate=autotune_mod.DEFAULT_GATE_RATE,
+                 min_capacity: int = autotune_mod.DEFAULT_GATE_MIN_CAPACITY):
+        super().__init__()
+        if isinstance(gate_rate, str):
+            # "measured:<path>": capacity from the BENCH file's gate_tune/
+            # records for this layout's degree signature
+            if not gate_rate.startswith("measured:"):
+                raise ValueError(
+                    f"gate rate must be a float in (0, 1] or "
+                    f"'measured:<path>', got {gate_rate!r}")
+            self.gate_rate = gate_rate
+            self.name = f"cuda:sparse:{gate_rate}"
+        else:
+            if not 0.0 < gate_rate <= 1.0:
+                raise ValueError(
+                    f"gate rate must be in (0, 1], got {gate_rate!r}")
+            self.gate_rate = float(gate_rate)
+            if self.gate_rate != autotune_mod.DEFAULT_GATE_RATE:
+                self.name = f"cuda:sparse:{self.gate_rate:g}"
+        self.min_capacity = int(min_capacity)
+        # id(layout) -> (weakref(layout), capacity)
+        self._caps: dict[int, tuple] = {}
+
+    def _prepare(self, graph):
+        lay = super()._prepare(graph)
+        bg = lay.blocked
+        d, m, dev = lay.max_delay, lay.n_mirror, bg.delay.device
+        return dataclasses.replace(
+            lay,
+            gate_index=torch.where(bg.delay > 0,
+                                   (d - bg.delay) * m + bg.pre_idx, d * m),
+            ring_offsets=torch.arange(-d, 0, dtype=torch.int32, device=dev),
+            block_ids=torch.arange(bg.nb, dtype=torch.int32, device=dev))
+
+    # -- gate policy ------------------------------------------------------
+    def gate_capacity(self, layout: EdgeLayout) -> int:
+        """Static worklist capacity (in post blocks) for this layout;
+        computed once per layout."""
+        hit = self._caps.get(id(layout))
+        if hit is not None and hit[0]() is layout:
+            return hit[1]
+        bg = _require_blocked(layout)
+        sig = None
+        if isinstance(self.gate_rate, str):
+            # keyed by the LAYOUT's degree arrays, as the gate_tune records
+            sig = autotune_mod.degree_signature(
+                autotune_mod.degrees_from_graphs([layout]))
+        cap = autotune_mod.gate_capacity(
+            bg.nb, layout.n_edges, self.gate_rate,
+            min_capacity=self.min_capacity, signature=sig)
+        self._caps = {k: v for k, v in self._caps.items()
+                      if v[0]() is not None}
+        self._caps[id(layout)] = (weakref.ref(layout), cap)
+        return cap
+
+    def stdp_in_place(self, layout: EdgeLayout) -> bool:
+        return self.gate_capacity(layout) < _require_blocked(layout).nb
+
+    def _blocked_arrivals(self, layout: EdgeLayout, ring, t, fresh):
+        """(NB, EB) per-slot arrivals - the pre-pass, equal to K1's
+        in-kernel gather: ``ring[(t - delay) mod D, pre]``, ``fresh[pre]``
+        where ``delay == 1`` and ``fresh`` is given, 0 on padding.
+
+        One gather over the slots: the ring is first rolled so that row
+        ``D - d`` holds ``ring[(t - d) mod D]`` (row D-1 is ``fresh`` when
+        given) and row D is zeros, which turns each slot's index into a
+        constant of the layout (``gate_index``, int32)."""
+        bg = _require_blocked(layout)
+        d, m = ring.shape
+        rows = torch.remainder(t + layout.ring_offsets, d)
+        rolled = ring.index_select(0, rows)
+        tail = ring.new_zeros(m)
+        if fresh is not None:
+            rolled = rolled[:d - 1]
+            tail = torch.cat([fresh.to(ring.dtype), tail])
+        flat = torch.cat([rolled.reshape(-1), tail])
+        return flat.index_select(0, layout.gate_index.reshape(-1)).reshape(
+            bg.nb, bg.eb)
+
+    def _worklist(self, layout: EdgeLayout, active, cap: int):
+        """(NB,) bool active blocks -> ``(worklist (cap,) int32, n_active
+        () int32)``: the active block ids ascending, then the sentinel NB.
+        A fixed-size compaction, no host sync."""
+        bg = _require_blocked(layout)
+        n_active = active.sum(dtype=torch.int32)
+        # each active block's 1-based position; buffer slot 0 takes the
+        # inactive blocks and slot cap + 1 the active ones past capacity
+        pos = (torch.cumsum(active, 0) * active).clamp_(max=cap + 1)
+        wl = torch.full((cap + 2,), bg.nb, dtype=torch.int32,
+                        device=active.device).scatter_(0, pos,
+                                                       layout.block_ids)
+        return wl[1:cap + 1], n_active
+
+    def gate_stats(self, layout: EdgeLayout, ring, t, fresh=None):
+        """(per-block arrival counts (NB,) int32, n_active () int32,
+        capacity) - the observable the gate dispatches on."""
+        arrived = self._blocked_arrivals(layout, ring, t, fresh)
+        counts = (arrived > 0).sum(dim=1, dtype=torch.int32)
+        n_active = (counts > 0).sum(dtype=torch.int32)
+        return counts, n_active, self.gate_capacity(layout)
+
+    # -- gated edge pass --------------------------------------------------
+    def _gated_sweep(self, layout, weights, ring, t, fresh):
+        bg = _require_blocked(layout)
+        arrived = self._blocked_arrivals(layout, ring, t, fresh)
+        cap = self.gate_capacity(layout)
+        kw = dict(max_delay=layout.max_delay, pb=bg.pb,
+                  bounds=layout.seg_bounds)
+        if cap >= bg.nb:    # full-capacity gate == dense pass, no branch
+            wl = n_active = None
+            overflow = 0    # cannot saturate: no launch
+        else:
+            wl, n_active = self._worklist(layout, (arrived > 0).any(dim=1),
+                                          cap)
+            overflow = (n_active > cap).to(torch.int32)
+        ex, inh = blocked_reduce_sweep(
+            bg.post_rel, bg.delay, weights.reshape(bg.nb, bg.eb), arrived,
+            bg.channel, worklist=wl, n_active=n_active, **kw)
+        return (ex[:layout.n_local], inh[:layout.n_local],
+                arrived.reshape(-1), overflow)
+
+    def sweep(self, layout, weights, ring, t):
+        return self._gated_sweep(layout, weights, ring, t, None)[:3]
+
+    def sweep_with_stats(self, layout, weights, ring, t):
+        return self._gated_sweep(layout, weights, ring, t, None)
+
+    def sweep_overlap(self, layout, weights, ring, t, fresh_bits):
+        return self.sweep_overlap_with_stats(layout, weights, ring, t,
+                                             fresh_bits)[:4]
+
+    def sweep_overlap_with_stats(self, layout, weights, ring, t,
+                                 fresh_bits):
+        # the §III.C split of the dense backend: the pre-pass folds
+        # ``fresh_bits`` into the delay-1 arrivals, so the slot-(t-1) ring
+        # write is independent of the sweep
+        fresh = fresh_bits.to(ring.dtype)
+        ex, inh, arrived, overflow = self._gated_sweep(layout, weights, ring,
+                                                       t, fresh)
+        ring = _write_ring(ring, fresh,
+                           torch.remainder(t - 1, layout.max_delay))
+        return ex, inh, arrived, ring, overflow
+
+    # -- gated plasticity -------------------------------------------------
+    def stdp_update(self, layout, weights, arrived, post_spike, traces,
+                    params: stdp_mod.STDPParams):
+        """K3 out of place when ``capacity >= NB``; else K7 IN PLACE on
+        ``weights`` (returned) over the blocks with an arrival or a post
+        spike, or every block when they outnumber the capacity."""
+        bg = _require_blocked(layout)
+        cap = self.gate_capacity(layout)
+        if cap >= bg.nb:    # full-capacity gate: the dense update
+            return super().stdp_update(layout, weights, arrived, post_spike,
+                                       traces, params)
+        sp = post_spike.to(weights.dtype)
+        sp_blk = torch.nn.functional.pad(
+            sp > 0, (0, bg.nb * bg.pb - layout.n_local)).reshape(bg.nb,
+                                                                 bg.pb)
+        active = ((arrived.reshape(bg.nb, bg.eb) > 0).any(dim=1)
+                  | sp_blk.any(dim=1))
+        wl, n_active = self._worklist(layout, active, cap)
+        return stdp_update_worklist(
+            weights, bg.pre_idx.reshape(-1), bg.post_rel.reshape(-1),
+            bg.plastic.reshape(-1), arrived, wl, n_active, sp,
+            traces.k_pre, traces.k_post,
+            params=(params.lam, params.alpha, params.mu, params.w0,
+                    params.w_min, params.w_max),
+            eb=bg.eb, pb=bg.pb)
+
+
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
 
-#: ``EngineConfig.sweep`` name -> backend (the reference's ``pallas``,
-#: ``bucketed`` and ``pallas:sparse`` are not ported)
+#: ``EngineConfig.sweep`` name -> backend (the reference's ``pallas``
+#: names are ``cuda`` here; its ``bucketed`` is not ported)
 _REGISTRY: dict[str, SweepBackend] = {"cuda": CudaBackend(),
+                                      "cuda:sparse": CudaSparseBackend(),
                                       "flat": FlatBackend()}
+
+#: parameterized gate variants ("cuda:sparse:<rate>",
+#: "cuda:sparse:measured:<path>") resolve into THIS side cache, never the
+#: registry, so ``available_backends()`` stays the same however many
+#: variants a run touches
+_VARIANT_CACHE: dict[str, SweepBackend] = {}
+
+
+def _resolve_variant(name: str) -> SweepBackend | None:
+    prefix = "cuda:sparse:"
+    if not name.startswith(prefix):
+        return None
+    text = name[len(prefix):]
+    if text.startswith("measured:"):
+        hit = _VARIANT_CACHE.get(name)
+        if hit is None:
+            hit = _VARIANT_CACHE[name] = CudaSparseBackend(gate_rate=text)
+        return hit
+    try:
+        rate = float(text)
+    except ValueError:
+        raise ValueError(f"bad gate rate in backend name {name!r}: {text!r} "
+                         "is not a float") from None
+    if not 0.0 < rate <= 1.0:
+        raise ValueError(f"gate rate in backend name {name!r} must be in "
+                         f"(0, 1], got {rate!r}")
+    # canonical key: "cuda:sparse:0.01" and "cuda:sparse:0.010" share one
+    # backend (and its layout caches)
+    canon = f"{prefix}{rate:g}"
+    hit = _VARIANT_CACHE.get(canon)
+    if hit is None:
+        hit = _VARIANT_CACHE[canon] = CudaSparseBackend(gate_rate=rate)
+    return hit
 
 
 def get_backend(name) -> SweepBackend:
@@ -434,6 +720,9 @@ def get_backend(name) -> SweepBackend:
         return name
     if name in _REGISTRY:
         return _REGISTRY[name]
+    hit = _resolve_variant(name)
+    if hit is not None:
+        return hit
     raise ValueError(f"unknown sweep backend {name!r}; available: "
                      f"{available_backends()}")
 

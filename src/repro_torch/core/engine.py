@@ -10,10 +10,18 @@ indegree sub-graph stored as flat, padded, owner-sorted edge arrays
 One step (:func:`engine_step`) runs sweep -> external drive -> neuron
 update -> STDP -> trace update -> ring write, dispatching the hot path
 through the backend registry of :mod:`repro_torch.core.backends`
-(``EngineConfig.sweep``: ``"cuda"``, the kernel path, by default; or
-``"flat"``).  A step issues no host synchronisation: the step counter ``t``
-lives on the device and the kernels read it there; :func:`run` syncs once,
-at the end.
+(``EngineConfig.sweep``: ``"cuda"``, the kernel path, by default;
+``"cuda:sparse"``, the activity gate; or ``"flat"``).  A step issues no
+host synchronisation: the step counter ``t`` lives on the device and the
+kernels read it there, and the gate decides its branch on the device;
+:func:`run` syncs once, at the end.  ``EngineState.gate_overflow`` counts
+the steps whose gate saturated (always 0 on ungated backends).
+
+The gated backend updates plastic weights IN PLACE when its capacity is
+below the block count (kernel K7): the weights tensor of the state given to
+:func:`engine_step` is then the new state's, updated.  :func:`run` copies
+the caller's weights once at its start, so its input state is left as it
+was.
 
 Differences from the reference, by design:
 
@@ -139,6 +147,10 @@ class EngineState:
     traces: stdp_mod.TraceState
     t: torch.Tensor          # () int32 step counter, on the device
     generator: torch.Generator  # stream of the external Poisson drive
+    #: () int32 on the device: steps whose activity gate saturated its
+    #: worklist and fell back to the dense pass (DESIGN.md §13); always 0
+    #: on ungated backends.  None (a state made without it) counts as 0.
+    gate_overflow: torch.Tensor | None = None
     #: layout of ``weights`` - "flat" or a shape-qualified blocked tag like
     #: "blocked:256x2048" (backends.layout_tag)
     weights_layout: str = "flat"
@@ -203,6 +215,7 @@ def init_state(graph: ShardGraph, groups, seed: int = 0, *,
                                     device=dev),
         t=torch.zeros((), dtype=torch.int32, device=dev),
         generator=gen,
+        gate_overflow=torch.zeros((), dtype=torch.int32, device=dev),
         weights_layout=weights_layout,
         neuron_model=model.name,
         model_seed=int(seed) if model.stochastic else None)
@@ -237,7 +250,9 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                 layout: "backends_mod.EdgeLayout | None" = None,
                 model: "neuron_models_mod.NeuronModel | None" = None):
     """One dt: sweep -> drive -> neuron update -> STDP -> ring write.
-    Returns ``(new_state, spike_bits)``; ``state`` is not modified.
+    Returns ``(new_state, spike_bits)``.  ``state`` is not modified, except
+    its native-layout weights when the backend updates them in place
+    (:meth:`~repro_torch.core.backends.SweepBackend.stdp_in_place`).
 
     ``drive`` ((n_local,), the state dtype) replaces this step's own
     Poisson draw; ``model_uniform`` ((n_local,) float32) a stochastic
@@ -263,9 +278,15 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     w_native, native_tag, convert = backends_mod.resolve_runtime_weights(
         backend, layout, state.weights, state.weights_layout)
 
-    # (1) synaptic sweep over owned edges
-    input_ex, input_in, arrived = backend.sweep(layout, w_native,
-                                                state.ring, state.t)
+    # (1) synaptic sweep over owned edges (+ the gate's saturation count,
+    #     the int 0 where no gate can saturate)
+    input_ex, input_in, arrived, gate_ovf = backend.sweep_with_stats(
+        layout, w_native, state.ring, state.t)
+    gate_overflow = (state.gate_overflow if state.gate_overflow is not None
+                     else torch.zeros((), dtype=torch.int32,
+                                      device=state.t.device))
+    if isinstance(gate_ovf, torch.Tensor):
+        gate_overflow = gate_overflow + gate_ovf
 
     # (2) external stochastic drive
     if drive is not None:
@@ -309,6 +330,7 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     new_state = EngineState(neurons=neurons, ring=ring, weights=weights,
                             traces=traces, t=state.t + 1,
                             generator=state.generator,
+                            gate_overflow=gate_overflow,
                             weights_layout=state.weights_layout,
                             neuron_model=state.neuron_model,
                             model_seed=state.model_seed)
@@ -341,12 +363,17 @@ def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     layout = backend.prepare(graph)
     model = neuron_models_mod.get_model(cfg.neuron_model)
     native_tag = backends_mod.layout_tag(layout, backend.weights_layout)
-    if state.weights_layout != native_tag:
+    if state.gate_overflow is None:
         state = dataclasses.replace(
-            state,
-            weights=backends_mod.convert_weights(
-                layout, state.weights, state.weights_layout, native_tag),
-            weights_layout=native_tag)
+            state, gate_overflow=torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+    w = backends_mod.convert_weights(layout, state.weights,
+                                     state.weights_layout, native_tag)
+    if (w is state.weights and cfg.stdp is not None
+            and backend.stdp_in_place(layout)):
+        w = w.clone()   # the caller's weights stay as they were
+    state = dataclasses.replace(state, weights=w, weights_layout=native_tag)
+    del w   # else the first step's weights stay alive through the loop
 
     spikes = torch.empty((n_steps, graph.n_local), dtype=torch.bool,
                          device=dev)

@@ -1,4 +1,5 @@
-"""K1: the single edge pass of the hot path - CUDA kernel and plain twin.
+"""K1, the single edge pass of the hot path, and K6, its reduction half over
+a worklist of post blocks - CUDA kernels and plain twins.
 
 Ports ``src/repro/kernels/synaptic_gather.py::synaptic_gather`` (the Pallas
 TPU kernel).  On the post-block ELL layout (NB blocks x EB slots, PB post
@@ -16,6 +17,13 @@ walks the row's per-delay runs through a table built once by
 :func:`segment_bounds`; see the source for the design.  For CPU tensors
 :func:`synaptic_gather` runs :func:`synaptic_gather_plain`, the same
 function in plain torch; for CUDA tensors it launches the kernel or raises.
+
+K6 ports ``src/repro/kernels/synaptic_gather.py::blocked_reduce_sweep``:
+the activity gate (``"cuda:sparse"``) gathers the arrivals in a plain-torch
+pre-pass, and :func:`blocked_reduce_sweep` (``csrc/blocked_reduce_sweep.cu``)
+sums ``w * arrived`` per post row and channel over the blocks of a worklist
+only, in K1's sum order, so that the gated sums equal K1's bitwise.  Its
+twin is :func:`blocked_reduce_sweep_plain`.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["synaptic_gather", "synaptic_gather_plain", "segment_bounds",
-           "DEFAULT_PB"]
+           "blocked_reduce_sweep", "blocked_reduce_sweep_plain",
+           "listed_blocks", "DEFAULT_PB"]
 
 DEFAULT_PB = 256
 
@@ -74,15 +83,24 @@ def synaptic_gather_plain(pre_idx, post_rel, weight, delay, channel, ring, t,
     if fresh is not None:
         arrived = torch.where(delay == 1, fresh[pre_idx.long()], arrived)
     arrived = arrived * (delay > 0)
+    i_ex, i_in = _row_sums(post_rel, weight, arrived, channel, pb)
+    return i_ex, i_in, arrived
+
+
+def _row_sums(post_rel, weight, arrived, channel, pb: int):
+    """Per post row, the sums of ``weight * arrived`` over channel 0 and
+    channel 1, one ``index_add_`` each: the twins of K1 and K6 share it, so
+    on the CPU they give the same bits for the same arrivals."""
+    nb = weight.shape[0]
     contrib = (weight * arrived).reshape(-1)
-    post = (torch.arange(nb, device=pre_idx.device)[:, None] * pb
+    post = (torch.arange(nb, device=weight.device)[:, None] * pb
             + post_rel).reshape(-1)
     ch = channel.reshape(-1)
     zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
     out = lambda c: torch.zeros(nb * pb, dtype=contrib.dtype,
                                 device=contrib.device).index_add_(
         0, post, torch.where(ch == c, contrib, zero))
-    return out(0), out(1), arrived
+    return out(0), out(1)
 
 
 def _launcher():
@@ -150,3 +168,110 @@ def synaptic_gather(pre_idx, post_rel, weight, delay, channel, ring, t, *,
 
 #: kernel launches so far (plain-version calls do not count)
 synaptic_gather.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: the reduction half over a worklist of post blocks (activity gate)
+# --------------------------------------------------------------------------
+
+def listed_blocks(worklist, n_active, nb: int):
+    """(NB,) bool: the blocks that K6 and K7 walk for a worklist.
+
+    ``worklist`` (cap,) int32 lists block ids in its first ``n_active``
+    entries (a () int32 tensor); when ``n_active > cap`` the gate saturated
+    and every block is walked.  Entries outside [0, NB) are padding.
+    """
+    cap = worklist.shape[0]
+    valid = ((torch.arange(cap, device=worklist.device) < n_active)
+             & (worklist >= 0) & (worklist < nb))
+    idx = torch.where(valid, worklist, nb).long()
+    hit = torch.zeros(nb + 1, dtype=torch.bool, device=worklist.device)
+    return hit.index_fill_(0, idx, True)[:nb] | (n_active > cap)
+
+
+def blocked_reduce_sweep_plain(post_rel, weight, arrived, channel, *,
+                               pb: int = DEFAULT_PB, worklist=None,
+                               n_active=None):
+    """Plain-torch twin of K6: ``(i_ex, i_in)`` each (NB*PB,), zero on the
+    rows of blocks the list does not walk."""
+    i_ex, i_in = _row_sums(post_rel, weight, arrived, channel, pb)
+    if worklist is None:
+        return i_ex, i_in
+    row = listed_blocks(worklist, n_active, weight.shape[0]
+                        ).repeat_interleave(pb)
+    zero = torch.zeros((), dtype=i_ex.dtype, device=i_ex.device)
+    return torch.where(row, i_ex, zero), torch.where(row, i_in, zero)
+
+
+def _reduce_launcher():
+    fn = _build.load("blocked_reduce_sweep").blocked_reduce_sweep_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def blocked_reduce_sweep(post_rel, delay, weight, arrived, channel, *,
+                         max_delay: int, pb: int = DEFAULT_PB, worklist=None,
+                         n_active=None, bounds=None):
+    """Resident blocked arrays (NB, EB) and pre-gathered arrivals ->
+    ``(i_ex, i_in)``, each (NB*PB,), summed over the listed blocks only.
+
+    ``post_rel``/``delay``/``channel`` int32 and ``weight``/``arrived``
+    f32, each (NB, EB), in the builder's slot order (``arrived`` 0 on
+    padding).  ``worklist`` (cap,) int32 and ``n_active`` (a () int32
+    tensor) come from the gate and are read on the device (see
+    :func:`listed_blocks`); with neither, every block is summed.  Rows of
+    unlisted blocks are +0.0.  ``bounds`` is :func:`segment_bounds` of the
+    layout (built here if not given).
+    """
+    if (worklist is None) != (n_active is None):
+        raise ValueError("give both worklist and n_active, or neither")
+    if _build.dispatch_device(weight) == "cpu":
+        return blocked_reduce_sweep_plain(post_rel, weight, arrived, channel,
+                                          pb=pb, worklist=worklist,
+                                          n_active=n_active)
+    dev = weight.device
+    nb, eb = weight.shape if weight.dim() == 2 else (-1, -1)
+    if nb < 1 or eb < 1 or pb < 1 or max_delay < 1:
+        raise ValueError(f"bad geometry: weight {tuple(weight.shape)}, "
+                         f"pb={pb}, max_delay={max_delay}")
+    for name, x in (("post_rel", post_rel), ("delay", delay),
+                    ("channel", channel)):
+        _build.check_tensor(x, name, torch.int32, (nb, eb), dev)
+    _build.check_tensor(weight, "weight", torch.float32, (nb, eb), dev)
+    _build.check_tensor(arrived, "arrived", torch.float32, (nb, eb), dev)
+    cap = 0
+    if worklist is not None:
+        if worklist.dim() != 1:
+            raise ValueError(f"worklist must be 1-D, got shape "
+                             f"{tuple(worklist.shape)}")
+        cap = worklist.shape[0]
+        _build.check_tensor(worklist, "worklist", torch.int32, (cap,), dev)
+        _build.check_tensor(n_active, "n_active", torch.int32, (), dev)
+    if bounds is None:
+        bounds = segment_bounds(post_rel, delay, pb=pb, max_delay=max_delay)
+    _build.check_tensor(bounds, "bounds", torch.int32,
+                        (nb, max_delay * pb + 1), dev)
+
+    # unlisted rows stay 0: one memset for both outputs, none when every
+    # block is summed
+    alloc = torch.empty if worklist is None else torch.zeros
+    out = alloc((2, nb * pb), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _reduce_launcher()(
+            weight.data_ptr(), arrived.data_ptr(), channel.data_ptr(),
+            bounds.data_ptr(),
+            None if worklist is None else worklist.data_ptr(),
+            None if n_active is None else n_active.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(),
+            nb, eb, pb, max_delay, cap,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "blocked_reduce_sweep")
+    blocked_reduce_sweep.launches += 1
+    return out[0], out[1]
+
+
+#: kernel launches so far (plain-version calls do not count)
+blocked_reduce_sweep.launches = 0

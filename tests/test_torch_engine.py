@@ -77,7 +77,8 @@ def _ref_leaves(st):
         "neurons.ref_count": st.neurons.ref_count,
         "neurons.spike": st.neurons.spike, "ring": st.ring,
         "weights": st.weights, "traces.k_pre": st.traces.k_pre,
-        "traces.k_post": st.traces.k_post, "t": st.t}
+        "traces.k_post": st.traces.k_post, "t": st.t,
+        "gate_overflow": st.gate_overflow}
 
 
 def _live_mirrors(g):
@@ -235,8 +236,9 @@ def test_state_roundtrip_and_layouts():
     leaves["neurons.v_m"] = rng.uniform(-70, -50, leaves["neurons.v_m"].size
                                         ).astype(np.float32)
     leaves["t"] = np.asarray(17, np.int32)
+    leaves["gate_overflow"] = np.asarray(3, np.int32)
     g = _port_graph(g_ref)
-    for sweep in ("cuda", "flat"):
+    for sweep in ("cuda", "cuda:sparse", "flat"):
         st = convert.state_from_numpy(leaves, g, sweep=sweep, device=CPU)
         back = convert.state_to_numpy(st, g)
         assert set(back) == set(convert.STATE_LEAVES)
@@ -260,7 +262,7 @@ def test_mismatched_blocked_shapes_rejected():
 
 
 def test_registries_and_defaults():
-    assert backends.available_backends() == ("cuda", "flat")
+    assert backends.available_backends() == ("cuda", "cuda:sparse", "flat")
     assert engine.EngineConfig().sweep == "cuda"
     with pytest.raises(ValueError, match="unknown sweep backend"):
         backends.get_backend("pallas")
@@ -319,8 +321,8 @@ def test_port_imports_neither_jax_nor_reference():
         "assert not bad, bad\n"
         "for m in ('kernels.synaptic_gather', 'kernels.izhikevich_step',\n"
         "          'kernels.adex_step', 'kernels._two_variable',\n"
-        "          'core.neuron_models',\n"
-        "          'core.models'):\n"
+        "          'kernels.stdp_update', 'core.neuron_models',\n"
+        "          'core.models', 'core.autotune'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import builder, engine, models, neuron_models, snn
+from repro_torch.core import backends, builder, engine, models, neuron_models
+from repro_torch.core import snn
 from repro_torch.kernels import adex_step as adex_mod
 from repro_torch.kernels import izhikevich_step as izh_mod
 from repro_torch.kernels import lif_step as lif_mod
@@ -283,4 +284,161 @@ def test_a_step_never_waits_for_the_card(cuda, scenario):
             st, _ = engine.engine_step(st, g, table, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert int(st.t) == 6
+
+
+# --------------------------------------------------------------------------
+# the activity gate: K6 and K7
+# --------------------------------------------------------------------------
+
+GATE_LISTS = {  # name -> (listed blocks of 6, capacity, n_active)
+    "no_list": (None, 0, 0),
+    "partial": ([1, 4], 3, 2),
+    "empty": ([], 3, 0),
+    "identity": (list(range(6)), 6, 6),
+    "saturated": ([0, 2, 3], 3, 5),
+}
+
+
+def _gate_list(case, nb, cuda):
+    blocks, cap, n_act = GATE_LISTS[case]
+    if blocks is None:
+        return None, None
+    wl = np.full(cap, nb, np.int32)
+    wl[:len(blocks)] = blocks
+    return (torch.from_numpy(wl).to(cuda),
+            torch.tensor(n_act, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("case", sorted(GATE_LISTS))
+def test_reduce_kernel_matches_plain_and_k1(cuda, case):
+    """K6 against its twin (another summation order) and, on the walked
+    blocks, against K1's sums on the same arrivals bitwise; unlisted rows
+    are zero; two launches agree bitwise."""
+    rng = np.random.default_rng(21)
+    nb, eb, pb, m, d = 6, 512, 64, 700, 16
+    pre, post, w, delay, chan = sorted_blocked(rng, nb, eb, pb, m, d)
+    ring = (rng.uniform(size=(d, m)) < 0.3).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (pre, post, w, delay, chan, ring)]
+    tt = torch.tensor(9, dtype=torch.int32, device=cuda)
+    ex1, in1, arrived = gather_mod.synaptic_gather(*args, tt, max_delay=d,
+                                                   pb=pb)
+    wl, na = _gate_list(case, nb, cuda)
+    post_t, w_t, delay_t, chan_t = args[1], args[2], args[3], args[4]
+    launches = gather_mod.blocked_reduce_sweep.launches
+    outs = [gather_mod.blocked_reduce_sweep(
+        post_t, delay_t, w_t, arrived, chan_t, max_delay=d, pb=pb,
+        worklist=wl, n_active=na) for _ in range(2)]
+    assert gather_mod.blocked_reduce_sweep.launches == launches + 2
+    plain = gather_mod.blocked_reduce_sweep_plain(
+        post_t, w_t, arrived, chan_t, pb=pb, worklist=wl, n_active=na)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    for k in (0, 1):
+        torch.testing.assert_close(outs[0][k], plain[k], rtol=0, atol=1e-3)
+    listed = (torch.ones(nb, dtype=torch.bool, device=cuda) if wl is None
+              else gather_mod.listed_blocks(wl, na, nb))
+    rows = listed.repeat_interleave(pb)
+    assert torch.equal(outs[0][0][rows], ex1[rows])
+    assert torch.equal(outs[0][1][rows], in1[rows])
+    assert not outs[0][0][~rows].any() and not outs[0][1][~rows].any()
+
+
+@pytest.mark.parametrize("case", sorted(set(GATE_LISTS) - {"no_list"}))
+def test_stdp_worklist_kernel_matches_plain_and_k3(cuda, case):
+    """K7 in place against its twin and, on the walked blocks, against K3
+    bitwise; the other blocks' weights are untouched."""
+    rng = np.random.default_rng(23)
+    nb, eb, pb, m = 6, 256, 64, 200
+    e, nl = nb * eb, nb * pb - pb // 2
+    post = rng.integers(0, pb, e).astype(np.int32)
+    post[-eb:] %= pb // 2
+    w0 = torch.from_numpy(rng.uniform(1, 100, e).astype(np.float32)).to(cuda)
+    args = [torch.from_numpy(x).to(cuda) for x in (
+        rng.integers(0, m, e).astype(np.int32), post,
+        rng.uniform(size=e) < 0.7,
+        (rng.uniform(size=e) < 0.3).astype(np.float32))]
+    rest = [torch.from_numpy(x).to(cuda) for x in (
+        (rng.uniform(size=nl) < 0.3).astype(np.float32),
+        rng.uniform(0, 3, m).astype(np.float32),
+        rng.uniform(0, 3, nl).astype(np.float32))]
+    wl, na = _gate_list(case, nb, cuda)
+    kw = dict(params=STDP_PARAMS, eb=eb, pb=pb)
+    launches = stdp_mod.stdp_update_worklist.launches
+    outs = []
+    for _ in range(2):
+        w = w0.clone()
+        assert stdp_mod.stdp_update_worklist(w, *args, wl, na, *rest,
+                                             **kw) is w
+        outs.append(w)
+    assert stdp_mod.stdp_update_worklist.launches == launches + 2
+    assert torch.equal(outs[0], outs[1])
+    wp = stdp_mod.stdp_update_worklist_plain(w0.clone(), *args, wl, na,
+                                             *rest, **kw)
+    torch.testing.assert_close(outs[0], wp, rtol=2e-6, atol=0)
+    w3 = stdp_mod.stdp_update(w0, *args, *rest, **kw)
+    slots = gather_mod.listed_blocks(wl, na, nb).repeat_interleave(eb)
+    assert torch.equal(outs[0][slots], w3[slots])
+    assert torch.equal(outs[0][~slots], w0[~slots])
+    assert case == "empty" or not torch.equal(outs[0], w0), "vacuous"
+
+
+def _gated_net(cuda, scale=0.2):
+    spec, stdp = models.hpc_benchmark(scale, stdp=True)
+    g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
+    table = snn.make_param_table(list(spec.groups), 0.1, device=cuda)
+    return spec, stdp, g, table
+
+
+def test_gated_backend_steps_through_its_kernels(cuda):
+    """hpc_benchmark(0.2) (NB 9): ``cuda:sparse:1e-7`` (capacity 8) gives
+    the ``cuda`` backend's spikes, voltages and weights bitwise over 300
+    steps of one injected drive; K6 and K7 launch once per step, K1 and
+    K3 never; the gate saturated on some steps and not on others."""
+    spec, stdp, g, table = _gated_net(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    lam = (g.ext_rate * 1e-4).expand(300, -1)
+    drive = g.ext_weight * torch.poisson(lam * 1.5, generator=gen)
+    fns = (gather_mod.synaptic_gather, stdp_mod.stdp_update,
+           gather_mod.blocked_reduce_sweep, stdp_mod.stdp_update_worklist)
+    runs = {}
+    for sweep, want in (("cuda", [300, 300, 0, 0]),
+                        ("cuda:sparse:1e-7", [0, 0, 300, 300])):
+        assert sweep == "cuda" or backends.get_backend(sweep).gate_capacity(
+            backends.get_backend(sweep).prepare(g)) == 8 < g.blocked.nb
+        before = [f.launches for f in fns]
+        st = engine.init_state(g, list(spec.groups), 0, device=cuda)
+        cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep)
+        runs[sweep] = engine.run(st, g, table, cfg, 300, drive=drive,
+                                 device=cuda)
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+    (fd, sd), (fg, sg) = runs["cuda"], runs["cuda:sparse:1e-7"]
+    assert sd.sum() > 0, "no spikes - vacuous"
+    assert torch.equal(sd, sg)
+    assert torch.equal(fd.neurons.v_m, fg.neurons.v_m)
+    assert torch.equal(fd.weights, fg.weights)
+    assert 0 < int(fg.gate_overflow) < 300, "one branch never ran"
+    assert int(fd.gate_overflow) == 0
+
+
+def test_a_gated_step_never_waits_for_the_card(cuda):
+    """Five ``cuda:sparse:1e-7`` steps (capacity 8 of 9 blocks: the
+    worklist, K6 and K7 with the branch decided on the device) under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    spec, stdp, g, table = _gated_net(cuda)
+    cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep="cuda:sparse:1e-7")
+    st = engine.init_state(g, list(spec.groups), 0, sweep=cfg.sweep,
+                           device=cuda)
+    st, _ = engine.engine_step(st, g, table, cfg)   # builds the layout
+    torch.cuda.synchronize()
+    launches = stdp_mod.stdp_update_worklist.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            st, _ = engine.engine_step(st, g, table, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stdp_mod.stdp_update_worklist.launches == launches + 5
     assert int(st.t) == 6

@@ -534,7 +534,8 @@ def test_state_from_reference_round_trips(model):
         "ring": np.asarray(st_ref.ring), "weights": np.asarray(st_ref.weights),
         "traces.k_pre": np.asarray(st_ref.traces.k_pre),
         "traces.k_post": np.asarray(st_ref.traces.k_post),
-        "t": np.asarray(st_ref.t)}
+        "t": np.asarray(st_ref.t),
+        "gate_overflow": np.asarray(st_ref.gate_overflow)}
     for k, v in st_ref.neurons.extra.items():
         leaves[f"neurons.extra.{k}"] = np.asarray(v) + rng.uniform(
             -1, 1, g_ref.n_local).astype(np.float32)
