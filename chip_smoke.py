@@ -69,6 +69,26 @@ The activity gate (``"cuda:sparse"``, kernels K6 and K7):
                     + K6 + K7) at active fractions 1 to 1/32, bitwise
                     equal, timed.
 
+The LM face's serving path (dense GQA, kernel K8), after the zoo:
+
+13. kernel   - K8 ``flash_attention`` at qwen2.5-3b's prefill shape (q (4,
+               512, 16, 128), k / v (4, 512, 2, 128), bf16, causal) and on
+               the four fp32 cases of ``tests/test_flash_attention.py``:
+               against its plain twin (tolerance printed), twice for bitwise
+               determinism, timed, beside one call of PyTorch's
+               ``scaled_dot_product_attention`` (a yardstick the port never
+               calls);
+14. lm_serve - ``qwen2.5-3b`` at its full published config (36 layers, no
+               cut), weights drawn on the card in bf16 from the seed:
+               ``BatchServer(slots=4, max_len=1024)`` serves one wave of
+               prompts of 512, 448, 320 and 200 seeded tokens, 32 new tokens
+               each.  K8 launches once per layer in the prefill and never in
+               decode; logits finite; the prefill's logits against the same
+               model with K8's plain twin swapped in; a 4-token decode chain
+               against ``forward`` over prompt + tokens at those positions;
+               a second wave gives the same tokens.  Prints prefill and
+               decode times, peak memory and two profiled windows.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -106,10 +126,17 @@ from repro_torch.kernels import izhikevich_step as izh_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
 from repro_torch.kernels import synaptic_gather as gather_mod  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.models import attention as lm_attn  # noqa: E402
+from repro_torch.models import transformer as lm_tr  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.serve.engine import BatchServer  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16, dense tensor cores
 SEED = 0
 SLEEP_CYCLES = 10_000_000      # ~5 ms at H100 clocks: covers one enqueue
 KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
@@ -118,7 +145,8 @@ KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "izhikevich_step": izh_mod.izhikevich_step,
               "adex_step": adex_mod.adex_step,
               "blocked_reduce_sweep": gather_mod.blocked_reduce_sweep,
-              "stdp_update_worklist": stdp_mod.stdp_update_worklist}
+              "stdp_update_worklist": stdp_mod.stdp_update_worklist,
+              "flash_attention": fa_mod.flash_attention}
 REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "lif_step": "src/repro/kernels/lif_step.py:71",
             "stdp_update": "src/repro/kernels/stdp_update.py:66",
@@ -126,7 +154,8 @@ REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "adex_step": "src/repro/kernels/adex_step.py:108",
             "blocked_reduce_sweep":
                 "src/repro/kernels/synaptic_gather.py:195",
-            "stdp_update_worklist": "src/repro/kernels/stdp_update.py:137"}
+            "stdp_update_worklist": "src/repro/kernels/stdp_update.py:137",
+            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
 #: the kernels of the hpc_benchmark main path (phase 5)
 MAIN_KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
 #: the kernels of the gated main path (phase 11), by backend: the
@@ -153,6 +182,31 @@ with open(os.path.join(ROOT, "scripts", "reference_zoo_rates.json")) as f:
 #: emitters draw other random numbers than the reference's
 WINDOW_BAND = (0.5, 2.0)
 MEAN_BAND = {"izhikevich": 0.10, "adex": 0.10, "lif+poisson": 0.15}
+#: K8's cases (phase 13): (b, s, t, h, hk, dh, dv, causal, dtype); the
+#: first is qwen2.5-3b's prefill of the lm_serve wave, the others
+#: tests/test_flash_attention.py's fp32 cases
+FLASH_CASES = {
+    "qwen2.5-3b_prefill": (4, 512, 512, 16, 2, 128, 128, True,
+                           torch.bfloat16),
+    "gqa_ragged": (2, 300, 300, 8, 2, 32, 32, True, torch.float32),
+    "mha": (1, 128, 128, 4, 4, 16, 16, True, torch.float32),
+    "cross": (2, 100, 150, 4, 4, 16, 16, False, torch.float32),
+    "dv_ne_dh": (1, 257, 257, 2, 1, 64, 32, True, torch.float32),
+}
+#: K8 against its twin: fp32 sums in another order; bf16 adds the output's
+#: one rounding (one ulp, 2^-7 relative at most)
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+#: the lm_serve cell (phase 14): qwen2.5-3b at its full published config
+LM_ARCH = "qwen2.5-3b"
+LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS = 4, 1024, 32
+LM_PROMPT_LENS = (512, 448, 320, 200)
+LM_CHAIN = 4
+#: bf16 logits (of order 1) of two orders of the same sums through 36
+#: layers: the K8/twin swap and the decode chain against forward
+LM_LOGIT_ATOL = 0.1
+#: the K8/twin swap with the model in fp32: fp32 sums in another order
+LM_LOGIT_ATOL_F32 = 1e-3
 
 
 def emit(record: dict) -> None:
@@ -187,9 +241,10 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1158,6 +1213,264 @@ def phase_gate_activity(nb=64, pb=256, eb=196_608,
           "fractions": rows})
 
 
+# --------------------------------------------------------------------------
+# phases 13-14: the LM face's serving path (K8)
+# --------------------------------------------------------------------------
+
+def _flash_work(b, s, t, h, hk, dh, dv, causal, dtype):
+    """Bytes (each input read once, the output written once) and
+    operations (both products over the unmasked pairs) of one call."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * (b * s * h * dh + b * t * hk * (dh + dv) + b * s * h * dv)
+    pairs = (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
+    ops = 2 * b * h * pairs * (dh + dv)
+    return nbytes, ops, (BF16_OPS_PER_S if dtype == torch.bfloat16
+                         else F32_OPS_PER_S)
+
+
+def phase_flash_kernels() -> dict:
+    """K8 on every case of FLASH_CASES against its twin; the prefill case's
+    numbers go into the kernels line."""
+    rng = np.random.default_rng(SEED + 9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lines, out = {}, {}
+    for name, (b, s, t, h, hk, dh, dv, causal, dtype) in FLASH_CASES.items():
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(DEV, dtype) for shape in
+            ((b, s, h, dh), (b, t, hk, dh), (b, t, hk, dv)))
+        k1 = fa_mod.flash_attention(q, k, v, causal=causal)
+        k2 = fa_mod.flash_attention(q, k, v, causal=causal)
+        pl = fa_mod.flash_attention_plain(q, k, v, causal=causal)
+        check(torch.equal(k1, k2), f"K8 ({name}) not bitwise deterministic")
+        check(k1.shape == (b, s, h * dv) and k1.dtype == dtype,
+              f"K8 ({name}) returned {tuple(k1.shape)} {k1.dtype}")
+        err = max_abs(k1, pl)
+        check(torch.allclose(k1.float(), pl.float(), **FLASH_TOL[dtype]),
+              f"K8 ({name}) differs from its twin by {err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_err = max_abs(lib().transpose(1, 2).reshape(b, s, h * dv), pl)
+        k_ms = median_ms(lambda: fa_mod.flash_attention(q, k, v,
+                                                        causal=causal))
+        p_ms = median_ms(lambda: fa_mod.flash_attention_plain(
+            q, k, v, causal=causal))
+        l_ms = median_ms(lib)
+        nbytes, ops, rate = _flash_work(b, s, t, h, hk, dh, dv, causal,
+                                        dtype)
+        b_ms, b_by = bound(nbytes, ops, rate)
+        lines[name] = dict(shape=dict(b=b, s=s, t=t, h=h, hk=hk, dh=dh,
+                                      dv=dv, causal=causal,
+                                      dtype=str(dtype)),
+                           max_abs_err=err, tolerance=FLASH_TOL[dtype],
+                           kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           library_max_abs_err=lib_err, bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes, ops=ops,
+                           kernel_over_library=k_ms / l_ms)
+        if name == "qwen2.5-3b_prefill":
+            out["flash_attention"] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=l_ms, bytes=nbytes)
+    emit({"phase": "kernel", "name": "flash_attention",
+          "library": "torch.nn.functional.scaled_dot_product_attention "
+                     "(is_causal, enable_gqa), timed only",
+          "deterministic": True, "cases": lines})
+    return out
+
+
+def _lm_profile(fn, n_steps: int = 1) -> dict:
+    """Device time of ``fn`` by kernel class (K8, GEMMs, the rest), kernel
+    launches per step and the device's idle share over the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, launches = {}, 0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + dt / 1e3
+        launches += ev.count
+    busy = sum(by_name.values())
+    check(busy > 0, "lm profile: no device time traced")
+    gemm_words = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "splitk")
+    classes = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for key, ms in by_name.items():
+        low = key.lower()
+        cls = ("flash_attention" if "flash_attention_kernel" in low
+               else "gemm" if any(w in low for w in gemm_words) else "other")
+        classes[cls] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": n_steps, "wall_ms": wall * 1e3, "device_ms": busy,
+            "device_ms_by_class": classes,
+            "device_idle_share": 1 - busy / (wall * 1e3),
+            "launches_per_step": launches / n_steps,
+            "top_kernels_ms": {k.replace("(anonymous namespace)::", "")[:70]:
+                               v for k, v in top}}
+
+
+def _clear_margin(ref, tol: float):
+    """Rows whose top-2 logits are further apart than twice ``tol``: there
+    two sides within ``tol`` of each other must pick the same token."""
+    top2 = torch.topk(ref, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 2 * tol
+
+
+def phase_lm_serve() -> int:
+    """qwen2.5-3b at full width and depth through ``BatchServer``; returns
+    K8's launches in the counted wave."""
+    cfg = lm_configs.get(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == (36, 2048, 16, 2, 128, 11008, 151_936, "bfloat16"),
+          f"lm_serve: {LM_ARCH} is not the published config")
+    m = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = m.init(SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    srv = BatchServer(m, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      eos_id=-1, device=DEV)
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in LM_PROMPT_LENS]
+    srv.serve(reqs, max_new_tokens=2)          # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNEL_FNS.values():
+        fn.launches = 0
+    outs, stats = srv.serve(reqs, max_new_tokens=LM_NEW_TOKENS)
+    launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for k, c in launches.items():
+        want = cfg.n_layers if k == "flash_attention" else 0
+        check(c == want, f"lm_serve: {k} launched {c} times in one wave")
+    check(all(len(o) == LM_NEW_TOKENS for o in outs)
+          and stats.tokens_out == LM_SLOTS * LM_NEW_TOKENS,
+          f"lm_serve: {stats.tokens_out} tokens out")
+    again, _ = srv.serve(reqs, max_new_tokens=LM_NEW_TOKENS)
+    check(again == outs, "lm_serve: a second wave gave other tokens")
+
+    # the wave by hand: prefill counted alone, then the decode chain
+    tokens = srv._pad_batch(reqs)
+    cache = m.init_cache(LM_SLOTS, LM_MAX_LEN, dtype=torch.bfloat16,
+                         device=DEV)
+    fa_mod.flash_attention.launches = 0
+    logits, cache = m.prefill(params, {"tokens": tokens}, cache)
+    check(fa_mod.flash_attention.launches == cfg.n_layers,
+          f"lm_serve: prefill launched K8 "
+          f"{fa_mod.flash_attention.launches} times")
+    last = logits[:, -1]
+    check(bool(torch.isfinite(last).all()), "lm_serve: prefill logits")
+    lm_attn.flash_attention = fa_mod.flash_attention_plain
+    try:
+        plain_last = m.prefill(params, {"tokens": tokens}, m.init_cache(
+            LM_SLOTS, LM_MAX_LEN, dtype=torch.bfloat16,
+            device=DEV))[0][:, -1]
+    finally:
+        lm_attn.flash_attention = fa_mod.flash_attention
+    swap_err = max_abs(last, plain_last)
+    check(swap_err <= LM_LOGIT_ATOL, f"lm_serve: prefill logits with K8 "
+          f"differ from the plain twin's by {swap_err}")
+    clear = _clear_margin(plain_last, LM_LOGIT_ATOL)
+    check(torch.equal(last.argmax(-1)[clear], plain_last.argmax(-1)[clear]),
+          "lm_serve: K8 and its twin pick other tokens")
+    tok = last.argmax(-1)
+    pos = torch.full((LM_SLOTS,), tokens.shape[1], dtype=torch.int64,
+                     device=DEV)
+    fed, dec_logits = [], [last]
+    fa_mod.flash_attention.launches = 0
+    for i in range(LM_CHAIN):
+        fed.append(tok)
+        lg, cache = m.decode(params, cache, tok, pos + i)
+        check(bool(torch.isfinite(lg).all()), "lm_serve: decode logits")
+        dec_logits.append(lg)
+        tok = lg.argmax(-1)
+    check(fa_mod.flash_attention.launches == 0,
+          "lm_serve: decode launched K8")
+    check(torch.stack(fed + [tok], 1).tolist()
+          == [o[:LM_CHAIN + 1] for o in outs], "lm_serve: the hand-driven "
+          "chain left the served tokens")
+    slot = LM_SLOTS - 1                          # the shortest prompt
+    seq = torch.cat([tokens[slot], torch.stack(fed)[:, slot]])[None]
+    s0 = tokens.shape[1] - 1
+    hid = lm_tr.hidden_states(params, cfg, seq)[:, s0:s0 + LM_CHAIN + 1]
+    fwd = lm_tr._unembed(params, cfg, hid)[0]    # (LM_CHAIN + 1, vocab)
+    chain = torch.stack([x[slot] for x in dec_logits])
+    chain_err = max_abs(chain, fwd)
+    check(chain_err <= LM_LOGIT_ATOL, f"lm_serve: decode chain differs "
+          f"from forward by {chain_err}")
+    clear_f = _clear_margin(fwd, LM_LOGIT_ATOL)
+    check(torch.equal(chain.argmax(-1)[clear_f], fwd.argmax(-1)[clear_f]),
+          "lm_serve: decode chain and forward pick other tokens")
+
+    # the same swap in fp32 at full depth: K8 and its twin then differ by
+    # fp32 summation order alone, so a fault in K8 would show here above
+    # bf16's rounding noise
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    params32 = m32.init(SEED, device=DEV)
+    lm_attn.flash_attention = fa_mod.flash_attention_plain
+    try:
+        want32 = m32.prefill(params32, {"tokens": tokens}, m32.init_cache(
+            LM_SLOTS, LM_MAX_LEN, dtype=torch.float32, device=DEV))[0]
+    finally:
+        lm_attn.flash_attention = fa_mod.flash_attention
+    got32 = m32.prefill(params32, {"tokens": tokens}, m32.init_cache(
+        LM_SLOTS, LM_MAX_LEN, dtype=torch.float32, device=DEV))[0]
+    swap_err32 = max_abs(got32, want32)
+    check(swap_err32 <= LM_LOGIT_ATOL_F32, f"lm_serve: fp32 prefill logits "
+          f"with K8 differ from the plain twin's by {swap_err32}")
+    del m32, params32, got32, want32
+
+    def decode_steps(n=4):
+        t, c, p = last.argmax(-1), cache, pos + LM_CHAIN
+        for i in range(n):
+            lg, c = m.decode(params, c, t, p + i)
+            t = lg.argmax(-1)
+            t.cpu()
+    prof_prefill = _lm_profile(lambda: m.prefill(params, {"tokens": tokens},
+                                                 cache))
+    prof_decode = _lm_profile(decode_steps, n_steps=4)
+    n_pad = LM_SLOTS * tokens.shape[1]
+    emit({"phase": "lm_serve", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+          "prompt_lens": list(LM_PROMPT_LENS), "new_tokens": LM_NEW_TOKENS,
+          "launches": {k: v for k, v in launches.items() if v},
+          "prefill_ms": stats.prefill_s * 1e3,
+          "prefill_tok_per_s_padded": n_pad / stats.prefill_s,
+          "prefill_tok_per_s_real": sum(LM_PROMPT_LENS) / stats.prefill_s,
+          "decode_ms_per_step": stats.decode_s * 1e3 / LM_NEW_TOKENS,
+          "decode_tok_per_s": stats.decode_tok_per_s,
+          "peak_device_mem_bytes": peak,
+          "k8_vs_twin_logits_max_abs_err": swap_err,
+          "k8_vs_twin_rows_argmax_checked": int(clear.sum()),
+          "k8_vs_twin_logits_max_abs_err_fp32": swap_err32,
+          "logit_tolerance_fp32": LM_LOGIT_ATOL_F32,
+          "chain_vs_forward_logits_max_abs_err": chain_err,
+          "chain_vs_forward_positions_argmax_checked": int(clear_f.sum()),
+          "logit_tolerance": LM_LOGIT_ATOL,
+          "logit_abs_max": float(last.abs().max()),
+          "logit_std": float(last.std()),
+          "second_wave_identical": True,
+          "first_tokens": [o[:8] for o in outs],
+          "profile_prefill": prof_prefill, "profile_decode": prof_decode})
+    return launches["flash_attention"]
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -1183,6 +1496,8 @@ def main() -> None:
     launches.update(zoo_launches)
     for name in ("blocked_reduce_sweep", "stdp_update_worklist"):
         launches[name] = gate_launches[name]
+    kern.update(phase_flash_kernels())
+    launches["flash_attention"] = phase_lm_serve()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1190,7 +1505,8 @@ def main() -> None:
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": None}
+         "bound_by": kern[name]["bound_by"],
+         "library_ms": kern[name].get("library_ms")}
         for name in KERNEL_FNS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ tests use these functions so that both packages start from the same state.
   backend's native layout, for any neuron model (its ``extra`` variables
   are leaves ``neurons.extra.<name>``, :func:`state_leaves`) and with the
   gate's saturation count ``gate_overflow`` (0 when absent);
-* :func:`state_to_numpy` - the inverse, weights returned flat.
+* :func:`state_to_numpy` - the inverse, weights returned flat;
+* :func:`lm_params_from_numpy` - the LM face: a port ``DecoderLM``
+  ``state_dict`` from the reference's parameter tree.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedGraph
 
 __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
-           "state_leaves", "STATE_LEAVES"]
+           "state_leaves", "lm_params_from_numpy", "STATE_LEAVES"]
 
 #: leaf names of a single-shard engine state, as dataclass paths (a LIF
 #: state; other models add their extra variables, :func:`state_leaves`)
@@ -154,3 +156,56 @@ def state_to_numpy(state: engine_mod.EngineState,
                           if flat.gate_overflow is None
                           else np_(flat.gate_overflow)),
     }
+
+
+#: leaves of an LM parameter tree kept in fp32 (the reference adds biases
+#: and applies norm scales in fp32); every other leaf is a matrix or the
+#: embedding, stored in the config's compute dtype
+_LM_FP32_LEAVES = ("b", "scale", "bias")
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            _flatten(val, name + ".", out)
+        else:
+            arr = np.asarray(val)
+            # a bf16 leaf (ml_dtypes) widens exactly to fp32 for torch
+            out[name] = (arr.astype(np.float32)
+                         if arr.dtype.name == "bfloat16" else arr)
+    return out
+
+
+def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
+    """A port ``DecoderLM`` ``state_dict`` from the reference's parameter
+    tree (``repro.models.transformer.init_params``) with numpy leaves.
+
+    The reference stacks each period slot's leaves ``(n_periods, ...)``;
+    layer ``p * len(period) + j`` of the port is slot ``j`` at index ``p``.
+    Matrices and the embedding are stored in ``cfg.dtype`` (the cast every
+    reference use applies first), biases and norm scales in fp32 (the
+    reference adds the bias in fp32 before its one rounding).  Load the
+    result with ``DecoderLM(cfg, device=...).load_state_dict(...)``."""
+    from repro_torch.models import transformer   # the LM face only
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+    if "prefix" in params:
+        raise NotImplementedError("a dense prefix stack belongs to the MoE "
+                                  "archs, which are not ported yet")
+    _, period, n_periods = transformer.period_structure(cfg)
+    flat = {}
+    for key in ("embed", "final_norm", "unembed"):
+        if key in params:
+            _flatten(params[key], key + ".", flat)
+    for j in range(len(period)):
+        slot = _flatten(params["period"][j], "", {})
+        for p in range(n_periods):
+            i = p * len(period) + j
+            for name, arr in slot.items():
+                flat[f"layers.{i}.{name}"] = arr[p]
+    dtype = getattr(torch, cfg.dtype)
+    return {name: torch.tensor(      # a copy: the tree may be read-only
+        arr, device=dev,
+        dtype=(torch.float32 if name.rsplit(".", 1)[-1] in _LM_FP32_LEAVES
+               else dtype)) for name, arr in flat.items()}

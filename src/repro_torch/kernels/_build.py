@@ -38,7 +38,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: sources under csrc/ (one shared library each)
 KERNELS = ("synaptic_gather", "lif_step", "stdp_update", "izhikevich_step",
-           "adex_step", "blocked_reduce_sweep", "stdp_update_worklist")
+           "adex_step", "blocked_reduce_sweep", "stdp_update_worklist",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -322,7 +322,11 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in ('kernels.synaptic_gather', 'kernels.izhikevich_step',\n"
         "          'kernels.adex_step', 'kernels._two_variable',\n"
         "          'kernels.stdp_update', 'core.neuron_models',\n"
-        "          'core.models', 'core.autotune'):\n"
+        "          'core.models', 'core.autotune', 'configs',\n"
+        "          'configs.qwen2_5_3b', 'models.layers',\n"
+        "          'models.attention', 'models.transformer',\n"
+        "          'models.model', 'serve.engine',\n"
+        "          'kernels.flash_attention'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},

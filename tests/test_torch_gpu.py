@@ -13,11 +13,16 @@ import torch
 
 from repro_torch.core import backends, builder, engine, models, neuron_models
 from repro_torch.core import snn
+from repro_torch import configs
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import adex_step as adex_mod
 from repro_torch.kernels import izhikevich_step as izh_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import stdp_update as stdp_mod
 from repro_torch.kernels import synaptic_gather as gather_mod
+from repro_torch.models import transformer
+from repro_torch.models.model import build_model
+from repro_torch.serve.engine import BatchServer
 
 pytestmark = pytest.mark.gpu
 
@@ -442,3 +447,114 @@ def test_a_gated_step_never_waits_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert stdp_mod.stdp_update_worklist.launches == launches + 5
     assert int(st.t) == 6
+
+
+# --------------------------------------------------------------------------
+# K8: flash attention, and the LM serving path through it
+# --------------------------------------------------------------------------
+
+FLASH_CASES = {
+    # tests/test_flash_attention.py's cases (fp32)
+    "gqa_ragged": (2, 300, 300, 8, 2, 32, 32, True, torch.float32),
+    "mha": (1, 128, 128, 4, 4, 16, 16, True, torch.float32),
+    "cross": (2, 100, 150, 4, 4, 16, 16, False, torch.float32),
+    "dv_ne_dh": (1, 257, 257, 2, 1, 64, 32, True, torch.float32),
+    "bf16": (1, 64, 64, 2, 2, 16, 16, True, torch.bfloat16),
+    # qwen2.5-3b's head layout, short sequence, both dtypes
+    "qwen_heads": (2, 200, 200, 16, 2, 128, 128, True, torch.bfloat16),
+    "qwen_heads_f32": (1, 130, 130, 16, 2, 128, 128, True, torch.float32),
+    "dh_256": (1, 70, 70, 2, 1, 256, 256, True, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, case):
+    b, s, t, h, hk, dh, dv, causal, dtype = FLASH_CASES[case]
+    rng = np.random.default_rng(s + t)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((b, s, h, dh), (b, t, hk, dh), (b, t, hk, dv)))
+    launches = fa_mod.flash_attention.launches
+    outs = [fa_mod.flash_attention(q, k, v, causal=causal) for _ in range(2)]
+    assert fa_mod.flash_attention.launches == launches + 2
+    plain = fa_mod.flash_attention_plain(q, k, v, causal=causal)
+    assert outs[0].shape == (b, s, h * dv) and outs[0].dtype == dtype
+    assert torch.equal(outs[0], outs[1])   # no atomics: deterministic
+    # fp32: another summation order; bf16: one rounding of the output
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(outs[0].float(), plain.float(), **tol)
+
+
+@pytest.mark.parametrize("case", ["fp16", "head_ratio", "head_dim",
+                                  "cpu_k", "strides", "kv_length"])
+def test_flash_kernel_checks_its_arguments(cuda, case):
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    k = torch.zeros(1, 8, 2, 16, device=cuda)
+    args = {
+        "fp16": (q.half(), k.half(), k.half()),
+        "head_ratio": (torch.zeros(1, 8, 3, 16, device=cuda), k, k),
+        "head_dim": (torch.zeros(1, 8, 4, 512, device=cuda),
+                     torch.zeros(1, 8, 2, 512, device=cuda), k),
+        "cpu_k": (q, k.cpu(), k),
+        "strides": (torch.zeros(1, 8, 16, 4, device=cuda).transpose(2, 3),
+                    k, k),
+        "kv_length": (q, k, torch.zeros(1, 9, 2, 16, device=cuda)),
+    }[case]
+    launches = fa_mod.flash_attention.launches
+    with pytest.raises((TypeError, ValueError)):
+        fa_mod.flash_attention(*args)
+    assert fa_mod.flash_attention.launches == launches
+
+
+def test_lm_serves_through_the_flash_kernel(cuda):
+    """qwen2.5-3b's smoke config on the card: K8 once per layer in the
+    prefill, never in decode; a second wave gives the same tokens, and
+    the prefill logits equal ``forward``'s."""
+    cfg = configs.get_smoke("qwen2.5-3b")
+    m = build_model(cfg)
+    params = m.init(0, device=cuda)
+    srv = BatchServer(m, params, slots=4, max_len=64, eos_id=-1,
+                      device=cuda)
+    reqs = [[5, 6, 7], [8, 9], [3, 4, 5, 6]]
+    launches = fa_mod.flash_attention.launches
+    out, stats = srv.serve(reqs, max_new_tokens=8)
+    assert fa_mod.flash_attention.launches == launches + cfg.n_layers
+    assert stats.tokens_out == 24
+    assert srv.serve(reqs, max_new_tokens=8)[0] == out
+    cache = m.init_cache(4, 64, dtype=torch.float32, device=cuda)
+    toks = torch.tensor([[5, 6, 7]] * 4, device=cuda)
+    logits, cache = m.prefill(params, {"tokens": toks}, cache)
+    launches = fa_mod.flash_attention.launches
+    m.decode(params, cache, logits[:, -1].argmax(-1),
+             torch.full((4,), 3, device=cuda))
+    assert fa_mod.flash_attention.launches == launches
+    logits_t = transformer.forward(params, cfg, toks)[0][:, -1]
+    torch.testing.assert_close(logits[:, -1], logits_t, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_an_lm_step_never_waits_for_the_card(cuda):
+    """A prefill and two decode steps of qwen2.5-3b's smoke config under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing on the path
+    copies from pageable host memory or reads the card (the serve loop's
+    one read per step is its own)."""
+    cfg = configs.get_smoke("qwen2.5-3b")
+    m = build_model(cfg)
+    params = m.init(0, device=cuda)
+    cache = m.init_cache(2, 32, dtype=torch.float32, device=cuda)
+    toks = torch.tensor([[5, 6, 7], [8, 9, 10]], device=cuda)
+    pos = torch.full((2,), 3, device=cuda)
+    m.decode(params, m.prefill(params, {"tokens": toks}, cache)[1],
+             toks[:, 0], pos)                    # warm: caches, handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = m.prefill(params, {"tokens": toks}, cache)
+        tok = logits[:, -1].argmax(-1)
+        for i in range(2):
+            logits, cache = m.decode(params, cache, tok, pos + i)
+            tok = logits.argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
