@@ -71,19 +71,24 @@ The activity gate (``"cuda:sparse"``, kernels K6 and K7):
 
 The LM face's serving path (dense GQA, kernel K8), after the zoo:
 
-13. kernel   - K8 ``flash_attention`` at qwen2.5-3b's prefill shape (q (4,
-               512, 16, 128), k / v (4, 512, 2, 128), bf16, causal) and on
-               the four fp32 cases of ``tests/test_flash_attention.py``:
-               against its plain twin (tolerance printed), twice for bitwise
-               determinism, timed, beside one call of PyTorch's
+13. kernel   - K8 ``flash_attention``: first the built library's SASS,
+               counted for HGMMA (``wgmma``) instructions; then qwen2.5-3b's
+               prefill shape (q (4, 512, 16, 128), k / v (4, 512, 2, 128),
+               bf16, causal), the four fp32 cases of
+               ``tests/test_flash_attention.py`` and six bf16 cases (ragged,
+               internvl2-1b's heads, cross, dv < dh, no grouping, S = T =
+               4096): each through the route its dtype must take (bf16 on
+               the tensor cores, fp32 on the CUDA cores), against its plain
+               twin (tolerance printed), twice for bitwise determinism,
+               timed, beside one call of PyTorch's
                ``scaled_dot_product_attention`` (a yardstick the port never
                calls);
 14. lm_serve - ``qwen2.5-3b`` at its full published config (36 layers, no
                cut), weights drawn on the card in bf16 from the seed:
                ``BatchServer(slots=4, max_len=1024)`` serves one wave of
                prompts of 512, 448, 320 and 200 seeded tokens, 32 new tokens
-               each.  K8 launches once per layer in the prefill and never in
-               decode; logits finite; the prefill's logits against the same
+               each.  K8 launches once per layer in the prefill, all on the
+               tensor-core route, and never in decode; logits finite; the prefill's logits against the same
                model with K8's plain twin swapped in; a 4-token decode chain
                against ``forward`` over prompt + tokens at those positions;
                a second wave gives the same tokens.  Prints prefill and
@@ -100,6 +105,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -183,8 +189,12 @@ with open(os.path.join(ROOT, "scripts", "reference_zoo_rates.json")) as f:
 WINDOW_BAND = (0.5, 2.0)
 MEAN_BAND = {"izhikevich": 0.10, "adex": 0.10, "lif+poisson": 0.15}
 #: K8's cases (phase 13): (b, s, t, h, hk, dh, dv, causal, dtype); the
-#: first is qwen2.5-3b's prefill of the lm_serve wave, the others
-#: tests/test_flash_attention.py's fp32 cases
+#: first is qwen2.5-3b's prefill of the lm_serve wave, then the four fp32
+#: cases of tests/test_flash_attention.py (the SIMT route), then bf16 cases
+#: of the tensor-core route: qwen2.5-3b's heads at a ragged length (masks
+#: in the tail tile), internvl2-1b's LLM heads (14 over 2, dh 64), cross
+#: attention with S != T, dh 64 against dv 32, no grouping, and a long
+#: causal prefill whose 64 key tiles pass many times through the ring
 FLASH_CASES = {
     "qwen2.5-3b_prefill": (4, 512, 512, 16, 2, 128, 128, True,
                            torch.bfloat16),
@@ -192,7 +202,17 @@ FLASH_CASES = {
     "mha": (1, 128, 128, 4, 4, 16, 16, True, torch.float32),
     "cross": (2, 100, 150, 4, 4, 16, 16, False, torch.float32),
     "dv_ne_dh": (1, 257, 257, 2, 1, 64, 32, True, torch.float32),
+    "qwen_heads_ragged": (2, 300, 300, 16, 2, 128, 128, True,
+                          torch.bfloat16),
+    "internvl2-1b_heads": (2, 333, 333, 14, 2, 64, 64, True,
+                           torch.bfloat16),
+    "cross_bf16": (2, 100, 150, 4, 4, 64, 64, False, torch.bfloat16),
+    "dv_lt_dh_bf16": (1, 257, 257, 2, 1, 64, 32, True, torch.bfloat16),
+    "mha_bf16": (1, 200, 200, 8, 8, 128, 128, True, torch.bfloat16),
+    "long_causal": (1, 4096, 4096, 16, 2, 128, 128, True, torch.bfloat16),
 }
+#: the route each dtype's cases must take (``flash_attention._route``)
+FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: K8 against its twin: fp32 sums in another order; bf16 adds the output's
 #: one rounding (one ulp, 2^-7 relative at most)
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -1228,9 +1248,26 @@ def _flash_work(b, s, t, h, hk, dh, dv, causal, dtype):
                          else F32_OPS_PER_S)
 
 
+def _sass_hgmma() -> int:
+    """HGMMA instructions (``wgmma`` in SASS) in the built K8 library."""
+    tool = next((c for c in (shutil.which("cuobjdump"),
+                             "/usr/local/cuda/bin/cuobjdump")
+                 if c and os.path.exists(c)), None)
+    check(tool is not None, "cuobjdump not found")
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(_build.BUILD_DIR / "libflash_attention.so")],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def phase_flash_kernels() -> dict:
-    """K8 on every case of FLASH_CASES against its twin; the prefill case's
-    numbers go into the kernels line."""
+    """K8 on every case of FLASH_CASES against its twin, each through the
+    route its dtype must take; the prefill case's numbers go into the
+    kernels line."""
+    hgmma = _sass_hgmma()
+    emit({"phase": "sass", "library": "build/libflash_attention.so",
+          "hgmma_instructions": hgmma, "holds_hgmma": hgmma > 0})
+    check(hgmma > 0, "K8's library holds no HGMMA instruction")
     rng = np.random.default_rng(SEED + 9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lines, out = {}, {}
@@ -1238,8 +1275,13 @@ def phase_flash_kernels() -> dict:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(DEV, dtype) for shape in
             ((b, s, h, dh), (b, t, hk, dh), (b, t, hk, dv)))
+        route = fa_mod._route(q, k, v)
+        check(route == FLASH_ROUTE[dtype], f"K8 ({name}) routed to {route}")
+        before = dict(fa_mod.flash_attention.launches_by_route)
         k1 = fa_mod.flash_attention(q, k, v, causal=causal)
         k2 = fa_mod.flash_attention(q, k, v, causal=causal)
+        check(fa_mod.flash_attention.launches_by_route[route]
+              == before[route] + 2, f"K8 ({name}) did not launch {route}")
         pl = fa_mod.flash_attention_plain(q, k, v, causal=causal)
         check(torch.equal(k1, k2), f"K8 ({name}) not bitwise deterministic")
         check(k1.shape == (b, s, h * dv) and k1.dtype == dtype,
@@ -1261,6 +1303,7 @@ def phase_flash_kernels() -> dict:
         lines[name] = dict(shape=dict(b=b, s=s, t=t, h=h, hk=hk, dh=dh,
                                       dv=dv, causal=causal,
                                       dtype=str(dtype)),
+                           route=route,
                            max_abs_err=err, tolerance=FLASH_TOL[dtype],
                            kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                            library_max_abs_err=lib_err, bound_ms=b_ms,
@@ -1273,7 +1316,8 @@ def phase_flash_kernels() -> dict:
     emit({"phase": "kernel", "name": "flash_attention",
           "library": "torch.nn.functional.scaled_dot_product_attention "
                      "(is_causal, enable_gqa), timed only",
-          "deterministic": True, "cases": lines})
+          "deterministic": True, "hgmma_instructions": hgmma,
+          "cases": lines})
     return out
 
 
@@ -1365,10 +1409,15 @@ def phase_lm_serve() -> int:
     cache = m.init_cache(LM_SLOTS, LM_MAX_LEN, dtype=torch.bfloat16,
                          device=DEV)
     fa_mod.flash_attention.launches = 0
+    by_route = fa_mod.flash_attention.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
     logits, cache = m.prefill(params, {"tokens": tokens}, cache)
     check(fa_mod.flash_attention.launches == cfg.n_layers,
           f"lm_serve: prefill launched K8 "
           f"{fa_mod.flash_attention.launches} times")
+    prefill_routes = dict(by_route)
+    check(prefill_routes == {"wgmma": cfg.n_layers, "simt": 0},
+          f"lm_serve: prefill took K8's routes {prefill_routes}")
     last = logits[:, -1]
     check(bool(torch.isfinite(last).all()), "lm_serve: prefill logits")
     lm_attn.flash_attention = fa_mod.flash_attention_plain
@@ -1450,6 +1499,7 @@ def phase_lm_serve() -> int:
           "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
           "prompt_lens": list(LM_PROMPT_LENS), "new_tokens": LM_NEW_TOKENS,
           "launches": {k: v for k, v in launches.items() if v},
+          "prefill_k8_routes": prefill_routes,
           "prefill_ms": stats.prefill_s * 1e3,
           "prefill_tok_per_s_padded": n_pad / stats.prefill_s,
           "prefill_tok_per_s_real": sum(LM_PROMPT_LENS) / stats.prefill_s,

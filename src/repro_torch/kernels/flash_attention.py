@@ -19,11 +19,22 @@ q's dtype.  The arithmetic is the reference kernel's:
 
 :func:`flash_attention_plain` repeats that loop chunk by chunk over
 ``kv_chunk``, padding the last chunk with zeros as the reference does; the
-CPU path and the tests use it.  The kernel (``csrc/flash_attention.cu``)
-tiles 64 x 64 whatever the chunk arguments say: they only shape the
-twin's loop, and the result differs from the twin's by the fp32 rounding of
-another summation order.  For CPU tensors :func:`flash_attention` runs the
-twin, for CUDA tensors it launches the kernel or raises.
+CPU path and the tests use it.  For CPU tensors :func:`flash_attention`
+runs the twin; for CUDA tensors it launches one of the two hand-written
+routes of ``csrc/flash_attention.cu`` or raises, and never falls back:
+
+* ``"wgmma"`` - bf16 on the tensor cores (``wgmma``, K/V by TMA into a
+  ring of stages, a producer warpgroup and two consumers), for bf16 inputs
+  whose ``dh`` and ``dv`` are multiples of 16 and whose base pointers and
+  strides (of every dim longer than 1) are multiples of 16 bytes;
+* ``"simt"`` - fp32 FMAs on the CUDA cores, for fp32 and the other bf16
+  calls.
+
+:func:`_route` makes that choice from dtypes, shapes, strides and
+pointers alone.  Both routes tile 128 or 64 queries by 64 keys whatever
+the chunk arguments say: those only shape the twin's loop, and the result
+differs from the twin's by the fp32 rounding of another summation order
+(and, on the tensor cores, p carried as two bf16 parts, 2^-17 relative).
 """
 
 from __future__ import annotations
@@ -36,13 +47,18 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "NEG_INF",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "ROUTES"]
 
 NEG_INF = -1e30
-#: largest dh and dv the kernel takes (its Q/K/V/P tiles then fill 209 KB
-#: of the 227 KB of shared memory a block may use)
+#: largest dh and dv the kernel takes (the SIMT route's Q/K/V/P tiles then
+#: fill 209 KB of the 227 KB of shared memory a block may use, the
+#: tensor-core route's Q tile and two K/V stages 194 KB)
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's two routes: bf16 on the tensor cores, and fp32 FMAs
+ROUTES = ("wgmma", "simt")
+#: TMA's alignment of base pointers and strides, in bytes
+_TMA_ALIGN = 16
 
 
 def _scale(dh: int) -> float:
@@ -130,6 +146,40 @@ def _check(q, k, v, q_chunk: int, kv_chunk: int) -> None:
         raise ValueError("q_chunk and kv_chunk must be positive")
 
 
+def _route(q, k, v) -> str:
+    """The route a checked call takes: ``"wgmma"`` for bf16 with ``dh``
+    and ``dv`` multiples of 16 and every base pointer and every stride of
+    a dim longer than 1 a multiple of 16 bytes (what TMA takes), else
+    ``"simt"``."""
+    dh, dv = q.shape[3], v.shape[3]
+    if q.dtype != torch.bfloat16 or dh % 16 or dv % 16:
+        return "simt"
+    for x in (q, k, v):
+        size = x.element_size()
+        if x.data_ptr() % _TMA_ALIGN or any(
+                x.stride(i) * size % _TMA_ALIGN
+                for i in range(3) if x.shape[i] > 1):
+            return "simt"
+    return "wgmma"
+
+
+def _entry(route: str):
+    """The C entry point of ``route``, its argument types set."""
+    lib = _build.load("flash_attention")
+    if route == "wgmma":
+        fn = lib.flash_attention_wgmma_launch
+        tail = [ctypes.c_void_p]
+    else:
+        fn = lib.flash_attention_launch
+        tail = [ctypes.c_int, ctypes.c_void_p]
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+                       + tail)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512):
     """q: (B, S, H, dh); k / v: (B, T, Hk, dh | dv), one dtype (fp32 or
@@ -141,25 +191,26 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
     _check(q, k, v, q_chunk, kv_chunk)
     b, s, h, dh = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
-    fn = _build.load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    route = _route(q, k, v)
+    fn = _entry(route)
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v)
                                         for i in range(3)))
     out = torch.empty((b, s, h * dv), dtype=q.dtype, device=q.device)
+    tail = ([] if route == "wgmma"
+            else [int(q.dtype == torch.bfloat16)])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, s, t, h, hk, dh, dv, ctypes.cast(strides,
                                                      ctypes.c_void_p),
-                 _scale(dh), int(causal), int(q.dtype == torch.bfloat16),
+                 _scale(dh), int(causal), *tail,
                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    _build.check(err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches so far (plain-version calls do not count)
+#: kernel launches so far (plain-version calls do not count), in all and
+#: by route
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

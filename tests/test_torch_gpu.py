@@ -464,7 +464,21 @@ FLASH_CASES = {
     "qwen_heads": (2, 200, 200, 16, 2, 128, 128, True, torch.bfloat16),
     "qwen_heads_f32": (1, 130, 130, 16, 2, 128, 128, True, torch.float32),
     "dh_256": (1, 70, 70, 2, 1, 256, 256, True, torch.float32),
+    # the tensor-core route: qwen2.5-3b's heads at a ragged length,
+    # internvl2-1b's LLM heads, cross attention, dv < dh, no grouping, a
+    # long causal prefill through the ring, the widest heads
+    "qwen_heads_ragged": (2, 300, 300, 16, 2, 128, 128, True,
+                          torch.bfloat16),
+    "internvl2-1b_heads": (2, 333, 333, 14, 2, 64, 64, True,
+                           torch.bfloat16),
+    "cross_bf16": (2, 100, 150, 4, 4, 64, 64, False, torch.bfloat16),
+    "dv_lt_dh_bf16": (1, 257, 257, 2, 1, 64, 32, True, torch.bfloat16),
+    "mha_bf16": (1, 200, 200, 8, 8, 128, 128, True, torch.bfloat16),
+    "long_causal": (1, 4096, 4096, 16, 2, 128, 128, True, torch.bfloat16),
+    "dh_256_bf16": (1, 70, 70, 2, 1, 256, 256, True, torch.bfloat16),
 }
+#: the route each dtype's cases take (``flash_attention._route``)
+FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
@@ -474,9 +488,14 @@ def test_flash_kernel_matches_plain(cuda, case):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(cuda, dtype) for shape in
         ((b, s, h, dh), (b, t, hk, dh), (b, t, hk, dv)))
+    route = FLASH_ROUTE[dtype]
+    assert fa_mod._route(q, k, v) == route
     launches = fa_mod.flash_attention.launches
+    by_route = dict(fa_mod.flash_attention.launches_by_route)
     outs = [fa_mod.flash_attention(q, k, v, causal=causal) for _ in range(2)]
     assert fa_mod.flash_attention.launches == launches + 2
+    by_route[route] += 2
+    assert fa_mod.flash_attention.launches_by_route == by_route
     plain = fa_mod.flash_attention_plain(q, k, v, causal=causal)
     assert outs[0].shape == (b, s, h * dv) and outs[0].dtype == dtype
     assert torch.equal(outs[0], outs[1])   # no atomics: deterministic
@@ -484,6 +503,49 @@ def test_flash_kernel_matches_plain(cuda, case):
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=2 ** -7, atol=1e-5))
     torch.testing.assert_close(outs[0].float(), plain.float(), **tol)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """The tensor-core route reads q, k and v through their strides: a
+    (B, H, S, dh) layout seen as (B, S, H, dh), and the same call on
+    contiguous copies, give the same bits; a view TMA cannot take goes to
+    the SIMT route."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+        for shape in ((2, 8, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64)))
+    assert fa_mod._route(q, k, v) == "wgmma"
+    got = fa_mod.flash_attention(q, k, v)
+    want = fa_mod.flash_attention(*(x.contiguous() for x in (q, k, v)))
+    assert torch.equal(got, want)
+    wide = torch.zeros(2, 130, 2, 65, device=cuda, dtype=torch.bfloat16)
+    k_odd = wide[..., 1:]                  # 2 bytes off 16
+    k_odd.copy_(k)
+    assert fa_mod._route(q, k_odd, v) == "simt"
+    plain = fa_mod.flash_attention_plain(q, k, v).float()
+    for out in (got, fa_mod.flash_attention(q, k_odd, v)):
+        torch.testing.assert_close(out.float(), plain, rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_takes_broadcast_views(cuda, dtype):
+    """k and v broadcast over the batch (stride 0) and q broadcast over
+    its heads: each route reads them through those strides and agrees
+    with the twin."""
+    rng = np.random.default_rng(2)
+    q1, k1, v1 = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype)
+        for shape in ((3, 90, 1, 64), (1, 90, 2, 64), (1, 90, 2, 64)))
+    q = q1.expand(3, 90, 4, 64)
+    k, v = k1.expand(3, 90, 2, 64), v1.expand(3, 90, 2, 64)
+    route = fa_mod._route(q, k, v)
+    assert route == FLASH_ROUTE[dtype]
+    out = fa_mod.flash_attention(q, k, v)
+    plain = fa_mod.flash_attention_plain(q, k, v)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(out.float(), plain.float(), **tol)
 
 
 @pytest.mark.parametrize("case", ["fp16", "head_ratio", "head_dim",
@@ -518,8 +580,11 @@ def test_lm_serves_through_the_flash_kernel(cuda):
                       device=cuda)
     reqs = [[5, 6, 7], [8, 9], [3, 4, 5, 6]]
     launches = fa_mod.flash_attention.launches
+    by_route = dict(fa_mod.flash_attention.launches_by_route)
     out, stats = srv.serve(reqs, max_new_tokens=8)
     assert fa_mod.flash_attention.launches == launches + cfg.n_layers
+    by_route["simt"] += cfg.n_layers       # the smoke config is fp32
+    assert fa_mod.flash_attention.launches_by_route == by_route
     assert stats.tokens_out == 24
     assert srv.serve(reqs, max_new_tokens=8)[0] == out
     cache = m.init_cache(4, 64, dtype=torch.float32, device=cuda)
