@@ -5,20 +5,26 @@
 The main path is the paper's verification case (§IV.A): NEST's
 ``hpc_benchmark`` with pl-STDP at scale 1 (11 250 neurons, 12.66 M
 synapses), built on one shard and stepped by ``engine.run`` through the
-``"cuda"`` backend, whose three kernels are hand-written CUDA C++ for
-Hopper (``src/repro_torch/kernels/csrc/``).  Phases, one JSON line each:
+``"cuda"`` backend, whose kernels are hand-written CUDA C++ for Hopper
+(``src/repro_torch/kernels/csrc/``): K1 with the LIF step as its epilogue
+(K1 + K2 in one launch) and K3.  Phases, one JSON line each:
 
-1. device   - the card (``nvidia-smi``) and the kernels' build time;
-2. kernel   - K1, K2, K3 at the main path's shapes on seeded random inputs:
-              each against its plain-torch twin (tolerance printed), twice
-              for bitwise determinism, timed with CUDA events;
+1. device   - the card (``nvidia-smi``), the kernels' build time and the
+              fused kernel's registers (``ptxas``);
+2. kernel   - K1, K2, K3 and K1 + K2 fused at the main path's shapes on
+              seeded random inputs: each against its plain-torch twin
+              (tolerance printed), the fused kernel also bitwise against
+              K1 -> add -> K2 with the drive on and off, twice for bitwise
+              determinism, timed with CUDA events (one call, and per launch
+              over many; the fused kernel against K1 alone in turns);
 3. lockstep - 120 steps of scale 1 where the ``"cuda"`` and ``"flat"``
               backends start every step from the same state and drive;
 4. mixed    - 120 free-running steps of a small mixed network, drive off:
               identical spike rasters on both backends;
-5. main     - 2000 steps of scale 1 through ``engine.run``: every kernel
-              launched once per step, weights bounded, state finite, rate
-              in the asynchronous-irregular band; then a profiled window.
+5. main     - 2000 steps of scale 1 through ``engine.run``: the fused
+              kernel and K3 launched once per step and no other kernel,
+              weights bounded, state finite, rate in the
+              asynchronous-irregular band; then a profiled window.
 
 The neuron-model zoo, on the same card (``python3 chip_smoke.py`` runs
 every phase; each path's launch counts are set to 0 just before it and
@@ -26,18 +32,21 @@ read just after):
 
 6. kernel       - K4 ``izhikevich_step`` and K5 ``adex_step`` at 10 000
                   neurons, the ``model_demo`` tables: against their plain
-                  twins, deterministic, timed;
+                  twins, deterministic, timed; then K1 + K5 fused at
+                  ``model_demo("adex", 1.0)``'s shapes, as K1 + K2 above;
 7. zoo_lockstep - ``model_demo("izhikevich"|"adex", 1.0, stdp=True)``, 120
                   steps where the ``"cuda"`` and ``"flat"`` backends start
                   every step from the same state: identical spikes away
                   from ``v_peak``;
 8. zoo_main     - the same two networks, 2000 steps each through
-                  ``engine.run``: K1, K3 and K4 or K5 once per step, state
-                  finite, the rate per 250 steps inside a band around the
-                  JAX reference's own CPU run
+                  ``engine.run``: K1, K3 and K4, or K1 + K5 fused and K3,
+                  once per step, state finite, the rate per 250 steps
+                  inside a band around the JAX reference's own CPU run
                   (``scripts/reference_zoo_rates.json``, written by
                   ``scripts/reference_zoo_rates.py``, which also sets each
-                  network's scale and length here);
+                  network's scale and length here); then the adex network
+                  through ``"cuda:sparse"`` (K6, the standalone K5, K3 or
+                  K7), bitwise equal to the fused run;
 9. composite    - ``brunel(1.0, poisson_input=True)`` ("lif+poisson"),
                   2000 steps on the port's own emitter draws: K1 and K2
                   once per step, the emitter rate within 4 sigma, E and I
@@ -145,6 +154,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16, dense tensor cores
 SEED = 0
 SLEEP_CYCLES = 10_000_000      # ~5 ms at H100 clocks: covers one enqueue
+#: each kernel wrapper, counting its launches in ``.launches``
 KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "lif_step": lif_mod.lif_step,
               "stdp_update": stdp_mod.stdp_update,
@@ -153,6 +163,9 @@ KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "blocked_reduce_sweep": gather_mod.blocked_reduce_sweep,
               "stdp_update_worklist": stdp_mod.stdp_update_worklist,
               "flash_attention": fa_mod.flash_attention}
+#: K1 with a neuron epilogue: one wrapper, its launches counted by epilogue
+FUSED = gather_mod.synaptic_gather_update
+FUSED_KERNELS = {"synaptic_gather_lif": "lif", "synaptic_gather_adex": "adex"}
 REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "lif_step": "src/repro/kernels/lif_step.py:71",
             "stdp_update": "src/repro/kernels/stdp_update.py:66",
@@ -161,9 +174,26 @@ REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "blocked_reduce_sweep":
                 "src/repro/kernels/synaptic_gather.py:195",
             "stdp_update_worklist": "src/repro/kernels/stdp_update.py:137",
-            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:80",
+            "synaptic_gather_lif": "src/repro/kernels/synaptic_gather.py:106"
+                                   " + src/repro/kernels/lif_step.py:71",
+            "synaptic_gather_adex": "src/repro/kernels/synaptic_gather.py:106"
+                                    " + src/repro/kernels/adex_step.py:108"}
 #: the kernels of the hpc_benchmark main path (phase 5)
-MAIN_KERNELS = ("synaptic_gather", "lif_step", "stdp_update")
+MAIN_KERNELS = ("synaptic_gather_lif", "stdp_update")
+#: the counted run whose launches the kernels line reports for a kernel:
+#: a path that runs it once per step (K1 and K2 standalone are off the
+#: fused main path: K1 stays before K4, K2 after K6, K5 after K6)
+LAUNCHES_FROM = {"synaptic_gather": "zoo_main izhikevich",
+                 "lif_step": "gate_main cuda:sparse:1e-7",
+                 "stdp_update": "main",
+                 "izhikevich_step": "zoo_main izhikevich",
+                 "adex_step": "zoo_gate adex",
+                 "blocked_reduce_sweep": "gate_main cuda:sparse:1e-7",
+                 "stdp_update_worklist": "gate_main cuda:sparse:1e-7",
+                 "flash_attention": "lm_serve",
+                 "synaptic_gather_lif": "main",
+                 "synaptic_gather_adex": "zoo_main adex"}
 #: the kernels of the gated main path (phase 11), by backend: the
 #: full-capacity gate reduces densely through K6 and updates through K3,
 #: the forced gate (capacity 8 of 44) runs K6 and K7 on every step
@@ -174,6 +204,16 @@ GATE_KERNELS = {"cuda:sparse": ("blocked_reduce_sweep", "lif_step",
 #: the zoo's two-variable kernels: model -> (kernel module, its wrapper)
 ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
                "adex": (adex_mod, adex_mod.adex_step)}
+#: the kernels of each zoo network's main path (phase 8): Izhikevich keeps
+#: K4 after K1, AdEx is K1 + K5 in one launch
+ZOO_MAIN_KERNELS = {"izhikevich": ("synaptic_gather", "stdp_update",
+                                   "izhikevich_step"),
+                    "adex": ("synaptic_gather_adex", "stdp_update")}
+#: launches a run of many launches times, per kernel (``loop_ms``)
+LOOP_LAUNCHES = 1000
+#: SM clock the sleep ahead of a timed run is sized with (H100 SXM boost);
+#: ``loop_ms`` checks that the sleep outlasted the host's enqueue anyway
+SLEEP_HZ = 2.0e9
 #: the JAX reference's own run of each zoo network on the CPU, by network:
 #: its scale, steps, rate window, and per population the rate [Hz] per
 #: window and from ``mean_from_step`` on (written by
@@ -261,6 +301,84 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def loop_ms(fn, count: int = LOOP_LAUNCHES, batch: int = 500,
+            warmup: int = 3) -> float:
+    """Device time per launch of ``fn`` over ``count`` back-to-back
+    launches (a small kernel is timed this way because one launch alone is
+    shorter than the host's launch overhead): in batches, CUDA events around each batch, and a sleep kernel
+    ahead of it sized to outlast the host's enqueue of the whole batch, so
+    that the events see the launches run back to back and not the host's
+    pace.  A batch whose sleep ended before the host had enqueued it (the
+    host was slower than estimated, or the launch queue filled) is not
+    counted: it is run again at half the size, down to 50 launches, and
+    then the call raises."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    per_call_s = (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    total, left = 0.0, count
+    while left > 0:
+        k = min(batch, left)
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(int(3 * k * per_call_s * SLEEP_HZ))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if enqueue_ms >= e0.elapsed_time(a):
+            check(batch > 50, f"loop_ms: the host took {enqueue_ms} ms to "
+                  f"enqueue {k} launches, longer than the sleep of "
+                  f"{e0.elapsed_time(a)} ms ahead of them")
+            batch //= 2
+            continue
+        total += a.elapsed_time(b)
+        left -= k
+    return total / count
+
+
+def in_turns(fns: dict, rounds: int = 2, count: int = 200) -> dict:
+    """``loop_ms`` of each of ``fns`` (two), in turns A B B A per round;
+    returns each one's median per-launch ms over its runs."""
+    (na, fa), (nb_, fb) = fns.items()
+    got = {na: [], nb_: []}
+    for _ in range(rounds):
+        for name, fn in ((na, fa), (nb_, fb), (nb_, fb), (na, fa)):
+            got[name].append(loop_ms(fn, count=count))
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    for fn in (*KERNEL_FNS.values(), FUSED):
+        fn.launches = 0
+    FUSED.launches_by_neuron.update(dict.fromkeys(FUSED.launches_by_neuron,
+                                                  0))
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count, the fused kernel's by epilogue."""
+    out = {k: fn.launches for k, fn in KERNEL_FNS.items()}
+    out.update({k: FUSED.launches_by_neuron[v]
+                for k, v in FUSED_KERNELS.items()})
+    return out
+
+
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched exactly that often, every other
+    kernel never."""
+    for k, c in launches.items():
+        check(c == want.get(k, 0), f"{what}: {k} launched {c} times, "
+              f"expected {want.get(k, 0)}")
+
+
 def bound(nbytes: float, ops: float,
           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -283,9 +401,15 @@ def phase_device() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     built = _build.build_all()
+    # registers and spills of K1's three instantiations (none, LIF, AdEx
+    # epilogue): an epilogue's registers can cost K1 occupancy
+    ptxas = [line.strip() for line in
+             built["ptxas"].get("synaptic_gather", "").splitlines()
+             if "entry function" in line or "Used" in line
+             or "spill" in line]
     emit({"phase": "device", "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": built["seconds"]})
+          "build_s": built["seconds"], "synaptic_gather_ptxas": ptxas})
     return smi
 
 
@@ -334,7 +458,8 @@ def phase_kernels(g) -> dict:
     b_ms, b_by = bound(nbytes, 2 * live)
     out["synaptic_gather"] = dict(max_abs_err=max(errs.values()), ms=k_ms,
                                   plain_ms=p_ms, bound_ms=b_ms,
-                                  bound_by=b_by, bytes=nbytes)
+                                  bound_by=b_by, bytes=nbytes,
+                                  ms_per_launch=None)
     emit({"phase": "kernel", "name": "synaptic_gather", "nb": nb, "eb": eb,
           "pb": pb, "d": d, "m": m, "live_slots": live,
           "max_abs_err": errs, "tolerance": "arrivals exact; sums atol 1e-2",
@@ -365,15 +490,18 @@ def phase_kernels(g) -> dict:
         errs[f"cond={cond}"] = max(max_abs(a.float(), b.float())
                                    for a, b in zip(k1, pl))
     k_ms = median_ms(lambda: lif_mod.lif_step(*largs))
+    l_ms = loop_ms(lambda: lif_mod.lif_step(*largs))
     p_ms = median_ms(lambda: lif_mod.lif_step_plain(*largs))
     nbytes = n * (5 * 4 + 2 * 4) + table.numel() * 4 + n * (4 * 4 + 1)
     b_ms, b_by = bound(nbytes, 15 * n)
     out["lif_step"] = dict(max_abs_err=max(errs.values()), ms=k_ms,
                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                           bytes=nbytes)
+                           bytes=nbytes, ms_per_launch=l_ms)
     emit({"phase": "kernel", "name": "lif_step", "n": n,
           "max_abs_err": errs, "tolerance": "bitwise equal",
-          "deterministic": True, "kernel_ms": k_ms, "plain_ms": p_ms,
+          "deterministic": True, "kernel_ms": k_ms,
+          "kernel_ms_per_launch_over_many": l_ms,
+          "launches_timed": LOOP_LAUNCHES, "plain_ms": p_ms,
           "bound_ms": b_ms, "bytes": nbytes})
 
     # K3: the blocked pl-STDP update over every slot
@@ -412,7 +540,126 @@ def phase_kernels(g) -> dict:
           "tolerance": "rtol 2e-6 (expf/logf vs torch exp/log)",
           "deterministic": True, "kernel_ms": k_ms, "plain_ms": p_ms,
           "bound_ms": b_ms, "bytes": nbytes})
+
+    # K1 + K2: the main path's fused kernel, on the same layout
+    table = snn.make_param_table([snn.LIFParams(t_ref=0.5),
+                                  snn.LIFParams(tau_m=8.0)], models.DT_MS,
+                                 device=DEV)
+    out.update(phase_fused_kernel("lif", g, table, rng, drive_on=True))
+    out["synaptic_gather"]["ms_per_launch"] = out.pop("_k1_ms_per_launch")
     return out
+
+
+def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
+    """K1 with the ``neuron`` epilogue at network ``g``'s shapes (its
+    layout, ``n_local`` and group ids, with ``table``) on seeded inputs.
+    Each case (LIF: current and conductance; drive off and on) bitwise
+    against K1 -> add -> the standalone K2 or K5 on the card and twice for
+    determinism, and against the plain twin: arrivals, spikes and ref_count
+    exact, the membrane (and w_ad) as the standalone kernel's own check
+    holds it, the synaptic state within K1's sums tolerance.  Timed in the
+    path's case (``drive_on``: the drive as the path has it) alone and in
+    turns with K1 alone, per launch over many: ``epilogue_ms`` = fused - K1.
+    Returns the kernels-line record, and K1's per-launch time under
+    ``_k1_ms_per_launch``."""
+    bg = g.blocked
+    nb, eb, pb, d, m, n = bg.nb, bg.eb, bg.pb, g.max_delay, g.n_mirror, \
+        g.n_local
+    bounds = gather_mod.segment_bounds(bg.post_rel, bg.delay, pb=pb,
+                                       max_delay=d)
+    w = torch.from_numpy(rng.normal(0, 50, (nb, eb)).astype(np.float32)
+                         ).to(DEV)
+    ring = torch.from_numpy((rng.uniform(size=(d, m)) < 0.05)
+                            .astype(np.float32)).to(DEV)
+    t = torch.tensor(7, dtype=torch.int32, device=DEV)
+    edge = (bg.pre_idx, bg.post_rel, w, bg.delay, bg.channel, ring, t)
+    f32 = lambda lo, hi: torch.from_numpy(
+        rng.uniform(lo, hi, n).astype(np.float32)).to(DEV)
+    rc = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(DEV)
+    if neuron == "lif":
+        state = (f32(-52, -48), f32(0, 100), f32(0, 100), rc)
+        standalone, conds, ops = lif_mod.lif_step, (False, True), 15
+    else:
+        # up to the exponential's clamp, v_t + 10 delta_t
+        state = (f32(-60, -30), f32(0, 100), f32(0, 300), f32(-300, 0), rc)
+        standalone, conds, ops = adex_mod.adex_step, (False,), 35
+    gid = g.group_id
+    drive = f32(0, 500)
+    name = f"synaptic_gather_{neuron}"
+    errs = {}
+    for cond in conds:
+        for drv in (None, drive):
+            case = f"cond={cond},drive={drv is not None}"
+            kw = dict(neuron=neuron, cond=cond, max_delay=d, pb=pb,
+                      drive=drv)
+            (a1, o1), (a2, o2) = (FUSED(*edge, state, gid, table,
+                                        bounds=bounds, **kw)
+                                  for _ in range(2))
+            check(torch.equal(a1, a2)
+                  and all(torch.equal(x, y) for x, y in zip(o1, o2)),
+                  f"{name} ({case}) not bitwise deterministic")
+            ex, inh, ak = gather_mod.synaptic_gather(
+                *edge, max_delay=d, pb=pb, bounds=bounds)
+            ex = ex[:n] if drv is None else ex[:n] + drv
+            comp = standalone(*state, gid, ex, inh[:n], table,
+                              **({"cond": cond} if neuron == "lif" else {}))
+            check(torch.equal(a1, ak)
+                  and all(torch.equal(x, y) for x, y in zip(o1, comp)),
+                  f"{name} ({case}) differs from K1 -> add -> "
+                  f"{standalone.__name__}")
+            check(bool(o1[-1].any()) and bool((rc > 0).any()),
+                  f"{name} ({case}): vacuous inputs")
+            ap, op = gather_mod.synaptic_gather_update_plain(
+                *edge, state, gid, table, **kw)
+            check(torch.equal(a1, ap), f"{name} ({case}) arrivals differ")
+            names = gather_mod.NEURON_STATE[neuron][0] + ("spike",)
+            errs[case] = {}
+            for field, x, y in zip(names, o1, op):
+                errs[case][field] = max_abs(x.float(), y.float())
+                ulps = (8 * 2.0 ** -23 * float(y.abs().max())
+                        if y.is_floating_point() else 0.0)
+                if field in ("ref_count", "spike") or (neuron == "lif"
+                                                       and field == "v"):
+                    ok = torch.equal(x, y)
+                else:
+                    lim = ulps + (1e-2 if field.startswith("syn") else 0)
+                    ok = errs[case][field] <= lim
+                check(ok, f"{name} ({case}) {field} differs from the twin "
+                      f"by {errs[case][field]}")
+    kw = dict(neuron=neuron, max_delay=d, pb=pb,
+              drive=drive if drive_on else None)
+    fused = lambda: FUSED(*edge, state, gid, table, bounds=bounds, **kw)
+    k1 = lambda: gather_mod.synaptic_gather(*edge, max_delay=d, pb=pb,
+                                            bounds=bounds)
+    k_ms = median_ms(fused)
+    p_ms = median_ms(lambda: gather_mod.synaptic_gather_update_plain(
+        *edge, state, gid, table, **kw))
+    turns = in_turns({"synaptic_gather": k1, name: fused})
+    live = int((bg.delay > 0).sum())
+    n_state = len(state)
+    nbytes = (live * 12 + bounds.numel() * 4 + d * m * 4 + 4 + nb * eb * 4
+              + table.numel() * 4
+              + n * (n_state * 4 + 4 + (4 if drive_on else 0))
+              + n * (n_state * 4 + 1))
+    b_ms, b_by = bound(nbytes, 2 * live + ops * n)
+    worst = max(max(e.values()) for e in errs.values())
+    emit({"phase": "kernel", "name": name, "nb": nb, "eb": eb, "pb": pb,
+          "d": d, "m": m, "n_local": n, "live_slots": live,
+          "max_abs_err": errs,
+          "tolerance": "bitwise equal to K1 -> add -> "
+                       f"{standalone.__name__}; against the twin: arrivals,"
+                       " spikes, ref_count exact, v as the standalone "
+                       "kernel's check, syn within K1's atol 1e-2",
+          "deterministic": True, "timed_drive": drive_on,
+          "kernel_ms": k_ms, "plain_ms": p_ms,
+          "in_turns_ms_per_launch": turns,
+          "epilogue_ms": turns[name] - turns["synaptic_gather"],
+          "bound_ms": b_ms, "bytes": nbytes})
+    return {name: dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                       ms_per_launch=turns[name],
+                       epilogue_ms=turns[name] - turns["synaptic_gather"]),
+            "_k1_ms_per_launch": turns["synaptic_gather"]}
 
 
 # --------------------------------------------------------------------------
@@ -438,6 +685,7 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
     worst = dict(i_ex=0.0, i_in=0.0, v_m=0.0, weights=0.0, k_pre=0.0,
                  k_post=0.0)
     real = g.delay > 0
+    reset_launches()
     for _ in range(n_steps):
         stf = engine.state_with_weights_layout(st, g, "flat")
         drive = g.ext_weight * torch.poisson(g.ext_rate * (models.DT_MS
@@ -467,6 +715,12 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
                 ("k_post", new_c.traces.k_post, new_f.traces.k_post)):
             worst[key] = max(worst[key], max_abs(a, b))
         st = new_c          # continue from the kernel path's state
+    # the kernel backend's steps took the fused route; the plain K1 ran
+    # only for the comparison sums above
+    launches = read_launches()
+    check_launches("lockstep", launches,
+                   {"synaptic_gather_lif": n_steps, "synaptic_gather": n_steps,
+                    "stdp_update": n_steps})
     tol = dict(i_ex=1e-2, i_in=1e-2, v_m=1e-4, weights=1e-4, k_pre=1e-5,
                k_post=1e-5)
     for key, lim in tol.items():
@@ -476,7 +730,8 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
     emit({"phase": "lockstep", "steps": n_steps, "spikes": n_spk,
           "near_threshold": n_near, "flipped": n_flip,
           "v_threshold_tol_mV": v_tol, "max_abs_err": worst,
-          "tolerance": tol})
+          "tolerance": tol,
+          "launches": {k: v for k, v in launches.items() if v}})
 
 
 # --------------------------------------------------------------------------
@@ -569,8 +824,9 @@ def _profile(g, table, cfg, spec, n_steps: int = 50) -> dict:
 def run_counted(what, spec, g, table, cfg, n_steps, kernels):
     """``engine.run`` of ``cfg`` (the kernel backend) from a fresh state,
     with every launch count set to 0 just before and read just after: each
-    kernel of ``kernels`` must have launched once per step and every other
-    kernel never.  Plastic weights must stay in [w_min, w_max], every other
+    kernel of ``kernels`` (``read_launches`` names, the fused kernel by
+    epilogue) must have launched once per step and every other kernel
+    never.  Plastic weights must stay in [w_min, w_max], every other
     weight unchanged, and the state finite.  Returns the initial neurons,
     the final state, the spikes and the run's numbers."""
     st = engine.init_state(g, list(spec.groups), SEED,
@@ -578,17 +834,13 @@ def run_counted(what, spec, g, table, cfg, n_steps, kernels):
     init = st.neurons
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in KERNEL_FNS.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     fin, spikes = engine.run(st, g, table, cfg, n_steps, device=DEV)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    for k, c in launches.items():
-        want = n_steps if k in kernels else 0
-        check(c == want, f"{what}: {k} launched {c} times in {n_steps} "
-              "steps")
+    check_launches(what, launches, dict.fromkeys(kernels, n_steps))
     real, w = g.delay > 0, fin.weights
     fixed = real & ~g.plastic if cfg.stdp is not None else real
     check(torch.equal(w[fixed], g.weight_init[fixed]),
@@ -678,17 +930,20 @@ def phase_zoo_kernels(n: int = 10_000) -> dict:
                 check(max_abs(a, b) <= lim, f"adex differs from its twin: "
                       f"{errs}")
         k_ms = median_ms(lambda: kernel(*args))
+        l_ms = loop_ms(lambda: kernel(*args))
         p_ms = median_ms(lambda: plain(*args))
         nbytes = n * (6 * 4 + 2 * 4) + table.numel() * 4 + n * (4 * 4 + 5)
         b_ms, b_by = bound(nbytes, (25 if model == "izhikevich" else 35) * n)
         name = f"{model}_step"
         out[name] = dict(max_abs_err=max(errs.values()), ms=k_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         bytes=nbytes)
+                         bytes=nbytes, ms_per_launch=l_ms)
         emit({"phase": "kernel", "name": name, "n": n,
               "groups": table.shape[0], "max_abs_err": errs,
               "tolerance": tol, "deterministic": True, "kernel_ms": k_ms,
-              "plain_ms": p_ms, "bound_ms": b_ms, "bytes": nbytes})
+              "kernel_ms_per_launch_over_many": l_ms,
+              "launches_timed": LOOP_LAUNCHES, "plain_ms": p_ms,
+              "bound_ms": b_ms, "bytes": nbytes})
     return out
 
 
@@ -732,6 +987,7 @@ def phase_zoo_lockstep(model, spec, stdp, g, table, n_steps: int = 120):
     worst = dict(i_ex=0.0, i_in=0.0, v_m=0.0, x=0.0, weights=0.0,
                  k_pre=0.0, k_post=0.0)
     real = g.delay > 0
+    reset_launches()
     for _ in range(n_steps):
         stf = engine.state_with_weights_layout(st, g, "flat")
         ex_c, in_c, _ = cb.sweep(lc, st.weights, st.ring, st.t)
@@ -765,6 +1021,12 @@ def phase_zoo_lockstep(model, spec, stdp, g, table, n_steps: int = 120):
                 ("k_post", new_c.traces.k_post, new_f.traces.k_post)):
             worst[key] = max(worst[key], max_abs(a, b))
         st = new_c
+    # the kernel backend's steps (ZOO_MAIN_KERNELS) beside the plain K1 of
+    # the comparison sums above
+    launches = read_launches()
+    want = dict.fromkeys(ZOO_MAIN_KERNELS[model], n_steps)
+    want["synaptic_gather"] = want.get("synaptic_gather", 0) + n_steps
+    check_launches(f"zoo_lockstep {model}", launches, want)
     tol = dict(i_ex=1e-5, i_in=1e-5, v_m=1e-4, x=1e-4, weights=1e-4,
                k_pre=1e-5, k_post=1e-5)
     for key, lim in tol.items():
@@ -775,7 +1037,8 @@ def phase_zoo_lockstep(model, spec, stdp, g, table, n_steps: int = 120):
           "spikes": n_spk, "near_v_peak": n_near, "flipped": n_flip,
           "v_peak_tol_mV": v_tol, "extra_variable": x_name,
           "max_err": worst, "tolerance": tol,
-          "relative": ["i_ex", "i_in"]})
+          "relative": ["i_ex", "i_in"],
+          "launches": {k: v for k, v in launches.items() if v}})
 
 
 def population_rates(spec, spikes, ref: dict) -> dict:
@@ -806,13 +1069,14 @@ def check_rates(what: str, rates: dict, ref: dict, mean_band: float) -> None:
               f"is not within {mean_band:.0%} of the reference's {b}")
 
 
-def phase_zoo_main(model, spec, stdp, g, table, ref: dict) -> int:
-    _, kernel = ZOO_KERNELS[model]
+def phase_zoo_main(model, spec, stdp, g, table, ref: dict):
+    """Returns the run's launches, and on the host its spikes and final
+    state (the adex network's gated run must reproduce them bitwise)."""
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
                               external_drive=False, neuron_model=model)
-    _, _, spikes, rec = run_counted(
+    _, fin, spikes, rec = run_counted(
         f"zoo_main {model}", spec, g, table, cfg, ref["steps"],
-        ("synaptic_gather", "stdp_update", kernel.__name__))
+        ZOO_MAIN_KERNELS[model])
     rates = population_rates(spec, spikes, ref)
     check_rates(f"zoo_main {model}", rates, ref, MEAN_BAND[model])
     emit({"phase": "zoo_main", "model": model, "neurons": spec.n_neurons,
@@ -823,7 +1087,38 @@ def phase_zoo_main(model, spec, stdp, g, table, ref: dict) -> int:
           "rates_hz": rates,
           "rate_band": {"window": WINDOW_BAND, "mean": MEAN_BAND[model]},
           **rec, "profile": _profile(g, table, cfg, spec)})
-    return rec["launches"][kernel.__name__]
+    return rec["launches"], {"spikes": spikes.cpu(),
+                             "weights": fin.weights.cpu(),
+                             **{k: x.cpu() for k, x in (
+                                 ("v_m", fin.neurons.v_m),
+                                 *fin.neurons.extra.items())}}
+
+
+def phase_zoo_gate(spec, stdp, g, table, ref: dict, main_out: dict) -> dict:
+    """The adex network through the activity gate (``"cuda:sparse"``): K6,
+    then the standalone K5 (the gated backend keeps the composed route),
+    then K3 or K7.  Spikes, ``v_m``, ``w_ad`` and weights must equal the
+    fused ``zoo_main`` run's bitwise: K6 sums as K1 does, and K5 and K1's
+    AdEx epilogue share one source.  Returns the run's launches."""
+    sweep = "cuda:sparse"
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=sweep,
+                              external_drive=False, neuron_model="adex")
+    backend = backends.get_backend(sweep)
+    cap = backend.gate_capacity(backend.prepare(g))
+    kernels = ("blocked_reduce_sweep", "adex_step",
+               "stdp_update" if cap >= g.blocked.nb
+               else "stdp_update_worklist")
+    _, fin, spikes, rec = run_counted(f"zoo_gate adex {sweep}", spec, g,
+                                      table, cfg, ref["steps"], kernels)
+    for name, a in (("spikes", spikes), ("weights", fin.weights),
+                    ("v_m", fin.neurons.v_m),
+                    ("w_ad", fin.neurons.extra["w_ad"])):
+        check(torch.equal(a.cpu(), main_out[name]),
+              f"zoo_gate adex: {name} differ from the fused run's")
+    emit({"phase": "zoo_gate", "model": "adex", "sweep": sweep,
+          "capacity": cap, "nb": g.blocked.nb,
+          "bitwise_equal_to_zoo_main": True, **rec})
+    return rec["launches"]
 
 
 def phase_composite(spec, g, table, ref: dict) -> None:
@@ -831,6 +1126,7 @@ def phase_composite(spec, g, table, ref: dict) -> None:
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=None, sweep="cuda",
                               external_drive=False,
                               neuron_model=spec.neuron_model)
+    # "lif+poisson" keeps the composed route: K1, then the standalone K2
     init, fin, spikes, rec = run_counted(
         "composite", spec, g, table, cfg, ref["steps"],
         ("synaptic_gather", "lif_step"))
@@ -861,17 +1157,25 @@ def phase_composite(spec, g, table, ref: dict) -> None:
 
 def zoo():
     """Phases 6-9, each network at the scale and length of the reference's
-    record; returns (kernel numbers, launches of K4 and K5)."""
+    record; returns (kernel numbers, launches by path)."""
     kern = phase_zoo_kernels()
     launches = {}
     for model in ZOO_KERNELS:
         ref = ZOO_REFERENCE[model]
         spec, stdp = models.model_demo(model, ref["scale"], stdp=True)
         g, table = build_network(spec, f"model_demo {model}", ref)
+        if model == "adex":
+            kern.update(phase_fused_kernel(
+                "adex", g, table, np.random.default_rng(SEED + 4),
+                drive_on=False))      # zoo_main runs without a drive
+            del kern["_k1_ms_per_launch"]
         phase_zoo_lockstep(model, spec, stdp, g, table)
-        launches[f"{model}_step"] = phase_zoo_main(model, spec, stdp, g,
-                                                   table, ref)
-        del g, table
+        launches[f"zoo_main {model}"], main_out = phase_zoo_main(
+            model, spec, stdp, g, table, ref)
+        if model == "adex":
+            launches["zoo_gate adex"] = phase_zoo_gate(spec, stdp, g, table,
+                                                       ref, main_out)
+        del g, table, main_out
     ref = ZOO_REFERENCE["lif+poisson"]
     spec, _ = models.brunel(ref["scale"], poisson_input=True)
     g, table = build_network(spec, "brunel poisson_input", ref)
@@ -1390,10 +1694,9 @@ def phase_lm_serve() -> int:
     srv.serve(reqs, max_new_tokens=2)          # warm: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in KERNEL_FNS.values():
-        fn.launches = 0
+    reset_launches()
     outs, stats = srv.serve(reqs, max_new_tokens=LM_NEW_TOKENS)
-    launches = {k: fn.launches for k, fn in KERNEL_FNS.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     for k, c in launches.items():
         want = cfg.n_layers if k == "flash_attention" else 0
@@ -1536,28 +1839,34 @@ def main() -> None:
     kern = phase_kernels(g)
     phase_lockstep(spec, stdp, g, table)
     phase_mixed()
-    launches, main_out = phase_main(spec, stdp, g, table)
+    runs = {}
+    runs["main"], main_out = phase_main(spec, stdp, g, table)
     kern.update(phase_gate_kernels(g))
-    gate_launches = phase_gate_main(spec, stdp, g, table, main_out)
+    runs["gate_main cuda:sparse:1e-7"] = phase_gate_main(spec, stdp, g,
+                                                         table, main_out)
     del g, table, main_out
     phase_gate_activity()
-    zoo_kern, zoo_launches = zoo()
+    zoo_kern, zoo_runs = zoo()
     kern.update(zoo_kern)
-    launches.update(zoo_launches)
-    for name in ("blocked_reduce_sweep", "stdp_update_worklist"):
-        launches[name] = gate_launches[name]
+    runs.update(zoo_runs)
     kern.update(phase_flash_kernels())
-    launches["flash_attention"] = phase_lm_serve()
+    runs["lm_serve"] = {"flash_attention": phase_lm_serve()}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
+         "source": "src/repro_torch/kernels/csrc/"
+                   f"{'synaptic_gather' if name in FUSED_KERNELS else name}"
+                   ".cu",
+         "replaces": REPLACES[name],
+         "launches": runs[LAUNCHES_FROM[name]][name],
+         "launches_from": LAUNCHES_FROM[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
+         "ms_per_launch": kern[name].get("ms_per_launch"),
+         "epilogue_ms": kern[name].get("epilogue_ms"),
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name].get("library_ms")}
-        for name in KERNEL_FNS]}), flush=True)
+        for name in (*KERNEL_FNS, *FUSED_KERNELS)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,16 +8,20 @@ of the per-dt hot path -
     stdp_update    pl-STDP weight update on owned edges
 
 - sit behind one :class:`SweepBackend` interface; ``EngineConfig.sweep``
-picks one by name:
+picks one by name.  The engine calls the first two, and the external
+drive's add between them, as one method, :meth:`SweepBackend.sweep_update`,
+so that a backend can fuse them:
 
 * ``"cuda"`` (the default) - the hand-written Hopper kernels on the
   post-block ELL layout: K1 (:mod:`repro_torch.kernels.synaptic_gather`),
   K2 (:mod:`repro_torch.kernels.lif_step`) and K3
   (:mod:`repro_torch.kernels.stdp_update`); the mirror of the reference's
   ``PallasBackend``; the neuron update goes through the model's kernel
-  (K2 for lif, K4 for izhikevich, K5 for adex).  On CPU tensors each
-  kernel wrapper runs its plain twin, which is how the CPU tests drive
-  this backend.
+  (K2 for lif, K4 for izhikevich, K5 for adex).  For ``"lif"`` and
+  ``"adex"`` that update is K1's epilogue instead, one launch for the edge
+  pass, the drive and the step (:meth:`CudaBackend.update_route`).  On CPU
+  tensors each kernel wrapper runs its plain twin, which is how the CPU
+  tests drive this backend.
 * ``"cuda:sparse"`` - the activity gate (DESIGN.md §13), the mirror of the
   reference's ``pallas:sparse``: a plain-torch arrival pre-pass, then K6
   (:func:`~repro_torch.kernels.synaptic_gather.blocked_reduce_sweep`) and
@@ -56,7 +60,8 @@ from repro_torch.kernels.stdp_update import stdp_update as stdp_update_kernel
 from repro_torch.kernels.stdp_update import stdp_update_worklist
 from repro_torch.kernels.synaptic_gather import (blocked_reduce_sweep,
                                                  segment_bounds,
-                                                 synaptic_gather)
+                                                 synaptic_gather,
+                                                 synaptic_gather_update)
 
 __all__ = ["EdgeLayout", "SweepBackend", "FlatBackend", "CudaBackend",
            "CudaSparseBackend", "get_backend", "available_backends",
@@ -375,6 +380,35 @@ class SweepBackend:
                       synapse_model=synapse_model, seed=seed, t=t, gid=gid,
                       uniform=uniform)
 
+    # -- sweep, drive and neuron step as one -------------------------------
+    def update_route(self, model, synapse_model: str) -> str:
+        """How :meth:`sweep_update` runs for ``model`` (a NeuronModel or
+        its name) under ``synapse_model``: ``"composed"`` here, the three
+        stages one after the other.  A fixed function of (backend, model,
+        synapse model)."""
+        return "composed"
+
+    def sweep_update(self, layout: EdgeLayout, weights, ring, t, neurons,
+                     table, drive, *,
+                     synapse_model: str = snn.SynapseModel.CURRENT_EXP,
+                     model=None, seed=None, gid=None, uniform=None):
+        """One dt's sweep, external drive and neuron step: returns
+        ``(new_neurons, arrived, gate_overflow)``, ``arrived`` as
+        :meth:`sweep` gives it and ``gate_overflow`` as
+        :meth:`sweep_with_stats` does.  ``drive`` ((n_local,), or None for
+        none) is added to the excitatory input.
+
+        This is the composed route: :meth:`sweep_with_stats`, ``+ drive``,
+        :meth:`neuron_update`."""
+        ex, inh, arrived, overflow = self.sweep_with_stats(layout, weights,
+                                                           ring, t)
+        if drive is not None:
+            ex = ex + drive
+        new = self.neuron_update(layout, neurons, table, ex, inh,
+                                 synapse_model=synapse_model, model=model,
+                                 seed=seed, t=t, gid=gid, uniform=uniform)
+        return new, arrived, overflow
+
     # -- plasticity -------------------------------------------------------
     def stdp_update(self, layout: EdgeLayout, weights, arrived, post_spike,
                     traces, params: stdp_mod.STDPParams):
@@ -401,7 +435,9 @@ class FlatBackend(SweepBackend):
 class CudaBackend(SweepBackend):
     """Kernel path: K1 edge pass, the neuron model's kernel (K2 LIF, K4
     Izhikevich, K5 AdEx) and K3 blocked STDP update on the post-block ELL
-    layout - the mirror of the reference's ``PallasBackend``.
+    layout - the mirror of the reference's ``PallasBackend``.  For LIF and
+    AdEx the neuron step is K1's epilogue (:meth:`update_route`), so a step
+    launches K1 and K3 only.
 
     The blocked layout is the RESIDENT hot-path representation: run-time
     weights live in ELL slot order, K1 emits the per-slot arrivals from its
@@ -455,6 +491,54 @@ class CudaBackend(SweepBackend):
                     synapse_model=synapse_model, seed=seed, t=t, gid=gid,
                     uniform=uniform)
 
+    def update_route(self, model, synapse_model: str) -> str:
+        """``"fused:lif"`` for the LIF model (current or conductance) and
+        ``"fused:adex"`` for AdEx (current): K1 takes the neuron step as
+        its epilogue.  ``"composed"`` for every other model - izhikevich
+        (K4 standalone), the ``+poisson`` composites, ``poisson`` - and
+        synapse model."""
+        name = neuron_models_mod.get_model(
+            "lif" if model is None else model).name
+        if name == "lif" and synapse_model in (snn.SynapseModel.CURRENT_EXP,
+                                               snn.SynapseModel.COND_EXP):
+            return "fused:lif"
+        if name == "adex" and synapse_model == snn.SynapseModel.CURRENT_EXP:
+            return "fused:adex"
+        return "composed"
+
+    def sweep_update(self, layout, weights, ring, t, neurons, table, drive,
+                     *, synapse_model: str = snn.SynapseModel.CURRENT_EXP,
+                     model=None, seed=None, gid=None, uniform=None):
+        route = self.update_route(model, synapse_model)
+        if route == "composed":
+            return super().sweep_update(
+                layout, weights, ring, t, neurons, table, drive,
+                synapse_model=synapse_model, model=model, seed=seed, gid=gid,
+                uniform=uniform)
+        # one launch: K1's edge pass, + drive, and the model's step
+        neuron = route.split(":", 1)[1]
+        bg = _require_blocked(layout)
+        state = ((neurons.v_m, neurons.syn_ex, neurons.syn_in,
+                  neurons.ref_count) if neuron == "lif" else
+                 (neurons.v_m, neurons.extra["w_ad"], neurons.syn_ex,
+                  neurons.syn_in, neurons.ref_count))
+        arrived, out = synaptic_gather_update(
+            bg.pre_idx, bg.post_rel, weights.reshape(bg.nb, bg.eb), bg.delay,
+            bg.channel, ring, t, state, neurons.group_id, table,
+            neuron=neuron, max_delay=layout.max_delay, pb=bg.pb,
+            cond=synapse_model == snn.SynapseModel.COND_EXP, drive=drive,
+            bounds=layout.seg_bounds)
+        if neuron == "lif":
+            v, se, si, rc, sp = out
+            extra = neurons.extra
+        else:
+            v, w_ad, se, si, rc, sp = out
+            extra = {"w_ad": w_ad}
+        new = snn.NeuronState(v_m=v, syn_ex=se, syn_in=si, ref_count=rc,
+                              spike=sp, group_id=neurons.group_id,
+                              extra=extra)
+        return new, arrived.reshape(-1), 0
+
     def stdp_update(self, layout, weights, arrived, post_spike, traces,
                     params: stdp_mod.STDPParams):
         bg = _require_blocked(layout)
@@ -496,10 +580,17 @@ class CudaSparseBackend(CudaBackend):
 
     Launches per step: K6 once; K7 once when ``capacity < NB``, else K3
     once; K1 never.  The step reads no device value on the host.
+
+    The neuron step stays a kernel of its own (K2, K4 or K5) after K6: K6
+    leaves the rows of unlisted blocks at 0 without visiting them, and
+    their neurons still need their step, so this backend takes the
+    composed route of :class:`SweepBackend` for every model.
     """
 
     name = "cuda:sparse"
     gated = True
+    update_route = SweepBackend.update_route
+    sweep_update = SweepBackend.sweep_update
 
     def __init__(self, gate_rate=autotune_mod.DEFAULT_GATE_RATE,
                  min_capacity: int = autotune_mod.DEFAULT_GATE_MIN_CAPACITY):

@@ -7,9 +7,11 @@ indegree sub-graph stored as flat, padded, owner-sorted edge arrays
 ``ring[s % D]``; at step ``t`` a delay-``d`` edge reads
 ``ring[(t - d) % D]``.
 
-One step (:func:`engine_step`) runs sweep -> external drive -> neuron
-update -> STDP -> trace update -> ring write, dispatching the hot path
-through the backend registry of :mod:`repro_torch.core.backends`
+One step (:func:`engine_step`) draws the external drive, then runs sweep ->
++ drive -> neuron update (one backend call, which the kernel backend fuses
+into one launch for LIF and AdEx) -> STDP -> trace update -> ring write,
+dispatching the hot path through the backend registry of
+:mod:`repro_torch.core.backends`
 (``EngineConfig.sweep``: ``"cuda"``, the kernel path, by default;
 ``"cuda:sparse"``, the activity gate; or ``"flat"``).  A step issues no
 host synchronisation: the step counter ``t`` lives on the device and the
@@ -249,7 +251,7 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                 backend: "backends_mod.SweepBackend | None" = None,
                 layout: "backends_mod.EdgeLayout | None" = None,
                 model: "neuron_models_mod.NeuronModel | None" = None):
-    """One dt: sweep -> drive -> neuron update -> STDP -> ring write.
+    """One dt: drive, sweep -> + drive -> neuron update, STDP, ring write.
     Returns ``(new_state, spike_bits)``.  ``state`` is not modified, except
     its native-layout weights when the backend updates them in place
     (:meth:`~repro_torch.core.backends.SweepBackend.stdp_in_place`).
@@ -278,32 +280,26 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     w_native, native_tag, convert = backends_mod.resolve_runtime_weights(
         backend, layout, state.weights, state.weights_layout)
 
-    # (1) synaptic sweep over owned edges (+ the gate's saturation count,
-    #     the int 0 where no gate can saturate)
-    input_ex, input_in, arrived, gate_ovf = backend.sweep_with_stats(
-        layout, w_native, state.ring, state.t)
+    # (1) external stochastic drive, drawn first: it is the generator's
+    #     only consumer in a step, so the stream is the same as when it was
+    #     drawn after the sweep
+    if drive is None and cfg.external_drive and graph.ext_rate is not None:
+        drive = _poisson_drive(state.generator, graph, cfg.dt, dtype)
+
+    # (2) synaptic sweep over owned edges, + drive, neuron dynamics (+ the
+    #     gate's saturation count, the int 0 where no gate can saturate)
+    neurons, arrived, gate_ovf = backend.sweep_update(
+        layout, w_native, state.ring, state.t, state.neurons, table, drive,
+        synapse_model=cfg.synapse_model, model=model, seed=state.model_seed,
+        gid=graph.global_id, uniform=model_uniform)
+    spike_bits = neurons.spike
     gate_overflow = (state.gate_overflow if state.gate_overflow is not None
                      else torch.zeros((), dtype=torch.int32,
                                       device=state.t.device))
     if isinstance(gate_ovf, torch.Tensor):
         gate_overflow = gate_overflow + gate_ovf
 
-    # (2) external stochastic drive
-    if drive is not None:
-        input_ex = input_ex + drive
-    elif cfg.external_drive and graph.ext_rate is not None:
-        input_ex = input_ex + _poisson_drive(state.generator, graph, cfg.dt,
-                                             dtype)
-
-    # (3) neuron dynamics
-    neurons = backend.neuron_update(layout, state.neurons, table, input_ex,
-                                    input_in, synapse_model=cfg.synapse_model,
-                                    model=model, seed=state.model_seed,
-                                    t=state.t, gid=graph.global_id,
-                                    uniform=model_uniform)
-    spike_bits = neurons.spike
-
-    # (4) plasticity: weights first (traces exclude this step's spikes:
+    # (3) plasticity: weights first (traces exclude this step's spikes:
     #     all-pairs convention), then the traces.  The pre trace is indexed
     #     by ARRIVAL at the mirror, so arrivals map back through the pre
     #     index matching ``arrived``'s layout.
@@ -321,7 +317,7 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     else:
         weights, traces = state.weights, state.traces
 
-    # (5) this step's spikes into ring slot t % D; in the single-shard
+    # (4) this step's spikes into ring slot t % D; in the single-shard
     #     engine the mirror table is the identity over local neurons
     mirror_bits = spike_bits.index_select(0, graph.mirror_src_idx)
     ring = backends_mod._write_ring(

@@ -14,7 +14,8 @@ on its own, as the reference's XLA ops are, so that contraction cannot move
 a membrane potential across the threshold (K2) or a weight by an ulp
 (K1, K3).
 
-A library is rebuilt when its source is newer.  :func:`build_all` starts
+A library is rebuilt when its source, or any ``csrc/*.cuh`` header, is
+newer.  :func:`build_all` starts
 one ``nvcc`` per source, all at once, and waits for them.  The wrappers
 validate every tensor with :func:`check_tensor` (a parameter table with
 :func:`check_table`) before its pointer goes to C, and raise on the error code each entry point returns (:func:`check`).
@@ -61,8 +62,13 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """True iff ``name``'s library is missing or older than its source or
+    than any header in ``csrc/`` (a source may include any of them)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:

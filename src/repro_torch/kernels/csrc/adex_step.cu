@@ -20,21 +20,16 @@
 // __expf) and IEEE division, as the library is built without fast math;
 // --fmad=false keeps every multiply and add rounded on its own. The clamp
 // is written so that a NaN argument stays NaN, as jnp.minimum and
-// torch.clamp leave it (fminf would return the bound).
+// torch.clamp leave it (fminf would return the bound). The per-neuron body
+// is neuron_math.cuh's adex_update, which K1's AdEx epilogue
+// (synaptic_gather.cu) inlines too: on the paths where K1 precedes the
+// update, that epilogue takes the step and this kernel is not launched.
 
 #include <cuda_runtime.h>
 
+#include "neuron_math.cuh"
+
 namespace {
-
-// column order of repro_torch.kernels.adex_step._COLS (the wrapper checks
-// NCOL == 14); rows lie table_stride >= kNcol floats apart, so that a
-// composite model's table, which carries one more column, is read in place
-enum Col {
-  kPee = 0, kPii, kDtCm, kGl, kEl, kVt, kDeltaT, kVpeak, kVreset, kDtTw, kA,
-  kB, kRefSteps, kIe, kNcol
-};
-
-constexpr float kExpClamp = 10.0f;  // repro_torch.kernels.adex_step.EXP_CLAMP
 
 __global__ void adex_step_kernel(const float* __restrict__ v,
                                  const float* __restrict__ w_ad,
@@ -55,31 +50,15 @@ __global__ void adex_step_kernel(const float* __restrict__ v,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
-  const float vm = v[i], wm = w_ad[i], se = syn_ex[i], si = syn_in[i];
-  const int rc = ref_count[i];
-
-  se_out[i] = se * __ldg(tb + kPee) + input_ex[i];
-  si_out[i] = si * __ldg(tb + kPii) + input_in[i];
-  const float g_l = __ldg(tb + kGl), e_l = __ldg(tb + kEl);
-  const float delta_t = __ldg(tb + kDeltaT);
-  float exp_arg = (vm - __ldg(tb + kVt)) / delta_t;
-  exp_arg = exp_arg > kExpClamp ? kExpClamp : exp_arg;
-  const float i_exp = g_l * delta_t * expf(exp_arg);
-  const float dv = -g_l * (vm - e_l) + i_exp + se + si + __ldg(tb + kIe) - wm;
-  const float v_prop = vm + __ldg(tb + kDtCm) * dv;
-  const float w_prop =
-      wm + __ldg(tb + kDtTw) * (__ldg(tb + kA) * (vm - e_l) - wm);
-
-  const bool refractory = rc > 0;
-  const float v_reset = __ldg(tb + kVreset);
-  float v_new = refractory ? v_reset : v_prop;
-  const bool spike = !refractory && v_new >= __ldg(tb + kVpeak);
-  if (spike) v_new = v_reset;
-  v_out[i] = v_new;
-  w_out[i] = spike ? w_prop + __ldg(tb + kB) : w_prop;
-  // ref_steps is a float column; the cast truncates, as astype(int32) does
-  rc_out[i] = spike ? static_cast<int>(__ldg(tb + kRefSteps)) : max(rc - 1, 0);
-  spike_out[i] = spike;
+  const neuron_math::AdexNext o = neuron_math::adex_update(
+      {v[i], w_ad[i], syn_ex[i], syn_in[i], ref_count[i]}, input_ex[i],
+      input_in[i], tb);
+  v_out[i] = o.v;
+  w_out[i] = o.w_ad;
+  se_out[i] = o.syn_ex;
+  si_out[i] = o.syn_in;
+  rc_out[i] = o.ref_count;
+  spike_out[i] = o.spike;
 }
 
 }  // namespace

@@ -17,19 +17,16 @@
 // kernel's op order exactly (v*p_vv + syn_ex*p_ve + syn_in*p_vi + p_vconst,
 // left to right), and the library is compiled with --fmad=false so that no
 // multiply-add is contracted: a contracted FMA rounds once instead of twice
-// and can move v across v_th, flipping a spike against the reference.
+// and can move v across v_th, flipping a spike against the reference. The
+// per-neuron body is neuron_math.cuh's lif_update, which K1's LIF epilogue
+// (synaptic_gather.cu) inlines too: on the paths where K1 precedes the
+// update, that epilogue takes the step and this kernel is not launched.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "neuron_math.cuh"
 
-// column order of repro_torch.core.snn._COLS (the wrapper checks NCOL == 12);
-// rows lie table_stride >= kNcol floats apart, so that a composite model's
-// table, which carries one more column, is read in place
-enum Col {
-  kPvv = 0, kPee, kPii, kPve, kPvi, kPvconst, kVth, kVreset, kRefSteps,
-  kEex, kEin, kInvCmDt, kNcol
-};
+namespace {
 
 __global__ void lif_step_kernel(const float* __restrict__ v,
                                 const float* __restrict__ syn_ex,
@@ -48,27 +45,14 @@ __global__ void lif_step_kernel(const float* __restrict__ v,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
-  const float vm = v[i], se = syn_ex[i], si = syn_in[i];
-  const int rc = ref_count[i];
-
-  se_out[i] = se * tb[kPee] + input_ex[i];
-  si_out[i] = si * tb[kPii] + input_in[i];
-
-  float v_prop;
-  if (cond) {
-    const float i_cond = se * (tb[kEex] - vm) - si * (vm - tb[kEin]);
-    v_prop = vm * tb[kPvv] + tb[kPvconst] + i_cond * tb[kInvCmDt];
-  } else {
-    v_prop = vm * tb[kPvv] + se * tb[kPve] + si * tb[kPvi] + tb[kPvconst];
-  }
-  const bool refractory = rc > 0;
-  float v_new = refractory ? tb[kVreset] : v_prop;
-  const bool spike = !refractory && v_new >= tb[kVth];
-  if (spike) v_new = tb[kVreset];
-  v_out[i] = v_new;
-  // ref_steps is a float column; the cast truncates, as astype(int32) does
-  rc_out[i] = spike ? static_cast<int>(tb[kRefSteps]) : max(rc - 1, 0);
-  spike_out[i] = spike;
+  const neuron_math::LifNext o = neuron_math::lif_update(
+      {v[i], syn_ex[i], syn_in[i], ref_count[i]}, input_ex[i], input_in[i],
+      tb, cond);
+  v_out[i] = o.v;
+  se_out[i] = o.syn_ex;
+  si_out[i] = o.syn_in;
+  rc_out[i] = o.ref_count;
+  spike_out[i] = o.spike;
 }
 
 }  // namespace

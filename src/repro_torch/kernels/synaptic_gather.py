@@ -18,6 +18,14 @@ walks the row's per-delay runs through a table built once by
 :func:`synaptic_gather` runs :func:`synaptic_gather_plain`, the same
 function in plain torch; for CUDA tensors it launches the kernel or raises.
 
+On the paths where the neuron update follows the edge pass, the kernel
+also takes the update (:func:`synaptic_gather_update`): the warp that has
+reduced a row adds the neuron's drive to its excitatory sum and takes the
+neuron's LIF (K2) or AdEx (K5) step, from the same source as the standalone
+kernels (``csrc/neuron_math.cuh``), so the result is bitwise K1 -> add ->
+K2/K5 and the sums never reach device memory.  Its twin is
+:func:`synaptic_gather_update_plain`.
+
 K6 ports ``src/repro/kernels/synaptic_gather.py::blocked_reduce_sweep``:
 the activity gate (``"cuda:sparse"``) gathers the arrivals in a plain-torch
 pre-pass, and :func:`blocked_reduce_sweep` (``csrc/blocked_reduce_sweep.cu``)
@@ -32,11 +40,15 @@ import ctypes
 
 import torch
 
+from repro_torch.core import snn
 from repro_torch.kernels import _build
+from repro_torch.kernels import adex_step as adex_mod
+from repro_torch.kernels.lif_step import lif_step_plain
 
 __all__ = ["synaptic_gather", "synaptic_gather_plain", "segment_bounds",
+           "synaptic_gather_update", "synaptic_gather_update_plain",
            "blocked_reduce_sweep", "blocked_reduce_sweep_plain",
-           "listed_blocks", "DEFAULT_PB"]
+           "listed_blocks", "DEFAULT_PB", "NEURON_STATE"]
 
 DEFAULT_PB = 256
 
@@ -103,6 +115,34 @@ def _row_sums(post_rel, weight, arrived, channel, pb: int):
     return out(0), out(1)
 
 
+def _check_edges(pre_idx, post_rel, weight, delay, channel, ring, t,
+                 max_delay: int, pb: int, fresh, bounds):
+    """Validate K1's edge arguments for the card; returns ``bounds``,
+    built here if not given."""
+    dev = weight.device
+    nb, eb = weight.shape if weight.dim() == 2 else (-1, -1)
+    d, m = ring.shape
+    if nb < 1 or eb < 1 or pb < 1 or d != max_delay:
+        raise ValueError(f"bad geometry: weight {tuple(weight.shape)}, "
+                         f"ring {tuple(ring.shape)}, pb={pb}, "
+                         f"max_delay={max_delay}")
+    for name, x in (("pre_idx", pre_idx), ("post_rel", post_rel),
+                    ("delay", delay), ("channel", channel)):
+        _build.check_tensor(x, name, torch.int32, (nb, eb), dev)
+    _build.check_tensor(weight, "weight", torch.float32, (nb, eb), dev)
+    _build.check_tensor(ring, "ring", torch.float32, (d, m), dev)
+    _build.check_tensor(t, "t", torch.int32, tuple(t.shape), dev)
+    if t.numel() != 1:
+        raise ValueError(f"t must hold one step, got shape {tuple(t.shape)}")
+    if fresh is not None:
+        _build.check_tensor(fresh, "fresh", torch.float32, (m,), dev)
+    if bounds is None:
+        bounds = segment_bounds(post_rel, delay, pb=pb, max_delay=max_delay)
+    _build.check_tensor(bounds, "bounds", torch.int32,
+                        (nb, max_delay * pb + 1), dev)
+    return bounds
+
+
 def _launcher():
     fn = _build.load("synaptic_gather").synaptic_gather_launch
     if fn.argtypes is None:
@@ -128,28 +168,11 @@ def synaptic_gather(pre_idx, post_rel, weight, delay, channel, ring, t, *,
         return synaptic_gather_plain(pre_idx, post_rel, weight, delay,
                                      channel, ring, t, max_delay=max_delay,
                                      pb=pb, fresh=fresh)
+    bounds = _check_edges(pre_idx, post_rel, weight, delay, channel, ring, t,
+                          max_delay, pb, fresh, bounds)
     dev = weight.device
-    nb, eb = weight.shape if weight.dim() == 2 else (-1, -1)
-    d, m = ring.shape
-    if nb < 1 or eb < 1 or pb < 1 or d != max_delay:
-        raise ValueError(f"bad geometry: weight {tuple(weight.shape)}, "
-                         f"ring {tuple(ring.shape)}, pb={pb}, "
-                         f"max_delay={max_delay}")
-    for name, x in (("pre_idx", pre_idx), ("post_rel", post_rel),
-                    ("delay", delay), ("channel", channel)):
-        _build.check_tensor(x, name, torch.int32, (nb, eb), dev)
-    _build.check_tensor(weight, "weight", torch.float32, (nb, eb), dev)
-    _build.check_tensor(ring, "ring", torch.float32, (d, m), dev)
-    _build.check_tensor(t, "t", torch.int32, tuple(t.shape), dev)
-    if t.numel() != 1:
-        raise ValueError(f"t must hold one step, got shape {tuple(t.shape)}")
-    if fresh is not None:
-        _build.check_tensor(fresh, "fresh", torch.float32, (m,), dev)
-    if bounds is None:
-        bounds = segment_bounds(post_rel, delay, pb=pb, max_delay=max_delay)
-    _build.check_tensor(bounds, "bounds", torch.int32,
-                        (nb, max_delay * pb + 1), dev)
-
+    nb, eb = weight.shape
+    m = ring.shape[1]
     i_ex = torch.empty(nb * pb, dtype=torch.float32, device=dev)
     i_in = torch.empty(nb * pb, dtype=torch.float32, device=dev)
     arrived = torch.empty((nb, eb), dtype=torch.float32, device=dev)
@@ -168,6 +191,140 @@ def synaptic_gather(pre_idx, post_rel, weight, delay, channel, ring, t, *,
 
 #: kernel launches so far (plain-version calls do not count)
 synaptic_gather.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K1 with the neuron update as its epilogue (K1 + K2, K1 + K5)
+# --------------------------------------------------------------------------
+
+#: the neuron state each epilogue takes, in the order of the standalone
+#: kernel's arguments (``lif_step``, ``adex_step``), and its table width
+NEURON_STATE = {"lif": (("v", "syn_ex", "syn_in", "ref_count"), snn.NCOL),
+                "adex": (("v", "w_ad", "syn_ex", "syn_in", "ref_count"),
+                         adex_mod.NCOL)}
+
+
+def _check_neuron(neuron: str, state, cond: bool) -> None:
+    if neuron not in NEURON_STATE:
+        raise ValueError(f"neuron must be one of {sorted(NEURON_STATE)}, "
+                         f"got {neuron!r}")
+    names = NEURON_STATE[neuron][0]
+    if len(state) != len(names):
+        raise ValueError(f"{neuron} state is {names}, got {len(state)} "
+                         "arrays")
+    if cond and neuron != "lif":
+        raise ValueError("the conductance form (cond=True) is LIF's only")
+
+
+def synaptic_gather_update_plain(pre_idx, post_rel, weight, delay, channel,
+                                 ring, t, state, group_id, table, *,
+                                 neuron: str, max_delay: int,
+                                 pb: int = DEFAULT_PB, cond: bool = False,
+                                 drive=None):
+    """Plain-torch twin of the fused kernel: :func:`synaptic_gather_plain`,
+    the sums of the ``n_local`` rows plus ``drive``, then
+    :func:`~repro_torch.kernels.lif_step.lif_step_plain` or
+    :func:`~repro_torch.kernels.adex_step.adex_step_plain`."""
+    _check_neuron(neuron, state, cond)
+    i_ex, i_in, arrived = synaptic_gather_plain(
+        pre_idx, post_rel, weight, delay, channel, ring, t,
+        max_delay=max_delay, pb=pb)
+    n = state[0].shape[0]
+    i_ex, i_in = i_ex[:n], i_in[:n]
+    if drive is not None:
+        i_ex = i_ex + drive
+    if neuron == "lif":
+        return arrived, lif_step_plain(*state, group_id, i_ex, i_in, table,
+                                       cond=cond)
+    return arrived, adex_mod.adex_step_plain(*state, group_id, i_ex, i_in,
+                                             table)
+
+
+def _update_launcher(neuron: str):
+    fn = getattr(_build.load("synaptic_gather"),
+                 f"synaptic_gather_{neuron}_launch")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        n_state = len(NEURON_STATE[neuron][0])
+        fn.argtypes = ([p] * 8 + [i] * 5            # K1's arguments
+                       + [p] * (n_state + 3)        # drive, state, gid, table
+                       + [i] * (3 if neuron == "lif" else 2)
+                       + [p] * (n_state + 1)        # new state, spike
+                       + [p])                       # stream
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
+                           t, state, group_id, table, *, neuron: str,
+                           max_delay: int, pb: int = DEFAULT_PB,
+                           cond: bool = False, drive=None, bounds=None):
+    """K1's edge pass with the neuron update as its epilogue: blocked edge
+    arrays (NB, EB) and one step's neuron state -> ``(arrived, new)``.
+
+    The edge arguments are :func:`synaptic_gather`'s, without ``fresh``
+    (the kernel's C entry point takes it; no caller needs it yet).
+    ``neuron`` is
+    ``"lif"`` (``cond`` picks the conductance form) or ``"adex"``;
+    ``state`` is that model's state in :data:`NEURON_STATE` order, each
+    (n_local,) f32 except int32 ``ref_count``, with ``n_local <= NB*PB``
+    (rows beyond it are the layout's padding and take no step);
+    ``group_id`` (n_local,) int32; ``table`` (G, NCOL) f32, its rows
+    contiguous but possibly further apart; ``drive`` (n_local,) f32 or None,
+    added to the excitatory sum.  ``new`` is what ``lif_step`` or
+    ``adex_step`` returns for the same inputs: the new state and the spike.
+    Group ids are not range-checked on the card (that would sync every
+    step).
+    """
+    if _build.dispatch_device(weight) == "cpu":
+        return synaptic_gather_update_plain(
+            pre_idx, post_rel, weight, delay, channel, ring, t, state,
+            group_id, table, neuron=neuron, max_delay=max_delay, pb=pb,
+            cond=cond, drive=drive)
+    _check_neuron(neuron, state, cond)
+    bounds = _check_edges(pre_idx, post_rel, weight, delay, channel, ring, t,
+                          max_delay, pb, None, bounds)
+    dev = weight.device
+    nb, eb = weight.shape
+    m = ring.shape[1]
+    n = state[0].shape[0] if state[0].dim() == 1 else -1
+    if n < 1 or n > nb * pb:
+        raise ValueError(f"bad geometry: neuron state "
+                         f"{tuple(state[0].shape)} for {nb * pb} rows")
+    names, ncol = NEURON_STATE[neuron]
+    for name, x in zip(names, state):
+        _build.check_tensor(x, name, torch.int32 if name == "ref_count"
+                            else torch.float32, (n,), dev)
+    _build.check_tensor(group_id, "group_id", torch.int32, (n,), dev)
+    if drive is not None:
+        _build.check_tensor(drive, "drive", torch.float32, (n,), dev)
+    stride = _build.check_table(table, ncol, dev)
+
+    arrived = torch.empty((nb, eb), dtype=torch.float32, device=dev)
+    new = [torch.empty(n, dtype=torch.int32 if name == "ref_count"
+                       else torch.float32, device=dev) for name in names]
+    spike = torch.empty(n, dtype=torch.bool, device=dev)
+    extra = (stride, n, int(bool(cond))) if neuron == "lif" else (stride, n)
+    with torch.cuda.device(dev):
+        err = _update_launcher(neuron)(
+            pre_idx.data_ptr(), weight.data_ptr(), channel.data_ptr(),
+            bounds.data_ptr(), ring.data_ptr(), t.data_ptr(), None,
+            arrived.data_ptr(), nb, eb, pb, max_delay, m,
+            None if drive is None else drive.data_ptr(),
+            *(x.data_ptr() for x in state), group_id.data_ptr(),
+            table.data_ptr(), *extra,
+            *(x.data_ptr() for x in new), spike.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"synaptic_gather_update ({neuron})")
+    synaptic_gather_update.launches += 1
+    synaptic_gather_update.launches_by_neuron[neuron] += 1
+    return arrived, (*new, spike)
+
+
+#: kernel launches so far, in all and by epilogue (plain-version calls do
+#: not count; neither counts in ``synaptic_gather.launches``)
+synaptic_gather_update.launches = 0
+synaptic_gather_update.launches_by_neuron = dict.fromkeys(NEURON_STATE, 0)
 
 
 # --------------------------------------------------------------------------

@@ -7,6 +7,7 @@ both connectivity modes.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -94,3 +95,33 @@ def test_block_shapes_wait_for_a_hopper_autotuner():
     with pytest.raises(NotImplementedError, match="Hopper"):
         builder.build_shards(spec, builder.decompose(spec, 1),
                              block_shapes="auto")
+
+
+def test_a_library_is_stale_when_a_header_is_newer(tmp_path, monkeypatch):
+    """``_build._stale``: a kernel's library is rebuilt when it is missing,
+    or older than its source or than any ``csrc/*.cuh`` (a source may
+    include any of them), and loaded as it is otherwise."""
+    from repro_torch.kernels import _build
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, lib = csrc / "k.cu", build / "libk.so"
+    header, other = csrc / "math.cuh", csrc / "other.cu"
+    for f in (src, header, other):
+        f.write_text("")
+    assert _build._stale("k")                      # no library yet
+    lib.write_text("")
+    stamp = lambda f, t: os.utime(f, (t, t))
+    for f in (src, header, other):
+        stamp(f, 1000)
+    stamp(lib, 2000)
+    assert not _build._stale("k")
+    stamp(other, 3000)                             # another kernel's source
+    assert not _build._stale("k")
+    stamp(header, 3000)
+    assert _build._stale("k")
+    stamp(header, 1000)
+    stamp(src, 3000)
+    assert _build._stale("k")

@@ -137,10 +137,28 @@ def test_stdp_kernel_matches_plain(cuda, pb):
     torch.testing.assert_close(w_k, w_p, rtol=2e-6, atol=0)
 
 
+def _launches():
+    """Every SNN kernel's launch count, the fused kernel's by epilogue."""
+    fns = (gather_mod.synaptic_gather, lif_mod.lif_step,
+           stdp_mod.stdp_update, izh_mod.izhikevich_step, adex_mod.adex_step,
+           gather_mod.blocked_reduce_sweep, stdp_mod.stdp_update_worklist)
+    by = gather_mod.synaptic_gather_update.launches_by_neuron
+    return {**{f.__name__: f.launches for f in fns},
+            **{f"synaptic_gather_{k}": v for k, v in by.items()}}
+
+
+def _launched(before: dict) -> dict:
+    """The kernels launched since ``before`` (:func:`_launches`), with
+    their counts."""
+    return {k: v - before[k] for k, v in _launches().items()
+            if v != before[k]}
+
+
 def test_cuda_backend_steps_through_the_kernels(cuda):
     """hpc_benchmark(0.02) on the card: the kernel backend and the flat
-    backend give the same spikes over 200 steps of one injected drive, and
-    each kernel launches once per step."""
+    backend give the same spikes over 200 steps of one injected drive; K1
+    with its LIF epilogue and K3 launch once per step, and neither the
+    plain K1 nor the standalone K2 ever."""
     spec, stdp = models.hpc_benchmark(0.02, stdp=True)
     g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
     table = snn.make_param_table(list(spec.groups), 0.1, device=cuda)
@@ -150,22 +168,108 @@ def test_cuda_backend_steps_through_the_kernels(cuda):
     drive = g.ext_weight * torch.poisson(lam * 1.5, generator=gen)
     runs = {}
     for sweep in ("cuda", "flat"):
-        before = [f.launches for f in (gather_mod.synaptic_gather,
-                                       lif_mod.lif_step,
-                                       stdp_mod.stdp_update)]
+        before = _launches()
         st = engine.init_state(g, list(spec.groups), 0, device=cuda)
         cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep)
         runs[sweep] = engine.run(st, g, table, cfg, 200, drive=drive,
                                  device=cuda)
-        after = [f.launches for f in (gather_mod.synaptic_gather,
-                                      lif_mod.lif_step,
-                                      stdp_mod.stdp_update)]
-        want = 200 if sweep == "cuda" else 0
-        assert [a - b for a, b in zip(after, before)] == [want] * 3
+        want = ({"synaptic_gather_lif": 200, "stdp_update": 200}
+                if sweep == "cuda" else {})
+        assert _launched(before) == want
     (fc, sc), (ff, sf) = runs["cuda"], runs["flat"]
     assert sf.sum() > 0, "no spikes - vacuous"
     assert torch.equal(sc, sf)
     torch.testing.assert_close(fc.weights, ff.weights, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("with_drive", [False, True])
+@pytest.mark.parametrize("neuron,cond", [("lif", False), ("lif", True),
+                                         ("adex", False)])
+def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
+                                                    with_drive):
+    """K1 with the neuron epilogue against K1 -> add -> K2/K5 on the card:
+    bitwise (one source for the step, ``neuron_math.cuh``, no contraction),
+    and twice for determinism.  Against its plain twin: arrivals, spikes and
+    ref_count exact; v (and w_ad) as the standalone kernel's own twin test
+    holds them (LIF bitwise, AdEx within 8 ulps of the largest magnitude:
+    expf against torch's exp); the synaptic state within the sums' 1e-3
+    (another summation order) and 8 ulps of its magnitude."""
+    rng = np.random.default_rng(31 + cond + 2 * with_drive)
+    nb, eb, pb, m, d = 3, 512, 64, 700, 16
+    pre, post, w, delay, chan = sorted_blocked(rng, nb, eb, pb, m, d)
+    ring = (rng.uniform(size=(d, m)) < 0.3).astype(np.float32)
+    edge = [torch.from_numpy(x).to(cuda)
+            for x in (pre, post, w, delay, chan, ring)]
+    tt = torch.tensor(9, dtype=torch.int32, device=cuda)
+    n = nb * pb - 21                     # ragged: padding rows take no step
+    if neuron == "lif":
+        args, table = _lif_inputs(rng, n, 3, cuda)
+        state, gid = tuple(args[:4]), args[4]
+        kernel, kw = lif_mod.lif_step, dict(cond=cond)
+    else:
+        _, x, se, si, rc, gid, _, _, table = _two_variable_inputs(
+            "adex", rng, n, cuda)
+        # membranes up to the exponential's clamp, so that some spike
+        v = torch.from_numpy(rng.uniform(-60, -30, n).astype(np.float32)
+                             ).to(cuda)
+        state, kernel, kw = (v, x, se, si, rc), adex_mod.adex_step, {}
+    drive = (torch.from_numpy(rng.uniform(0, 300, n).astype(np.float32))
+             .to(cuda) if with_drive else None)
+    fkw = dict(neuron=neuron, cond=cond, max_delay=d, pb=pb, drive=drive)
+
+    before = _launches()
+    outs = [gather_mod.synaptic_gather_update(*edge, tt, state, gid, table,
+                                              **fkw) for _ in range(2)]
+    assert _launched(before) == {f"synaptic_gather_{neuron}": 2}
+    (arr, out), (arr2, out2) = outs
+    assert torch.equal(arr, arr2)
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+
+    ex, inh, arr_k = gather_mod.synaptic_gather(*edge, tt, max_delay=d,
+                                                pb=pb)
+    ex = ex[:n] if drive is None else ex[:n] + drive
+    comp = kernel(*state, gid, ex, inh[:n], table, **kw)
+    assert torch.equal(arr, arr_k)
+    assert out[-1].any() and (state[-1] > 0).any(), "vacuous"
+    for a, b in zip(out, comp):
+        assert torch.equal(a, b)
+
+    arr_p, out_p = gather_mod.synaptic_gather_update_plain(
+        *edge, tt, state, gid, table, **fkw)
+    assert torch.equal(arr, arr_p)
+    names = gather_mod.NEURON_STATE[neuron][0] + ("spike",)
+    for name, a, b in zip(names, out, out_p):
+        ulps = 8 * 2.0 ** -23 * float(b.abs().max()) if b.is_floating_point() \
+            else 0
+        if name in ("ref_count", "spike") or (neuron == "lif"
+                                              and name == "v"):
+            assert torch.equal(a, b), name
+        elif name in ("syn_ex", "syn_in"):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3 + ulps)
+        else:
+            torch.testing.assert_close(a, b, rtol=8 * 2.0 ** -23, atol=ulps)
+
+
+def test_fused_kernel_checks_its_arguments(cuda):
+    rng = np.random.default_rng(1)
+    pre, post, w, delay, chan = sorted_blocked(rng, 1, 128, 32, 50, 4)
+    edge = [torch.from_numpy(x).to(cuda) for x in (pre, post, w, delay,
+                                                   chan)]
+    ring = torch.zeros((4, 50), device=cuda)
+    t = torch.tensor(0, dtype=torch.int32, device=cuda)
+    args, table = _lif_inputs(rng, 32, 2, cuda)
+    state, gid = tuple(args[:4]), args[4]
+    before = _launches()
+    with pytest.raises(TypeError, match="drive has dtype"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, t, state, gid, table, neuron="lif", max_delay=4,
+            pb=32, drive=torch.zeros(32, dtype=torch.float64, device=cuda))
+    big = tuple(torch.cat([x, x]) for x in state)
+    with pytest.raises(ValueError, match="bad geometry"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, t, big, torch.cat([gid, gid]), table, neuron="lif",
+            max_delay=4, pb=32)
+    assert _launched(before) == {}
 
 
 def _two_variable_inputs(model, rng, n, cuda):
@@ -239,25 +343,25 @@ def test_kernels_read_a_composite_table_in_place(cuda, model):
 @pytest.mark.parametrize("model", ["izhikevich", "adex"])
 def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
     """model_demo(model, 0.02, stdp=True) on the card, 200 steps: the
-    kernel and flat backends give the same spikes, and K1, K3 and the
-    model's kernel each launch once per step."""
+    kernel and flat backends give the same spikes.  Izhikevich launches
+    K1, K3 and K4 once per step; AdEx K1 with its AdEx epilogue and K3, and
+    neither the plain K1 nor the standalone K5."""
     spec, stdp = models.model_demo(model, 0.02, stdp=True)
     g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
     table = neuron_models.get_model(model).make_param_table(
         list(spec.groups), 0.1, device=cuda)
-    fns = (gather_mod.synaptic_gather, stdp_mod.stdp_update,
-           getattr(izh_mod if model == "izhikevich" else adex_mod,
-                   f"{model}_step"))
     runs = {}
     for sweep in ("cuda", "flat"):
-        before = [f.launches for f in fns]
+        before = _launches()
         st = engine.init_state(g, list(spec.groups), 0, neuron_model=model,
                                device=cuda)
         cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep,
                                   neuron_model=model)
         runs[sweep] = engine.run(st, g, table, cfg, 200, device=cuda)
-        want = 200 if sweep == "cuda" else 0
-        assert [f.launches - b for f, b in zip(fns, before)] == [want] * 3
+        want = ({"synaptic_gather": 200, "izhikevich_step": 200,
+                 "stdp_update": 200} if model == "izhikevich"
+                else {"synaptic_gather_adex": 200, "stdp_update": 200})
+        assert _launched(before) == (want if sweep == "cuda" else {})
     (fc, sc), (ff, sf) = runs["cuda"], runs["flat"]
     assert sf.sum() > 0, "no spikes - vacuous"
     assert torch.equal(sc, sf)
@@ -268,8 +372,9 @@ def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
 def test_a_step_never_waits_for_the_card(cuda, scenario):
     """``engine_step`` issues no host synchronisation (the engine's
     contract): under ``torch.cuda.set_sync_debug_mode("error")`` every
-    synchronising call raises.  hpc_benchmark covers STDP and the drive,
-    brunel with Poisson emitters the composite model and its draws."""
+    synchronising call raises.  hpc_benchmark covers STDP, the drive and
+    K1's LIF epilogue, brunel with Poisson emitters the composite model,
+    its draws and the standalone K2 after K1."""
     spec, stdp = models.get_scenario(scenario, scale=0.02,
                                      **({"stdp": True}
                                         if scenario == "hpc_benchmark"
@@ -283,6 +388,7 @@ def test_a_step_never_waits_for_the_card(cuda, scenario):
                            neuron_model=spec.neuron_model, device=cuda)
     st, _ = engine.engine_step(st, g, table, cfg)   # builds the layout
     torch.cuda.synchronize()
+    before = _launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(5):
@@ -290,6 +396,10 @@ def test_a_step_never_waits_for_the_card(cuda, scenario):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(st.t) == 6
+    assert _launched(before) == (
+        {"synaptic_gather_lif": 5, "stdp_update": 5}
+        if scenario == "hpc_benchmark"
+        else {"synaptic_gather": 5, "lif_step": 5})
 
 
 # --------------------------------------------------------------------------
@@ -399,26 +509,28 @@ def _gated_net(cuda, scale=0.2):
 def test_gated_backend_steps_through_its_kernels(cuda):
     """hpc_benchmark(0.2) (NB 9): ``cuda:sparse:1e-7`` (capacity 8) gives
     the ``cuda`` backend's spikes, voltages and weights bitwise over 300
-    steps of one injected drive; K6 and K7 launch once per step, K1 and
-    K3 never; the gate saturated on some steps and not on others."""
+    steps of one injected drive; K6, K2 and K7 launch once per step (the
+    gate keeps the standalone K2), K1 and K3 never; the gate saturated on
+    some steps and not on others."""
     spec, stdp, g, table = _gated_net(cuda)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
     lam = (g.ext_rate * 1e-4).expand(300, -1)
     drive = g.ext_weight * torch.poisson(lam * 1.5, generator=gen)
-    fns = (gather_mod.synaptic_gather, stdp_mod.stdp_update,
-           gather_mod.blocked_reduce_sweep, stdp_mod.stdp_update_worklist)
     runs = {}
-    for sweep, want in (("cuda", [300, 300, 0, 0]),
-                        ("cuda:sparse:1e-7", [0, 0, 300, 300])):
+    for sweep, want in (
+            ("cuda", {"synaptic_gather_lif": 300, "stdp_update": 300}),
+            ("cuda:sparse:1e-7", {"blocked_reduce_sweep": 300,
+                                  "lif_step": 300,
+                                  "stdp_update_worklist": 300})):
         assert sweep == "cuda" or backends.get_backend(sweep).gate_capacity(
             backends.get_backend(sweep).prepare(g)) == 8 < g.blocked.nb
-        before = [f.launches for f in fns]
+        before = _launches()
         st = engine.init_state(g, list(spec.groups), 0, device=cuda)
         cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep)
         runs[sweep] = engine.run(st, g, table, cfg, 300, drive=drive,
                                  device=cuda)
-        assert [f.launches - b for f, b in zip(fns, before)] == want
+        assert _launched(before) == want
     (fd, sd), (fg, sg) = runs["cuda"], runs["cuda:sparse:1e-7"]
     assert sd.sum() > 0, "no spikes - vacuous"
     assert torch.equal(sd, sg)
