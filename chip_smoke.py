@@ -10,7 +10,8 @@ synapses), built on one shard and stepped by ``engine.run`` through the
 (K1 + K2 in one launch) and K3.  Phases, one JSON line each:
 
 1. device   - the card (``nvidia-smi``), the kernels' build time and the
-              fused kernel's registers (``ptxas``);
+              registers and spills of K1's four instantiations (``ptxas``:
+              K1 alone and with the LIF, Izhikevich and AdEx epilogues);
 2. kernel   - K1, K2, K3 and K1 + K2 fused at the main path's shapes on
               seeded random inputs: each against its plain-torch twin
               (tolerance printed), the fused kernel also bitwise against
@@ -32,21 +33,23 @@ read just after):
 
 6. kernel       - K4 ``izhikevich_step`` and K5 ``adex_step`` at 10 000
                   neurons, the ``model_demo`` tables: against their plain
-                  twins, deterministic, timed; then K1 + K5 fused at
-                  ``model_demo("adex", 1.0)``'s shapes, as K1 + K2 above;
+                  twins, deterministic, timed; then K1 + K4 and K1 + K5
+                  fused at ``model_demo("izhikevich"|"adex", 1.0)``'s
+                  shapes, as K1 + K2 above;
 7. zoo_lockstep - ``model_demo("izhikevich"|"adex", 1.0, stdp=True)``, 120
                   steps where the ``"cuda"`` and ``"flat"`` backends start
                   every step from the same state: identical spikes away
                   from ``v_peak``;
 8. zoo_main     - the same two networks, 2000 steps each through
-                  ``engine.run``: K1, K3 and K4, or K1 + K5 fused and K3,
-                  once per step, state finite, the rate per 250 steps
-                  inside a band around the JAX reference's own CPU run
+                  ``engine.run``: K1 + K4 or K1 + K5 fused, and K3, once
+                  per step, state finite, the rate per 250 steps inside a
+                  band around the JAX reference's own CPU run
                   (``scripts/reference_zoo_rates.json``, written by
                   ``scripts/reference_zoo_rates.py``, which also sets each
-                  network's scale and length here); then the adex network
-                  through ``"cuda:sparse"`` (K6, the standalone K5, K3 or
-                  K7), bitwise equal to the fused run;
+                  network's scale and length here); then each network
+                  through ``"cuda:sparse"`` (``zoo_gate``: K6, the
+                  standalone K4 or K5, K3 or K7), bitwise equal to the
+                  fused run;
 9. composite    - ``brunel(1.0, poisson_input=True)`` ("lif+poisson"),
                   2000 steps on the port's own emitter draws: K1 and K2
                   once per step, the emitter rate within 4 sigma, E and I
@@ -114,6 +117,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -165,7 +169,9 @@ KERNEL_FNS = {"synaptic_gather": gather_mod.synaptic_gather,
               "flash_attention": fa_mod.flash_attention}
 #: K1 with a neuron epilogue: one wrapper, its launches counted by epilogue
 FUSED = gather_mod.synaptic_gather_update
-FUSED_KERNELS = {"synaptic_gather_lif": "lif", "synaptic_gather_adex": "adex"}
+FUSED_KERNELS = {"synaptic_gather_lif": "lif",
+                 "synaptic_gather_izhikevich": "izhikevich",
+                 "synaptic_gather_adex": "adex"}
 REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "lif_step": "src/repro/kernels/lif_step.py:71",
             "stdp_update": "src/repro/kernels/stdp_update.py:66",
@@ -177,22 +183,33 @@ REPLACES = {"synaptic_gather": "src/repro/kernels/synaptic_gather.py:106",
             "flash_attention": "src/repro/kernels/flash_attention.py:80",
             "synaptic_gather_lif": "src/repro/kernels/synaptic_gather.py:106"
                                    " + src/repro/kernels/lif_step.py:71",
+            "synaptic_gather_izhikevich":
+                "src/repro/kernels/synaptic_gather.py:106"
+                " + src/repro/kernels/izhikevich_step.py:101",
             "synaptic_gather_adex": "src/repro/kernels/synaptic_gather.py:106"
                                     " + src/repro/kernels/adex_step.py:108"}
+#: the fields a fused kernel must equal its plain twin in bitwise, by
+#: epilogue (the membrane, and u, do not depend on this step's sums; AdEx's
+#: expf may differ from torch's exp by ulps)
+EXACT_FIELDS = {"lif": ("v", "ref_count", "spike"),
+                "izhikevich": ("v", "u", "ref_count", "spike"),
+                "adex": ("ref_count", "spike")}
 #: the kernels of the hpc_benchmark main path (phase 5)
 MAIN_KERNELS = ("synaptic_gather_lif", "stdp_update")
 #: the counted run whose launches the kernels line reports for a kernel:
-#: a path that runs it once per step (K1 and K2 standalone are off the
-#: fused main path: K1 stays before K4, K2 after K6, K5 after K6)
-LAUNCHES_FROM = {"synaptic_gather": "zoo_main izhikevich",
+#: a path that runs it once per step (K1, K2, K4 and K5 standalone are off
+#: the fused main paths: K1 stays before K2 in the composite, K2, K4 and
+#: K5 run after K6)
+LAUNCHES_FROM = {"synaptic_gather": "composite",
                  "lif_step": "gate_main cuda:sparse:1e-7",
                  "stdp_update": "main",
-                 "izhikevich_step": "zoo_main izhikevich",
+                 "izhikevich_step": "zoo_gate izhikevich",
                  "adex_step": "zoo_gate adex",
                  "blocked_reduce_sweep": "gate_main cuda:sparse:1e-7",
                  "stdp_update_worklist": "gate_main cuda:sparse:1e-7",
                  "flash_attention": "lm_serve",
                  "synaptic_gather_lif": "main",
+                 "synaptic_gather_izhikevich": "zoo_main izhikevich",
                  "synaptic_gather_adex": "zoo_main adex"}
 #: the kernels of the gated main path (phase 11), by backend: the
 #: full-capacity gate reduces densely through K6 and updates through K3,
@@ -204,10 +221,10 @@ GATE_KERNELS = {"cuda:sparse": ("blocked_reduce_sweep", "lif_step",
 #: the zoo's two-variable kernels: model -> (kernel module, its wrapper)
 ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
                "adex": (adex_mod, adex_mod.adex_step)}
-#: the kernels of each zoo network's main path (phase 8): Izhikevich keeps
-#: K4 after K1, AdEx is K1 + K5 in one launch
-ZOO_MAIN_KERNELS = {"izhikevich": ("synaptic_gather", "stdp_update",
-                                   "izhikevich_step"),
+#: the kernels of each zoo network's main path (phase 8): K1 + K4 or
+#: K1 + K5 in one launch, then K3
+ZOO_MAIN_KERNELS = {"izhikevich": ("synaptic_gather_izhikevich",
+                                   "stdp_update"),
                     "adex": ("synaptic_gather_adex", "stdp_update")}
 #: launches a run of many launches times, per kernel (``loop_ms``)
 LOOP_LAUNCHES = 1000
@@ -401,16 +418,42 @@ def phase_device() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     built = _build.build_all()
-    # registers and spills of K1's three instantiations (none, LIF, AdEx
-    # epilogue): an epilogue's registers can cost K1 occupancy
-    ptxas = [line.strip() for line in
-             built["ptxas"].get("synaptic_gather", "").splitlines()
-             if "entry function" in line or "Used" in line
-             or "spill" in line]
+    # registers and spills of K1's four instantiations (none, LIF,
+    # Izhikevich, AdEx epilogue): an epilogue's registers can cost K1
+    # occupancy
+    regs = k1_registers(built["ptxas"]["synaptic_gather"])
+    check(sorted(regs) == sorted((*FUSED_KERNELS, "synaptic_gather")),
+          f"ptxas reported K1's entry functions as {sorted(regs)}")
     emit({"phase": "device", "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": built["seconds"], "synaptic_gather_ptxas": ptxas})
+          "build_s": built["seconds"], "synaptic_gather_ptxas": regs})
     return smi
+
+
+def k1_registers(log: str) -> dict:
+    """Registers and spill bytes of each of K1's entry functions in its
+    ``nvcc -Xptxas -v`` log, by ``read_launches`` name: the epilogue's
+    struct names the fused instantiation."""
+    by_struct = {"LifStep": "synaptic_gather_lif",
+                 "IzhikevichStep": "synaptic_gather_izhikevich",
+                 "AdexStep": "synaptic_gather_adex"}
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = next((v for k, v in by_struct.items() if k in m.group(1)),
+                        "synaptic_gather")
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[name]["spill_store_bytes"] = int(m.group(1))
+                out[name]["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -554,12 +597,13 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
     """K1 with the ``neuron`` epilogue at network ``g``'s shapes (its
     layout, ``n_local`` and group ids, with ``table``) on seeded inputs.
     Each case (LIF: current and conductance; drive off and on) bitwise
-    against K1 -> add -> the standalone K2 or K5 on the card and twice for
-    determinism, and against the plain twin: arrivals, spikes and ref_count
-    exact, the membrane (and w_ad) as the standalone kernel's own check
-    holds it, the synaptic state within K1's sums tolerance.  Timed in the
-    path's case (``drive_on``: the drive as the path has it) alone and in
-    turns with K1 alone, per launch over many: ``epilogue_ms`` = fused - K1.
+    against K1 -> add -> the standalone K2, K4 or K5 on the card and twice
+    for determinism, and against the plain twin: arrivals, spikes and
+    ref_count exact, the membrane (and u, w_ad) as the standalone kernel's
+    own check holds it, the synaptic state within K1's sums tolerance.
+    Timed in the path's case (``drive_on``: the drive as the path has it)
+    alone and in turns with K1 alone, per launch over many:
+    ``epilogue_ms`` = fused - K1.
     Returns the kernels-line record, and K1's per-launch time under
     ``_k1_ms_per_launch``."""
     bg = g.blocked
@@ -579,6 +623,10 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
     if neuron == "lif":
         state = (f32(-52, -48), f32(0, 100), f32(0, 100), rc)
         standalone, conds, ops = lif_mod.lif_step, (False, True), 15
+    elif neuron == "izhikevich":
+        # up to v_peak
+        state = (f32(-70, 30), f32(-16, 0), f32(0, 30), f32(-30, 0), rc)
+        standalone, conds, ops = izh_mod.izhikevich_step, (False,), 25
     else:
         # up to the exponential's clamp, v_t + 10 delta_t
         state = (f32(-60, -30), f32(0, 100), f32(0, 300), f32(-300, 0), rc)
@@ -618,8 +666,7 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
                 errs[case][field] = max_abs(x.float(), y.float())
                 ulps = (8 * 2.0 ** -23 * float(y.abs().max())
                         if y.is_floating_point() else 0.0)
-                if field in ("ref_count", "spike") or (neuron == "lif"
-                                                       and field == "v"):
+                if field in EXACT_FIELDS[neuron]:
                     ok = torch.equal(x, y)
                 else:
                     lim = ulps + (1e-2 if field.startswith("syn") else 0)
@@ -647,9 +694,11 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
           "d": d, "m": m, "n_local": n, "live_slots": live,
           "max_abs_err": errs,
           "tolerance": "bitwise equal to K1 -> add -> "
-                       f"{standalone.__name__}; against the twin: arrivals,"
-                       " spikes, ref_count exact, v as the standalone "
-                       "kernel's check, syn within K1's atol 1e-2",
+                       f"{standalone.__name__}; against the twin: arrivals "
+                       "and "
+                       + ", ".join(EXACT_FIELDS[neuron])
+                       + " exact, other floats within 8 ulp of max |x|, "
+                       "syn also within K1's atol 1e-2",
           "deterministic": True, "timed_drive": drive_on,
           "kernel_ms": k_ms, "plain_ms": p_ms,
           "in_turns_ms_per_launch": turns,
@@ -1071,7 +1120,7 @@ def check_rates(what: str, rates: dict, ref: dict, mean_band: float) -> None:
 
 def phase_zoo_main(model, spec, stdp, g, table, ref: dict):
     """Returns the run's launches, and on the host its spikes and final
-    state (the adex network's gated run must reproduce them bitwise)."""
+    state (the network's gated run must reproduce them bitwise)."""
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
                               external_drive=False, neuron_model=model)
     _, fin, spikes, rec = run_counted(
@@ -1094,35 +1143,40 @@ def phase_zoo_main(model, spec, stdp, g, table, ref: dict):
                                  *fin.neurons.extra.items())}}
 
 
-def phase_zoo_gate(spec, stdp, g, table, ref: dict, main_out: dict) -> dict:
-    """The adex network through the activity gate (``"cuda:sparse"``): K6,
-    then the standalone K5 (the gated backend keeps the composed route),
-    then K3 or K7.  Spikes, ``v_m``, ``w_ad`` and weights must equal the
-    fused ``zoo_main`` run's bitwise: K6 sums as K1 does, and K5 and K1's
-    AdEx epilogue share one source.  Returns the run's launches."""
+def phase_zoo_gate(model, spec, stdp, g, table, ref: dict,
+                   main_out: dict) -> dict:
+    """The ``model`` network through the activity gate (``"cuda:sparse"``):
+    K6, then the standalone K4 or K5 (the gated backend keeps the composed
+    route), then K3 or K7.  Spikes, ``v_m``, the model's extra variable
+    (``u``, ``w_ad``) and weights must equal the fused ``zoo_main`` run's
+    bitwise: K6 sums as K1 does, and the standalone kernel and K1's
+    epilogue share one source.  Returns the run's launches."""
     sweep = "cuda:sparse"
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=sweep,
-                              external_drive=False, neuron_model="adex")
+                              external_drive=False, neuron_model=model)
     backend = backends.get_backend(sweep)
     cap = backend.gate_capacity(backend.prepare(g))
-    kernels = ("blocked_reduce_sweep", "adex_step",
+    kernels = ("blocked_reduce_sweep", f"{model}_step",
                "stdp_update" if cap >= g.blocked.nb
                else "stdp_update_worklist")
-    _, fin, spikes, rec = run_counted(f"zoo_gate adex {sweep}", spec, g,
+    _, fin, spikes, rec = run_counted(f"zoo_gate {model} {sweep}", spec, g,
                                       table, cfg, ref["steps"], kernels)
+    (x_name,) = neuron_models.get_model(model).extra_fields
     for name, a in (("spikes", spikes), ("weights", fin.weights),
                     ("v_m", fin.neurons.v_m),
-                    ("w_ad", fin.neurons.extra["w_ad"])):
+                    (x_name, fin.neurons.extra[x_name])):
         check(torch.equal(a.cpu(), main_out[name]),
-              f"zoo_gate adex: {name} differ from the fused run's")
-    emit({"phase": "zoo_gate", "model": "adex", "sweep": sweep,
+              f"zoo_gate {model}: {name} differ from the fused run's")
+    emit({"phase": "zoo_gate", "model": model, "sweep": sweep,
           "capacity": cap, "nb": g.blocked.nb,
-          "bitwise_equal_to_zoo_main": True, **rec})
+          "bitwise_equal_to_zoo_main": True, **rec,
+          "profile": _profile(g, table, cfg, spec)})
     return rec["launches"]
 
 
-def phase_composite(spec, g, table, ref: dict) -> None:
-    """brunel + Poisson emitter population on the port's own draws."""
+def phase_composite(spec, g, table, ref: dict) -> dict:
+    """brunel + Poisson emitter population on the port's own draws; returns
+    the run's launches."""
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=None, sweep="cuda",
                               external_drive=False,
                               neuron_model=spec.neuron_model)
@@ -1153,6 +1207,7 @@ def phase_composite(spec, g, table, ref: dict) -> None:
           "rate_band": {"window": WINDOW_BAND,
                         "mean": MEAN_BAND[spec.neuron_model]},
           **rec, "profile": _profile(g, table, cfg, spec)})
+    return rec["launches"]
 
 
 def zoo():
@@ -1164,22 +1219,20 @@ def zoo():
         ref = ZOO_REFERENCE[model]
         spec, stdp = models.model_demo(model, ref["scale"], stdp=True)
         g, table = build_network(spec, f"model_demo {model}", ref)
-        if model == "adex":
-            kern.update(phase_fused_kernel(
-                "adex", g, table, np.random.default_rng(SEED + 4),
-                drive_on=False))      # zoo_main runs without a drive
-            del kern["_k1_ms_per_launch"]
+        kern.update(phase_fused_kernel(
+            model, g, table, np.random.default_rng(SEED + 4),
+            drive_on=False))      # zoo_main runs without a drive
+        del kern["_k1_ms_per_launch"]
         phase_zoo_lockstep(model, spec, stdp, g, table)
         launches[f"zoo_main {model}"], main_out = phase_zoo_main(
             model, spec, stdp, g, table, ref)
-        if model == "adex":
-            launches["zoo_gate adex"] = phase_zoo_gate(spec, stdp, g, table,
-                                                       ref, main_out)
+        launches[f"zoo_gate {model}"] = phase_zoo_gate(
+            model, spec, stdp, g, table, ref, main_out)
         del g, table, main_out
     ref = ZOO_REFERENCE["lif+poisson"]
     spec, _ = models.brunel(ref["scale"], poisson_input=True)
     g, table = build_network(spec, "brunel poisson_input", ref)
-    phase_composite(spec, g, table, ref)
+    launches["composite"] = phase_composite(spec, g, table, ref)
     return kern, launches
 
 

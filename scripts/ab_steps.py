@@ -1,5 +1,6 @@
-"""Steps per second and the device profile of the port's two LIF/AdEx main
-paths, for one or more checkouts of this repository, in turns, on one card.
+"""Steps per second and the device profile of the port's LIF, Izhikevich and
+AdEx main paths, for one or more checkouts of this repository, in turns, on
+one card.
 
     python3 scripts/ab_steps.py ROOT [ROOT ...]
 
@@ -10,6 +11,8 @@ builds its tree's kernels, then, for each network,
 
 * ``hpc``:  ``hpc_benchmark(1.0, stdp=True)`` with the external drive on
   (``chip_smoke.py``'s ``main``);
+* ``izh``:  ``model_demo("izhikevich", 1.0, stdp=True)`` with the drive
+  off (``chip_smoke.py``'s izhikevich ``zoo_main``);
 * ``adex``: ``model_demo("adex", 1.0, stdp=True)`` with the drive off
   (``chip_smoke.py``'s adex ``zoo_main``);
 
@@ -49,6 +52,7 @@ def child(root: str) -> None:
     dev = torch.device("cuda")
     _build.build_all()
     nets = {"hpc": (models.hpc_benchmark(1.0, stdp=True), True),
+            "izh": (models.model_demo("izhikevich", 1.0, stdp=True), False),
             "adex": (models.model_demo("adex", 1.0, stdp=True), False)}
     for name, ((spec, stdp), drive) in nets.items():
         g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(dev)

@@ -17,9 +17,10 @@ so that a backend can fuse them:
   K2 (:mod:`repro_torch.kernels.lif_step`) and K3
   (:mod:`repro_torch.kernels.stdp_update`); the mirror of the reference's
   ``PallasBackend``; the neuron update goes through the model's kernel
-  (K2 for lif, K4 for izhikevich, K5 for adex).  For ``"lif"`` and
-  ``"adex"`` that update is K1's epilogue instead, one launch for the edge
-  pass, the drive and the step (:meth:`CudaBackend.update_route`).  On CPU
+  (K2 for lif, K4 for izhikevich, K5 for adex).  For ``"lif"``,
+  ``"izhikevich"`` and ``"adex"`` that update is K1's epilogue instead, one
+  launch for the edge pass, the drive and the step
+  (:meth:`CudaBackend.update_route`).  On CPU
   tensors each kernel wrapper runs its plain twin, which is how the CPU
   tests drive this backend.
 * ``"cuda:sparse"`` - the activity gate (DESIGN.md §13), the mirror of the
@@ -58,7 +59,8 @@ from repro_torch.core import stdp as stdp_mod
 from repro_torch.core.layout import BlockedGraph
 from repro_torch.kernels.stdp_update import stdp_update as stdp_update_kernel
 from repro_torch.kernels.stdp_update import stdp_update_worklist
-from repro_torch.kernels.synaptic_gather import (blocked_reduce_sweep,
+from repro_torch.kernels.synaptic_gather import (NEURON_STATE,
+                                                 blocked_reduce_sweep,
                                                  segment_bounds,
                                                  synaptic_gather,
                                                  synaptic_gather_update)
@@ -435,9 +437,9 @@ class FlatBackend(SweepBackend):
 class CudaBackend(SweepBackend):
     """Kernel path: K1 edge pass, the neuron model's kernel (K2 LIF, K4
     Izhikevich, K5 AdEx) and K3 blocked STDP update on the post-block ELL
-    layout - the mirror of the reference's ``PallasBackend``.  For LIF and
-    AdEx the neuron step is K1's epilogue (:meth:`update_route`), so a step
-    launches K1 and K3 only.
+    layout - the mirror of the reference's ``PallasBackend``.  For LIF,
+    Izhikevich and AdEx the neuron step is K1's epilogue
+    (:meth:`update_route`), so a step launches K1 and K3 only.
 
     The blocked layout is the RESIDENT hot-path representation: run-time
     weights live in ELL slot order, K1 emits the per-slot arrivals from its
@@ -492,18 +494,20 @@ class CudaBackend(SweepBackend):
                     uniform=uniform)
 
     def update_route(self, model, synapse_model: str) -> str:
-        """``"fused:lif"`` for the LIF model (current or conductance) and
-        ``"fused:adex"`` for AdEx (current): K1 takes the neuron step as
-        its epilogue.  ``"composed"`` for every other model - izhikevich
-        (K4 standalone), the ``+poisson`` composites, ``poisson`` - and
-        synapse model."""
+        """``"fused:lif"`` for the LIF model (current or conductance),
+        ``"fused:izhikevich"`` and ``"fused:adex"`` for Izhikevich and AdEx
+        (current): K1 takes the neuron step as its epilogue.
+        ``"composed"`` for every other model - the ``+poisson`` composites,
+        ``poisson`` - and synapse model (a two-variable model's own step
+        then rejects the conductance form)."""
         name = neuron_models_mod.get_model(
             "lif" if model is None else model).name
         if name == "lif" and synapse_model in (snn.SynapseModel.CURRENT_EXP,
                                                snn.SynapseModel.COND_EXP):
             return "fused:lif"
-        if name == "adex" and synapse_model == snn.SynapseModel.CURRENT_EXP:
-            return "fused:adex"
+        if (name in ("izhikevich", "adex")
+                and synapse_model == snn.SynapseModel.CURRENT_EXP):
+            return f"fused:{name}"
         return "composed"
 
     def sweep_update(self, layout, weights, ring, t, neurons, table, drive,
@@ -515,28 +519,26 @@ class CudaBackend(SweepBackend):
                 layout, weights, ring, t, neurons, table, drive,
                 synapse_model=synapse_model, model=model, seed=seed, gid=gid,
                 uniform=uniform)
-        # one launch: K1's edge pass, + drive, and the model's step
+        # one launch: K1's edge pass, + drive, and the model's step; the
+        # state goes in and comes out in NEURON_STATE's order, the common
+        # fields by their NeuronState names and the model's own in extra
         neuron = route.split(":", 1)[1]
         bg = _require_blocked(layout)
-        state = ((neurons.v_m, neurons.syn_ex, neurons.syn_in,
-                  neurons.ref_count) if neuron == "lif" else
-                 (neurons.v_m, neurons.extra["w_ad"], neurons.syn_ex,
-                  neurons.syn_in, neurons.ref_count))
+        names = NEURON_STATE[neuron][0]
+        fields = {"v": neurons.v_m, "syn_ex": neurons.syn_ex,
+                  "syn_in": neurons.syn_in, "ref_count": neurons.ref_count,
+                  **neurons.extra}
         arrived, out = synaptic_gather_update(
             bg.pre_idx, bg.post_rel, weights.reshape(bg.nb, bg.eb), bg.delay,
-            bg.channel, ring, t, state, neurons.group_id, table,
-            neuron=neuron, max_delay=layout.max_delay, pb=bg.pb,
+            bg.channel, ring, t, tuple(fields[k] for k in names),
+            neurons.group_id, table, neuron=neuron,
+            max_delay=layout.max_delay, pb=bg.pb,
             cond=synapse_model == snn.SynapseModel.COND_EXP, drive=drive,
             bounds=layout.seg_bounds)
-        if neuron == "lif":
-            v, se, si, rc, sp = out
-            extra = neurons.extra
-        else:
-            v, w_ad, se, si, rc, sp = out
-            extra = {"w_ad": w_ad}
-        new = snn.NeuronState(v_m=v, syn_ex=se, syn_in=si, ref_count=rc,
-                              spike=sp, group_id=neurons.group_id,
-                              extra=extra)
+        got = dict(zip(names, out[:-1]))
+        extra = {k: got.pop(k, x) for k, x in neurons.extra.items()}
+        new = snn.NeuronState(v_m=got.pop("v"), **got, spike=out[-1],
+                              group_id=neurons.group_id, extra=extra)
         return new, arrived.reshape(-1), 0
 
     def stdp_update(self, layout, weights, arrived, post_spike, traces,

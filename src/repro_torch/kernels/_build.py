@@ -14,9 +14,9 @@ on its own, as the reference's XLA ops are, so that contraction cannot move
 a membrane potential across the threshold (K2) or a weight by an ulp
 (K1, K3).
 
-A library is rebuilt when its source, or any ``csrc/*.cuh`` header, is
-newer.  :func:`build_all` starts
-one ``nvcc`` per source, all at once, and waits for them.  The wrappers
+:func:`load` rebuilds a library when its source, or any ``csrc/*.cuh``
+header, is newer.  :func:`build_all` starts one ``nvcc`` per source, all
+at once, and waits for them.  The wrappers
 validate every tensor with :func:`check_tensor` (a parameter table with
 :func:`check_table`) before its pointer goes to C, and raise on the error code each entry point returns (:func:`check`).
 """
@@ -92,13 +92,14 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, lib: Path) -> str:
 
 
 def build_all(names=KERNELS) -> dict:
-    """Compile every stale kernel, one ``nvcc`` each, in parallel.
+    """Compile the kernels ``names``, one ``nvcc`` each, in parallel, stale
+    or not (:func:`load` builds a kernel only when it is stale).
 
     Returns ``{"seconds": wall time, "ptxas": {name: nvcc output}}``;
     the ptxas lines give registers, shared memory and spills per kernel.
     """
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in names if _stale(n)}
+    started = {n: _start(n) for n in names}
     logs = {}
     try:
         for n, (proc, tmp, lib) in started.items():

@@ -20,20 +20,16 @@
 // have no counterpart to keep. The arithmetic follows the reference's
 // izhikevich_math op for op, left to right, and the library is compiled
 // with --fmad=false: the quadratic amplifies an ulp, and a contracted FMA
-// rounds once where the plain twin rounds twice.
+// rounds once where the plain twin rounds twice. The per-neuron body is
+// neuron_math.cuh's izhikevich_update, which K1's Izhikevich epilogue
+// (synaptic_gather.cu) inlines too: on the paths where K1 precedes the
+// update, that epilogue takes the step and this kernel is not launched.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "neuron_math.cuh"
 
-// column order of repro_torch.kernels.izhikevich_step._COLS (the wrapper
-// checks NCOL == 11); rows lie table_stride >= kNcol floats apart, so that
-// a composite model's table, which carries one more column, is read in
-// place
-enum Col {
-  kPee = 0, kPii, kDt, kA, kB, kC, kD, kVpeak, kRefSteps, kIe, kIscale,
-  kNcol
-};
+namespace {
 
 __global__ void izhikevich_step_kernel(const float* __restrict__ v,
                                        const float* __restrict__ u,
@@ -54,27 +50,15 @@ __global__ void izhikevich_step_kernel(const float* __restrict__ v,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* tb = table + static_cast<size_t>(group_id[i]) * table_stride;
-  const float vm = v[i], um = u[i], se = syn_ex[i], si = syn_in[i];
-  const int rc = ref_count[i];
-  const float dt = __ldg(tb + kDt);
-
-  se_out[i] = se * __ldg(tb + kPee) + input_ex[i];
-  si_out[i] = si * __ldg(tb + kPii) + input_in[i];
-  const float i_in = __ldg(tb + kIscale) * (se + si) + __ldg(tb + kIe);
-  const float v_prop =
-      vm + dt * (0.04f * vm * vm + 5.0f * vm + 140.0f - um + i_in);
-  const float u_prop = um + dt * __ldg(tb + kA) * (__ldg(tb + kB) * vm - um);
-
-  const bool refractory = rc > 0;
-  const float c = __ldg(tb + kC);
-  float v_new = refractory ? c : v_prop;
-  const bool spike = !refractory && v_new >= __ldg(tb + kVpeak);
-  if (spike) v_new = c;
-  v_out[i] = v_new;
-  u_out[i] = spike ? u_prop + __ldg(tb + kD) : u_prop;
-  // ref_steps is a float column; the cast truncates, as astype(int32) does
-  rc_out[i] = spike ? static_cast<int>(__ldg(tb + kRefSteps)) : max(rc - 1, 0);
-  spike_out[i] = spike;
+  const neuron_math::IzhikevichNext o = neuron_math::izhikevich_update(
+      {v[i], u[i], syn_ex[i], syn_in[i], ref_count[i]}, input_ex[i],
+      input_in[i], tb);
+  v_out[i] = o.v;
+  u_out[i] = o.u;
+  se_out[i] = o.syn_ex;
+  si_out[i] = o.syn_in;
+  rc_out[i] = o.ref_count;
+  spike_out[i] = o.spike;
 }
 
 }  // namespace

@@ -1,18 +1,21 @@
-// The per-neuron LIF (K2) and AdEx (K5) updates, one source for every
-// kernel that takes a neuron's step: the standalone kernels (lif_step.cu,
-// adex_step.cu) and the neuron epilogues of K1 (synaptic_gather.cu).
+// The per-neuron LIF (K2), Izhikevich (K4) and AdEx (K5) updates, one
+// source for every kernel that takes a neuron's step: the standalone
+// kernels (lif_step.cu, izhikevich_step.cu, adex_step.cu) and the neuron
+// epilogues of K1 (synaptic_gather.cu).
 //
 // Each function takes one neuron's loaded state, its two inputs of this
 // step and a pointer to its group's table row, and returns the new state
 // and the spike. The libraries are built with --fmad=false and without fast
 // math, so an expression gives the same bits wherever it is inlined: the
 // fused K1 + K2 step is bitwise equal to K1 -> add -> K2 by construction,
-// and so is K1 + K5 to K1 -> add -> K5.
+// and so are K1 + K4 and K1 + K5 to K1 -> add -> K4 and K5.
 //
 // The arithmetic is the reference's, op for op (see each kernel's header):
 // LIF in the Pallas kernel's order, v*p_vv + syn_ex*p_ve + syn_in*p_vi +
-// p_vconst left to right; AdEx as adex_math, with expf (not __expf), IEEE
-// division and the exponent's argument clamped so that a NaN stays NaN.
+// p_vconst left to right; Izhikevich as izhikevich_math, left to right,
+// with the previous step's syn_ex + syn_in driving v; AdEx as adex_math,
+// with expf (not __expf), IEEE division and the exponent's argument
+// clamped so that a NaN stays NaN.
 
 #pragma once
 
@@ -30,6 +33,15 @@ enum Col {
 };
 }  // namespace lif
 
+// column order of repro_torch.kernels.izhikevich_step._COLS (the wrappers
+// check NCOL == 11), rows table_stride apart as above
+namespace izhikevich {
+enum Col {
+  kPee = 0, kPii, kDt, kA, kB, kC, kD, kVpeak, kRefSteps, kIe, kIscale,
+  kNcol
+};
+}  // namespace izhikevich
+
 // column order of repro_torch.kernels.adex_step._COLS (the wrappers check
 // NCOL == 14), rows table_stride apart as above
 namespace adex {
@@ -45,6 +57,11 @@ struct LifState {
   int ref_count;
 };
 
+struct IzhikevichState {
+  float v, u, syn_ex, syn_in;
+  int ref_count;
+};
+
 struct AdexState {
   float v, w_ad, syn_ex, syn_in;
   int ref_count;
@@ -52,6 +69,12 @@ struct AdexState {
 
 struct LifNext {
   float v, syn_ex, syn_in;
+  int ref_count;
+  bool spike;
+};
+
+struct IzhikevichNext {
+  float v, u, syn_ex, syn_in;
   int ref_count;
   bool spike;
 };
@@ -88,6 +111,40 @@ __device__ __forceinline__ LifNext lif_update(const LifState s,
   o.v = v_new;
   // ref_steps is a float column; the cast truncates, as astype(int32) does
   o.ref_count = spike ? static_cast<int>(tb[kRefSteps])
+                      : max(s.ref_count - 1, 0);
+  o.spike = spike;
+  return o;
+}
+
+// Decay the synaptic state and add the input, take one forward-Euler step
+//   v' = v + dt (0.04 v^2 + 5 v + 140 - u + I),  I = i_scale (se + si) + i_e
+//   u' = u + dt a (b v - u)
+// with the previous step's synaptic state in I (arrivals act from t+dt
+// on), clamp refractory neurons to c, threshold at v_peak, reset
+// (v <- c, u <- u + d) and count the refractory period down.
+__device__ __forceinline__ IzhikevichNext izhikevich_update(
+    const IzhikevichState s, float input_ex, float input_in,
+    const float* __restrict__ tb) {
+  using namespace izhikevich;
+  IzhikevichNext o;
+  const float vm = s.v, um = s.u, se = s.syn_ex, si = s.syn_in;
+  const float dt = __ldg(tb + kDt);
+  o.syn_ex = se * __ldg(tb + kPee) + input_ex;
+  o.syn_in = si * __ldg(tb + kPii) + input_in;
+  const float i_in = __ldg(tb + kIscale) * (se + si) + __ldg(tb + kIe);
+  const float v_prop =
+      vm + dt * (0.04f * vm * vm + 5.0f * vm + 140.0f - um + i_in);
+  const float u_prop = um + dt * __ldg(tb + kA) * (__ldg(tb + kB) * vm - um);
+
+  const bool refractory = s.ref_count > 0;
+  const float c = __ldg(tb + kC);
+  float v_new = refractory ? c : v_prop;
+  const bool spike = !refractory && v_new >= __ldg(tb + kVpeak);
+  if (spike) v_new = c;
+  o.v = v_new;
+  o.u = spike ? u_prop + __ldg(tb + kD) : u_prop;
+  // ref_steps is a float column; the cast truncates, as astype(int32) does
+  o.ref_count = spike ? static_cast<int>(__ldg(tb + kRefSteps))
                       : max(s.ref_count - 1, 0);
   o.spike = spike;
   return o;

@@ -13,21 +13,26 @@
 //              neuron's LIF step, current or conductance by the runtime
 //              cond flag (synaptic_gather_lif_launch: K1 + K2, also
 //              replacing src/repro/kernels/lif_step.py::lif_step_kernel);
+//   IzhikevichStep  the same with the Izhikevich step
+//              (synaptic_gather_izhikevich_launch: K1 + K4, also replacing
+//              src/repro/kernels/izhikevich_step.py::izhikevich_step_kernel);
 //   AdexStep   the same with the AdEx step (synaptic_gather_adex_launch:
 //              K1 + K5, also replacing src/repro/kernels/adex_step.py::
 //              adex_step_kernel).
-// The steps are neuron_math.cuh's, the very source of the standalone K2 and
-// K5, so a fused step is bitwise equal to K1 -> add -> K2/K5.
+// The steps are neuron_math.cuh's, the very source of the standalone K2, K4
+// and K5, so a fused step is bitwise equal to K1 -> add -> K2/K4/K5.
 //
 // What bounds it on the card: bytes. Each slot is touched once: pre, w and
 // channel are read (12 B) and the arrival is written (4 B); the ring gather
 // hits a (D, M) f32 array of under 1 MB that stays in L2. There is no reuse
 // to exploit, so the kernel aims at streaming the slot arrays at full
 // memory rate. A neuron epilogue adds the neuron's state (LIF: 41 B a
-// neuron with the drive, AdEx: 49 B) and saves what K1 -> add -> K2/K5
-// moves besides: the two sums written and read back (16 B a neuron), the
-// drive's add (12 B) and two launches. At hpc_benchmark scale 1 that is
-// under 0.5 MB against K1's 200 MB, so the fused kernel's bound is K1's.
+// neuron with the drive, Izhikevich and AdEx: 49 B, 45 B without it) and
+// saves what K1 -> add -> K2/K4/K5 moves besides: the two sums written and
+// read back (16 B a neuron), the drive's add (12 B) and two launches. At
+// hpc_benchmark scale 1 that is under 0.5 MB against K1's 200 MB, and at a
+// zoo network's 10 000 neurons 0.45 MB against K1's 162 MB, so the fused
+// kernel's bound is K1's.
 //
 // Design. The TPU grid (one cell per post block holding the whole ring in
 // VMEM, a one-hot MXU matmul for the row sums) does not carry over: at
@@ -47,17 +52,17 @@
 // order, the fixed shuffle tree reduces the 32 lane sums, and only then is
 // the drive added (ex + drive, one rounding). K6 (blocked_reduce_sweep.cu)
 // reproduces these sums bitwise, and the gated engine path, which runs K6
-// and then the standalone K2, must equal the fused one bitwise.
+// and then the standalone K2, K4 or K5, must equal the fused one bitwise.
 //
 // A neuron epilogue belongs to the warp: after the shuffle tree lane 0
 // holds the row's complete sums and is the only writer of the row, so no
 // grid-wide dependency and no atomics come in. Then lane k loads the k-th
-// 32-bit word of the neuron's state (v, w_ad for AdEx, the synaptic state,
-// ref_count, the group id, the drive), lane 0 gathers the words by
-// shuffles, reads the group's table row (a few hundred bytes that stay in
-// L1) and takes the step. The fused kernels are held to 6 CTAs of 256
-// threads an SM (__launch_bounds__), which K1's 40 registers allow; K1
-// alone keeps its own kernel without that bound. Tried on the card in one
+// 32-bit word of the neuron's state (v, u for Izhikevich or w_ad for AdEx,
+// the synaptic state, ref_count, the group id, the drive), lane 0 gathers
+// the words by shuffles, reads the group's table row (a few hundred bytes
+// that stay in L1) and takes the step. The fused kernels are held to 6 CTAs
+// of 256 threads an SM (__launch_bounds__), which K1's 40 registers allow;
+// K1 alone keeps its own kernel without that bound. Tried on the card in one
 // A/B call and not kept, each slower than this design: the state loaded
 // before the edge loop, to be in flight while the warp streams its slots,
 // by lane 0 (48 registers, 5 CTAs an SM) or spread over the lanes; lane 0
@@ -156,6 +161,44 @@ struct LifStep {
     const neuron_math::LifNext o = neuron_math::lif_update(
         s, io.input_ex(ex, drv), in, io.row(gid), cond);
     io.v_out[row] = o.v;
+    io.se_out[row] = o.syn_ex;
+    io.si_out[row] = o.syn_in;
+    io.rc_out[row] = o.ref_count;
+    io.spike_out[row] = o.spike;
+  }
+};
+
+struct IzhikevichStep {
+  const float* v;
+  const float* u;
+  const float* syn_ex;
+  const float* syn_in;
+  const int* ref_count;
+  float* u_out;
+  NeuronIo io;
+
+  __device__ __forceinline__ void store(long long row, int lane, float ex,
+                                        float in) const {
+    // lane k loads word k: v, u, syn_ex, syn_in, ref_count, group id, drive
+    const void* a = lane == 0   ? static_cast<const void*>(v)
+                    : lane == 1 ? static_cast<const void*>(u)
+                    : lane == 2 ? static_cast<const void*>(syn_ex)
+                    : lane == 3 ? static_cast<const void*>(syn_in)
+                    : lane == 4 ? static_cast<const void*>(ref_count)
+                    : lane == 5 ? static_cast<const void*>(io.group_id)
+                    : lane == 6 ? static_cast<const void*>(io.drive)
+                                : nullptr;
+    const unsigned held = io.word(a, row);
+    const neuron_math::IzhikevichState s{f32_of(held, 0), f32_of(held, 1),
+                                         f32_of(held, 2), f32_of(held, 3),
+                                         static_cast<int>(word_of(held, 4))};
+    const unsigned gid = word_of(held, 5);
+    const float drv = f32_of(held, 6);
+    if (lane != 0 || row >= io.n_local) return;  // padding rows: no neuron
+    const neuron_math::IzhikevichNext o = neuron_math::izhikevich_update(
+        s, io.input_ex(ex, drv), in, io.row(gid));
+    io.v_out[row] = o.v;
+    u_out[row] = o.u;
     io.se_out[row] = o.syn_ex;
     io.si_out[row] = o.syn_in;
     io.rc_out[row] = o.ref_count;
@@ -278,7 +321,7 @@ synaptic_gather_update_kernel(GATHER_PARAMS, const Epilogue epi) {
   gather_row(GATHER_ARGS, epi);
 }
 
-// K1's own arguments, shared by the three entry points.
+// K1's own arguments, shared by the four entry points.
 struct Edges {
   const void* pre;
   const void* w;
@@ -369,6 +412,29 @@ extern "C" int synaptic_gather_adex_launch(
                      neuron_io(drive, group_id, table, table_stride, n_local,
                                v_out, se_out, si_out, rc_out, spike_out)};
   return launch(synaptic_gather_update_kernel<AdexStep>,
+                Edges{pre, w, chan, bounds, ring, t, fresh, arrived, nb, eb,
+                      pb, d_max, m},
+                epi, stream);
+}
+
+extern "C" int synaptic_gather_izhikevich_launch(
+    const void* pre, const void* w, const void* chan, const void* bounds,
+    const void* ring, const void* t, const void* fresh, void* arrived, int nb,
+    int eb, int pb, int d_max, int m, const void* drive, const void* v,
+    const void* u, const void* syn_ex, const void* syn_in,
+    const void* ref_count, const void* group_id, const void* table,
+    int table_stride, int n_local, void* v_out, void* u_out, void* se_out,
+    void* si_out, void* rc_out, void* spike_out, void* stream) {
+  const IzhikevichStep epi{static_cast<const float*>(v),
+                           static_cast<const float*>(u),
+                           static_cast<const float*>(syn_ex),
+                           static_cast<const float*>(syn_in),
+                           static_cast<const int*>(ref_count),
+                           static_cast<float*>(u_out),
+                           neuron_io(drive, group_id, table, table_stride,
+                                     n_local, v_out, se_out, si_out, rc_out,
+                                     spike_out)};
+  return launch(synaptic_gather_update_kernel<IzhikevichStep>,
                 Edges{pre, w, chan, bounds, ring, t, fresh, arrived, nb, eb,
                       pb, d_max, m},
                 epi, stream);

@@ -21,10 +21,10 @@ function in plain torch; for CUDA tensors it launches the kernel or raises.
 On the paths where the neuron update follows the edge pass, the kernel
 also takes the update (:func:`synaptic_gather_update`): the warp that has
 reduced a row adds the neuron's drive to its excitatory sum and takes the
-neuron's LIF (K2) or AdEx (K5) step, from the same source as the standalone
-kernels (``csrc/neuron_math.cuh``), so the result is bitwise K1 -> add ->
-K2/K5 and the sums never reach device memory.  Its twin is
-:func:`synaptic_gather_update_plain`.
+neuron's LIF (K2), Izhikevich (K4) or AdEx (K5) step, from the same source
+as the standalone kernels (``csrc/neuron_math.cuh``), so the result is
+bitwise K1 -> add -> K2/K4/K5 and the sums never reach device memory.  Its
+twin is :func:`synaptic_gather_update_plain`.
 
 K6 ports ``src/repro/kernels/synaptic_gather.py::blocked_reduce_sweep``:
 the activity gate (``"cuda:sparse"``) gathers the arrivals in a plain-torch
@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import snn
 from repro_torch.kernels import _build
 from repro_torch.kernels import adex_step as adex_mod
+from repro_torch.kernels import izhikevich_step as izh_mod
 from repro_torch.kernels.lif_step import lif_step_plain
 
 __all__ = ["synaptic_gather", "synaptic_gather_plain", "segment_bounds",
@@ -194,14 +195,20 @@ synaptic_gather.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K1 with the neuron update as its epilogue (K1 + K2, K1 + K5)
+# K1 with the neuron update as its epilogue (K1 + K2, K1 + K4, K1 + K5)
 # --------------------------------------------------------------------------
 
 #: the neuron state each epilogue takes, in the order of the standalone
-#: kernel's arguments (``lif_step``, ``adex_step``), and its table width
+#: kernel's arguments (``lif_step``, ``izhikevich_step``, ``adex_step``),
+#: and its table width
 NEURON_STATE = {"lif": (("v", "syn_ex", "syn_in", "ref_count"), snn.NCOL),
+                "izhikevich": (("v", "u", "syn_ex", "syn_in", "ref_count"),
+                               izh_mod.NCOL),
                 "adex": (("v", "w_ad", "syn_ex", "syn_in", "ref_count"),
                          adex_mod.NCOL)}
+#: each two-variable epilogue's plain step (LIF's takes ``cond``)
+_TWO_VARIABLE_PLAIN = {"izhikevich": izh_mod.izhikevich_step_plain,
+                       "adex": adex_mod.adex_step_plain}
 
 
 def _check_neuron(neuron: str, state, cond: bool) -> None:
@@ -223,7 +230,8 @@ def synaptic_gather_update_plain(pre_idx, post_rel, weight, delay, channel,
                                  drive=None):
     """Plain-torch twin of the fused kernel: :func:`synaptic_gather_plain`,
     the sums of the ``n_local`` rows plus ``drive``, then
-    :func:`~repro_torch.kernels.lif_step.lif_step_plain` or
+    :func:`~repro_torch.kernels.lif_step.lif_step_plain`,
+    :func:`~repro_torch.kernels.izhikevich_step.izhikevich_step_plain` or
     :func:`~repro_torch.kernels.adex_step.adex_step_plain`."""
     _check_neuron(neuron, state, cond)
     i_ex, i_in, arrived = synaptic_gather_plain(
@@ -236,8 +244,8 @@ def synaptic_gather_update_plain(pre_idx, post_rel, weight, delay, channel,
     if neuron == "lif":
         return arrived, lif_step_plain(*state, group_id, i_ex, i_in, table,
                                        cond=cond)
-    return arrived, adex_mod.adex_step_plain(*state, group_id, i_ex, i_in,
-                                             table)
+    return arrived, _TWO_VARIABLE_PLAIN[neuron](*state, group_id, i_ex, i_in,
+                                                table)
 
 
 def _update_launcher(neuron: str):
@@ -264,15 +272,16 @@ def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
 
     The edge arguments are :func:`synaptic_gather`'s, without ``fresh``
     (the kernel's C entry point takes it; no caller needs it yet).
-    ``neuron`` is
-    ``"lif"`` (``cond`` picks the conductance form) or ``"adex"``;
+    ``neuron`` is ``"lif"`` (``cond`` picks the conductance form),
+    ``"izhikevich"`` or ``"adex"``;
     ``state`` is that model's state in :data:`NEURON_STATE` order, each
     (n_local,) f32 except int32 ``ref_count``, with ``n_local <= NB*PB``
     (rows beyond it are the layout's padding and take no step);
     ``group_id`` (n_local,) int32; ``table`` (G, NCOL) f32, its rows
     contiguous but possibly further apart; ``drive`` (n_local,) f32 or None,
-    added to the excitatory sum.  ``new`` is what ``lif_step`` or
-    ``adex_step`` returns for the same inputs: the new state and the spike.
+    added to the excitatory sum.  ``new`` is what ``lif_step``,
+    ``izhikevich_step`` or ``adex_step`` returns for the same inputs: the
+    new state and the spike.
     Group ids are not range-checked on the card (that would sync every
     step).
     """

@@ -125,3 +125,25 @@ def test_a_library_is_stale_when_a_header_is_newer(tmp_path, monkeypatch):
     stamp(header, 1000)
     stamp(src, 3000)
     assert _build._stale("k")
+
+
+def test_build_all_compiles_every_kernel_it_is_given(tmp_path,
+                                                     monkeypatch):
+    """``_build.build_all`` starts one compiler per kernel named, stale or
+    not (so that a run's build time and ptxas report are its own; ``load``
+    builds only a stale kernel), and returns each one's compiler output."""
+    from repro_torch.kernels import _build
+    started = []
+
+    class Done:         # a compiler process that has exited
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(_build, "_stale", lambda name: name == "b")
+    monkeypatch.setattr(_build, "_start", lambda name: started.append(name)
+                        or (Done(), tmp_path / f"{name}.tmp", None))
+    monkeypatch.setattr(_build, "_finish",
+                        lambda name, proc, tmp, lib: f"log of {name}")
+    out = _build.build_all(("a", "b"))
+    assert out["ptxas"] == {"a": "log of a", "b": "log of b"}
+    assert started == ["a", "b"]

@@ -1,17 +1,18 @@
-"""K1 with the neuron update as its epilogue (K1 + K2, K1 + K5), on the CPU.
+"""K1 with the neuron update as its epilogue (K1 + K2, K1 + K4, K1 + K5),
+on the CPU.
 
 * the fused wrapper's plain twin against the reference: its Pallas
   ``synaptic_gather`` (interpret mode, as ``tests/test_kernels.py`` runs
-  it), ``+ drive``, then its Pallas ``lif_step_kernel`` or
-  ``adex_step_kernel`` (interpret mode, padded to the kernel's block), on
-  seeded numpy inputs handed to both;
+  it), ``+ drive``, then its Pallas ``lif_step_kernel``,
+  ``izhikevich_step_kernel`` or ``adex_step_kernel`` (interpret mode,
+  padded to the kernel's block), on seeded numpy inputs handed to both;
 * the engine's step with the drive drawn before the sweep: ``"cuda"`` (the
   kernels' plain twins here) against ``"flat"``, and the generator's stream
   unchanged;
 * which route ``sweep_update`` takes, by (backend, model, synapse model).
 
 The fused CUDA kernel itself needs the card: ``tests/test_torch_gpu.py``
-holds it against its twin and against K1 -> add -> K2/K5 there.
+holds it against its twin and against K1 -> add -> K2/K4/K5 there.
 """
 
 import dataclasses
@@ -24,6 +25,8 @@ import torch
 from repro.core import neuron_models as ref_nm
 from repro.core import snn as ref_snn
 from repro.kernels.adex_step import adex_step_kernel as ref_adex_kernel
+from repro.kernels.izhikevich_step import \
+    izhikevich_step_kernel as ref_izh_kernel
 from repro.kernels.lif_step import lif_step_kernel as ref_lif_kernel
 from repro.kernels.synaptic_gather import synaptic_gather as ref_gather
 from repro_torch.core import backends, builder, engine, models, neuron_models
@@ -43,7 +46,8 @@ LIF_ATOL = 1e-4
 
 # nb, eb, pb, m, d_max, t, n_local: n_local ragged inside the last block
 SHAPES = [(2, 256, 64, 150, 8, 5, 113), (3, 128, 32, 80, 4, 11, 71)]
-MODELS = [("lif", False), ("lif", True), ("adex", False)]
+MODELS = [("lif", False), ("lif", True), ("izhikevich", False),
+          ("adex", False)]
 
 
 def sorted_blocked(rng, nb, eb, pb, m, d_max):
@@ -66,9 +70,9 @@ def sorted_blocked(rng, nb, eb, pb, m, d_max):
 
 def neuron_inputs(rng, neuron, n):
     """Seeded state (in ``NEURON_STATE`` order), group ids and the
-    reference's table for 3 groups: LIF around its threshold, AdEx up to
-    the exponential's clamp (v_t + 10 delta_t), so that a hundred neurons
-    spike; half of them refractory."""
+    reference's table for 3 groups: LIF around its threshold, Izhikevich up
+    to v_peak, AdEx up to the exponential's clamp (v_t + 10 delta_t), so
+    that some neurons spike; half of them refractory."""
     f32 = lambda lo, hi: rng.uniform(lo, hi, n).astype(np.float32)
     rc = rng.integers(0, 2, n).astype(np.int32)
     gid = rng.integers(0, 3, n).astype(np.int32)
@@ -77,6 +81,14 @@ def neuron_inputs(rng, neuron, n):
                                 tau_syn_ex=0.5 + 0.2 * i) for i in range(3)]
         table = np.asarray(ref_snn.make_param_table(gs, dt=0.1))
         state = (f32(-52, -48), f32(0, 100), f32(-100, 100), rc)
+    elif neuron == "izhikevich":
+        gs = [ref_nm.IzhikevichParams(a=0.02 + 0.04 * i, d=8.0 - 3 * i,
+                                      i_e=5.0 * i, t_ref=0.3 * i,
+                                      i_scale=1.0 - 0.2 * i)
+              for i in range(3)]
+        table = np.asarray(ref_nm.get_model("izhikevich").make_param_table(
+            gs, 0.1))
+        state = (f32(-70, 30), f32(-16, 0), f32(0, 30), f32(-30, 0), rc)
     else:
         gs = [ref_nm.AdExParams(i_e=400.0 * i, a=4.0 + 2 * i,
                                 t_ref=2.0 - 0.7 * i) for i in range(3)]
@@ -91,12 +103,14 @@ def neuron_inputs(rng, neuron, n):
 @pytest.mark.parametrize("nb,eb,pb,m,d_max,t,n", SHAPES)
 def test_fused_plain_matches_reference(nb, eb, pb, m, d_max, t, n, neuron,
                                        cond, with_drive):
-    """Spikes, ref_count and arrivals exact.  The membrane (and AdEx's
-    w_ad) does not depend on this step's input: within the neuron kernel's
-    own stated tolerance, LIF_ATOL for LIF and, for AdEx, 8 ulps of the
-    largest magnitude (tests/test_torch_zoo.py::
-    test_neuron_kernel_plain_matches_reference: exp's ulps and XLA's
-    contraction).  The synaptic state adds the row sums: SUM_ATOL on top."""
+    """Spikes, ref_count and arrivals exact.  The membrane (and
+    Izhikevich's u, AdEx's w_ad) does not depend on this step's input:
+    within the neuron kernel's own stated tolerance, LIF_ATOL for LIF and,
+    for Izhikevich and AdEx, 8 ulps of the largest magnitude
+    (tests/test_torch_zoo.py::test_neuron_kernel_plain_matches_reference:
+    exp's ulps and XLA's contraction); Izhikevich's v and u are bitwise
+    the reference's eager step (no contraction, no transcendental).  The
+    synaptic state adds the row sums: SUM_ATOL on top."""
     rng = np.random.default_rng(nb * 131 + eb + n + 7 * cond
                                 + 3 * with_drive + len(neuron))
     pre, post, w, delay, chan = sorted_blocked(rng, nb, eb, pb, m, d_max)
@@ -118,8 +132,9 @@ def test_fused_plain_matches_reference(nb, eb, pb, m, d_max, t, n, neuron,
         out_r = ref_lif_kernel(*args, jnp.asarray(table), cond=cond, nb=128,
                                interpret=True)
     else:
-        out_r = ref_adex_kernel(*args, jnp.asarray(table), nb=128,
-                                interpret=True)
+        ref_kernel = (ref_izh_kernel if neuron == "izhikevich"
+                      else ref_adex_kernel)
+        out_r = ref_kernel(*args, jnp.asarray(table), nb=128, interpret=True)
 
     th = lambda x: None if x is None else torch.from_numpy(x)
     edge = [torch.from_numpy(x) for x in (pre, post, w, delay, chan, ring)]
@@ -152,6 +167,17 @@ def test_fused_plain_matches_reference(nb, eb, pb, m, d_max, t, n, neuron,
         np.testing.assert_allclose(
             p, r, rtol=0 if neuron == "lif" else 8 * F32_ULP_AT_1,
             atol=atol, err_msg=name)
+    if neuron == "izhikevich":
+        ref_m = ref_nm.get_model("izhikevich")
+        st = ref_nm.snn.NeuronState(
+            v_m=jnp.asarray(state[0]), syn_ex=jnp.asarray(state[2]),
+            syn_in=jnp.asarray(state[3]), ref_count=jnp.asarray(state[4]),
+            spike=jnp.zeros(n, bool), group_id=jnp.asarray(gid),
+            extra={"u": jnp.asarray(state[1])})
+        eager = ref_m.step(st, jnp.asarray(table), ex_r, in_r)
+        np.testing.assert_array_equal(out[0].numpy(), np.asarray(eager.v_m))
+        np.testing.assert_array_equal(out[1].numpy(),
+                                      np.asarray(eager.extra["u"]))
 
 
 def test_fused_wrapper_rejects_what_it_cannot_step():
@@ -172,7 +198,12 @@ def test_fused_wrapper_rejects_what_it_cannot_step():
     with pytest.raises(ValueError, match="neuron must be"):
         gather_mod.synaptic_gather_update(
             *edge, ring, 0, tuple(map(th, state)), th(gid), th(table),
-            neuron="izhikevich", max_delay=4, pb=32)
+            neuron="poisson", max_delay=4, pb=32)
+    state, gid, table = neuron_inputs(rng, "izhikevich", 32)
+    with pytest.raises(ValueError, match="conductance"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, 0, tuple(map(th, state)), th(gid), th(table),
+            neuron="izhikevich", cond=True, max_delay=4, pb=32)
 
 
 # --------------------------------------------------------------------------
@@ -254,13 +285,15 @@ ROUTES = [  # backend, model, synapse model, route
     ("cuda", None, CUR, "fused:lif"),
     ("cuda", "adex", CUR, "fused:adex"),
     ("cuda", "adex", COND, "composed"),
-    ("cuda", "izhikevich", CUR, "composed"),
+    ("cuda", "izhikevich", CUR, "fused:izhikevich"),
+    ("cuda", "izhikevich", COND, "composed"),
     ("cuda", "lif+poisson", CUR, "composed"),
     ("cuda", "adex+poisson", CUR, "composed"),
     ("cuda", "poisson", CUR, "composed"),
     ("cuda:sparse", "lif", CUR, "composed"),
     ("cuda:sparse", "lif", COND, "composed"),
     ("cuda:sparse:1e-7", "adex", CUR, "composed"),
+    ("cuda:sparse", "izhikevich", CUR, "composed"),
     ("flat", "lif", CUR, "composed"),
     ("flat", "adex", CUR, "composed"),
 ]
@@ -276,8 +309,9 @@ def test_update_route(sweep, model, synapse, route):
 
 @pytest.mark.parametrize("sweep,model,fused", [
     ("cuda", "lif", True), ("cuda", "adex", True),
-    ("cuda", "izhikevich", False), ("cuda", "lif+poisson", False),
+    ("cuda", "izhikevich", True), ("cuda", "lif+poisson", False),
     ("cuda:sparse", "lif", False), ("cuda:sparse", "adex", False),
+    ("cuda:sparse", "izhikevich", False),
     ("flat", "lif", False)])
 def test_a_step_takes_its_route(monkeypatch, sweep, model, fused):
     """``engine_step`` calls the fused wrapper exactly on the fused routes,

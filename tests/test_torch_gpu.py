@@ -184,16 +184,18 @@ def test_cuda_backend_steps_through_the_kernels(cuda):
 
 @pytest.mark.parametrize("with_drive", [False, True])
 @pytest.mark.parametrize("neuron,cond", [("lif", False), ("lif", True),
+                                         ("izhikevich", False),
                                          ("adex", False)])
 def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
                                                     with_drive):
-    """K1 with the neuron epilogue against K1 -> add -> K2/K5 on the card:
-    bitwise (one source for the step, ``neuron_math.cuh``, no contraction),
-    and twice for determinism.  Against its plain twin: arrivals, spikes and
-    ref_count exact; v (and w_ad) as the standalone kernel's own twin test
-    holds them (LIF bitwise, AdEx within 8 ulps of the largest magnitude:
-    expf against torch's exp); the synaptic state within the sums' 1e-3
-    (another summation order) and 8 ulps of its magnitude."""
+    """K1 with the neuron epilogue against K1 -> add -> K2/K4/K5 on the
+    card: bitwise (one source for the step, ``neuron_math.cuh``, no
+    contraction), and twice for determinism.  Against its plain twin:
+    arrivals, spikes and ref_count exact; v (and u, w_ad) as the standalone
+    kernel's own twin test holds them (LIF and Izhikevich bitwise, AdEx
+    within 8 ulps of the largest magnitude: expf against torch's exp); the
+    synaptic state within the sums' 1e-3 (another summation order) and 8
+    ulps of its magnitude."""
     rng = np.random.default_rng(31 + cond + 2 * with_drive)
     nb, eb, pb, m, d = 3, 512, 64, 700, 16
     pre, post, w, delay, chan = sorted_blocked(rng, nb, eb, pb, m, d)
@@ -208,11 +210,15 @@ def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
         kernel, kw = lif_mod.lif_step, dict(cond=cond)
     else:
         _, x, se, si, rc, gid, _, _, table = _two_variable_inputs(
-            "adex", rng, n, cuda)
-        # membranes up to the exponential's clamp, so that some spike
-        v = torch.from_numpy(rng.uniform(-60, -30, n).astype(np.float32)
+            neuron, rng, n, cuda)
+        # membranes up to v_peak or the exponential's clamp, so that some
+        # spike
+        lo, hi = (-70, 30) if neuron == "izhikevich" else (-60, -30)
+        v = torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32)
                              ).to(cuda)
-        state, kernel, kw = (v, x, se, si, rc), adex_mod.adex_step, {}
+        mod = izh_mod if neuron == "izhikevich" else adex_mod
+        state, kernel, kw = (v, x, se, si, rc), getattr(
+            mod, f"{neuron}_step"), {}
     drive = (torch.from_numpy(rng.uniform(0, 300, n).astype(np.float32))
              .to(cuda) if with_drive else None)
     fkw = dict(neuron=neuron, cond=cond, max_delay=d, pb=pb, drive=drive)
@@ -241,8 +247,9 @@ def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
     for name, a, b in zip(names, out, out_p):
         ulps = 8 * 2.0 ** -23 * float(b.abs().max()) if b.is_floating_point() \
             else 0
-        if name in ("ref_count", "spike") or (neuron == "lif"
-                                              and name == "v"):
+        if name in ("ref_count", "spike") or (
+                neuron == "lif" and name == "v") or (
+                neuron == "izhikevich" and name in ("v", "u")):
             assert torch.equal(a, b), name
         elif name in ("syn_ex", "syn_in"):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-3 + ulps)
@@ -269,6 +276,22 @@ def test_fused_kernel_checks_its_arguments(cuda):
         gather_mod.synaptic_gather_update(
             *edge, ring, t, big, torch.cat([gid, gid]), table, neuron="lif",
             max_delay=4, pb=32)
+    # Izhikevich: its (G, 11) table, not LIF's (G, 12); no conductance form
+    v, u, se, si, rc, gid, _, _, izh_table = _two_variable_inputs(
+        "izhikevich", rng, 32, cuda)
+    izh = (v, u, se, si, rc)
+    with pytest.raises(ValueError, match=r"expected \(G, 11\)"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, t, izh, gid, table, neuron="izhikevich",
+            max_delay=4, pb=32)
+    with pytest.raises(ValueError, match="conductance"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, t, izh, gid, izh_table, neuron="izhikevich",
+            cond=True, max_delay=4, pb=32)
+    with pytest.raises(TypeError, match="u has dtype"):
+        gather_mod.synaptic_gather_update(
+            *edge, ring, t, (v, u.double(), se, si, rc), gid, izh_table,
+            neuron="izhikevich", max_delay=4, pb=32)
     assert _launched(before) == {}
 
 
@@ -343,9 +366,9 @@ def test_kernels_read_a_composite_table_in_place(cuda, model):
 @pytest.mark.parametrize("model", ["izhikevich", "adex"])
 def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
     """model_demo(model, 0.02, stdp=True) on the card, 200 steps: the
-    kernel and flat backends give the same spikes.  Izhikevich launches
-    K1, K3 and K4 once per step; AdEx K1 with its AdEx epilogue and K3, and
-    neither the plain K1 nor the standalone K5."""
+    kernel and flat backends give the same spikes.  Each launches K1 with
+    its model's epilogue and K3 once per step, and neither the plain K1
+    nor the standalone K4/K5."""
     spec, stdp = models.model_demo(model, 0.02, stdp=True)
     g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
     table = neuron_models.get_model(model).make_param_table(
@@ -358,9 +381,7 @@ def test_cuda_backend_steps_the_zoo_through_the_kernels(cuda, model):
         cfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep=sweep,
                                   neuron_model=model)
         runs[sweep] = engine.run(st, g, table, cfg, 200, device=cuda)
-        want = ({"synaptic_gather": 200, "izhikevich_step": 200,
-                 "stdp_update": 200} if model == "izhikevich"
-                else {"synaptic_gather_adex": 200, "stdp_update": 200})
+        want = {f"synaptic_gather_{model}": 200, "stdp_update": 200}
         assert _launched(before) == (want if sweep == "cuda" else {})
     (fc, sc), (ff, sf) = runs["cuda"], runs["flat"]
     assert sf.sum() > 0, "no spikes - vacuous"
