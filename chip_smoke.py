@@ -106,6 +106,35 @@ The LM face's serving path (dense GQA, kernel K8), after the zoo:
                a second wave gives the same tokens.  Prints prefill and
                decode times, peak memory and two profiled windows.
 
+The distributed step (``repro_torch.core.distributed``: the two-tier spike
+exchange and its wire codecs, shards stacked on the card), after the gate:
+
+15. dist_main     - ``hpc_benchmark(1.0, stdp=True)``, one drive array
+                    (2000 x 11 250) drawn on the card from the seed: 2000
+                    steps of 1 shard (``engine.run``) and of 1x2 and 2x2
+                    stacked shards (``distributed.run``, ``"cuda"``, area
+                    mode, packed wire, overlap), each fed its slices by
+                    global id; spikes, final ``v_m`` and final weights
+                    (each post neuron's incoming edges in builder order)
+                    bitwise equal to the 1-shard run's, K1 + K2 and K3
+                    launched once per shard per step and nothing else;
+                    steps/s per shard count, peak memory, wire bytes per
+                    codec and mode;
+    dist_grid     - at 2x2, from the packed run's state at step 1000, 200
+                    steps of every wire pair (packed, f32, u8, sparse,
+                    sparse:0.5, packed intra + sparse remote) in both comm
+                    modes with overlap on and off: spikes equal, no wire
+                    overflow; a starved sparse wire (capacity 1) reports
+                    overflow; ``"cuda:sparse"`` (K6, K2, K3 or K7 per
+                    shard) bitwise equal, ``gate_overflow`` per shard;
+    dist_profile  - a profiled window at 2x2: device ms per step by kernel
+                    and by exchange tier, launches per step, idle share,
+                    and the exchange alone timed with CUDA events;
+    dist_marmoset - ``marmoset(0.02, n_areas=8)`` on 4x2 (the boundary
+                    tier between areas): 500 steps stacked equal to 1 shard
+                    in spikes, area traffic below global, boundary sets
+                    below the shard width.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -135,7 +164,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import backends, builder, engine, models, snn  # noqa: E402
+from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import neuron_models  # noqa: E402
+from repro_torch.core import wire as wire_mod  # noqa: E402
 from repro_torch.core import stdp as stdp_mod_core  # noqa: E402
 from repro_torch.core.decomposition import AreaSpec  # noqa: E402
 from repro_torch.core.layout import BlockedGraph  # noqa: E402
@@ -208,7 +239,7 @@ LAUNCHES_FROM = {"synaptic_gather": "composite",
                  "blocked_reduce_sweep": "gate_main cuda:sparse:1e-7",
                  "stdp_update_worklist": "gate_main cuda:sparse:1e-7",
                  "flash_attention": "lm_serve",
-                 "synaptic_gather_lif": "main",
+                 "synaptic_gather_lif": "dist_main 2x2",
                  "synaptic_gather_izhikevich": "zoo_main izhikevich",
                  "synaptic_gather_adex": "zoo_main adex"}
 #: the kernels of the gated main path (phase 11), by backend: the
@@ -226,6 +257,30 @@ ZOO_KERNELS = {"izhikevich": (izh_mod, izh_mod.izhikevich_step),
 ZOO_MAIN_KERNELS = {"izhikevich": ("synaptic_gather_izhikevich",
                                    "stdp_update"),
                     "adex": ("synaptic_gather_adex", "stdp_update")}
+#: the distributed cell (phase 15): hpc_benchmark at scale 1 on these
+#: (rows, row_width) grids of shards stacked on the card, DIST_STEPS
+#: steps each from one drive array, against the 1-shard run; then at 2x2
+#: DIST_GRID_STEPS steps of every wire pair in both comm modes with overlap
+#: on and off, a starved sparse wire and the gate; then marmoset on
+#: MARMOSET_GRID for the boundary tier
+DIST_GRIDS = ((1, 2), (2, 2))
+DIST_STEPS = 2000
+DIST_GRID_STEPS = 200
+DIST_WIRES = (("packed", None), ("f32", None), ("u8", None),
+              ("sparse", None), ("sparse:0.5", None), ("packed", "sparse"))
+#: the largest marmoset scale whose two host builds (1 shard, 4x2) take
+#: under about 15 s together (``scripts/marmoset_build_times.py``): 20 000
+#: neurons, 7.0 M synapses, max delay 106 steps; it fires from step ~250
+MARMOSET_SCALE = 0.02
+MARMOSET_GRID = (4, 2)
+MARMOSET_STEPS = 500
+#: the profiled window's labels for the exchange, by tier
+EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
+                   "_finish_remote": "exchange.remote",
+                   "_issue_intra": "exchange.intra",
+                   "_finish_intra": "exchange.intra",
+                   "_exchange_issue": "exchange",
+                   "_exchange_finish": "exchange"}
 #: launches a run of many launches times, per kernel (``loop_ms``)
 LOOP_LAUNCHES = 1000
 #: SM clock the sleep ahead of a timed run is sized with (H100 SXM boost);
@@ -935,6 +990,401 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000):
     return rec["launches"], {"spikes": spikes.cpu(),
                              "v_m": fin.neurons.v_m.cpu(),
                              "weights": fin.weights.cpu()}
+
+
+# --------------------------------------------------------------------------
+# phase 15: the distributed step on shards stacked on the card
+# --------------------------------------------------------------------------
+
+def drive_array(spec, n_steps: int, seed: int = SEED):
+    """One Poisson drive array (n_steps, n_neurons) by global id, drawn on
+    the card: ``ext_weight * poisson(ext_rate * dt)``, the engine's own
+    draw."""
+    rate, weight = (torch.as_tensor(a, device=DEV) for a in spec.ext_arrays())
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    lam = (rate * (models.DT_MS * 1e-3)).expand(n_steps, -1).contiguous()
+    return weight * torch.poisson(lam, generator=gen)
+
+
+def drive_by_id(drive, global_id):
+    """``drive`` (T, N) by global id -> the rows ``global_id`` names (any
+    shape; -1, padding, reads 0)."""
+    n = drive.shape[1]
+    padded = torch.nn.functional.pad(drive, (0, 1))
+    idx = torch.where(global_id >= 0, global_id, n).long()
+    return padded[:, idx.reshape(-1)].reshape(drive.shape[0],
+                                              *global_id.shape)
+
+
+def edge_table(weights, post_idx, delay, global_id, pre_gid, max_delay):
+    """The real edges of (S, E) flat arrays ordered by (global post id,
+    delay), stable (so each post neuron's incoming edges stay in builder
+    order): ``(weights, pre global ids)``."""
+    live = delay > 0
+    post = torch.gather(global_id, 1, post_idx.long())
+    key = (post.long() * (max_delay + 1) + delay)[live]
+    order = torch.sort(key, stable=True).indices
+    return weights[live][order], pre_gid[live][order]
+
+
+def first_divergence(a, b) -> str:
+    """Where two (T, ...) tensors first differ: the step and the count."""
+    bad = (a != b).reshape(a.shape[0], -1).any(dim=1)
+    if not bool(bad.any()):
+        return "equal"
+    t = int(bad.nonzero()[0])
+    return f"first differs at step {t} ({int((a[t] != b[t]).sum())} entries)"
+
+
+def _labelled(fn, label):
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(label):
+            return fn(*a, **k)
+    return wrapped
+
+
+def _label_ms(prof, label: str) -> float:
+    """Device ms of the kernels launched under a ``record_function``
+    label: its host event's device time, children included."""
+    return sum(getattr(ev, "device_time_total",
+                       getattr(ev, "cuda_time_total", 0))
+               for ev in prof.key_averages()
+               if ev.key == label
+               and not str(ev.device_type).endswith("CUDA")) / 1e3
+
+
+def _dist_profile(net, table, cfg, spec, drive, n_steps: int = 50) -> dict:
+    """Device time by kernel and by exchange tier over a steady window of
+    the stacked step (the exchange's functions labelled for the window
+    only)."""
+    from torch.profiler import ProfilerActivity, profile
+    st = dist.init_stacked_state(net, list(spec.groups), SEED + 2,
+                                 sweep=cfg.engine.sweep, device=DEV)
+    step = dist.make_distributed_step(net, table, cfg, device=DEV)
+    carry = step.carry_from(st)
+    for i in range(5):                                       # warm
+        step.advance(carry, drive[i])
+    torch.cuda.synchronize()
+    saved = {name: getattr(dist, name) for name in EXCHANGE_LABELS}
+    try:
+        for name, label in EXCHANGE_LABELS.items():
+            setattr(dist, name, _labelled(saved[name], label))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_steps):
+                step.advance(carry, drive[5 + i])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    # the exchange alone, CUDA events around it, on the window's last bits
+    ex = step.exchange
+    bits = carry.prev_bits
+    alone = {"exchange": median_ms(lambda: dist._exchange(bits, ex)),
+             "exchange.remote": median_ms(lambda: dist._finish_remote(
+                 dist._issue_remote(bits, ex)[0], ex, bits.dtype)),
+             "exchange.intra": median_ms(lambda: dist._finish_intra(
+                 dist._issue_intra(bits, ex)[0], ex, bits.dtype))}
+    labels = set(EXCHANGE_LABELS.values())
+    by_name, count = {}, 0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA") or ev.key in labels:
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        name = ev.key.replace("(anonymous namespace)::", "")[:60]
+        by_name[name] = by_name.get(name, 0.0) + dt / 1e3
+        count += ev.count
+    busy = sum(by_name.values())
+    check(busy > 0, "dist profile: no device time traced")
+    tiers = {}
+    for label in sorted(labels):
+        ms = _label_ms(prof, label)
+        check(ms > 0, f"dist profile: no device time under {label}")
+        tiers[label] = {"device_ms_per_step": ms / n_steps,
+                        "alone_ms": alone[label]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": n_steps, "shards": net.n_shards,
+            "wall_ms_per_step_profiled": wall * 1e3 / n_steps,
+            "device_ms_per_step": busy / n_steps,
+            "device_idle_share": 1 - busy / (wall * 1e3),
+            "kernels_per_step": count / n_steps,
+            "exchange": tiers,
+            "ms_per_step_by_kernel": {k: v / n_steps for k, v in top}}
+
+
+def wire_bytes(net) -> dict:
+    """Per-shard exchange bytes per step of each wire pair and mode, by
+    tier (the codecs' own ``bytes_per_step``)."""
+    out = {}
+    for mode in ("area", "global"):
+        for w, rw in DIST_WIRES + (("sparse", None),):
+            name = w if rw is None else f"{w}+{rw}"
+            split = dist.wire_bytes_split(
+                mode, w, rw, n_shards=net.n_shards, row_width=net.row_width,
+                n_local=net.n_local, b_pad=net.b_pad)
+            out[f"{mode} {name}"] = {**split,
+                                     "total": split["intra"] + split["inter"]}
+    return out
+
+
+def dist_run(what, net, spec, table, cfg, drive, n_steps, want=None,
+             state=None):
+    """``dist.run`` from ``state`` (a fresh native state if None) with
+    every launch count set to 0 just before and read just after (``want``:
+    the launches each kernel must have made, every other kernel none);
+    returns the final state, the spikes by global id (on the card) and the
+    run's numbers."""
+    st = state if state is not None else dist.init_stacked_state(
+        net, list(spec.groups), SEED, sweep=cfg.engine.sweep, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    fin, spikes = dist.run(st, net, table, cfg, n_steps, drive=drive,
+                           device=DEV)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if want is not None:
+        check_launches(what, launches, want)
+    for name in ("v_m", "syn_ex", "syn_in", "weights", "ring", "k_pre",
+                 "k_post"):
+        check(bool(torch.isfinite(getattr(fin, name)).all()),
+              f"{what}: {name} not finite")
+    return fin, dist.global_spikes(spikes, net, spec.n_neurons), dict(
+        steps=n_steps, shards=net.n_shards, wall_s=wall,
+        steps_per_s=n_steps / wall,
+        peak_device_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches={k: v for k, v in launches.items() if v})
+
+
+def phase_dist(spec, stdp, g, table) -> dict:
+    """The distributed step at hpc_benchmark scale 1 (``dist_main``):
+    stacked 1x2 and 2x2 runs equal to the 1-shard run bitwise in spikes,
+    ``v_m`` and weights, launching the fused K1 + K2 and K3 once per shard
+    per step; the 2x2 wire grid; the marmoset boundary case.  Returns the
+    2x2 run's launches."""
+    n, d = spec.n_neurons, g.max_delay
+    drive = drive_array(spec, DIST_STEPS)
+    ecfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
+
+    # the 1-shard run on the same drive
+    st = engine.init_state(g, list(spec.groups), SEED, device=DEV)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fin1, sp1 = engine.run(st, g, table, ecfg, DIST_STEPS,
+                           drive=drive_by_id(drive, g.global_id), device=DEV)
+    wall = time.perf_counter() - t0
+    check_launches("dist_main 1-shard", read_launches(),
+                   dict.fromkeys(MAIN_KERNELS, DIST_STEPS))
+    ref_spikes = sp1[:, :n]
+    rate = models.firing_rate_hz(ref_spikes[500:], n)
+    check(3.0 <= rate <= 15.0, f"dist_main: 1-shard rate {rate} Hz")
+    live1 = g.global_id >= 0
+    ref_v = torch.empty(n, device=DEV)
+    ref_v[g.global_id[live1].long()] = fin1.neurons.v_m[live1]
+    pre1 = g.global_id[g.mirror_src_idx.long()]
+    ref_w, ref_pre = edge_table(fin1.weights[None], g.post_idx[None],
+                                g.delay[None], g.global_id[None],
+                                pre1[g.pre_idx.long()][None], d)
+    del st, fin1
+    runs = {"1x1": {"steps": DIST_STEPS, "shards": 1, "wall_s": wall,
+                    "steps_per_s": DIST_STEPS / wall}}
+    out = {"phase": "dist_main", "neurons": n,
+           "synapses": int((g.delay > 0).sum()), "steps": DIST_STEPS,
+           "rate_hz_500_2000": rate, "drive": "one array (2000, 11250) "
+           "drawn on the card from the seed, sliced by global id"}
+    net22 = sd22 = None
+    for rows, width in DIST_GRIDS:
+        what = f"dist_main {rows}x{width}"
+        t0 = time.perf_counter()
+        net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, rows,
+                                                             width),
+                                   rows, width).to(DEV)
+        build_s = time.perf_counter() - t0
+        S = net.n_shards
+        sd = drive_by_id(drive, net.graph["global_id"])
+        cfg = dist.DistributedConfig(engine=ecfg, comm_mode="area",
+                                     overlap=True, spike_wire="packed")
+        # in two halves: the grid below starts from the state at the
+        # middle, where the network fires (its first 250 steps are near
+        # silent)
+        half = DIST_STEPS // 2
+        want = dict.fromkeys(MAIN_KERNELS, S * half)
+        mid, sp_a, rec = dist_run(what, net, spec, table, cfg, sd[:half],
+                                  half, want)
+        fin, sp_b, rec_b = dist_run(what, net, spec, table, cfg, sd[half:],
+                                    half, want, state=mid)
+        spikes = torch.cat([sp_a, sp_b])
+        rec["steps"] = DIST_STEPS
+        rec["wall_s"] += rec_b["wall_s"]
+        rec["steps_per_s"] = DIST_STEPS / rec["wall_s"]
+        rec["peak_device_mem_bytes"] = max(rec["peak_device_mem_bytes"],
+                                           rec_b["peak_device_mem_bytes"])
+        rec["launches"] = {k: c + rec_b["launches"][k]
+                           for k, c in rec["launches"].items()}
+        check(torch.equal(spikes, ref_spikes),
+              f"{what}: spikes differ from the 1-shard run's: "
+              f"{first_divergence(spikes, ref_spikes)}")
+        gid = net.graph["global_id"]
+        v = torch.empty(n, device=DEV)
+        v[gid[gid >= 0].long()] = fin.v_m[gid >= 0]
+        check(torch.equal(v, ref_v), f"{what}: final v_m differs from the "
+              f"1-shard run's in {int((v != ref_v).sum())} neurons")
+        pre = gid[net.mirror_src_flat.long(),
+                  net.graph["mirror_src_idx"].long()]
+        w, pre_e = edge_table(fin.weights, net.graph["post_idx"],
+                              net.graph["delay"], gid,
+                              torch.gather(pre, 1,
+                                           net.graph["pre_idx"].long()), d)
+        check(torch.equal(pre_e, ref_pre),
+              f"{what}: edges do not map onto the 1-shard run's")
+        check(torch.equal(w, ref_w), f"{what}: final weights differ from "
+              f"the 1-shard run's in {int((w != ref_w).sum())} edges")
+        check(int(fin.wire_overflow.sum()) == 0, f"{what}: wire overflow")
+        rec.update(host_build_s=build_s, n_local=net.n_local,
+                   n_mirror=net.n_mirror, b_pad=net.b_pad,
+                   nb_eb_pb=list(net.blocked_meta),
+                   launches_per_step={k: c / DIST_STEPS
+                                      for k, c in rec["launches"].items()},
+                   bitwise_equal_to_1_shard={"spikes": True, "v_m": True,
+                                             "weights": True},
+                   wire_bytes_per_step=wire_bytes(net))
+        runs[f"{rows}x{width}"] = rec
+        del fin, spikes, sp_a, sp_b
+        if (rows, width) == (2, 2):
+            net22, sd22, mid22 = net, sd, mid
+        else:
+            del net, sd, mid
+    out["runs"] = runs
+    emit(out)
+    half = DIST_STEPS // 2
+    phase_dist_grid(spec, stdp, table, net22, mid22,
+                    sd22[half:half + DIST_GRID_STEPS],
+                    ref_spikes[half:half + DIST_GRID_STEPS])
+    prof = _dist_profile(net22, table, dist.DistributedConfig(
+        engine=ecfg, comm_mode="area", overlap=True, spike_wire="packed"),
+        spec, sd22)
+    emit({"phase": "dist_profile", "grid": "2x2", "wire": "packed",
+          "comm_mode": "area", "overlap": True, **prof})
+    del net22, sd22, mid22, drive
+    phase_dist_marmoset()
+    return runs["2x2"]["launches"]
+
+
+def phase_dist_grid(spec, stdp, table, net, mid, sd, ref_spikes) -> None:
+    """At 2x2, from the packed run's state ``mid`` at its middle, on the
+    drive ``sd`` that follows: every wire pair, both comm modes, overlap
+    on and off, DIST_GRID_STEPS steps equal to the 1-shard run's
+    (``ref_spikes``) with no overflow; a starved wire reports overflow;
+    the gate (``"cuda:sparse"``) equals the kernel route bitwise."""
+    n_steps, S = DIST_GRID_STEPS, net.n_shards
+    rate = models.firing_rate_hz(ref_spikes, spec.n_neurons)
+    check(rate > 1.0, f"dist_grid: {rate} Hz in the window")
+    ecfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
+    want = dict.fromkeys(MAIN_KERNELS, S * n_steps)
+    cases = {}
+    for mode in ("area", "global"):
+        for overlap in (True, False):
+            for w, rw in DIST_WIRES:
+                what = (f"dist_grid {mode} overlap={overlap} "
+                        f"{w if rw is None else f'{w}+{rw}'}")
+                cfg = dist.DistributedConfig(
+                    engine=ecfg, comm_mode=mode, overlap=overlap,
+                    spike_wire=w, spike_wire_remote=rw)
+                fin, spikes, rec = dist_run(what, net, spec, table, cfg, sd,
+                                            n_steps, want, state=mid)
+                check(torch.equal(spikes, ref_spikes),
+                      f"{what}: spikes differ from packed's: "
+                      f"{first_divergence(spikes, ref_spikes)}")
+                ov = int(fin.wire_overflow.sum())
+                check(ov == 0, f"{what}: wire overflow {ov}")
+                cases[what[len("dist_grid "):]] = rec["steps_per_s"]
+    starved = wire_mod.SparseWire(max_rate=0.0, min_capacity=1,
+                                  name="starved")
+    fin, _, _ = dist_run("dist_grid starved", net, spec, table,
+                         dist.DistributedConfig(engine=ecfg,
+                                                spike_wire=starved),
+                         sd, n_steps, want, state=mid)
+    starved_ov = fin.wire_overflow.tolist()
+    check(sum(starved_ov) > 0, "dist_grid: a starved sparse wire (capacity "
+          "1) reported no overflow")
+    gcfg = dist.DistributedConfig(engine=dataclasses.replace(
+        ecfg, sweep="cuda:sparse"))
+    fin, spikes, rec = dist_run("dist_grid cuda:sparse", net, spec, table,
+                                gcfg, sd, n_steps, state=mid)
+    gl = rec["launches"]
+    check(gl.get("blocked_reduce_sweep") == S * n_steps
+          and gl.get("lif_step") == S * n_steps
+          and "synaptic_gather_lif" not in gl
+          and "synaptic_gather" not in gl,
+          f"dist_grid cuda:sparse: launches {gl}")
+    check(torch.equal(spikes, ref_spikes),
+          f"dist_grid cuda:sparse: spikes differ from cuda's: "
+          f"{first_divergence(spikes, ref_spikes)}")
+    check(tuple(fin.gate_overflow.shape) == (S,),
+          f"dist_grid: gate_overflow is {tuple(fin.gate_overflow.shape)}")
+    backend = backends.get_backend("cuda:sparse")
+    cap = backend.gate_capacity(backend.prepare(net.shard_graphs[0]))
+    emit({"phase": "dist_grid", "grid": "2x2", "steps": n_steps,
+          "from_step": DIST_STEPS // 2, "spikes": int(ref_spikes.sum()),
+          "cases_equal_to_packed": len(cases), "steps_per_s": cases,
+          "starved_wire_overflow": starved_ov,
+          "gate": {"capacity": cap, "nb": net.blocked_meta[0],
+                   "gate_overflow": fin.gate_overflow.tolist(),
+                   "bitwise_equal_to_cuda": True, **rec}})
+
+
+def phase_dist_marmoset() -> None:
+    """The boundary tier on a multi-area net: marmoset on MARMOSET_GRID,
+    stacked equal to 1 shard in spikes, with area traffic below global
+    and boundary sets below the shard width."""
+    spec = models.marmoset(MARMOSET_SCALE, n_areas=8)
+    rows, width = MARMOSET_GRID
+    t0 = time.perf_counter()
+    # one shard: a 1x1 grid (the atlas mapping wants a device per area)
+    g = builder.build_shards(spec, dist.mesh_decompose(spec, 1, 1))[0].to(
+        DEV)
+    build1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, rows, width),
+                               rows, width).to(DEV)
+    build_s = time.perf_counter() - t0
+    check(net.comm_bytes_area < net.comm_bytes_global,
+          f"marmoset: area traffic {net.comm_bytes_area} not below global "
+          f"{net.comm_bytes_global}")
+    check(net.b_pad < net.n_local,
+          f"marmoset: b_pad {net.b_pad} not below n_local {net.n_local}")
+    table = snn.make_param_table(list(spec.groups), models.DT_MS, device=DEV)
+    drive = drive_array(spec, MARMOSET_STEPS)
+    ecfg = engine.EngineConfig(dt=models.DT_MS, sweep="cuda")
+    st = engine.init_state(g, list(spec.groups), SEED, device=DEV)
+    _, sp1 = engine.run(st, g, table, ecfg, MARMOSET_STEPS,
+                        drive=drive_by_id(drive, g.global_id), device=DEV)
+    ref = sp1[:, :spec.n_neurons]
+    check(int(ref.sum()) > MARMOSET_STEPS,
+          f"marmoset: {int(ref.sum())} spikes in {MARMOSET_STEPS} steps")
+    S = net.n_shards
+    fin, spikes, rec = dist_run(
+        "dist_marmoset", net, spec, table,
+        dist.DistributedConfig(engine=ecfg, comm_mode="area", overlap=True),
+        drive_by_id(drive, net.graph["global_id"]), MARMOSET_STEPS,
+        want={"synaptic_gather_lif": S * MARMOSET_STEPS})
+    check(torch.equal(spikes, ref), f"dist_marmoset: spikes differ from the "
+          f"1-shard run's: {first_divergence(spikes, ref)}")
+    emit({"phase": "dist_marmoset", "scale": MARMOSET_SCALE, "n_areas": 8,
+          "grid": f"{rows}x{width}", "neurons": spec.n_neurons,
+          "synapses": int((g.delay > 0).sum()), "max_delay": g.max_delay,
+          "host_build_s": {"1_shard": build1_s, "stacked": build_s},
+          "n_local": net.n_local, "b_pad": net.b_pad,
+          "comm_bytes_area": net.comm_bytes_area,
+          "comm_bytes_global": net.comm_bytes_global,
+          "spikes": int(ref.sum()), "bitwise_equal_to_1_shard": True,
+          "wire_bytes_per_step": wire_bytes(net), **rec})
 
 
 # --------------------------------------------------------------------------
@@ -1897,7 +2347,9 @@ def main() -> None:
     kern.update(phase_gate_kernels(g))
     runs["gate_main cuda:sparse:1e-7"] = phase_gate_main(spec, stdp, g,
                                                          table, main_out)
-    del g, table, main_out
+    del main_out
+    runs["dist_main 2x2"] = phase_dist(spec, stdp, g, table)
+    del g, table
     phase_gate_activity()
     zoo_kern, zoo_runs = zoo()
     kern.update(zoo_kern)

@@ -12,6 +12,12 @@ tests use these functions so that both packages start from the same state.
   are leaves ``neurons.extra.<name>``, :func:`state_leaves`) and with the
   gate's saturation count ``gate_overflow`` (0 when absent);
 * :func:`state_to_numpy` - the inverse, weights returned flat;
+* :func:`stacked_net_from_numpy` - a port ``StackedNetwork`` (numpy arrays,
+  call ``.to(device)`` next) from the reference ``StackedNetwork``'s
+  fields;
+* :func:`dist_state_from_numpy` and :func:`dist_state_to_numpy` - the
+  distributed engine's state from and to the reference ``DistState``'s
+  leaves (:func:`dist_state_leaves`), weights flat on the numpy side;
 * :func:`lm_params_from_numpy` - the LM face: a port ``DecoderLM``
   ``state_dict`` from the reference's parameter tree.
 """
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backends as backends_mod
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import neuron_models as neuron_models_mod
 from repro_torch.core import snn
@@ -32,7 +39,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedGraph
 
 __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
-           "state_leaves", "lm_params_from_numpy", "STATE_LEAVES"]
+           "state_leaves", "lm_params_from_numpy", "STATE_LEAVES",
+           "stacked_net_from_numpy", "dist_state_from_numpy",
+           "dist_state_to_numpy", "dist_state_leaves", "DIST_STATE_LEAVES"]
 
 #: leaf names of a single-shard engine state, as dataclass paths (a LIF
 #: state; other models add their extra variables, :func:`state_leaves`)
@@ -156,6 +165,109 @@ def state_to_numpy(state: engine_mod.EngineState,
                           if flat.gate_overflow is None
                           else np_(flat.gate_overflow)),
     }
+
+
+# --------------------------------------------------------------------------
+# the distributed engine
+# --------------------------------------------------------------------------
+
+#: leaf names of a distributed state (a LIF state; other models add
+#: ``aux.<name>``, :func:`dist_state_leaves`), each (S, ...)
+DIST_STATE_LEAVES = ("v_m", "syn_ex", "syn_in", "ref_count", "ring",
+                     "weights", "k_pre", "k_post", "prev_bits", "t",
+                     "wire_overflow", "gate_overflow")
+
+
+def dist_state_leaves(neuron_model: str = "lif") -> tuple[str, ...]:
+    """Leaf names of a distributed state of ``neuron_model``:
+    :data:`DIST_STATE_LEAVES` and ``aux.<name>`` per extra variable."""
+    model = neuron_models_mod.get_model(neuron_model)
+    return DIST_STATE_LEAVES + tuple(f"aux.{k}" for k in model.extra_fields)
+
+
+def stacked_net_from_numpy(fields) -> dist_mod.StackedNetwork:
+    """Port ``StackedNetwork`` from the reference ``StackedNetwork``'s
+    fields (a mapping, or the object itself): its graph dict and exchange
+    tables as numpy arrays."""
+    kw = {}
+    for f in dataclasses.fields(dist_mod.StackedNetwork):
+        if f.name == "shard_graphs":
+            continue
+        val = _field(fields, f.name)
+        if f.name == "graph":
+            val = {k: np.asarray(v) for k, v in val.items()}
+        elif f.name == "blocked_meta":
+            val = None if val is None else tuple(int(x) for x in val)
+        elif np.ndim(val) == 0:
+            val = int(val)
+        else:
+            val = np.asarray(val)
+        kw[f.name] = val
+    return dist_mod.StackedNetwork(**kw)
+
+
+def dist_state_from_numpy(arrays, net: dist_mod.StackedNetwork, *,
+                          sweep: str | None = None, device="cuda", seed=0,
+                          neuron_model: str = "lif",
+                          shards=None) -> dist_mod.DistState:
+    """Port ``DistState`` of ``shards`` (all by default) from the
+    reference state's leaves.
+
+    ``arrays`` maps every name of :func:`dist_state_leaves` to a numpy
+    array with one row per shard of ``shards`` (``weights`` FLAT);
+    ``gate_overflow`` may be missing (0).  ``net`` is the port net on
+    ``device``; ``sweep`` re-expresses the weights in that backend's native
+    layout.  ``seed`` seeds the port's own per-shard drive generators and
+    a stochastic model's draws (the reference's keys have no torch twin).
+    """
+    dev = resolve_device(device)
+    model = neuron_models_mod.get_model(neuron_model)
+    leaves = dist_state_leaves(model)
+    missing = [k for k in leaves if k not in arrays and k != "gate_overflow"]
+    if missing:
+        raise KeyError(f"state arrays lack {missing}")
+    a = {k: np.array(arrays[k]) for k in leaves if k in arrays}  # copies
+    S = a["v_m"].shape[0]
+    a.setdefault("gate_overflow", np.zeros((S,), np.int32))
+    dtype = getattr(torch, str(a["v_m"].dtype))
+    ints = ("ref_count", "t", "wire_overflow", "gate_overflow")
+    tens = {k: torch.as_tensor(v, dtype=torch.int32 if k in ints else dtype,
+                               device=dev) for k, v in a.items()}
+    shards = tuple(range(net.n_shards)) if shards is None else tuple(shards)
+    state = dist_mod.DistState(
+        **{k: tens[k] for k in DIST_STATE_LEAVES},
+        generators=dist_mod.shard_generators(seed, shards, dev),
+        aux={k: tens[f"aux.{k}"] for k in model.extra_fields},
+        weights_layout="flat", neuron_model=model.name,
+        model_seed=int(seed) if model.stochastic else None, shards=shards)
+    if sweep is not None and backends_mod.get_backend(
+            sweep).weights_layout == "blocked":
+        state = _dist_weights_as(state, net, "blocked")
+    return state
+
+
+def _dist_weights_as(state: dist_mod.DistState,
+                     net: dist_mod.StackedNetwork, kind: str):
+    """``state`` with its weights re-expressed as ``kind`` per shard."""
+    w = []
+    for i, s in enumerate(state.shards):
+        layout = backends_mod.layout_of(net.shard_graphs[s])
+        tag = backends_mod.layout_tag(layout, kind)
+        w.append(backends_mod.convert_weights(
+            layout, state.weights[i], state.weights_layout, tag))
+    return dataclasses.replace(state, weights=torch.stack(w),
+                               weights_layout=tag)
+
+
+def dist_state_to_numpy(state: dist_mod.DistState,
+                        net: dist_mod.StackedNetwork) -> dict:
+    """Inverse of :func:`dist_state_from_numpy`: the leaves of
+    :func:`dist_state_leaves` as numpy arrays, weights FLAT."""
+    flat = _dist_weights_as(state, net, "flat")
+    np_ = lambda x: x.detach().cpu().numpy()
+    out = {k: np_(getattr(flat, k)) for k in DIST_STATE_LEAVES}
+    out.update({f"aux.{k}": np_(v) for k, v in flat.aux.items()})
+    return out
 
 
 #: leaves of an LM parameter tree kept in fp32 (the reference adds biases

@@ -140,6 +140,12 @@ def _accumulate(layout: EdgeLayout, weights, arrived):
     return out(0), out(1)
 
 
+def _fresh_value(fresh):
+    """``fresh`` as a tensor: a callable (the distributed step's pending
+    exchange) is called here, where the backend first needs the bits."""
+    return fresh() if callable(fresh) else fresh
+
+
 def _write_ring(ring, bits, slot):
     """``ring`` with row ``slot`` (a one-element device tensor, already
     reduced mod D) replaced by ``bits`` - out of place, no host sync."""
@@ -335,8 +341,14 @@ class SweepBackend:
         """Sweep with last step's spikes ``fresh_bits`` not yet in the ring
         (paper §III.C): returns (input_ex, input_in, arrived, ring').
 
+        ``fresh_bits`` is an (n_mirror,) tensor, or a callable returning
+        one: the distributed step passes its pending exchange, which the
+        backend calls where it first needs the bits (after the delay >= 2
+        pass on the flat backend, before the one launch elsewhere).
+
         Default schedule: write the fresh bits into slot ``t-1`` and run one
         full sweep."""
+        fresh_bits = _fresh_value(fresh_bits)
         ring = _write_ring(ring, fresh_bits,
                            torch.remainder(t - 1, layout.max_delay))
         ex, inh, arrived = self.sweep(layout, weights, ring, t)
@@ -393,23 +405,33 @@ class SweepBackend:
     def sweep_update(self, layout: EdgeLayout, weights, ring, t, neurons,
                      table, drive, *,
                      synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                     model=None, seed=None, gid=None, uniform=None):
+                     model=None, seed=None, gid=None, uniform=None,
+                     fresh=None):
         """One dt's sweep, external drive and neuron step: returns
-        ``(new_neurons, arrived, gate_overflow)``, ``arrived`` as
+        ``(new_neurons, arrived, gate_overflow, ring)``, ``arrived`` as
         :meth:`sweep` gives it and ``gate_overflow`` as
         :meth:`sweep_with_stats` does.  ``drive`` ((n_local,), or None for
-        none) is added to the excitatory input.
+        none) is added to the excitatory input.  ``fresh`` (last step's
+        spikes not yet in the ring, as :meth:`sweep_overlap` takes them)
+        makes the sweep :meth:`sweep_overlap`'s, and ``ring`` is then the
+        ring with them written to slot ``t-1``; without it ``ring`` is the
+        ring given.
 
-        This is the composed route: :meth:`sweep_with_stats`, ``+ drive``,
+        This is the composed route: :meth:`sweep_with_stats` (or
+        :meth:`sweep_overlap_with_stats`), ``+ drive``,
         :meth:`neuron_update`."""
-        ex, inh, arrived, overflow = self.sweep_with_stats(layout, weights,
-                                                           ring, t)
+        if fresh is None:
+            ex, inh, arrived, overflow = self.sweep_with_stats(
+                layout, weights, ring, t)
+        else:
+            ex, inh, arrived, ring, overflow = self.sweep_overlap_with_stats(
+                layout, weights, ring, t, fresh)
         if drive is not None:
             ex = ex + drive
         new = self.neuron_update(layout, neurons, table, ex, inh,
                                  synapse_model=synapse_model, model=model,
                                  seed=seed, t=t, gid=gid, uniform=uniform)
-        return new, arrived, overflow
+        return new, arrived, overflow, ring
 
     # -- plasticity -------------------------------------------------------
     def stdp_update(self, layout: EdgeLayout, weights, arrived, post_spike,
@@ -432,6 +454,23 @@ class FlatBackend(SweepBackend):
         arrived = _flat_arrivals(layout, ring, t)
         ex, inh = _accumulate(layout, weights, arrived)
         return ex, inh, arrived
+
+    def sweep_overlap(self, layout, weights, ring, t, fresh_bits):
+        # the reference's split schedule: delays >= 2 read only OLD ring
+        # slots, so their gather and sums run before the fresh bits are
+        # asked for (a pending exchange is waited on only then); the
+        # delay-1 part consumes them
+        dtype = ring.dtype
+        mask_old = (layout.delay >= 2).to(dtype)
+        arrived_old = _flat_arrivals(layout, ring, t) * mask_old
+        ex_o, in_o = _accumulate(layout, weights, arrived_old)
+        fresh_bits = _fresh_value(fresh_bits).to(dtype)
+        mask_new = (layout.delay == 1).to(dtype)
+        arrived_new = fresh_bits[layout.pre_idx.long()] * mask_new
+        ex_n, in_n = _accumulate(layout, weights, arrived_new)
+        ring = _write_ring(ring, fresh_bits,
+                           torch.remainder(t - 1, layout.max_delay))
+        return (ex_o + ex_n, in_o + in_n, arrived_old + arrived_new, ring)
 
 
 class CudaBackend(SweepBackend):
@@ -476,7 +515,7 @@ class CudaBackend(SweepBackend):
         # one K1 launch serves the §III.C split: delay>=2 arrivals come
         # from the OLD ring, delay==1 from ``fresh_bits``, so the slot-(t-1)
         # ring write is independent of the sweep
-        fresh = fresh_bits.to(ring.dtype)
+        fresh = _fresh_value(fresh_bits).to(ring.dtype)
         ex, inh, arrived = self._gather(layout, weights, ring, t, fresh)
         ring = _write_ring(ring, fresh,
                            torch.remainder(t - 1, layout.max_delay))
@@ -512,17 +551,22 @@ class CudaBackend(SweepBackend):
 
     def sweep_update(self, layout, weights, ring, t, neurons, table, drive,
                      *, synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                     model=None, seed=None, gid=None, uniform=None):
+                     model=None, seed=None, gid=None, uniform=None,
+                     fresh=None):
         route = self.update_route(model, synapse_model)
         if route == "composed":
             return super().sweep_update(
                 layout, weights, ring, t, neurons, table, drive,
                 synapse_model=synapse_model, model=model, seed=seed, gid=gid,
-                uniform=uniform)
-        # one launch: K1's edge pass, + drive, and the model's step; the
-        # state goes in and comes out in NEURON_STATE's order, the common
-        # fields by their NeuronState names and the model's own in extra
+                uniform=uniform, fresh=fresh)
+        # one launch: K1's edge pass (delay-1 arrivals from ``fresh`` when
+        # given, which a pending exchange is waited on for first), + drive,
+        # and the model's step; the state goes in and comes out in
+        # NEURON_STATE's order, the common fields by their NeuronState
+        # names and the model's own in extra
         neuron = route.split(":", 1)[1]
+        if fresh is not None:
+            fresh = _fresh_value(fresh).to(ring.dtype)
         bg = _require_blocked(layout)
         names = NEURON_STATE[neuron][0]
         fields = {"v": neurons.v_m, "syn_ex": neurons.syn_ex,
@@ -534,12 +578,15 @@ class CudaBackend(SweepBackend):
             neurons.group_id, table, neuron=neuron,
             max_delay=layout.max_delay, pb=bg.pb,
             cond=synapse_model == snn.SynapseModel.COND_EXP, drive=drive,
-            bounds=layout.seg_bounds)
+            fresh=fresh, bounds=layout.seg_bounds)
         got = dict(zip(names, out[:-1]))
         extra = {k: got.pop(k, x) for k, x in neurons.extra.items()}
         new = snn.NeuronState(v_m=got.pop("v"), **got, spike=out[-1],
                               group_id=neurons.group_id, extra=extra)
-        return new, arrived.reshape(-1), 0
+        if fresh is not None:
+            ring = _write_ring(ring, fresh,
+                               torch.remainder(t - 1, layout.max_delay))
+        return new, arrived.reshape(-1), 0, ring
 
     def stdp_update(self, layout, weights, arrived, post_spike, traces,
                     params: stdp_mod.STDPParams):
@@ -730,7 +777,7 @@ class CudaSparseBackend(CudaBackend):
         # the §III.C split of the dense backend: the pre-pass folds
         # ``fresh_bits`` into the delay-1 arrivals, so the slot-(t-1) ring
         # write is independent of the sweep
-        fresh = fresh_bits.to(ring.dtype)
+        fresh = _fresh_value(fresh_bits).to(ring.dtype)
         ex, inh, arrived, overflow = self._gated_sweep(layout, weights, ring,
                                                        t, fresh)
         ring = _write_ring(ring, fresh,

@@ -288,7 +288,7 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
 
     # (2) synaptic sweep over owned edges, + drive, neuron dynamics (+ the
     #     gate's saturation count, the int 0 where no gate can saturate)
-    neurons, arrived, gate_ovf = backend.sweep_update(
+    neurons, arrived, gate_ovf, _ = backend.sweep_update(
         layout, w_native, state.ring, state.t, state.neurons, table, drive,
         synapse_model=cfg.synapse_model, model=model, seed=state.model_seed,
         gid=graph.global_id, uniform=model_uniform)

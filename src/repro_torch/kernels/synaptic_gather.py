@@ -227,8 +227,9 @@ def synaptic_gather_update_plain(pre_idx, post_rel, weight, delay, channel,
                                  ring, t, state, group_id, table, *,
                                  neuron: str, max_delay: int,
                                  pb: int = DEFAULT_PB, cond: bool = False,
-                                 drive=None):
-    """Plain-torch twin of the fused kernel: :func:`synaptic_gather_plain`,
+                                 drive=None, fresh=None):
+    """Plain-torch twin of the fused kernel: :func:`synaptic_gather_plain`
+    (``fresh[pre]`` where ``delay == 1`` when ``fresh`` is given),
     the sums of the ``n_local`` rows plus ``drive``, then
     :func:`~repro_torch.kernels.lif_step.lif_step_plain`,
     :func:`~repro_torch.kernels.izhikevich_step.izhikevich_step_plain` or
@@ -236,7 +237,7 @@ def synaptic_gather_update_plain(pre_idx, post_rel, weight, delay, channel,
     _check_neuron(neuron, state, cond)
     i_ex, i_in, arrived = synaptic_gather_plain(
         pre_idx, post_rel, weight, delay, channel, ring, t,
-        max_delay=max_delay, pb=pb)
+        max_delay=max_delay, pb=pb, fresh=fresh)
     n = state[0].shape[0]
     i_ex, i_in = i_ex[:n], i_in[:n]
     if drive is not None:
@@ -266,12 +267,13 @@ def _update_launcher(neuron: str):
 def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
                            t, state, group_id, table, *, neuron: str,
                            max_delay: int, pb: int = DEFAULT_PB,
-                           cond: bool = False, drive=None, bounds=None):
+                           cond: bool = False, drive=None, fresh=None,
+                           bounds=None):
     """K1's edge pass with the neuron update as its epilogue: blocked edge
     arrays (NB, EB) and one step's neuron state -> ``(arrived, new)``.
 
-    The edge arguments are :func:`synaptic_gather`'s, without ``fresh``
-    (the kernel's C entry point takes it; no caller needs it yet).
+    The edge arguments are :func:`synaptic_gather`'s, ``fresh`` among them
+    (the distributed step's exchanged spikes, read where ``delay == 1``).
     ``neuron`` is ``"lif"`` (``cond`` picks the conductance form),
     ``"izhikevich"`` or ``"adex"``;
     ``state`` is that model's state in :data:`NEURON_STATE` order, each
@@ -289,10 +291,10 @@ def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
         return synaptic_gather_update_plain(
             pre_idx, post_rel, weight, delay, channel, ring, t, state,
             group_id, table, neuron=neuron, max_delay=max_delay, pb=pb,
-            cond=cond, drive=drive)
+            cond=cond, drive=drive, fresh=fresh)
     _check_neuron(neuron, state, cond)
     bounds = _check_edges(pre_idx, post_rel, weight, delay, channel, ring, t,
-                          max_delay, pb, None, bounds)
+                          max_delay, pb, fresh, bounds)
     dev = weight.device
     nb, eb = weight.shape
     m = ring.shape[1]
@@ -317,7 +319,8 @@ def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
     with torch.cuda.device(dev):
         err = _update_launcher(neuron)(
             pre_idx.data_ptr(), weight.data_ptr(), channel.data_ptr(),
-            bounds.data_ptr(), ring.data_ptr(), t.data_ptr(), None,
+            bounds.data_ptr(), ring.data_ptr(), t.data_ptr(),
+            None if fresh is None else fresh.data_ptr(),
             arrived.data_ptr(), nb, eb, pb, max_delay, m,
             None if drive is None else drive.data_ptr(),
             *(x.data_ptr() for x in state), group_id.data_ptr(),

@@ -326,7 +326,8 @@ def test_port_imports_neither_jax_nor_reference():
         "          'configs.qwen2_5_3b', 'models.layers',\n"
         "          'models.attention', 'models.transformer',\n"
         "          'models.model', 'serve.engine',\n"
-        "          'kernels.flash_attention'):\n"
+        "          'kernels.flash_attention', 'core.wire',\n"
+        "          'core.distributed'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},

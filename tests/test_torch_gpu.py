@@ -182,13 +182,15 @@ def test_cuda_backend_steps_through_the_kernels(cuda):
     torch.testing.assert_close(fc.weights, ff.weights, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("with_fresh", [False, True])
 @pytest.mark.parametrize("with_drive", [False, True])
 @pytest.mark.parametrize("neuron,cond", [("lif", False), ("lif", True),
                                          ("izhikevich", False),
                                          ("adex", False)])
 def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
-                                                    with_drive):
-    """K1 with the neuron epilogue against K1 -> add -> K2/K4/K5 on the
+                                                    with_drive, with_fresh):
+    """K1 with the neuron epilogue (with the exchanged spikes as ``fresh``
+    or without) against K1 -> add -> K2/K4/K5 on the
     card: bitwise (one source for the step, ``neuron_math.cuh``, no
     contraction), and twice for determinism.  Against its plain twin:
     arrivals, spikes and ref_count exact; v (and u, w_ad) as the standalone
@@ -221,7 +223,10 @@ def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
             mod, f"{neuron}_step"), {}
     drive = (torch.from_numpy(rng.uniform(0, 300, n).astype(np.float32))
              .to(cuda) if with_drive else None)
-    fkw = dict(neuron=neuron, cond=cond, max_delay=d, pb=pb, drive=drive)
+    fresh = (torch.from_numpy((rng.uniform(size=m) < 0.3).astype(np.float32))
+             .to(cuda) if with_fresh else None)
+    fkw = dict(neuron=neuron, cond=cond, max_delay=d, pb=pb, drive=drive,
+               fresh=fresh)
 
     before = _launches()
     outs = [gather_mod.synaptic_gather_update(*edge, tt, state, gid, table,
@@ -232,7 +237,7 @@ def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
     assert all(torch.equal(a, b) for a, b in zip(out, out2))
 
     ex, inh, arr_k = gather_mod.synaptic_gather(*edge, tt, max_delay=d,
-                                                pb=pb)
+                                                pb=pb, fresh=fresh)
     ex = ex[:n] if drive is None else ex[:n] + drive
     comp = kernel(*state, gid, ex, inh[:n], table, **kw)
     assert torch.equal(arr, arr_k)
@@ -255,6 +260,59 @@ def test_fused_kernel_matches_composition_and_plain(cuda, neuron, cond,
             torch.testing.assert_close(a, b, rtol=0, atol=1e-3 + ulps)
         else:
             torch.testing.assert_close(a, b, rtol=8 * 2.0 ** -23, atol=ulps)
+
+
+def test_stacked_shards_step_through_the_kernels(cuda):
+    """hpc_benchmark(0.05) on 2x2 shards stacked on the card
+    (``distributed.run``, area, packed, overlap) against one shard on one
+    injected drive: the same spikes and weights bitwise; K1 with its LIF
+    epilogue (taking the exchanged spikes) and K3 once per shard per step,
+    nothing else."""
+    from repro_torch.core import distributed as dist
+    spec, stdp = models.hpc_benchmark(0.05, stdp=True)
+    n, steps = spec.n_neurons, 300
+    g = builder.build_shards(spec, builder.decompose(spec, 1))[0].to(cuda)
+    table = snn.make_param_table(list(spec.groups), 0.1, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    lam = (g.ext_rate[:n] * 1e-4).expand(steps, -1)
+    drive = g.ext_weight[:n] * torch.poisson(lam * 1.5, generator=gen)
+    pad = torch.nn.functional.pad(drive, (0, 1))
+    ecfg = engine.EngineConfig(dt=0.1, stdp=stdp, sweep="cuda")
+    st = engine.init_state(g, list(spec.groups), 0, device=cuda)
+    idx = torch.where(g.global_id >= 0, g.global_id, n).long()
+    fin1, sp1 = engine.run(st, g, table, ecfg, steps, drive=pad[:, idx],
+                           device=cuda)
+    net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, 2, 2), 2,
+                               2).to(cuda)
+    gid = net.graph["global_id"]
+    sd = pad[:, torch.where(gid >= 0, gid, n).long().reshape(-1)]
+    before = _launches()
+    st = dist.init_stacked_state(net, list(spec.groups), sweep="cuda",
+                                 device=cuda)
+    fin, spikes = dist.run(st, net, table, dist.DistributedConfig(
+        engine=ecfg), steps, drive=sd.reshape(steps, 4, -1), device=cuda)
+    assert _launched(before) == {"synaptic_gather_lif": 4 * steps,
+                                 "stdp_update": 4 * steps}
+    assert sp1.sum() > 0, "no spikes - vacuous"
+    assert torch.equal(dist.global_spikes(spikes, net, n), sp1[:, :n])
+
+    def edges(weights, post_idx, delay, global_id, pre_gid):
+        # real edges by (global post, delay), stable: builder order
+        live = delay > 0
+        post = torch.gather(global_id, 1, post_idx.long())
+        key = (post.long() * (g.max_delay + 1) + delay)[live]
+        order = torch.sort(key, stable=True).indices
+        return weights[live][order], pre_gid[live][order]
+
+    pre1 = g.global_id[g.mirror_src_idx.long()][g.pre_idx.long()]
+    w1, p1 = edges(fin1.weights[None], g.post_idx[None], g.delay[None],
+                   g.global_id[None], pre1[None])
+    pre = gid[net.mirror_src_flat.long(), net.graph["mirror_src_idx"].long()]
+    w, p = edges(fin.weights, net.graph["post_idx"], net.graph["delay"], gid,
+                 torch.gather(pre, 1, net.graph["pre_idx"].long()))
+    assert torch.equal(p, p1)
+    assert torch.equal(w, w1)
 
 
 def test_fused_kernel_checks_its_arguments(cuda):
@@ -421,6 +479,38 @@ def test_a_step_never_waits_for_the_card(cuda, scenario):
         {"synaptic_gather_lif": 5, "stdp_update": 5}
         if scenario == "hpc_benchmark"
         else {"synaptic_gather": 5, "lif_step": 5})
+
+
+@pytest.mark.parametrize("mode,wire", [("area", "packed"),
+                                       ("area", "sparse"),
+                                       ("global", "sparse")])
+def test_a_stacked_step_never_waits_for_the_card(cuda, mode, wire):
+    """The distributed step on 2x2 stacked shards issues no host
+    synchronisation either: the exchange, its codecs (the sparse encode
+    compacts without ``nonzero``), the per-shard drive, K1's LIF epilogue
+    with ``fresh`` and STDP all stay on the card."""
+    from repro_torch.core import distributed as dist
+    spec, stdp = models.hpc_benchmark(0.02, stdp=True)
+    net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, 2, 2), 2,
+                               2).to(cuda)
+    table = snn.make_param_table(list(spec.groups), 0.1, device=cuda)
+    cfg = dist.DistributedConfig(engine=engine.EngineConfig(
+        dt=0.1, stdp=stdp), comm_mode=mode, spike_wire=wire)
+    step = dist.make_distributed_step(net, table, cfg, device=cuda)
+    carry = step.carry_from(dist.init_stacked_state(
+        net, list(spec.groups), sweep="cuda", device=cuda))
+    step.advance(carry)
+    torch.cuda.synchronize()
+    before = _launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            step.advance(carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(carry.t) == 6
+    assert _launched(before) == {"synaptic_gather_lif": 20,
+                                 "stdp_update": 20}
 
 
 # --------------------------------------------------------------------------
