@@ -135,6 +135,30 @@ exchange and its wire codecs, shards stacked on the card), after the gate:
                     in spikes, area traffic below global, boundary sets
                     below the shard width.
 
+The multi-host path (``repro_torch.core.multihost`` through
+``repro_torch.launch.multihost.run_launcher``: two worker processes on the
+card, gloo, ``"cuda"``, area mode, overlap, each process building and
+stepping whole rows of a procedural net), after ``dist_marmoset``:
+
+16. mh_build    - ``hpc_benchmark(1.0, stdp=True)`` procedural, not cut, on
+                  2x2 (one row a process): each worker's rows equal, field
+                  by field (per-field hashes), those rows of the
+                  single-process ``prepare_stacked``; host build seconds
+                  and RSS (before the build, peak during it) of each worker
+                  against a fresh process's global build;
+    mh_main     - the same net, 2000 steps, each shard drawing its drive
+                  from its own generator: the global raster, final ``v_m``
+                  and final weights bitwise equal to the single-process
+                  2x2 stacked run; K1 + K2 and K3 twice a step in each
+                  process and nothing else; spikes above a floor; steps/s
+                  and the remote tier alone by CUDA events;
+    mh_marmoset - ``marmoset(0.02, n_areas=8)`` procedural on 4x2 (two rows
+                  a process), 500 steps with packed on both tiers and with
+                  packed intra + ``sparse:0.25`` remote (launched
+                  together): both bitwise equal to the single-process 4x2
+                  run, no wire overflow, the inter-process bytes below
+                  ``comm_bytes_global``.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -152,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -170,6 +195,7 @@ from repro_torch.core import wire as wire_mod  # noqa: E402
 from repro_torch.core import stdp as stdp_mod_core  # noqa: E402
 from repro_torch.core.decomposition import AreaSpec  # noqa: E402
 from repro_torch.core.layout import BlockedGraph  # noqa: E402
+from repro_torch import kernels as kernels_pkg  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import adex_step as adex_mod  # noqa: E402
 from repro_torch.kernels import izhikevich_step as izh_mod  # noqa: E402
@@ -182,6 +208,7 @@ from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import transformer as lm_tr  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchServer  # noqa: E402
+from repro_torch.launch import multihost as mh_launch  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -274,6 +301,27 @@ DIST_WIRES = (("packed", None), ("f32", None), ("u8", None),
 MARMOSET_SCALE = 0.02
 MARMOSET_GRID = (4, 2)
 MARMOSET_STEPS = 500
+#: the multi-host cell (phase 16): two worker processes on the card
+#: (``repro_torch.launch.multihost``, gloo, ``"cuda"``, area, overlap),
+#: each building and stepping its own rows of a procedural net: hpc at
+#: scale 1 on MH_GRID (one row a process) for MH_STEPS steps, the drive
+#: from each shard's own generator; then marmoset on MARMOSET_GRID (two
+#: rows a process) for MH_MARMOSET_STEPS steps on two wire pairs
+MH_PROCESSES = 2
+MH_GRID = (2, 2)
+MH_STEPS = 2000
+MH_MARMOSET_STEPS = 500
+#: the remote tier's sparse wire provisioned for 25 % of a shard's 400
+#: boundary neurons a step (100 ids): at the default 2 % (8 ids) the
+#: boundary payload saturated 95 times in 500 steps on the card (NVIDIA
+#: H100 80GB HBM3), a lossy run by design; the line prints the measured
+#: peak beside the capacity
+MH_MARMOSET_WIRES = (("packed", "packed"), ("packed", "sparse:0.25"))
+#: hpc at scale 1 fires about 18 000 spikes in 2000 steps (3-15 Hz from
+#: step 500, near silence before): fewer than this means a silent run
+MH_SPIKE_FLOOR = 5000
+#: where the workers write their records and arrays (git-ignored)
+MH_DIR = os.path.join(ROOT, "build", "multihost")
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -429,18 +477,12 @@ def in_turns(fns: dict, rounds: int = 2, count: int = 200) -> dict:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
-    for fn in (*KERNEL_FNS.values(), FUSED):
-        fn.launches = 0
-    FUSED.launches_by_neuron.update(dict.fromkeys(FUSED.launches_by_neuron,
-                                                  0))
+    kernels_pkg.reset_launch_counts()
 
 
 def read_launches() -> dict:
     """Every kernel's launch count, the fused kernel's by epilogue."""
-    out = {k: fn.launches for k, fn in KERNEL_FNS.items()}
-    out.update({k: FUSED.launches_by_neuron[v]
-                for k, v in FUSED_KERNELS.items()})
-    return out
+    return kernels_pkg.launch_counts()
 
 
 def check_launches(what: str, launches: dict, want: dict) -> None:
@@ -1385,6 +1427,260 @@ def phase_dist_marmoset() -> None:
           "comm_bytes_global": net.comm_bytes_global,
           "spikes": int(ref.sum()), "bitwise_equal_to_1_shard": True,
           "wire_bytes_per_step": wire_bytes(net), **rec})
+
+
+# --------------------------------------------------------------------------
+# phase 16: the multi-host path, two processes on the card
+# --------------------------------------------------------------------------
+
+#: a fresh process building the global net (``prepare_stacked``), as a
+#: worker would (torch, the card's context, then the build): its build
+#: seconds, host RSS before it and its peak during it
+GLOBAL_BUILD_CODE = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core import distributed as dist
+from repro_torch.launch import multihost as mh_launch
+torch.cuda.set_device(0)
+args = mh_launch.build_parser().parse_args(json.loads(sys.argv[2]))
+spec, _, _ = mh_launch._build_spec(args)
+rows = args.processes * args.devices_per_process // args.row_width
+with mh_launch.PeakRss() as rss:
+    t0 = time.perf_counter()
+    dist.prepare_stacked(spec, dist.mesh_decompose(spec, rows,
+                                                   args.row_width),
+                         rows, args.row_width)
+    build_s = time.perf_counter() - t0
+print(json.dumps({"host_build_s": build_s,
+                  "rss_before_build_bytes": rss.before,
+                  "peak_rss_during_build_bytes": rss.peak}))
+"""
+
+
+def mh_argv(name: str, scenario: str, scale: float, grid, steps: int,
+            wire: str, wire_remote: str, *extra) -> list:
+    """The launcher's command line for a cell: MH_PROCESSES processes of
+    whole rows of ``grid``, procedural, the drive as published."""
+    rows, width = grid
+    return ["--processes", str(MH_PROCESSES), "--devices-per-process",
+            str(rows * width // MH_PROCESSES), "--row-width", str(width),
+            "--steps", str(steps), "--scenario", scenario, "--scale",
+            str(scale), "--drive-boost", "1.0", "--connectivity",
+            "procedural", "--sweep", "cuda", "--wire", wire,
+            "--wire-remote", wire_remote, "--comm-mode", "area",
+            "--seed", str(SEED), "--timeout", "600",
+            "--out", os.path.join(MH_DIR, f"{name}.json"), *extra]
+
+
+def mh_global_build(args):
+    """The launcher's cell ``args`` built by one process
+    (``prepare_stacked``): the host net and the build seconds."""
+    spec, _, _ = mh_launch._build_spec(args)
+    rows = args.processes * args.devices_per_process // args.row_width
+    t0 = time.perf_counter()
+    host = dist.prepare_stacked(spec, dist.mesh_decompose(
+        spec, rows, args.row_width), rows, args.row_width)
+    return host, time.perf_counter() - t0
+
+
+def mh_reference(what: str, args, host, want_launches: dict):
+    """The single-process stacked run of the launcher's cell ``args`` on
+    its global build ``host`` (``distributed.run`` through
+    ``StackedExchange``, every shard its own generator from the seed):
+    its global-order arrays and steps/s."""
+    spec, stdp, _ = mh_launch._build_spec(args)
+    net = host.to(DEV)
+    cfg = dist.DistributedConfig(
+        engine=engine.EngineConfig(dt=models.DT_MS, stdp=stdp,
+                                   sweep="cuda"),
+        comm_mode=args.comm_mode, overlap=True, spike_wire=args.wire,
+        spike_wire_remote=args.wire_remote)
+    table = snn.make_param_table(list(spec.groups), models.DT_MS,
+                                 device=DEV)
+    st = dist.init_stacked_state(net, list(spec.groups), args.seed,
+                                 sweep="cuda", device=DEV)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fin, spikes = dist.run(st, net, table, cfg, args.steps, device=DEV)
+    wall = time.perf_counter() - t0
+    check_launches(what, read_launches(), want_launches)
+    arrays = mh_launch.global_order(
+        spikes.cpu().numpy(), fin.v_m.cpu().numpy(),
+        fin.weights.cpu().numpy(), host.graph, spec.n_neurons,
+        spec.max_delay)
+    return arrays, args.steps / wall
+
+
+def check_same_arrays(what: str, rec: dict, got, want: dict) -> None:
+    """The workers' arrays ``got`` (their npz) equal the single-process
+    run's ``want`` bitwise: raster by step (``first_divergence``), final
+    ``v_m`` and weights; the record's hashes are those arrays'."""
+    r_got = torch.from_numpy(got["raster"])
+    r_want = torch.from_numpy(want["raster"])
+    check(torch.equal(r_got, r_want), f"{what}: raster differs from the "
+          f"single-process run's: {first_divergence(r_got, r_want)}")
+    for k in ("v_m", "weights"):
+        bad = np.flatnonzero(got[k] != want[k])
+        check(got[k].shape == want[k].shape and bad.size == 0,
+              f"{what}: final {k} differs from the single-process run's in "
+              f"{bad.size} entries (first at {bad[:1].tolist()})")
+    for k, h in (("raster", "bits_sha256"), ("v_m", "vm_sha256"),
+                 ("weights", "weights_sha256")):
+        check(mh_launch._sha(want[k]) == rec[h], f"{what}: {h} is not the "
+              "hash of the single-process run's arrays")
+
+
+def mh_launch_run(what: str, argv: list, want_per_process: dict):
+    """One launch of the workers; every process's launches checked."""
+    t0 = time.perf_counter()
+    rec = mh_launch.run_launcher(mh_launch.build_parser().parse_args(argv))
+    rec["launch_wall_s"] = time.perf_counter() - t0
+    check(rec["dist_backend"] == "gloo" and len(rec["per_process"])
+          == MH_PROCESSES, f"{what}: backend {rec['dist_backend']}, "
+          f"{len(rec['per_process'])} processes")
+    for p in rec["per_process"]:
+        check(p["device"].startswith("cuda"), f"{what}: process "
+              f"{p['process_id']} ran on {p['device']}")
+        check_launches(f"{what} process {p['process_id']}",
+                       {**dict.fromkeys(read_launches(), 0),
+                        **p["launches"]}, want_per_process)
+    return rec, np.load(rec["arrays"])
+
+
+def phase_multihost() -> dict:
+    """The multi-host path through ``run_launcher``, two processes on the
+    card: ``mh_build`` (each worker's rows equal the global build's),
+    ``mh_main`` (hpc scale 1, bitwise the single-process run) and
+    ``mh_marmoset`` (two wire pairs, bitwise).  Returns mh_main's
+    launches per process."""
+    os.makedirs(MH_DIR, exist_ok=True)
+    argv = mh_argv("mh_main", "hpc_benchmark", 1.0, MH_GRID, MH_STEPS,
+                   "packed", "packed", "--bench")
+    args = mh_launch.build_parser().parse_args(argv)
+    s_loc = MH_GRID[0] * MH_GRID[1] // MH_PROCESSES
+    want = {"synaptic_gather_lif": s_loc * MH_STEPS,
+            "stdp_update": s_loc * MH_STEPS}
+    # the workers start (about 8 s to reach the card, then their builds)
+    # while this process and a fresh one build the global net; the
+    # single-process run comes after theirs
+    with ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(mh_launch_run, "mh_main", argv, want)
+        glob = subprocess.Popen(
+            [sys.executable, "-c", GLOBAL_BUILD_CODE,
+             os.path.join(ROOT, "src"), json.dumps(argv)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            host, build_s = mh_global_build(args)
+            out, err = glob.communicate(timeout=600)
+            check(glob.returncode == 0, f"mh_build: the global build "
+                  f"failed: {err[-2000:]}")
+        finally:
+            if glob.poll() is None:
+                glob.kill()
+                glob.wait()
+        rec, got = launched.result()
+    global_build = json.loads(out.strip().splitlines()[-1])
+    ref, ref_steps_per_s = mh_reference(
+        "mh_main single process", args, host,
+        {k: MH_PROCESSES * c for k, c in want.items()})
+
+    # mh_build: each worker's rows equal those rows of the global build
+    workers = []
+    for p in rec["per_process"]:
+        lo, hi = p["shards"]
+        check(p["net_sha256"] == mh_launch.net_field_hashes(
+            host.select_shards(lo, hi)), f"mh_build: process "
+              f"{p['process_id']}'s rows {lo}..{hi - 1} differ from the "
+              "global build's")
+        workers.append({k: p[k] for k in ("process_id", "device", "shards",
+                                          "host_build_s",
+                                          "rss_before_build_bytes",
+                                          "peak_rss_during_build_bytes")})
+    emit({"phase": "mh_build", "network": "hpc_benchmark(1.0, stdp=True), "
+          "procedural", "grid": "x".join(map(str, MH_GRID)),
+          "fields_equal": len(rec["per_process"][0]["net_sha256"]),
+          "workers": workers, "global_build_fresh_process": global_build,
+          "global_build_in_this_process_s": build_s})
+    del host
+
+    # mh_main: bitwise the single-process run
+    check_same_arrays("mh_main", rec, got, ref)
+    check(rec["spiked"] > MH_SPIKE_FLOOR, f"mh_main: {rec['spiked']} spikes"
+          f" in {MH_STEPS} steps, not above the floor {MH_SPIKE_FLOOR}")
+    check(rec["overflow"] == 0, f"mh_main: wire overflow {rec['overflow']}")
+    emit({"phase": "mh_main", "grid": "x".join(map(str, MH_GRID)),
+          "processes": MH_PROCESSES, "steps": MH_STEPS,
+          "spikes": rec["spiked"], "spike_floor": MH_SPIKE_FLOOR,
+          "bitwise_equal_to_single_process": {"raster": True, "v_m": True,
+                                              "weights": True},
+          "dist_backend": rec["dist_backend"],
+          "remote_route": rec["remote_route"],
+          "steps_per_s": rec["steps_per_s"],
+          "bench": [p["bench"] for p in rec["per_process"]],
+          "launches_per_step_per_process": [
+              {k: c / MH_STEPS for k, c in p["launches"].items()}
+              for p in rec["per_process"]],
+          "single_process_steps_per_s": ref_steps_per_s,
+          "wire_bytes_intra": rec["wire_bytes_intra"],
+          "wire_bytes_inter": rec["wire_bytes_inter"],
+          "launch_wall_s": rec["launch_wall_s"]})
+    del ref, got
+
+    # mh_marmoset: the boundary tier between areas, two wire pairs, each
+    # against the single-process run (packed); the two launches run
+    # together, beside the single-process build and run (the procedural
+    # builds take most of the time)
+    argvs = [mh_argv(f"mh_marmoset_{i}", "marmoset", MARMOSET_SCALE,
+                     MARMOSET_GRID, MH_MARMOSET_STEPS, wire, remote)
+             for i, (wire, remote) in enumerate(MH_MARMOSET_WIRES)]
+    s_loc = MARMOSET_GRID[0] * MARMOSET_GRID[1] // MH_PROCESSES
+    whats = [f"mh_marmoset {w}+{r}" for w, r in MH_MARMOSET_WIRES]
+    want = {"synaptic_gather_lif": s_loc * MH_MARMOSET_STEPS}
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        futures = [pool.submit(mh_launch_run, what, argv, want)
+                   for what, argv in zip(whats, argvs)]
+        margs = mh_launch.build_parser().parse_args(argvs[0])
+        host, _ = mh_global_build(margs)
+        ref, ref_steps_per_s = mh_reference(
+            "mh_marmoset single process", margs, host,
+            {"synaptic_gather_lif": MH_PROCESSES * s_loc
+             * MH_MARMOSET_STEPS})
+        launched = [f.result() for f in futures]
+    gid = host.graph["global_id"]
+    slots = host.boundary_slots
+    per_shard = [ref["raster"][:, gid[s][slots[s][slots[s] < host.n_local]]]
+                 .sum(axis=1) for s in range(host.n_shards)]
+    net_bytes = {"comm_bytes_global": host.comm_bytes_global,
+                 "comm_bytes_area": host.comm_bytes_area,
+                 "n_local": host.n_local, "b_pad": host.b_pad,
+                 "boundary_spikes_per_shard_step_max":
+                     int(max(c.max() for c in per_shard))}
+    del host
+    m_runs = {}
+    for what, (wire, remote), (mrec, mgot) in zip(whats, MH_MARMOSET_WIRES,
+                                                  launched):
+        check_same_arrays(what, mrec, mgot, ref)
+        check(mrec["spiked"] > MH_MARMOSET_STEPS, f"{what}: "
+              f"{mrec['spiked']} spikes in {MH_MARMOSET_STEPS} steps")
+        check(mrec["wire_bytes_inter"] < net_bytes["comm_bytes_global"],
+              f"{what}: inter-process bytes {mrec['wire_bytes_inter']} not "
+              f"below comm_bytes_global {net_bytes['comm_bytes_global']}")
+        check(mrec["overflow"] == 0, f"{what}: wire overflow")
+        m_runs[f"{wire}+{remote}"] = {
+            "remote_capacity": wire_mod.get_wire(remote).capacity(
+                net_bytes["b_pad"]) if remote.startswith("sparse") else None,
+            **{k: mrec[k] for k in ("spiked", "wire_bytes_intra",
+                                    "wire_bytes_inter", "steps_per_s",
+                                    "launch_wall_s")}}
+    emit({"phase": "mh_marmoset", "scale": MARMOSET_SCALE, "n_areas": 8,
+          "grid": "x".join(map(str, MARMOSET_GRID)),
+          "processes": MH_PROCESSES, "steps": MH_MARMOSET_STEPS,
+          "bitwise_equal_to_single_process": True, **net_bytes,
+          "single_process_steps_per_s": ref_steps_per_s,
+          "runs_launched_together": True, "runs": m_runs})
+    return [p["launches"] for p in rec["per_process"]]
 
 
 # --------------------------------------------------------------------------
@@ -2349,6 +2645,7 @@ def main() -> None:
                                                          table, main_out)
     del main_out
     runs["dist_main 2x2"] = phase_dist(spec, stdp, g, table)
+    mh_launches = phase_multihost()
     del g, table
     phase_gate_activity()
     zoo_kern, zoo_runs = zoo()
@@ -2364,6 +2661,8 @@ def main() -> None:
          "replaces": REPLACES[name],
          "launches": runs[LAUNCHES_FROM[name]][name],
          "launches_from": LAUNCHES_FROM[name],
+         "launches_multihost_per_process": [p.get(name, 0)
+                                            for p in mh_launches],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

@@ -196,7 +196,7 @@ def stacked_net_from_numpy(fields) -> dist_mod.StackedNetwork:
         val = _field(fields, f.name)
         if f.name == "graph":
             val = {k: np.asarray(v) for k, v in val.items()}
-        elif f.name == "blocked_meta":
+        elif f.name in ("blocked_meta", "local_slice"):
             val = None if val is None else tuple(int(x) for x in val)
         elif np.ndim(val) == 0:
             val = int(val)
@@ -233,7 +233,8 @@ def dist_state_from_numpy(arrays, net: dist_mod.StackedNetwork, *,
     ints = ("ref_count", "t", "wire_overflow", "gate_overflow")
     tens = {k: torch.as_tensor(v, dtype=torch.int32 if k in ints else dtype,
                                device=dev) for k, v in a.items()}
-    shards = tuple(range(net.n_shards)) if shards is None else tuple(shards)
+    shards = (tuple(range(*net.shard_range)) if shards is None
+              else tuple(shards))
     state = dist_mod.DistState(
         **{k: tens[k] for k in DIST_STATE_LEAVES},
         generators=dist_mod.shard_generators(seed, shards, dev),
@@ -250,8 +251,8 @@ def _dist_weights_as(state: dist_mod.DistState,
                      net: dist_mod.StackedNetwork, kind: str):
     """``state`` with its weights re-expressed as ``kind`` per shard."""
     w = []
-    for i, s in enumerate(state.shards):
-        layout = backends_mod.layout_of(net.shard_graphs[s])
+    for i, r in enumerate(net.rows_of(state.shards)):
+        layout = backends_mod.layout_of(net.shard_graphs[r])
         tag = backends_mod.layout_tag(layout, kind)
         w.append(backends_mod.convert_weights(
             layout, state.weights[i], state.weights_layout, tag))

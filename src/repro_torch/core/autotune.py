@@ -9,13 +9,19 @@ records in a BENCH file (:func:`load_measured_gate`,
 :func:`measured_gate_capacity`), keyed by the layout's degree distribution
 (:func:`degrees_from_graphs`, :func:`degree_signature`).
 
+Beside it, the counts-only half of the (PB, EB) block shapes that the
+procedural stacked plan needs: :class:`BlockShapes`, :func:`eb_from_degrees`
+and :func:`resolve_block_shapes_from_degrees` for the fixed defaults.
+
 A jax-free numpy copy.  The reference's TPU VMEM models
 (``sweep_vmem_bytes``, ``gated_sweep_vmem_bytes``) and its (PB, EB) tuner
-are not here: the port's block shapes wait for a Hopper resource model.
+are not here: any spec other than the fixed defaults raises until the port
+has a Hopper resource model.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -24,7 +30,10 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["DEFAULT_GATE_RATE", "DEFAULT_GATE_MIN_CAPACITY", "gate_capacity",
+from repro_torch.core.layout import DEFAULT_EB_MULTIPLE, DEFAULT_PB
+
+__all__ = ["BlockShapes", "eb_from_degrees",
+           "resolve_block_shapes_from_degrees", "DEFAULT_GATE_RATE", "DEFAULT_GATE_MIN_CAPACITY", "gate_capacity",
            "load_measured_gate", "measured_gate_capacity",
            "recommend_gate_rate", "degrees_from_graphs", "degree_signature"]
 
@@ -34,6 +43,59 @@ __all__ = ["DEFAULT_GATE_RATE", "DEFAULT_GATE_MIN_CAPACITY", "gate_capacity",
 DEFAULT_GATE_RATE = 0.002
 #: worklist floor
 DEFAULT_GATE_MIN_CAPACITY = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockShapes:
+    """One chosen (PB, EB) pair plus the model terms that justified it."""
+
+    pb: int
+    eb: int
+    nb: int                 # grid cells (max across shards when uniform)
+    padded_slots: int       # NB * EB summed over shards (= sweep work)
+    vmem_bytes: int         # kernel footprint under the reference's model
+    feasible: bool          # vmem_bytes <= budget
+
+    def as_tuple(self) -> tuple[int, int]:
+        return self.pb, self.eb
+
+
+def eb_from_degrees(row_degree, n_local: int, *, pb: int = DEFAULT_PB,
+                    eb_multiple: int = DEFAULT_EB_MULTIPLE) -> int:
+    """Padded per-block edge count from per-row indegrees alone.
+
+    The counts-only twin of :func:`repro_torch.core.layout.blocked_eb` for
+    builds that never materialize the shard (the procedural dims
+    pre-pass): a block's edge count is just the sum of its rows'
+    indegrees.
+    """
+    rd = np.asarray(row_degree, dtype=np.int64)
+    nb = max(-(-int(n_local) // pb), 1)
+    full = np.zeros(nb * pb, np.int64)
+    full[:rd.size] = rd
+    counts = full.reshape(nb, pb).sum(axis=1)
+    eb = int(max(counts.max() if counts.size else 1, 1))
+    return ((eb + eb_multiple - 1) // eb_multiple) * eb_multiple
+
+
+def resolve_block_shapes_from_degrees(degrees, spec, *, n_local: int,
+                                      n_mirror: int,
+                                      max_delay: int) -> BlockShapes | None:
+    """The block shapes of a ``block_shapes`` spec, for builds that only
+    hold per-shard degree arrays (the procedural dims pre-pass).
+
+    None keeps the fixed defaults and returns None.  Every other spec
+    (``"auto"``, ``"measured:<path>"``, a pinned pair) raises
+    ``NotImplementedError``, as ``builder.build_shards`` does: the
+    reference sizes (PB, EB) against TPU VMEM, and the port has no Hopper
+    resource model yet.
+    """
+    if spec is None:
+        return None
+    raise NotImplementedError(
+        f"block_shapes={spec!r} needs an autotuner with a Hopper resource "
+        "model, which the port does not have yet; build with the fixed "
+        "defaults (block_shapes=None)")
 
 
 def gate_capacity(nb: int, n_edges: int, rate, *,

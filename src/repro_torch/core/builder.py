@@ -373,7 +373,8 @@ def shard_row_degrees(spec: NetworkSpec, dec: Decomposition,
 
 
 def procedural_shard_raw(spec: NetworkSpec, dec: Decomposition, dev: int, *,
-                         row_chunk: int = DEFAULT_ROW_CHUNK) -> dict:
+                         row_chunk: int = DEFAULT_ROW_CHUNK,
+                         dims_only: bool = False) -> dict:
     """Shard-local O(owned rows) build of ONE device's raw edge arrays.
 
     Never touches another shard's rows and never materializes a global edge
@@ -386,6 +387,10 @@ def procedural_shard_raw(spec: NetworkSpec, dec: Decomposition, dev: int, *,
     - pass B regenerates them again and scatter-writes each edge straight
       into its final slot, computed from the pass-A prefix sums - no O(E)
       lexsort, no 64-bit staging copies.
+
+    ``dims_only`` stops after pass A, returning just the shapes the
+    stacked builds agree on padding with (owned, mirror_gids, per-row
+    degrees, edge count).
     """
     if spec.connectivity != "procedural":
         raise ValueError("procedural_shard_raw needs a spec with "
@@ -420,6 +425,10 @@ def procedural_shard_raw(spec: NetworkSpec, dec: Decomposition, dev: int, *,
             if rm.size:
                 remotes = np.union1d(remotes, rm)
     mirror_gids = np.concatenate([owned, remotes])
+    if dims_only:
+        row_degree = counts.reshape(n_delay + 1, -1).sum(axis=0)[:n_loc]
+        return dict(owned=owned, mirror_gids=mirror_gids,
+                    row_degree=row_degree, e=int(counts.sum()))
 
     # final slot of each (delay, row) group = prefix sum in delay-major
     # row-minor order == the lexsort((post, delay)) the oracle applies
@@ -536,23 +545,32 @@ def finalize_shards(spec: NetworkSpec, dec: Decomposition, raw: list, *,
                     pad_to_multiple: int = 8,
                     uniform_pad: bool = True,
                     with_blocked: bool = True,
-                    streamed: bool = False) -> list[ShardGraph]:
+                    streamed: bool = False,
+                    pad_dims: tuple[int, int, int] | None = None,
+                    blocked_eb_min: int | None = None) -> list[ShardGraph]:
     """Pad raw per-shard edge dicts into ShardGraphs (+ blocked twins).
 
+    ``pad_dims`` supplies externally agreed (e_pad, n_local_pad,
+    n_mirror_pad): the stacked builds that hold one shard at a time, or
+    only a process's own rows, pass the global maxima here so that every
+    shard pads to the same shape.  ``blocked_eb_min`` likewise raises the
+    cross-shard EB floor to an agreed width.
     ``streamed`` selects :func:`repro_torch.core.layout.blocked_layout_streamed`
     (bit-identical, O(owned rows) peak) for builder-ordered shards.
     """
     group_of = spec.group_of()
     ext_rate, ext_weight = spec.ext_arrays()
 
-    if uniform_pad:
+    if pad_dims is not None:
+        e_pad, n_local_pad, n_mirror_pad = pad_dims
+    elif uniform_pad:
         e_pad = max(_pad_up(max(r["pre_m"].size for r in raw), pad_to_multiple), pad_to_multiple)
         n_local_pad = max(_pad_up(max(r["owned"].size for r in raw), pad_to_multiple), pad_to_multiple)
         n_mirror_pad = max(_pad_up(max(r["mirror_gids"].size for r in raw), pad_to_multiple), pad_to_multiple)
     shards = []
     for i, r in enumerate(raw):
         e = r["pre_m"].size
-        if not uniform_pad:
+        if pad_dims is None and not uniform_pad:
             e_pad = max(_pad_up(e, pad_to_multiple), pad_to_multiple)
             n_local_pad = max(_pad_up(r["owned"].size, pad_to_multiple), pad_to_multiple)
             n_mirror_pad = max(_pad_up(r["mirror_gids"].size, pad_to_multiple), pad_to_multiple)
@@ -612,6 +630,8 @@ def finalize_shards(spec: NetworkSpec, dec: Decomposition, raw: list, *,
         # pass so each shard converts once
         fill = blocked_layout_streamed if streamed else blocked_layout
         eb_min = max(blocked_eb(g) for g in shards) if uniform_pad else 0
+        if blocked_eb_min is not None:
+            eb_min = max(eb_min, blocked_eb_min)
         shards = [dataclasses.replace(g, blocked=fill(g, eb_min=eb_min))
                   for g in shards]
     return shards

@@ -21,13 +21,17 @@ half runs the same per-shard hot path as the single-shard engine, through
 the backend registry of :mod:`repro_torch.core.backends` (the ``"cuda"``
 kernels with the neuron step as K1's epilogue, ``"cuda:sparse"`` or
 ``"flat"``); only the exchange and its schedule are distributed-specific.
-The exchange is written against an exchange object with two
+The exchange is written against an exchange object with three
 implementations:
 
 * :class:`StackedExchange` - every shard in one process on one device.  A
   tier's all-gather is the stacked payload itself (the intra tier's viewed
   by row), so one encode, one decode and one mirror gather serve all S
   shards: the exchange costs a handful of launches whatever S is.
+* :class:`HostExchange` - whole rows per ``torch.distributed`` process
+  (the multi-host path, :mod:`repro_torch.core.multihost`): the intra tier
+  stays in the process as in the stacked exchange, and the remote tier is
+  the one collective, an all-gather over the world group;
 * :class:`ProcessGroupExchange` - one shard per ``torch.distributed`` rank:
   the remote tier over the world group, the intra tier over a row
   subgroup, both issued with ``async_op=True`` (remote first) and waited
@@ -50,8 +54,8 @@ Differences from the reference, by design:
   it off or inject per-shard slices of one drive array (:func:`run`'s
   ``drive``).  A stochastic model's per-neuron draws hash the global id
   (``neuron_models.gid_uniform``) and are decomposition-invariant;
-* the procedural stacked plan, the raw (dry-run) step, key advancing for
-  elastic restarts and the multi-host build are not ported.
+* the raw (dry-run) step and key advancing for elastic restarts are not
+  ported.
 """
 
 from __future__ import annotations
@@ -72,12 +76,17 @@ from repro_torch.core.builder import NetworkSpec, build_shards
 from repro_torch.core.decomposition import (Decomposition, apportion_devices,
                                             multisection_divide)
 from repro_torch.core.device import resolve_device
+from repro_torch.core import autotune as autotune_mod
+from repro_torch.core import builder as builder_mod
 from repro_torch.core.engine import EngineConfig, ShardGraph, _poisson_drive
-from repro_torch.core.layout import BlockedGraph
+from repro_torch.core.layout import DEFAULT_PB, BlockedGraph
 
 __all__ = ["mesh_decompose", "StackedNetwork", "prepare_stacked",
+           "procedural_stack_plan", "resolve_stack_pads",
+           "procedural_shard_graphs",
            "DistributedConfig", "DistState", "init_stacked_state",
-           "shard_generators", "StackedExchange", "ProcessGroupExchange",
+           "shard_generators", "StackedExchange", "HostExchange",
+           "ProcessGroupExchange",
            "DistributedStep", "make_distributed_step", "run",
            "global_spikes",
            "wire_bytes_per_step", "wire_bytes_for_dims", "wire_bytes_split"]
@@ -193,7 +202,12 @@ _META_FIELDS = ("boundary_slots", "mirror_is_intra", "mirror_row_gather",
 class StackedNetwork:
     """All shard graphs stacked on a leading shard axis, plus exchange
     metadata.  Every array field has shape (S, ...): numpy at build,
-    tensors after :meth:`to`."""
+    tensors after :meth:`to`.
+
+    With ``local_slice=(lo, hi)`` (the multi-host build,
+    :func:`repro_torch.core.multihost.prepare_stacked_local`) the arrays
+    hold the rows of shards ``lo..hi-1`` only; ``n_shards`` stays the
+    global count, and :meth:`rows_of` maps global shards to rows."""
 
     n_shards: int
     row_width: int
@@ -210,13 +224,39 @@ class StackedNetwork:
     mirror_src_flat: Any       # (S, n_mirror) int32 source shard (global)
     # (nb, eb, pb) when graph carries the stacked ELL arrays blk_*
     blocked_meta: tuple[int, int, int] | None = None
-    # per-shard ShardGraph views of the stacked tensors (set by ``to``):
-    # the backends cache their layouts per graph object
+    # per-shard ShardGraph views of the stacked tensors (set by ``to``), by
+    # row: the backends cache their layouts per graph object
     shard_graphs: tuple[ShardGraph, ...] | None = None
+    # (lo, hi): the global shards the arrays hold; None: all of them
+    local_slice: tuple[int, int] | None = None
 
     @property
     def n_rows(self) -> int:
         return self.n_shards // self.row_width
+
+    @property
+    def shard_range(self) -> tuple[int, int]:
+        """The global shards ``lo..hi-1`` whose rows the arrays hold."""
+        return ((0, self.n_shards) if self.local_slice is None
+                else tuple(self.local_slice))
+
+    def rows_of(self, shards) -> list[int]:
+        """The rows of the (S, ...) arrays that hold global ``shards``."""
+        lo, hi = self.shard_range
+        bad = [int(s) for s in shards if not lo <= s < hi]
+        if bad:
+            raise ValueError(f"shards {bad} are not held by this net (it "
+                             f"holds shards {lo}..{hi - 1})")
+        return [int(s) - lo for s in shards]
+
+    def select_shards(self, lo: int, hi: int) -> "StackedNetwork":
+        """This net holding only the rows of global shards ``lo..hi-1``
+        (host arrays: the per-shard views are dropped)."""
+        r0, r1 = self.rows_of([lo])[0], self.rows_of([hi - 1])[0] + 1
+        return dataclasses.replace(
+            self, graph={k: v[r0:r1] for k, v in self.graph.items()},
+            **{k: getattr(self, k)[r0:r1] for k in _META_FIELDS},
+            local_slice=(lo, hi), shard_graphs=None)
 
     # per-shard per-step spike traffic: the fp32-bitmap figures are the
     # mapping-quality metric (exchanged NEURON SLOTS x 4, whatever the
@@ -232,7 +272,7 @@ class StackedNetwork:
     def to(self, device="cuda") -> "StackedNetwork":
         """The arrays as tensors on ``device`` (the card unless
         ``device="cpu"``; raises without one), with one :class:`ShardGraph`
-        view per shard in ``shard_graphs``."""
+        view per row in ``shard_graphs``."""
         dev = resolve_device(device)
 
         def t(a):
@@ -243,7 +283,7 @@ class StackedNetwork:
         graph = {k: t(v) for k, v in self.graph.items()}
         meta = {k: t(getattr(self, k)) for k in _META_FIELDS}
         shards = []
-        for s in range(self.n_shards):
+        for s in range(len(meta["mirror_src_flat"])):
             bg = None
             if self.blocked_meta is not None and "blk_pre_idx" in graph:
                 nb, eb, pb = self.blocked_meta
@@ -399,31 +439,127 @@ def _stack_and_index(spec: NetworkSpec, shard_iter, *, S: int,
         mirror_src_flat=src_all)
 
 
+def procedural_stack_plan(spec: NetworkSpec, dec: Decomposition, *,
+                          devices=None, pad_to_multiple: int = 8,
+                          with_blocked: bool = True) -> dict:
+    """Dims pre-pass of the procedural stacked build (pass A only, per
+    shard): what every shard must agree on before any array is filled -
+    the uniform pads and the shared blocked shape - without ever holding
+    more than one shard's counts.
+
+    ``devices`` restricts the pass to a subset of shards.  Returns
+    ``dict(e, n_local, n_mirror, row_degree)`` lists per shard, plus the
+    resolved pads under ``"pads"`` when every shard was scanned.
+    """
+    devs = range(dec.n_devices) if devices is None else devices
+    dims = [builder_mod.procedural_shard_raw(spec, dec, int(s),
+                                             dims_only=True)
+            for s in devs]
+    plan = dict(
+        e=[d["e"] for d in dims],
+        n_local=[int(d["owned"].size) for d in dims],
+        n_mirror=[int(d["mirror_gids"].size) for d in dims],
+        row_degree=[d["row_degree"] for d in dims],
+    )
+    if devices is None:
+        plan["pads"] = resolve_stack_pads(plan, spec,
+                                          pad_to_multiple=pad_to_multiple,
+                                          with_blocked=with_blocked)
+    return plan
+
+
+def resolve_stack_pads(plan: dict, spec: NetworkSpec, *,
+                       pad_to_multiple: int = 8,
+                       with_blocked: bool = True,
+                       block_shapes=None) -> dict:
+    """Per-shard dims (possibly all-gathered) -> the agreed uniform pads
+    and blocked meta.  Pure arithmetic, no RNG, so every process that
+    holds the same dims derives the same answer.  ``block_shapes`` other
+    than None raises ``NotImplementedError``
+    (:func:`repro_torch.core.autotune.resolve_block_shapes_from_degrees`).
+    """
+    _pad = lambda n: max(((int(n) + pad_to_multiple - 1) // pad_to_multiple)
+                         * pad_to_multiple, pad_to_multiple)
+    e_pad = _pad(max(plan["e"]))
+    n_local_pad = _pad(max(plan["n_local"]))
+    n_mirror_pad = _pad(max(plan["n_mirror"]))
+    blocked_meta = shapes = None
+    if with_blocked:
+        shapes = autotune_mod.resolve_block_shapes_from_degrees(
+            plan["row_degree"], block_shapes, n_local=n_local_pad,
+            n_mirror=n_mirror_pad, max_delay=spec.max_delay)   # None
+        eb = max(autotune_mod.eb_from_degrees(rd, n_local_pad)
+                 for rd in plan["row_degree"])
+        blocked_meta = (max(-(-n_local_pad // DEFAULT_PB), 1), eb,
+                        DEFAULT_PB)
+    return dict(e_pad=e_pad, n_local_pad=n_local_pad,
+                n_mirror_pad=n_mirror_pad, blocked_meta=blocked_meta,
+                shapes=shapes)
+
+
+def procedural_shard_graphs(spec: NetworkSpec, dec: Decomposition,
+                            devices, pads: dict, *,
+                            pad_to_multiple: int = 8,
+                            with_blocked: bool = True):
+    """Yield finalized ShardGraphs for ``devices`` one at a time, each built
+    O(owned rows) and padded to the agreed ``pads``: the generator both
+    :func:`prepare_stacked` (all shards) and the multi-host build (a
+    process's own shards) drain."""
+    bm = pads["blocked_meta"]
+    pad_dims = (pads["e_pad"], pads["n_local_pad"], pads["n_mirror_pad"])
+    for s in devices:
+        raw = builder_mod.procedural_shard_raw(spec, dec, int(s))
+        [g] = builder_mod.finalize_shards(
+            spec, dec, [raw], pad_to_multiple=pad_to_multiple,
+            with_blocked=with_blocked, streamed=True, pad_dims=pad_dims,
+            blocked_eb_min=None if bm is None else bm[1])
+        yield g
+
+
 def prepare_stacked(spec: NetworkSpec, dec: Decomposition,
                     n_rows: int, row_width: int, *,
                     pad_to_multiple: int = 8,
                     with_blocked: bool = True) -> StackedNetwork:
-    """Build uniform shards (``builder.build_shards(uniform_pad=True)``,
-    materialized or procedural) and the area/remote exchange index tables,
-    as numpy; move the result with :meth:`StackedNetwork.to`.
+    """Build uniform shards and the area/remote exchange index tables, as
+    numpy; move the result with :meth:`StackedNetwork.to`.
 
     ``with_blocked=False`` skips the post-block ELL arrays, for runs that
     never select a kernel backend.
+
+    A materialized spec goes through ``builder.build_shards(uniform_pad=
+    True)``.  A procedural spec is built AND stacked one shard at a time: a
+    dims pre-pass (:func:`procedural_stack_plan`) agrees on the uniform
+    pads and blocked shape, then each shard is generated, written into the
+    preallocated stacked arrays and dropped - peak host memory is the
+    stacked arrays plus one shard, never the global edge list.
     """
     S = n_rows * row_width
     if S != dec.n_devices:
         raise ValueError(f"a {n_rows}x{row_width} grid has {S} shards but "
                          f"the decomposition has {dec.n_devices}")
-    shards = build_shards(spec, dec, pad_to_multiple=pad_to_multiple,
-                          uniform_pad=True, with_blocked=with_blocked)
-    blocked_meta = None
-    if with_blocked:
-        bgs = [g.blocked for g in shards]
-        blocked_meta = (bgs[0].nb, bgs[0].eb, bgs[0].pb)
+    if spec.connectivity == "procedural":
+        pads = procedural_stack_plan(spec, dec,
+                                     pad_to_multiple=pad_to_multiple,
+                                     with_blocked=with_blocked)["pads"]
+        shard_iter = procedural_shard_graphs(
+            spec, dec, range(S), pads, pad_to_multiple=pad_to_multiple,
+            with_blocked=with_blocked)
+        e_pad, n_local, n_mirror = (pads["e_pad"], pads["n_local_pad"],
+                                    pads["n_mirror_pad"])
+        blocked_meta = pads["blocked_meta"]
+    else:
+        shards = build_shards(spec, dec, pad_to_multiple=pad_to_multiple,
+                              uniform_pad=True, with_blocked=with_blocked)
+        blocked_meta = None
+        if with_blocked:
+            bgs = [g.blocked for g in shards]
+            blocked_meta = (bgs[0].nb, bgs[0].eb, bgs[0].pb)
+        e_pad, n_local, n_mirror = (shards[0].n_edges, shards[0].n_local,
+                                    shards[0].n_mirror)
+        shard_iter = iter(shards)
     return _stack_and_index(
-        spec, iter(shards), S=S, row_width=row_width,
-        e_pad=shards[0].n_edges, n_local=shards[0].n_local,
-        n_mirror=shards[0].n_mirror, blocked_meta=blocked_meta,
+        spec, shard_iter, S=S, row_width=row_width, e_pad=e_pad,
+        n_local=n_local, n_mirror=n_mirror, blocked_meta=blocked_meta,
         pad_to_multiple=pad_to_multiple)
 
 
@@ -568,9 +704,11 @@ def init_stacked_state(net: StackedNetwork, groups, seed: int = 0, *,
                        neuron_model: str = "lif",
                        shards: Sequence[int] | None = None,
                        device="cuda") -> DistState:
-    """Fresh state of ``shards`` (global indices; all by default) on
-    ``device`` (the card unless ``device="cpu"``); ``net`` must already be
-    there (:meth:`StackedNetwork.to`).
+    """Fresh state of ``shards`` (global indices; every shard ``net``
+    holds by default) on ``device`` (the card unless ``device="cpu"``);
+    ``net`` must already be there (:meth:`StackedNetwork.to`).  Each
+    shard's drive generator is seeded from its global index
+    (:func:`shard_generators`), whichever rows the net holds.
 
     ``sweep`` (a backend name) stores the weights in that backend's native
     layout up front; without it they are flat.  ``neuron_model`` picks the
@@ -578,9 +716,9 @@ def init_stacked_state(net: StackedNetwork, groups, seed: int = 0, *,
     """
     dev = resolve_device(device)
     _require_net_on(net, dev)
-    shards = tuple(range(net.n_shards)) if shards is None else tuple(
+    shards = tuple(range(*net.shard_range)) if shards is None else tuple(
         int(s) for s in shards)
-    idx = torch.tensor(shards, dtype=torch.long, device=dev)
+    idx = torch.tensor(net.rows_of(shards), dtype=torch.long, device=dev)
     model = neuron_models_mod.get_model(neuron_model)
     gid = net.graph["group_id"].index_select(0, idx)
     nvars = model.init_vars(gid.cpu().numpy(), list(groups))
@@ -645,7 +783,8 @@ class _Exchange:
         self.n_local, self.b_pad = net.n_local, net.b_pad
         self.shards = tuple(shards)
         dev = net.graph["pre_idx"].device
-        idx = torch.tensor(self.shards, dtype=torch.long, device=dev)
+        idx = torch.tensor(net.rows_of(self.shards), dtype=torch.long,
+                           device=dev)
         take = lambda x: x.index_select(0, idx)
         self.boundary = take(net.boundary_slots).long()
         self.is_intra = take(net.mirror_is_intra)
@@ -661,35 +800,101 @@ class _Exchange:
         raise NotImplementedError
 
 
-class StackedExchange(_Exchange):
-    """Every shard in this process, on one device: a tier's all-gather is
-    the stacked payload itself.  The row tier's decoded bits are indexed
-    across all rows at once (``row_idx`` offset by the shard's row)."""
+class _WholeRows(_Exchange):
+    """Every shard of the whole rows ``net`` holds, in this process on one
+    device: the row tier's all-gather is the stacked payload itself, and
+    its decoded bits are indexed across the held rows at once
+    (``row_idx`` offset by the shard's row among them)."""
 
     def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
-        super().__init__(net, cfg, range(net.n_shards))
-        row = torch.arange(net.n_shards, device=self.row_idx.device
+        lo, hi = net.shard_range
+        if lo % net.row_width or hi % net.row_width:
+            raise ValueError(f"shards {lo}..{hi - 1} split a row of "
+                             f"{net.row_width}: a row must not span "
+                             "processes")
+        super().__init__(net, cfg, range(lo, hi))
+        row = torch.arange(hi - lo, device=self.row_idx.device
                            ) // net.row_width
         self.row_idx = (row[:, None] * (net.row_width * net.n_local)
                         + self.row_idx)
-
-    def gather_world(self, payload):
-        return _Ready(payload)
 
     def gather_row(self, payload):
         return _Ready(payload)
 
 
+class StackedExchange(_WholeRows):
+    """Every shard in this process, on one device: a tier's all-gather is
+    the stacked payload itself."""
+
+    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
+        if net.shard_range != (0, net.n_shards):
+            raise ValueError(
+                f"the net holds shards {net.shard_range} of "
+                f"{net.n_shards}; step a process's own rows with "
+                "HostExchange")
+        super().__init__(net, cfg)
+
+    def gather_world(self, payload):
+        return _Ready(payload)
+
+
 class _Pending:
     """An all-gather in flight: ``wait()`` waits on the collective and
-    stacks the gathered payloads."""
+    concatenates the gathered payloads in rank order."""
 
     def __init__(self, work, parts):
         self.work, self.parts = work, parts
 
     def wait(self):
         self.work.wait()
-        return torch.stack(self.parts)
+        return torch.cat(self.parts)
+
+
+class HostExchange(_WholeRows):
+    """Whole rows per ``torch.distributed`` process: this process steps the
+    shards its net holds (``net.local_slice``; the multi-host build,
+    :func:`repro_torch.core.multihost.prepare_stacked_local`).
+
+    The intra tier never leaves the process (the row gather is the stacked
+    payload, as in :class:`StackedExchange`).  The remote tier is the only
+    collective: one ``all_gather`` of the (S_loc, W) payload over the world
+    group, issued with ``async_op=True`` first and waited on in
+    :func:`_exchange_finish`.  The gather concatenates by rank, which is
+    global shard order only if process p holds shards ``p*S_loc ..
+    (p+1)*S_loc - 1``, every process as many: checked here.  Without an
+    initialized process group (one process) the world is this process.
+
+    On gloo a CUDA payload is staged through host memory by gloo itself
+    (its CUDA all-gather copies to pinned buffers on side streams, and
+    ``wait()`` makes the current stream wait on the copies back)."""
+
+    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
+        import torch.distributed as tdist
+        self._dist = tdist
+        if tdist.is_initialized():
+            rank, self.world = tdist.get_rank(), tdist.get_world_size()
+        else:
+            rank, self.world = 0, 1
+        S = net.n_shards
+        if S % self.world:
+            raise ValueError(f"{S} shards do not split evenly over "
+                             f"{self.world} processes")
+        s_loc = S // self.world
+        want = (rank * s_loc, (rank + 1) * s_loc)
+        if net.shard_range != want:
+            raise ValueError(
+                f"process {rank} of {self.world} holds shards "
+                f"{net.shard_range}, but the world gather concatenates by "
+                f"rank, so it must hold {want} (process-major order)")
+        super().__init__(net, cfg)
+
+    def gather_world(self, payload):
+        if self.world == 1:
+            return _Ready(payload)
+        x = payload.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        work = self._dist.all_gather(parts, x, async_op=True)
+        return _Pending(work, parts)
 
 
 class ProcessGroupExchange(_Exchange):
@@ -717,7 +922,7 @@ class ProcessGroupExchange(_Exchange):
                 self.row_group = g
 
     def _gather(self, payload, n, group):
-        x = payload[0].contiguous()
+        x = payload.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         work = self._dist.all_gather(parts, x, group=group, async_op=True)
         return _Pending(work, parts)
@@ -844,7 +1049,7 @@ class DistributedStep:
         self.exchange = (StackedExchange(net, cfg) if exchange is None
                          else exchange)
         self.shards = self.exchange.shards
-        self.graphs = [net.shard_graphs[s] for s in self.shards]
+        self.graphs = [net.shard_graphs[r] for r in net.rows_of(self.shards)]
         self.layouts = [self.backend.prepare(g) for g in self.graphs]
         self.native_tag = _layout_tag_of(net, self.backend.weights_layout)
 
@@ -986,6 +1191,23 @@ class DistributedStep:
         bits = self.advance(carry, drive)
         return self.state_from(carry, state), bits
 
+    def run(self, state: DistState, n_steps: int, drive=None):
+        """Step ``n_steps`` times: :func:`run` with this step."""
+        S, n = len(self.shards), self.net.n_local
+        if drive is not None and tuple(drive.shape) != (n_steps, S, n):
+            raise ValueError(f"drive must be ({n_steps}, {S}, {n}), "
+                             f"got {tuple(drive.shape)}")
+        carry = self.carry_from(state)
+        spikes = torch.empty((n_steps, S, n), dtype=torch.bool,
+                             device=self.dev)
+        for i in range(n_steps):
+            self.advance(carry, None if drive is None else drive[i],
+                         out=spikes[i])
+        fin = self.state_from(carry, state, "flat")
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        return fin, spikes
+
 
 def _neurons_of(state: DistState, i: int, g: ShardGraph):
     """Shard ``i``'s neuron state: views of ``state``'s rows."""
@@ -1003,7 +1225,8 @@ def make_distributed_step(net: StackedNetwork, table,
     """The distributed step on ``device`` (the card unless
     ``device="cpu"``) over ``net`` (on that device) with neuron parameter
     table ``table``: every shard through a :class:`StackedExchange`, or the
-    shards of ``exchange`` (a :class:`ProcessGroupExchange`)."""
+    shards of ``exchange`` (a :class:`HostExchange` or
+    :class:`ProcessGroupExchange`)."""
     return DistributedStep(net, table, cfg, exchange, resolve_device(device))
 
 
@@ -1020,29 +1243,13 @@ def run(state: DistState, net: StackedNetwork, table,
     shards' per-step Poisson draws.  The loop never syncs with the host;
     ``run`` synchronises the device once, at the end.
     """
-    dev = resolve_device(device)
-    step = make_distributed_step(net, table, cfg, exchange=exchange,
-                                 device=dev)
-    S = len(step.shards)
-    if drive is not None and tuple(drive.shape) != (n_steps, S,
-                                                    net.n_local):
-        raise ValueError(f"drive must be ({n_steps}, {S}, {net.n_local}), "
-                         f"got {tuple(drive.shape)}")
-    carry = step.carry_from(state)
-    spikes = torch.empty((n_steps, S, net.n_local), dtype=torch.bool,
-                         device=dev)
-    for i in range(n_steps):
-        step.advance(carry, None if drive is None else drive[i],
-                     out=spikes[i])
-    fin = step.state_from(carry, state, "flat")
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return fin, spikes
+    return make_distributed_step(net, table, cfg, exchange=exchange,
+                                 device=device).run(state, n_steps, drive)
 
 
 def global_spikes(spikes, net: StackedNetwork, n_neurons: int):
-    """Spikes of every shard (n_steps, S, n_local) -> (n_steps, n_neurons)
-    by global id."""
+    """Spikes of every shard ``net`` holds (n_steps, S, n_local) ->
+    (n_steps, n_neurons) by global id (0 for neurons it does not hold)."""
     gid = net.graph["global_id"].to(spikes.device)
     live = gid >= 0
     out = torch.zeros((spikes.shape[0], n_neurons + 1), dtype=spikes.dtype,

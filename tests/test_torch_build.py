@@ -90,6 +90,86 @@ def test_graph_algebra_copy_agrees():
     assert graph.ownership_conflicts(g, parts, "in") == 0
 
 
+def test_procedural_plan_equals_reference():
+    """The procedural stacked plan: pass A's dims per shard, the agreed
+    pads and blocked meta, and ``eb_from_degrees`` per shard equal the
+    reference's on the same 4x2 decomposition; a shape spec other than
+    the fixed defaults raises."""
+    from repro.core import autotune as ref_autotune
+    from repro.core import distributed as ref_dist
+    from repro_torch.core import autotune
+    from repro_torch.core import distributed as dist
+    ref_spec, spec = _specs("procedural")
+    ref_dec = ref_dist.mesh_decompose(ref_spec, 4, 2)
+    dec = dist.mesh_decompose(spec, 4, 2)
+    for wb in (True, False):
+        ref = ref_dist.procedural_stack_plan(ref_spec, ref_dec,
+                                             with_blocked=wb)
+        got = dist.procedural_stack_plan(spec, dec, with_blocked=wb)
+        assert got["e"] == ref["e"] and got["n_local"] == ref["n_local"]
+        assert got["n_mirror"] == ref["n_mirror"]
+        for a, b in zip(got["row_degree"], ref["row_degree"], strict=True):
+            _assert_same("row_degree", b, a)
+        for k in ("e_pad", "n_local_pad", "n_mirror_pad"):
+            assert got["pads"][k] == ref["pads"][k], k
+        assert got["pads"]["blocked_meta"] == (
+            None if ref["pads"]["blocked_meta"] is None
+            else tuple(ref["pads"]["blocked_meta"]))
+        assert got["pads"]["shapes"] is ref["pads"]["shapes"] is None
+    n_local = got["pads"]["n_local_pad"]
+    for rd in got["row_degree"]:
+        for pb in (128, 256):
+            assert (autotune.eb_from_degrees(rd, n_local, pb=pb)
+                    == ref_autotune.eb_from_degrees(rd, n_local, pb=pb))
+    for s in range(dec.n_devices):
+        a = builder.procedural_shard_raw(spec, dec, s, dims_only=True)
+        b = ref_builder.procedural_shard_raw(ref_spec, ref_dec, s,
+                                             dims_only=True)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            _assert_same(k, b[k], a[k])
+    assert autotune.resolve_block_shapes_from_degrees(
+        got["row_degree"], None, n_local=n_local, n_mirror=8,
+        max_delay=spec.max_delay) is None
+    with pytest.raises(NotImplementedError, match="Hopper"):
+        dist.resolve_stack_pads(got, spec, block_shapes="auto")
+
+
+def test_finalize_with_agreed_pads_equals_uniform_build():
+    """``finalize_shards`` of ONE shard padded to agreed maxima
+    (``pad_dims``, ``blocked_eb_min``) equals that shard of the uniform
+    build over all shards, field for field, and the reference's own
+    single-shard finalize with the same pads."""
+    ref_spec, spec = _specs("procedural")
+    n = 4
+    dec = builder.decompose(spec, n)
+    ref_dec = ref_builder.decompose(ref_spec, n)
+    uniform = builder.finalize_shards(
+        spec, dec, [builder.procedural_shard_raw(spec, dec, s)
+                    for s in range(n)], streamed=True)
+    g0 = uniform[0]
+    pads = (g0.n_edges, g0.n_local, g0.n_mirror)
+    for s in range(n):
+        [g] = builder.finalize_shards(
+            spec, dec, [builder.procedural_shard_raw(spec, dec, s)],
+            streamed=True, pad_dims=pads, blocked_eb_min=g0.blocked.eb)
+        [rg] = ref_builder.finalize_shards(
+            ref_spec, ref_dec,
+            [ref_builder.procedural_shard_raw(ref_spec, ref_dec, s)],
+            streamed=True, pad_dims=pads, blocked_eb_min=g0.blocked.eb)
+        for f in dataclasses.fields(g):
+            if f.name != "blocked":
+                _assert_same(f.name, getattr(uniform[s], f.name),
+                             getattr(g, f.name))
+                _assert_same(f.name, getattr(rg, f.name), getattr(g, f.name))
+        for f in dataclasses.fields(BlockedGraph):
+            _assert_same(f"blocked.{f.name}",
+                         getattr(uniform[s].blocked, f.name),
+                         getattr(g.blocked, f.name))
+            _assert_same(f"blocked.{f.name}", getattr(rg.blocked, f.name),
+                         getattr(g.blocked, f.name))
+
+
 def test_block_shapes_wait_for_a_hopper_autotuner():
     spec, _ = models.hpc_benchmark(0.02)
     with pytest.raises(NotImplementedError, match="Hopper"):

@@ -690,3 +690,29 @@ def test_entry_points_default_to_the_card():
     cfg = dist.DistributedConfig(engine=engine.EngineConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist.run(st, net, table, cfg, 1)
+
+
+def test_multihost_entry_points_default_to_the_card(tmp_path):
+    """The multi-host entry points ask for the card too: the step, the
+    state and a worker without ``--device cpu`` raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from repro_torch.core import multihost
+    from repro_torch.launch import multihost as mh_launch
+    spec, _ = models.hpc_benchmark(0.02)
+    net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, 2, 1), 2,
+                               1).to(CPU)
+    cfg = dist.DistributedConfig(engine=engine.EngineConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.make_multihost_step(net, list(spec.groups), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.init_multihost_state(net, list(spec.groups))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.make_host_mesh(2, 1)
+    args = mh_launch.build_parser().parse_args(
+        ["--processes", "1", "--devices-per-process", "2", "--row-width",
+         "1", "--steps", "1", "--process-id", "0",
+         "--out", str(tmp_path / "mh.json")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mh_launch.run_worker(args)
+    assert not (tmp_path / "mh.json").exists()

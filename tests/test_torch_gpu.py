@@ -846,3 +846,29 @@ def test_an_lm_step_never_waits_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all())
+
+
+def test_two_processes_share_the_card(cuda, tmp_path):
+    """The multi-host launcher on the card: two gloo processes, one row of
+    a procedural 2x2 net each, give one process's hashes; each launches
+    K1 + K2 and K3 once a shard a step and its remote tier is gloo's CUDA
+    route."""
+    from repro_torch.launch import multihost as mh_launch
+    recs = {}
+    for procs in (1, 2):
+        argv = ["--processes", str(procs), "--devices-per-process",
+                str(4 // procs), "--row-width", "2", "--steps", "300",
+                "--scale", "0.05", "--connectivity", "procedural",
+                "--sweep", "cuda", "--out", str(tmp_path / f"{procs}.json"),
+                "--timeout", "300"]
+        recs[procs] = mh_launch.run_launcher(
+            mh_launch.build_parser().parse_args(argv))
+    one, two = recs[1], recs[2]
+    assert one["spiked"] > 30, "vacuous - nothing spiked"
+    for k in ("bits_sha256", "vm_sha256", "weights_sha256", "overflow"):
+        assert one[k] == two[k], k
+    assert two["dist_backend"] == "gloo" and "CUDA" in two["remote_route"]
+    for p in two["per_process"]:
+        assert p["device"].startswith("cuda")
+        assert p["launches"] == {"synaptic_gather_lif": 600,
+                                 "stdp_update": 600}, p["launches"]
