@@ -159,6 +159,34 @@ stepping whole rows of a procedural net), after ``dist_marmoset``:
                   run, no wire overflow, the inter-process bytes below
                   ``comm_bytes_global``.
 
+Checkpointing and the fault-tolerant runtime
+(``repro_torch.checkpoint.manager``, ``repro_torch.runtime``), after
+``mh_marmoset``:
+
+17. ckpt_main     - ``hpc_benchmark(1.0, stdp=True)`` on one shard,
+                    ``"cuda"``, the drive on, 2000 steps of
+                    ``engine_step`` under ``SimulationSupervisor`` with an
+                    in-process ``restore_fn``: an async checkpoint every
+                    500 steps, ``ckpt-corrupt@1600,kill@1700`` injected
+                    (raise mode), so the restore walks back past the
+                    corrupted step-1500 checkpoint to step 1000 and
+                    replays; raster, ``v_m`` and weights bitwise the
+                    ``main`` run's; K1 + K2 and K3 once per step actually
+                    run (replays included); each save's blocking copy and
+                    bytes, its background write, the restore;
+18. mh_supervised - the launcher's supervised mode, two processes on the
+                    card (gloo), the two legs launched together: (a) the
+                    ``mh_main`` cell plus ``--save-every 500 --fault-inject
+                    kill@1100#1``: one same-topology gang restart from step
+                    1000, raster, ``v_m`` and weights bitwise ``mh_main``'s;
+                    (b) ``model_demo("lif", 1.0)`` procedural,
+                    ``--no-stdp --elastic``, a kill on rank 1 at step 600:
+                    the gang shrinks from two processes (2x2) to one (1x2),
+                    resumes from step 500 and equals the single-process
+                    2x2 run bitwise; each final incarnation launched K1 +
+                    K2 (and K3 in (a)) once per shard per step it ran;
+                    each incarnation's wall, build and restore seconds.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -209,6 +237,11 @@ from repro_torch.models import transformer as lm_tr  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchServer  # noqa: E402
 from repro_torch.launch import multihost as mh_launch  # noqa: E402
+from repro_torch.checkpoint.manager import (  # noqa: E402
+    CheckpointManager, network_metadata)
+from repro_torch.runtime.fault import RestartPolicy  # noqa: E402
+from repro_torch.runtime.inject import FaultInjector, parse_specs  # noqa: E402
+from repro_torch.runtime.supervisor import SimulationSupervisor  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -322,6 +355,27 @@ MH_MARMOSET_WIRES = (("packed", "packed"), ("packed", "sparse:0.25"))
 MH_SPIKE_FLOOR = 5000
 #: where the workers write their records and arrays (git-ignored)
 MH_DIR = os.path.join(ROOT, "build", "multihost")
+#: the in-process checkpoint cell (phase 17): hpc at scale 1 on one shard,
+#: CKPT_STEPS steps saved every CKPT_SAVE_EVERY with CKPT_FAULTS injected;
+#: the corrupted step-1500 checkpoint sends the restore back to
+#: CKPT_RESTORED; CKPT_KEEP checkpoints kept on disk under CKPT_DIR
+CKPT_STEPS = 2000
+CKPT_SAVE_EVERY = 500
+CKPT_FAULTS = "ckpt-corrupt@1600,kill@1700"
+CKPT_RESTORED = 1000
+CKPT_KEEP = 2
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt_main")
+#: the supervised launcher's legs (phase 18): (a) mh_main's cell with a
+#: kill of rank 1, resumed on the same grid; (b) model_demo("lif", 1.0),
+#: procedural, STDP off, a kill of rank 1 and an elastic shrink to one
+#: process
+MH_SUP_SAVE_EVERY = 500
+MH_SUP_FAULT = "kill@1100#1"
+MH_SUP_RESUMED = 1000
+MH_SHRINK_STEPS = 1000
+MH_SHRINK_SAVE_EVERY = 250
+MH_SHRINK_FAULT = "kill@600#1"
+MH_SHRINK_RESUMED = 500
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -1031,7 +1085,8 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000):
           "inhibitory_w": float(w[fixed].min()), **rec, "profile": prof})
     return rec["launches"], {"spikes": spikes.cpu(),
                              "v_m": fin.neurons.v_m.cpu(),
-                             "weights": fin.weights.cpu()}
+                             "weights": fin.weights.cpu(),
+                             "wall_s": rec["wall_s"]}
 
 
 # --------------------------------------------------------------------------
@@ -1492,7 +1547,8 @@ def mh_reference(what: str, args, host, want_launches: dict):
     spec, stdp, _ = mh_launch._build_spec(args)
     net = host.to(DEV)
     cfg = dist.DistributedConfig(
-        engine=engine.EngineConfig(dt=models.DT_MS, stdp=stdp,
+        engine=engine.EngineConfig(dt=models.DT_MS,
+                                   stdp=None if args.no_stdp else stdp,
                                    sweep="cuda"),
         comm_mode=args.comm_mode, overlap=True, spike_wire=args.wire,
         spike_wire_remote=args.wire_remote)
@@ -1549,12 +1605,12 @@ def mh_launch_run(what: str, argv: list, want_per_process: dict):
     return rec, np.load(rec["arrays"])
 
 
-def phase_multihost() -> dict:
+def phase_multihost():
     """The multi-host path through ``run_launcher``, two processes on the
     card: ``mh_build`` (each worker's rows equal the global build's),
     ``mh_main`` (hpc scale 1, bitwise the single-process run) and
     ``mh_marmoset`` (two wire pairs, bitwise).  Returns mh_main's
-    launches per process."""
+    launches per process, and its record (hashes, arrays, wall)."""
     os.makedirs(MH_DIR, exist_ok=True)
     argv = mh_argv("mh_main", "hpc_benchmark", 1.0, MH_GRID, MH_STEPS,
                    "packed", "packed", "--bench")
@@ -1680,7 +1736,240 @@ def phase_multihost() -> dict:
           "bitwise_equal_to_single_process": True, **net_bytes,
           "single_process_steps_per_s": ref_steps_per_s,
           "runs_launched_together": True, "runs": m_runs})
+    return [p["launches"] for p in rec["per_process"]], rec
+
+
+# --------------------------------------------------------------------------
+# phases 17-18: checkpointing and the fault-tolerant runtime
+# --------------------------------------------------------------------------
+
+class Settled:
+    """An injector whose faults fire only once the manager's in-flight
+    save has committed: ``ckpt-corrupt`` then always damages the newest
+    save, however long its background write takes."""
+
+    def __init__(self, injector, mgr):
+        self.injector, self.mgr = injector, mgr
+
+    def fire(self, step: int) -> None:
+        if any(f.step == step for f in self.injector.specs):
+            self.mgr.wait()
+        self.injector.fire(step)
+
+
+def phase_ckpt_main(spec, stdp, g, table, main_out: dict) -> dict:
+    """The main path under ``SimulationSupervisor`` in process: async saves,
+    a corrupted checkpoint, a kill, a walk-back restore and the replay,
+    bitwise the ``main`` run (``main_out``, on the host).  Returns the
+    launches."""
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
+    backend = backends.get_backend("cuda")
+    layout = backend.prepare(g)
+    model = neuron_models.get_model("lif")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(CKPT_DIR, keep=CKPT_KEEP)
+    s0 = engine.init_state(g, list(spec.groups), SEED, sweep="cuda",
+                           device=DEV)
+    spikes = torch.empty((CKPT_STEPS, g.n_local), dtype=torch.bool,
+                         device=DEV)
+    restores = []
+
+    def step_fn(st, i):
+        st, spikes[i] = engine.engine_step(st, g, table, cfg,
+                                           backend=backend, layout=layout,
+                                           model=model)
+        return st, None
+
+    def restore_fn(_state):
+        # structure, dtypes and devices from the initial state (whose
+        # values no step has changed: "cuda" updates out of place), values
+        # and the generator's state from the file
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, md = mgr.restore(s0)
+        torch.cuda.synchronize()
+        restores.append({"step": int(md["step"]),
+                         "restore_s": time.perf_counter() - t0})
+        return st, int(md["step"])
+
+    fault_specs = parse_specs(CKPT_FAULTS)
+    sup = SimulationSupervisor(
+        mgr, save_every=CKPT_SAVE_EVERY,
+        policy=RestartPolicy(max_restarts=1, backoff_s=0.01),
+        injector=Settled(FaultInjector(fault_specs, mode="raise",
+                                       ckpt_dir=CKPT_DIR), mgr),
+        metadata_fn=lambda s, _: network_metadata(
+            spec, seed=SEED, extra={"step": s, "sweep": "cuda"}),
+        restore_fn=restore_fn)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fin, end = sup.run(s0, step_fn, CKPT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    kill = next(f.step for f in fault_specs if f.kind == "kill")
+    steps_run = CKPT_STEPS + kill - CKPT_RESTORED
+    check(end == CKPT_STEPS and [r["step"] for r in restores]
+          == [CKPT_RESTORED] and f"restore@{CKPT_RESTORED}" in sup.events,
+          f"ckpt_main: restores {restores}, events {sup.events}")
+    check(f"save@{CKPT_RESTORED + CKPT_SAVE_EVERY}" in sup.events[
+        :sup.events.index(f"fail@{kill}:SimulatedFault")],
+          f"ckpt_main: no newer save to walk back past: {sup.events}")
+    check_launches("ckpt_main", launches, {"synaptic_gather_lif": steps_run,
+                                           "stdp_update": steps_run})
+    flat = engine.state_with_weights_layout(fin, g, "flat", backend=backend)
+    for name, a in (("spikes", spikes), ("v_m", flat.neurons.v_m),
+                    ("weights", flat.weights)):
+        check(torch.equal(a.cpu(), main_out[name]), f"ckpt_main: {name} "
+              "differ from the uninterrupted main run's")
+    emit({"phase": "ckpt_main", "network": "hpc_benchmark(1.0, stdp=True), "
+          "1 shard", "steps": CKPT_STEPS, "save_every": CKPT_SAVE_EVERY,
+          "faults": CKPT_FAULTS, "keep": CKPT_KEEP,
+          "bitwise_equal_to_main": {"raster": True, "v_m": True,
+                                    "weights": True},
+          "events": sup.events, "delays": sup.delays, "steps_run": steps_run,
+          "launches": {k: c for k, c in launches.items() if c},
+          "saves": mgr.timings, "restores": restores, "wall_s": wall,
+          "steps_per_s_run": steps_run / wall,
+          "main_wall_s": main_out["wall_s"],
+          "restart_cost_s": wall - main_out["wall_s"]})
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches
+
+
+def mh_sup_run(what: str, argv: list):
+    """One supervised launch: its record (plus the launcher's wall) and
+    its arrays."""
+    t0 = time.perf_counter()
+    rec = mh_launch.run_launcher(mh_launch.build_parser().parse_args(argv))
+    rec["launch_wall_s"] = time.perf_counter() - t0
+    return rec, np.load(rec["arrays"])
+
+
+def check_final_incarnation(what: str, rec: dict, resumed: int,
+                            kernels) -> list:
+    """The final incarnation resumed from ``resumed``, and each of its
+    processes launched each of ``kernels`` once per shard per step it ran
+    on the card, and nothing else.  Returns the launches per process."""
+    check(rec["resumed_from"] == resumed and rec["incarnation"] == 1,
+          f"{what}: resumed from {rec['resumed_from']} in incarnation "
+          f"{rec['incarnation']}, expected {resumed} in 1")
+    for p in rec["per_process"]:
+        s_loc = p["shards"][1] - p["shards"][0]
+        check(p["device"].startswith("cuda") and p["steps_run"]
+              == rec["steps"] - resumed, f"{what}: process "
+              f"{p['process_id']} on {p['device']} ran {p['steps_run']}")
+        check_launches(f"{what} process {p['process_id']}",
+                       {**dict.fromkeys(read_launches(), 0),
+                        **p["launches"]},
+                       dict.fromkeys(kernels, s_loc * p["steps_run"]))
     return [p["launches"] for p in rec["per_process"]]
+
+
+def sup_summary(rec: dict) -> dict:
+    """A supervised record's numbers for the phase line."""
+    sup = rec["supervision"]
+    return {"resumed_from": rec["resumed_from"], "events": sup["events"],
+            "tiers": sup["tiers"], "delays": sup["delays"],
+            "incarnations": [
+                {"processes": inc["processes"], "wall_s": inc["wall_s"],
+                 "failed": inc["failed"],
+                 "host_build_s": [w["host_build_s"]
+                                  for w in inc["workers"].values()],
+                 "restore_s": [w["restore_s"]
+                               for w in inc["workers"].values()]}
+                for inc in sup["per_incarnation"]],
+            "launch_wall_s": rec["launch_wall_s"],
+            "final_steps_per_s": rec["steps_per_s"],
+            "ckpt_events": rec["ckpt_events"],
+            "saves": rec["ckpt_timings"], "spikes": rec["spiked"]}
+
+
+def phase_mh_supervised(mh_main_rec: dict) -> dict:
+    """The launcher's supervised mode, two legs launched together: (a) a
+    same-grid gang restart bitwise ``mh_main``, (b) an elastic shrink from
+    two processes to one, bitwise the single-process 2x2 run of its net.
+    Returns the final incarnations' launches per leg and process."""
+    os.makedirs(MH_DIR, exist_ok=True)
+    argv_a = mh_argv("mh_sup_same", "hpc_benchmark", 1.0, MH_GRID, MH_STEPS,
+                     "packed", "packed", "--save-every",
+                     str(MH_SUP_SAVE_EVERY), "--fault-inject", MH_SUP_FAULT,
+                     "--keep-ckpts", "2")
+    argv_b = mh_argv("mh_sup_shrink", "hpc_benchmark", 1.0, MH_GRID,
+                     MH_SHRINK_STEPS, "packed", "packed", "--model", "lif",
+                     "--no-stdp", "--elastic", "--save-every",
+                     str(MH_SHRINK_SAVE_EVERY), "--fault-inject",
+                     MH_SHRINK_FAULT, "--keep-ckpts", "2")
+    args_b = mh_launch.build_parser().parse_args(argv_b)
+    for argv in (argv_a, argv_b):
+        a = mh_launch.build_parser().parse_args(argv)
+        shutil.rmtree(a.out + ".ckpt", ignore_errors=True)
+    with ThreadPoolExecutor(2) as pool:
+        fut_a = pool.submit(mh_sup_run, "mh_supervised same", argv_a)
+        fut_b = pool.submit(mh_sup_run, "mh_supervised shrink", argv_b)
+        host, _ = mh_global_build(args_b)
+        rec_a, got_a = fut_a.result()
+        rec_b, got_b = fut_b.result()
+    s_loc = MH_GRID[0] * MH_GRID[1]
+    ref_b, ref_steps_per_s = mh_reference(
+        "mh_supervised shrink single process", args_b, host,
+        {"synaptic_gather_lif": s_loc * MH_SHRINK_STEPS})
+    del host
+
+    # (a) same grid: bitwise mh_main, one gang restart, backoff recorded
+    want_a = dict(np.load(mh_main_rec["arrays"]))
+    check_same_arrays("mh_supervised same", rec_a, got_a, want_a)
+    for k in ("bits_sha256", "vm_sha256", "weights_sha256"):
+        check(rec_a[k] == mh_main_rec[k], f"mh_supervised same: {k} is not "
+              "mh_main's")
+    sup_a = rec_a["supervision"]
+    check(sup_a["tiers"] == {"same": 1, "shrink": 0} and sup_a["delays"]
+          and rec_a["processes"] == MH_PROCESSES and rec_a["dist_backend"]
+          == "gloo", f"mh_supervised same: {sup_a}")
+    launches_a = check_final_incarnation(
+        "mh_supervised same", rec_a, MH_SUP_RESUMED,
+        ("synaptic_gather_lif", "stdp_update"))
+
+    # (b) elastic: 2 processes (2x2) -> 1 process (1x2), bitwise 2x2
+    check_same_arrays("mh_supervised shrink", rec_b, got_b, ref_b)
+    sup_b = rec_b["supervision"]
+    check(sup_b["tiers"] == {"same": 0, "shrink": 1}
+          and sup_b["processes_final"] == 1 and rec_b["processes"] == 1
+          and (rec_b["n_rows"], rec_b["row_width"]) == (1, MH_GRID[1])
+          and any(e.startswith(f"shrink:{MH_PROCESSES}->1(mesh 1x"
+                               f"{MH_GRID[1]})") for e in sup_b["events"]),
+          f"mh_supervised shrink: {sup_b}")
+    check(rec_b["spiked"] > MH_SHRINK_STEPS and rec_b["overflow"] == 0,
+          f"mh_supervised shrink: {rec_b['spiked']} spikes, overflow "
+          f"{rec_b['overflow']}")
+    launches_b = check_final_incarnation(
+        "mh_supervised shrink", rec_b, MH_SHRINK_RESUMED,
+        ("synaptic_gather_lif",))
+    emit({"phase": "mh_supervised", "launched_together": True,
+          "same": {"network": "hpc_benchmark(1.0, stdp=True), procedural",
+                   "grid": "x".join(map(str, MH_GRID)), "steps": MH_STEPS,
+                   "save_every": MH_SUP_SAVE_EVERY, "fault": MH_SUP_FAULT,
+                   "bitwise_equal_to_mh_main": True,
+                   "mh_main_launch_wall_s": mh_main_rec["launch_wall_s"],
+                   "restart_cost_s": rec_a["launch_wall_s"]
+                   - mh_main_rec["launch_wall_s"],
+                   "final_launches_per_process": launches_a,
+                   **sup_summary(rec_a)},
+          "shrink": {"network": 'model_demo("lif", 1.0), procedural, '
+                                "no STDP",
+                     "grid": f"{'x'.join(map(str, MH_GRID))} -> 1x"
+                             f"{MH_GRID[1]}", "steps": MH_SHRINK_STEPS,
+                     "save_every": MH_SHRINK_SAVE_EVERY,
+                     "fault": MH_SHRINK_FAULT,
+                     "bitwise_equal_to_single_process_2x2": True,
+                     "single_process_steps_per_s": ref_steps_per_s,
+                     "final_launches_per_process": launches_b,
+                     **sup_summary(rec_b)}})
+    for rec in (rec_a, rec_b):
+        shutil.rmtree(os.path.splitext(rec["arrays"])[0] + ".json.ckpt",
+                      ignore_errors=True)
+    return {"same": launches_a, "shrink": launches_b}
 
 
 # --------------------------------------------------------------------------
@@ -2643,9 +2932,12 @@ def main() -> None:
     kern.update(phase_gate_kernels(g))
     runs["gate_main cuda:sparse:1e-7"] = phase_gate_main(spec, stdp, g,
                                                          table, main_out)
-    del main_out
     runs["dist_main 2x2"] = phase_dist(spec, stdp, g, table)
-    mh_launches = phase_multihost()
+    mh_launches, mh_main_rec = phase_multihost()
+    sup_launches = {"ckpt_main": phase_ckpt_main(spec, stdp, g, table,
+                                                 main_out)}
+    del main_out
+    sup_launches.update(phase_mh_supervised(mh_main_rec))
     del g, table
     phase_gate_activity()
     zoo_kern, zoo_runs = zoo()
@@ -2663,6 +2955,10 @@ def main() -> None:
          "launches_from": LAUNCHES_FROM[name],
          "launches_multihost_per_process": [p.get(name, 0)
                                             for p in mh_launches],
+         "launches_supervised": {
+             "ckpt_main": sup_launches["ckpt_main"].get(name, 0),
+             **{f"mh_supervised {leg}": [p.get(name, 0) for p in ps]
+                for leg, ps in sup_launches.items() if leg != "ckpt_main"}},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

@@ -85,7 +85,7 @@ __all__ = ["mesh_decompose", "StackedNetwork", "prepare_stacked",
            "procedural_stack_plan", "resolve_stack_pads",
            "procedural_shard_graphs",
            "DistributedConfig", "DistState", "init_stacked_state",
-           "shard_generators", "StackedExchange", "HostExchange",
+           "shard_generators", "advance_generators", "StackedExchange", "HostExchange",
            "ProcessGroupExchange",
            "DistributedStep", "make_distributed_step", "run",
            "global_spikes",
@@ -679,6 +679,32 @@ def shard_generators(seed: int, shards: Sequence[int], device) -> list:
                           .generate_state(1, dtype=np.uint64)[0] >> 1))
         gens.append(g)
     return gens
+
+
+def advance_generators(generators, graphs, n_steps: int,
+                       dt: float = 0.1) -> list:
+    """Advance each shard's drive generator by ``n_steps`` steps of the
+    distributed loop, in place, and return the list: the twin of the
+    reference's ``advance_key_data``.
+
+    The step draws one ``torch.poisson`` over the shard's rates a step
+    (:func:`~repro_torch.core.engine._poisson_drive`), so the stream an
+    uninterrupted run holds after ``n_steps`` is reached by replaying
+    ``n_steps`` draws of those rates (``graphs[i]``, the shard's
+    :class:`ShardGraph` on the generator's device).  That is exact on both
+    devices because the rates are constant; no Philox offset is computed
+    (the CPU generator has none, and how many numbers a ``torch.poisson``
+    call consumes is the library's business).  Restart tooling that
+    re-derives the generators for a NEW shard count (elastic shrink) uses
+    this; a run with the drive off draws nothing and must not call it.
+    """
+    if len(generators) != len(graphs):
+        raise ValueError(f"{len(generators)} generators for {len(graphs)} "
+                         "shard graphs")
+    for gen, g in zip(generators, graphs):
+        for _ in range(int(n_steps)):
+            _poisson_drive(gen, g, dt, torch.float32)
+    return list(generators)
 
 
 def _layout_tag_of(net: StackedNetwork, kind: str) -> str:

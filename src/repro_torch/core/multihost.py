@@ -42,7 +42,8 @@ from repro_torch.core import neuron_models as neuron_models_mod
 from repro_torch.core.device import resolve_device
 
 __all__ = ["initialize", "detect_cluster_env", "default_backend",
-           "HostTopology", "HostMesh", "make_host_mesh", "host_topology",
+           "HostTopology", "HostMesh", "make_host_mesh", "plan_elastic_mesh",
+           "host_topology",
            "local_shard_slice", "replicate_to_host", "make_multihost_step",
            "init_multihost_state", "prepare_stacked_local",
            "state_from_fields", "snapshot_host_state"]
@@ -209,6 +210,27 @@ def make_host_mesh(n_rows: int, row_width: int, *,
                     row_process=tuple(r // rph for r in range(n_rows)),
                     num_processes=n_proc, process_id=pid,
                     device=resolve_device(device))
+
+
+def plan_elastic_mesh(row_width: int, shards_per_process: int, *,
+                      device="cuda") -> HostMesh:
+    """Host-aligned grid for WHATEVER processes this incarnation has.
+
+    The elastic-restart entry point: the caller states the row width and
+    the shards each process steps, and the elastic row plan
+    (:func:`repro_torch.runtime.elastic.plan_mesh`) runs for the process
+    group's world size times ``shards_per_process`` (the port's devices
+    are shards, not ``jax.device_count()``) - so a gang restarted on
+    fewer processes lands on the correspondingly smaller Area-Processes
+    decomposition.  Degrades the row width (halving) only when fewer
+    shards than one row survive.
+    """
+    from repro_torch.runtime.elastic import plan_mesh
+    n_proc, _ = _world()
+    plan = plan_mesh(n_proc * shards_per_process, model_width=row_width,
+                     prefer_pods=False)
+    n_rows, width = plan.shape
+    return make_host_mesh(n_rows, width, device=device)
 
 
 def host_topology(mesh: HostMesh) -> HostTopology:

@@ -13,7 +13,7 @@
   snapshot equals the stacked state and restores it, and rows out of rank
   order are refused;
 * the launcher at 1 and 2 processes gives equal hashes; a failing worker
-  fails the launch; supervised mode raises.
+  fails the launch (its supervised mode: ``tests/test_torch_runtime.py``).
 """
 
 import dataclasses
@@ -469,8 +469,3 @@ def test_run_launcher_one_and_two_processes_agree(tmp_path, monkeypatch,
 def test_a_failing_worker_fails_the_launch(tmp_path):
     with pytest.raises(SystemExit, match="worker processes failed"):
         _launch(tmp_path / "bad.json", 2, "--scenario", "no_such_network")
-
-
-def test_supervised_mode_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _launch(tmp_path / "sup.json", 2, "--save-every", "10")
