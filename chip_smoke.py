@@ -187,6 +187,25 @@ Checkpointing and the fault-tolerant runtime
                     K2 (and K3 in (a)) once per shard per step it ran;
                     each incarnation's wall, build and restore seconds.
 
+The multi-tenant sessions (``repro_torch.serve.snn.SessionEngine`` over
+``engine.make_session_step_fn``: each active slot stepped in turn through
+the kernels of a solo run), after ``ckpt_main``:
+
+19. sessions - ``hpc_benchmark(1.0, stdp=True)`` through ``"cuda"``, not
+               cut, sessions of seeds 0, 1, 2, each held bitwise (raster,
+               flat weights, ``v_m``, traces, ring) against its solo
+               ``engine.run`` of the same seed: (a) 4 slots, an interleave
+               of solo steps, a wave of two and a wave of three, 1000 steps
+               a session, K1 + K2 and K3 once per session-step and nothing
+               else; (b) 2 slots and 3 sessions, 300 steps a call, every
+               call past the second evicting the LRU (each save's bytes and
+               blocking ms, each restore's ms); (c) ``run_supervised(300,
+               save_every=100)`` of two residents, clean and with
+               ``kill@170`` (restored from 100; the restart cost against
+               the clean run); then ``step_wave``'s aggregate
+               session-steps/s at 1, 2 and 4 residents beside ``main``'s
+               steps/s, and device memory per resident slot.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -242,6 +261,7 @@ from repro_torch.checkpoint.manager import (  # noqa: E402
 from repro_torch.runtime.fault import RestartPolicy  # noqa: E402
 from repro_torch.runtime.inject import FaultInjector, parse_specs  # noqa: E402
 from repro_torch.runtime.supervisor import SimulationSupervisor  # noqa: E402
+from repro_torch.serve.snn import SessionEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -376,6 +396,28 @@ MH_SHRINK_STEPS = 1000
 MH_SHRINK_SAVE_EVERY = 250
 MH_SHRINK_FAULT = "kill@600#1"
 MH_SHRINK_RESUMED = 500
+#: the session cell (phase 19): hpc at scale 1 through "cuda" in
+#: ``SessionEngine``, sessions of seeds 0, 1, 2.  (a) SESS_PLAN on 4 slots,
+#: each session SESS_STEPS steps; (b) 3 sessions on SESS_EVICT_SLOTS
+#: slots, SESS_EVICT_CHUNK steps a call, so that every call past the
+#: second evicts the LRU; (c) ``run_supervised(SESS_SUP_STEPS,
+#: save_every=SESS_SUP_SAVE_EVERY)`` of two residents, clean and with
+#: SESS_SUP_FAULT, restored from SESS_SUP_RESUMED; then step_wave's
+#: aggregate rate at SESS_RATE_RESIDENTS residents over SESS_RATE_STEPS
+#: steps.  Checkpoints under SESS_DIR, removed after.
+SESS_SCALE = 1.0
+SESS_SEEDS = (0, 1, 2)
+SESS_PLAN = ((0, 200), ((0, 1), 300), (1, 200), ((0, 1, 2), 500), (2, 500))
+SESS_STEPS = 1000
+SESS_EVICT_SLOTS = 2
+SESS_EVICT_CHUNK = 300
+SESS_SUP_STEPS = 300
+SESS_SUP_SAVE_EVERY = 100
+SESS_SUP_FAULT = "kill@170"
+SESS_SUP_RESUMED = 100
+SESS_RATE_RESIDENTS = (1, 2, 4)
+SESS_RATE_STEPS = 200
+SESS_DIR = os.path.join(ROOT, "build", "sessions")
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -1838,6 +1880,242 @@ def phase_ckpt_main(spec, stdp, g, table, main_out: dict) -> dict:
     return launches
 
 
+def _solo_legs(eng, seed: int, ends) -> dict:
+    """Seed ``seed``'s uninterrupted solo run on ``eng``'s graph, table
+    and cfg (``engine.run`` in legs ending at each step of ``ends``): the
+    raster and, at each end, the flat state's values, on the host."""
+    st = eng.ctx.init_state(list(eng.spec.groups), seed)
+    spikes, at, done = [], {}, 0
+    for end in ends:
+        st, sp = engine.run(st, eng.graph, eng.param_table, eng.cfg,
+                            end - done, device=DEV)
+        spikes.append(sp.cpu())
+        at[end] = _state_values(st)
+        done = end
+    return {"spikes": torch.cat(spikes).numpy(), "at": at}
+
+
+def _state_values(st) -> dict:
+    """A flat state's compared values, copied to the host."""
+    return {"v_m": st.neurons.v_m.cpu(), "weights": st.weights.cpu(),
+            "k_pre": st.traces.k_pre.cpu(), "k_post": st.traces.k_post.cpu(),
+            "ring": st.ring.cpu()}
+
+
+def check_session(what: str, eng, sid: int, solo: dict, steps: int) -> None:
+    """Session ``sid``'s whole recorded raster and its snapshot at
+    ``steps`` bitwise its solo run's."""
+    info = eng.session_info(sid)
+    check(info["step"] == steps, f"{what}: session at step {info['step']}, "
+          f"expected {steps}")
+    first, bits = eng.spikes(sid)
+    check(first == 0 and bits.shape[0] == steps,
+          f"{what}: log holds steps {first}..{first + bits.shape[0]}")
+    check(bool((bits == solo["spikes"][:steps]).all()),
+          f"{what}: raster differs from the solo run's")
+    st, md = eng.snapshot(sid)
+    check(st.weights_layout == "flat" and md["session"]["step"] == steps,
+          f"{what}: snapshot {st.weights_layout} at {md['session']}")
+    for name, x in _state_values(st).items():
+        check(torch.equal(x, solo["at"][steps][name]),
+              f"{what}: {name} differs from the solo run's")
+
+
+def _timed_method(eng, name: str, out: list) -> None:
+    """Wrap ``eng.<name>(rec | sid, ...)`` to append its session (None for
+    another first argument) and synchronised wall ms to ``out``."""
+    fn = getattr(eng, name)
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        sid = getattr(args[0], "sid", args[0])
+        out.append({"sid": sid if isinstance(sid, int) else None,
+                    "ms": (time.perf_counter() - t0) * 1e3})
+        return got
+    setattr(eng, name, timed)
+
+
+def phase_sessions(main_steps_per_s: float) -> dict:
+    """The multi-tenant session engine at full width: interleaving,
+    eviction, a supervised crash, each session bitwise its solo run; then
+    the aggregate rate by residency.  Returns the launches of (a), (b) and
+    (c)'s faulted run."""
+    shutil.rmtree(SESS_DIR, ignore_errors=True)
+    kernels = MAIN_KERNELS
+    scen = dict(scale=SESS_SCALE, stdp=True)
+    t0 = time.perf_counter()
+    eng = SessionEngine(max_sessions=4, sweep="cuda", spike_window=SESS_STEPS,
+                        device=DEV)
+    sid = {SESS_SEEDS[0]: eng.create("hpc_benchmark", seed=SESS_SEEDS[0],
+                                     **scen)}           # binds the graph
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    sid.update({s: eng.create("hpc_benchmark", seed=s, **scen)
+                for s in SESS_SEEDS[1:]})
+    torch.cuda.synchronize()
+    slot_bytes = (torch.cuda.memory_allocated() - base) / (len(SESS_SEEDS)
+                                                           - 1)
+    launches = {}
+
+    # (a) interleaving: solo steps, a partial wave, a full wave
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for who, n in SESS_PLAN:
+        if isinstance(who, tuple):
+            eng.step_wave([sid[s] for s in who], n)
+        else:
+            eng.step(sid[who], n)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches["interleave"] = read_launches()
+    steps_a = sum(n * (len(w) if isinstance(w, tuple) else 1)
+                  for w, n in SESS_PLAN)
+    check(steps_a == SESS_STEPS * len(SESS_SEEDS), f"plan: {steps_a} steps")
+    check_launches("sessions (a)", launches["interleave"],
+                   dict.fromkeys(kernels, steps_a))
+    ends = (SESS_SUP_STEPS, 2 * SESS_EVICT_CHUNK, SESS_STEPS)
+    solo = {s: _solo_legs(eng, s, ends) for s in SESS_SEEDS}
+    spikes = {}
+    for s in SESS_SEEDS:
+        check_session(f"sessions (a) seed {s}", eng, sid[s], solo[s],
+                      SESS_STEPS)
+        spikes[s] = int(solo[s]["spikes"].sum())
+        check(spikes[s] > 0, f"sessions (a) seed {s}: no spike")
+
+    # throughput by residency: step_wave of k fresh residents
+    for s in SESS_SEEDS:
+        eng.close(sid[s])
+    fresh = [eng.create("hpc_benchmark", seed=10 + k, **scen)
+             for k in range(max(SESS_RATE_RESIDENTS))]
+    rates = {}
+    for k in SESS_RATE_RESIDENTS:
+        eng.step_wave(fresh[:k], 10)                        # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.step_wave(fresh[:k], SESS_RATE_STEPS)
+        wall = time.perf_counter() - t0                     # bits on host
+        rates[k] = {"session_steps_per_s": k * SESS_RATE_STEPS / wall,
+                    "wall_s": wall,
+                    "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    del eng, fresh
+
+    # (b) eviction: 3 sessions on 2 slots, every call past the second
+    #     evicts the LRU through the checkpoint manager
+    evict_dir = os.path.join(SESS_DIR, "evict")
+    eng = SessionEngine(max_sessions=SESS_EVICT_SLOTS, sweep="cuda",
+                        ckpt_dir=evict_dir, spike_window=SESS_STEPS,
+                        keep=1, device=DEV)
+    sid = {s: eng.create("hpc_benchmark", seed=s, **scen)
+           for s in SESS_SEEDS}
+    check(eng.session_info(sid[2])["status"] == "queued",
+          "sessions (b): the third session is not queued")
+    evicts, restores = [], []
+    _timed_method(eng, "_evict", evicts)
+    _timed_method(eng, "_restore_into", restores)
+    order = (0, 1, 2, 0, 1, 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for s in order:
+        eng.step(sid[s], SESS_EVICT_CHUNK)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches["eviction"] = read_launches()
+    check_launches("sessions (b)", launches["eviction"],
+                   dict.fromkeys(kernels, SESS_EVICT_CHUNK * len(order)))
+    check([e["sid"] for e in evicts] == [sid[s] for s in (0, 1, 2, 0)]
+          and [r["sid"] for r in restores] == [sid[s] for s in (0, 1, 2)],
+          f"sessions (b): evictions {evicts}, restores {restores}")
+    check(eng.session_info(sid[0])["status"] == "evicted",
+          "sessions (b): seed 0 not evicted at the end")
+    for s in SESS_SEEDS:
+        check_session(f"sessions (b) seed {s}", eng, sid[s], solo[s],
+                      2 * SESS_EVICT_CHUNK)
+    saves = [dict(t, sid=k) for k, m in eng._mgrs.items() for t in m.timings]
+    del eng
+
+    # (c) supervised residency: two residents, clean, then a kill
+    sup_runs = {}
+    eng = SessionEngine(max_sessions=2, sweep="cuda",
+                        ckpt_dir=os.path.join(SESS_DIR, "supervised"),
+                        spike_window=SESS_STEPS, device=DEV)
+    sup_restores = []
+    _timed_method(eng, "_restore_resident", sup_restores)
+    for fault in (None, SESS_SUP_FAULT):
+        sids = [eng.create("hpc_benchmark", seed=s, **scen)
+                for s in SESS_SEEDS[:2]]
+        inj = (None if fault is None else
+               FaultInjector(parse_specs(fault), mode="raise"))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        sup = eng.run_supervised(
+            SESS_SUP_STEPS, save_every=SESS_SUP_SAVE_EVERY, injector=inj,
+            policy=RestartPolicy(max_restarts=1, backoff_s=0.01))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        what = f"sessions (c) {fault or 'clean'}"
+        replayed = 0
+        if fault is not None:
+            kill = parse_specs(fault)[0].step
+            replayed = kill - SESS_SUP_RESUMED
+            check(f"restore@{SESS_SUP_RESUMED}" in sup.events
+                  and len(sup_restores) == 1,
+                  f"{what}: events {sup.events}")
+        check_launches(what, got, dict.fromkeys(
+            kernels, len(sids) * (SESS_SUP_STEPS + replayed)))
+        for s, i in zip(SESS_SEEDS, sids):
+            check_session(f"{what} seed {s}", eng, i, solo[s],
+                          SESS_SUP_STEPS)
+        sup_runs[fault or "clean"] = {"wall_s": wall, "events": sup.events,
+                                      "launches": got}
+        for i in sids:
+            eng.close(i)
+    launches["supervised"] = sup_runs[SESS_SUP_FAULT]["launches"]
+    del eng
+    shutil.rmtree(SESS_DIR, ignore_errors=True)
+    emit({"phase": "sessions", "network": f"hpc_benchmark({SESS_SCALE}, "
+          "stdp=True), 1 shard, \"cuda\"", "seeds": list(SESS_SEEDS),
+          "bind_and_create_s": bind_s,
+          "bitwise_equal_to_solo": {"raster": True, "weights": True,
+                                    "v_m": True, "traces": True,
+                                    "ring": True},
+          "spikes_per_session_1000_steps": spikes,
+          "interleave": {"plan": [[list(w) if isinstance(w, tuple) else w,
+                                   n] for w, n in SESS_PLAN],
+                         "session_steps": steps_a, "wall_s": wall_a,
+                         "session_steps_per_s": steps_a / wall_a,
+                         "launches": {k: c for k, c in
+                                      launches["interleave"].items() if c}},
+          "eviction": {"order": list(order), "chunk": SESS_EVICT_CHUNK,
+                       "wall_s": wall_b, "saves": saves,
+                       "evict_ms": evicts, "restore_ms": restores},
+          "supervised": {"steps": SESS_SUP_STEPS,
+                         "save_every": SESS_SUP_SAVE_EVERY,
+                         "fault": SESS_SUP_FAULT,
+                         "clean_wall_s": sup_runs["clean"]["wall_s"],
+                         "fault_wall_s": sup_runs[SESS_SUP_FAULT]["wall_s"],
+                         "events": sup_runs[SESS_SUP_FAULT]["events"],
+                         "restore_all_ms": [r["ms"] for r in sup_restores],
+                         "restart_cost_s":
+                             sup_runs[SESS_SUP_FAULT]["wall_s"]
+                             - sup_runs["clean"]["wall_s"]},
+          "step_wave_by_residents": rates,
+          "main_steps_per_s": main_steps_per_s,
+          "resident_slot_bytes": slot_bytes,
+          "note": "slots are stepped one after the other through the solo "
+                  "kernels: no batching gain is expected"})
+    return {k: {n: c for n, c in v.items() if c} for k, v in
+            launches.items()}
+
+
 def mh_sup_run(what: str, argv: list):
     """One supervised launch: its record (plus the launcher's wall) and
     its arrays."""
@@ -2936,6 +3214,8 @@ def main() -> None:
     mh_launches, mh_main_rec = phase_multihost()
     sup_launches = {"ckpt_main": phase_ckpt_main(spec, stdp, g, table,
                                                  main_out)}
+    sess_launches = phase_sessions(len(main_out["spikes"])
+                                   / main_out["wall_s"])
     del main_out
     sup_launches.update(phase_mh_supervised(mh_main_rec))
     del g, table
@@ -2959,6 +3239,8 @@ def main() -> None:
              "ckpt_main": sup_launches["ckpt_main"].get(name, 0),
              **{f"mh_supervised {leg}": [p.get(name, 0) for p in ps]
                 for leg, ps in sup_launches.items() if leg != "ckpt_main"}},
+         "launches_sessions": {part: got.get(name, 0)
+                               for part, got in sess_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

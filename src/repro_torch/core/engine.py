@@ -43,6 +43,16 @@ Differences from the reference, by design:
 
 Writes are conflict-free by construction: every backend reduces over
 owner-sorted post rows it exclusively owns (eq. 14).
+
+The multi-tenant half (DESIGN.md §16): :class:`StepContext` is the shared,
+read-only half of a simulation, and :func:`make_session_step_fn` steps a
+:class:`SlotBatch` of independent instances of one network through it.
+Where the reference vmaps one step over every slot and keeps the
+inactive slots' old state (``masked_select``), the slot step here loops
+over the ACTIVE slots only, each through the same :func:`engine_step` and
+kernels a solo run takes: an inactive slot is never touched, so it stays
+bit-frozen by construction, and an active slot's trajectory is its solo
+run's.
 """
 
 from __future__ import annotations
@@ -60,7 +70,10 @@ from repro_torch.core import stdp as stdp_mod
 from repro_torch.core.device import resolve_device
 
 __all__ = ["ShardGraph", "EngineConfig", "EngineState", "init_state",
-           "engine_step", "run", "state_with_weights_layout"]
+           "engine_step", "run", "state_with_weights_layout", "clone_state",
+           "StepContext", "make_step_context", "make_step_fn", "SlotBatch",
+           "stack_states", "slot_state", "set_slot_state", "masked_select",
+           "make_session_step_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,6 +344,207 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                             neuron_model=state.neuron_model,
                             model_seed=state.model_seed)
     return new_state, spike_bits
+
+
+def _copy_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def clone_state(state: EngineState) -> EngineState:
+    """A copy of ``state`` that shares no tensor and no generator with it
+    (tensors alias where the reference's arrays cannot: a step advances
+    the generator in place, and K7 the weights)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, torch.Generator):
+            return _copy_generator(x)
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: copy(getattr(x, f.name))
+                for f in dataclasses.fields(x)})
+        return x
+    return copy(state)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepContext:
+    """The shared, read-only half of a simulation: ``(graph, table, cfg)``
+    plus their backend, layout and model, resolved once.
+
+    The per-instance half is the :class:`EngineState` alone: MANY
+    independent instances of one network share ONE context while memory
+    scales with per-instance state, not topology (DESIGN.md §16).
+    """
+
+    graph: ShardGraph
+    table: torch.Tensor
+    cfg: EngineConfig
+    backend: Any
+    layout: Any
+    model: Any
+
+    def step(self, state: EngineState, *, drive=None, model_uniform=None):
+        """One dt of one instance: ``(state) -> (state, spike_bits)``
+        (:func:`engine_step`)."""
+        return engine_step(state, self.graph, self.table, self.cfg,
+                           drive=drive, model_uniform=model_uniform,
+                           backend=self.backend, layout=self.layout,
+                           model=self.model)
+
+    def init_state(self, groups, seed: int = 0, *,
+                   dtype=torch.float32) -> EngineState:
+        """Fresh per-instance state from ``seed``, on the graph's device and
+        in this context's NATIVE weight layout (no per-step conversion)."""
+        return init_state(self.graph, groups, seed, dtype=dtype,
+                          sweep=self.cfg.sweep,
+                          neuron_model=self.cfg.neuron_model,
+                          device=self.graph.pre_idx.device)
+
+
+def make_step_context(graph: ShardGraph, table: torch.Tensor,
+                      cfg: EngineConfig) -> StepContext:
+    """Resolve ``(graph, table, cfg)`` into a reusable :class:`StepContext`
+    (backend prepared once, layout on the device, model looked up)."""
+    backend = backends_mod.get_backend(cfg.sweep)
+    return StepContext(graph=graph, table=table, cfg=cfg, backend=backend,
+                       layout=backend.prepare(graph),
+                       model=neuron_models_mod.get_model(cfg.neuron_model))
+
+
+def make_step_fn(graph: ShardGraph, table: torch.Tensor, cfg: EngineConfig):
+    """Single-step closure with graph, table and cfg bound (nothing is
+    compiled): ``step(state, *, drive=None, model_uniform=None)``."""
+    return make_step_context(graph, table, cfg).step
+
+
+# --------------------------------------------------------------------------
+# multi-tenant instance axis (DESIGN.md §16)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SlotBatch:
+    """A fixed batch of per-instance states: one :class:`EngineState` per
+    slot, or None for an empty slot (never stepped).
+
+    The reference stacks the slots on a leading axis of every leaf.  Here
+    each slot keeps its own contiguous tensors, which is what the kernels
+    take: a stacked axis would copy every slot in and out of it each step.
+    """
+
+    states: tuple
+
+    def __len__(self) -> int:
+        return len(self.states)
+
+
+def stack_states(states) -> SlotBatch:
+    """Per-instance states (None for an empty slot) -> one
+    :class:`SlotBatch`; the static markers of the states must agree."""
+    metas = {(s.weights_layout, s.neuron_model) for s in states
+             if s is not None}
+    if len(metas) > 1:
+        raise ValueError(
+            f"cannot stack states with mixed static markers {sorted(metas)}"
+            " - all slots must share weights_layout and neuron_model")
+    return SlotBatch(tuple(states))
+
+
+def slot_state(batch: SlotBatch, slot: int) -> EngineState:
+    """Slot ``slot``'s per-instance state (None for an empty slot)."""
+    return batch.states[slot]
+
+
+def set_slot_state(batch: SlotBatch, slot: int,
+                   state: EngineState | None) -> SlotBatch:
+    """A new batch with ``state`` in slot ``slot`` (None empties it);
+    ``batch`` is left as it was."""
+    states = list(batch.states)
+    states[slot] = state
+    return stack_states(states)
+
+
+def _host_mask(active, n_slots: int) -> np.ndarray:
+    """``active`` (bool, ``(n_slots,)``: numpy, a list or a tensor) on the
+    host; one copy for a device tensor."""
+    if isinstance(active, torch.Tensor):
+        active = active.cpu().numpy()
+    mask = np.asarray(active, dtype=bool)
+    if mask.shape != (n_slots,):
+        raise ValueError(
+            f"active mask must be ({n_slots},), got {mask.shape}")
+    return mask
+
+
+def masked_select(active, new: SlotBatch, old: SlotBatch) -> SlotBatch:
+    """Slot ``i`` takes ``new``'s whole state (generator included) where
+    ``active[i]``, else keeps ``old``'s; neither batch is changed."""
+    mask = _host_mask(active, len(old))
+    return stack_states([n if a else o for a, n, o
+                         in zip(mask, new.states, old.states)])
+
+
+def make_session_step_fn(graph: ShardGraph, table: torch.Tensor,
+                         cfg: EngineConfig, max_sessions: int):
+    """The resident multi-tenant step over a :class:`SlotBatch` of
+    ``max_sessions`` slots (DESIGN.md §16) -> ``(step, ctx)``.
+
+    ``step(batch, active, n_steps=1, *, drive=None, model_uniform=None)``
+    returns ``(batch, bits)``: ``active`` is a ``(max_sessions,)`` bool
+    mask, ``bits`` ``(n_steps, max_sessions, n_local)`` bool on the device,
+    False on inactive slots.  Each step runs ``ctx.step`` on every active
+    slot in turn (the kernels of a solo run, once per slot); inactive slots
+    are not touched, so their ``t``, generator, weights and
+    ``gate_overflow`` stay bit-for-bit frozen and a session stepped in any
+    admission pattern computes exactly its solo trajectory.  ``drive`` and
+    ``model_uniform`` (``(n_steps, max_sessions, n_local)``) replace the
+    active slots' own draws, as in :func:`run`.
+
+    The input batch is left as it was: each active slot's generator is
+    copied, and on a backend that updates weights in place its weights too
+    (as :func:`run` copies them).  The loop never syncs with the host.
+    """
+    if max_sessions < 1:
+        raise ValueError(f"max_sessions must be >= 1, got {max_sessions}")
+    ctx = make_step_context(graph, table, cfg)
+    in_place = cfg.stdp is not None and ctx.backend.stdp_in_place(ctx.layout)
+    dev = graph.pre_idx.device
+
+    def step(batch: SlotBatch, active, n_steps: int = 1, *, drive=None,
+             model_uniform=None):
+        mask = _host_mask(active, max_sessions)
+        if len(batch) != max_sessions:
+            raise ValueError(f"batch has {len(batch)} slots, expected "
+                             f"{max_sessions}")
+        shape = (n_steps, max_sessions, graph.n_local)
+        for name, x in (("drive", drive), ("model_uniform", model_uniform)):
+            if x is not None and tuple(x.shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got "
+                                 f"{tuple(x.shape)}")
+        slots = np.flatnonzero(mask).tolist()
+        states = list(batch.states)
+        for s in slots:
+            st = states[s]
+            if st is None:
+                raise ValueError(f"slot {s} is active but holds no state")
+            states[s] = dataclasses.replace(
+                st, generator=_copy_generator(st.generator),
+                weights=st.weights.clone() if in_place else st.weights)
+        bits = torch.zeros(shape, dtype=torch.bool, device=dev)
+        for i in range(n_steps):
+            for s in slots:
+                states[s], bits[i, s] = ctx.step(
+                    states[s],
+                    drive=None if drive is None else drive[i, s],
+                    model_uniform=(None if model_uniform is None
+                                   else model_uniform[i, s]))
+        return SlotBatch(tuple(states)), bits
+
+    return step, ctx
 
 
 def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,

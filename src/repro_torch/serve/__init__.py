@@ -1,1 +1,3 @@
-"""Serving of the LM face: the batched prefill + greedy-decode engine."""
+"""Serving: the LM face's batched prefill + greedy-decode engine
+(:mod:`.engine`) and the multi-tenant SNN sessions - the session engine
+(:mod:`.snn`) over its jax-free bookkeeping (:mod:`.sessions`)."""
