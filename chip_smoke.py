@@ -206,6 +206,31 @@ the kernels of a solo run), after ``ckpt_main``:
                session-steps/s at 1, 2 and 4 residents beside ``main``'s
                steps/s, and device memory per resident slot.
 
+Differentiable simulation (``repro_torch.diff``, ``repro_torch.train``),
+after ``sessions``:
+
+20. diff - (a) ``hpc_benchmark(1.0, stdp=True)``, 2000 steps through
+           ``"cuda"`` with ``surrogate="fast_sigmoid"`` from ``main``'s
+           seed: inference's route (K1 with its LIF epilogue, K3), the
+           spike cast to float; raster, flat weights, ``v_m`` and traces
+           bitwise ``main``'s, the fused K1 and K3 2000 launches each and
+           nothing else, steps/s beside ``main``'s; (b) ``brunel(1.0)``
+           on ``"flat"`` (the gradient path; no kernel launches),
+           diffusion drive, the membrane drawn from the seed:
+           ``d mean(spikes) / d weights`` through
+           ``rollout.rollout``, naive over 100 steps twice and
+           checkpointed (chunks of 25) over 100 and 200 steps (a naive run
+           over 200 steps peaks near 73 GB): rasters, generator states
+           and gradients equal (gradients to rtol 1e-5), gradients finite
+           and non-zero, each peak from ``grad_peak_memory_bytes`` with
+           the checkpointed ones below the naive, wall and s per
+           simulated step; (c) the reference's reduced brunel inversion
+           fit with its bars (g within 0.25, eta within 0.05, the loss
+           descending), its wall and evaluations; (d) the SNN classifier,
+           10 epochs, held-out accuracy at least 3x chance.  The
+           reference's full fit (5 % bars, minutes) is
+           ``phase_full_inversion()``, run on its own.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -262,6 +287,10 @@ from repro_torch.runtime.fault import RestartPolicy  # noqa: E402
 from repro_torch.runtime.inject import FaultInjector, parse_specs  # noqa: E402
 from repro_torch.runtime.supervisor import SimulationSupervisor  # noqa: E402
 from repro_torch.serve.snn import SessionEngine  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.diff import classify as diff_classify  # noqa: E402
+from repro_torch.diff import inverse as diff_inverse  # noqa: E402
+from repro_torch.diff import rollout as diff_rollout  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -418,6 +447,29 @@ SESS_SUP_RESUMED = 100
 SESS_RATE_RESIDENTS = (1, 2, 4)
 SESS_RATE_STEPS = 200
 SESS_DIR = os.path.join(ROOT, "build", "sessions")
+#: the differentiable slice (phase 20): the surrogate of the main path's
+#: surrogate forward and of every gradient; the kernels the surrogate
+#: forward launches once a step: inference's (K1 with its LIF epilogue, K3)
+DIFF_SURROGATE = "fast_sigmoid"
+DIFF_KERNELS = MAIN_KERNELS
+#: (b): the rollout's horizons and chunk at brunel(1.0).  A naive step
+#: keeps 23 bytes an edge for the backward (the int64 gather index, the two
+#: index_add_ sources, the arrivals, three masks): 15.6 M edges x 200 steps
+#: peaked at 72.9 GB of the card's 80, so the naive runs take 100 steps and
+#: the checkpointed run both 100 and 200
+DIFF_GRAD_STEPS = 100
+DIFF_GRAD_LONG = 200
+DIFF_GRAD_CHUNK = 25
+#: (c): the reference's reduced inversion fit and its bars
+#: (tests/test_diff.py::test_brunel_inversion_smoke)
+DIFF_INVERSION_SMOKE = dict(init_g=4.0, init_eta=2.2, n_steps=300,
+                            adam_iters=8, g_rounds=((0.12, 5),),
+                            eta_radii=(0.003, 0.001), eta_points=4)
+DIFF_INVERSION_BARS = {"g": 0.25, "eta": 0.05}
+#: the reference's full acceptance fit: invert_brunel(4.0, 2.5), 5 % bars
+#: (phase_full_inversion, run on its own: it takes minutes)
+DIFF_FULL_BARS = {"g": 0.05, "eta": 0.05}
+DIFF_CLASSIFIER_EPOCHS = 10
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -1128,6 +1180,8 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000):
     return rec["launches"], {"spikes": spikes.cpu(),
                              "v_m": fin.neurons.v_m.cpu(),
                              "weights": fin.weights.cpu(),
+                             "k_pre": fin.traces.k_pre.cpu(),
+                             "k_post": fin.traces.k_post.cpu(),
                              "wall_s": rec["wall_s"]}
 
 
@@ -2114,6 +2168,218 @@ def phase_sessions(main_steps_per_s: float) -> dict:
                   "kernels: no batching gain is expected"})
     return {k: {n: c for n, c in v.items() if c} for k, v in
             launches.items()}
+
+# --------------------------------------------------------------------------
+# phase 20: differentiable simulation (surrogate spikes, the rollout)
+# --------------------------------------------------------------------------
+
+def _diff_grad_run(what: str, st, g, table, cfg, n_steps: int, chunk):
+    """One forward and backward of ``mean(spikes)`` over the rollout with
+    respect to the weights, through ``rollout.grad_peak_memory_bytes``
+    (the peak above what was allocated before); the gradient is taken off
+    the leaf by a hook.  No kernel may launch (the flat backend)."""
+    got = {}
+
+    def loss_fn(w):
+        w.register_hook(lambda gr: got.__setitem__("grad", gr.detach()
+                                                   .clone()))
+        fin, spikes = diff_rollout.rollout(
+            dataclasses.replace(st, weights=w), g, table, cfg, n_steps,
+            checkpoint_every=chunk, device=DEV)
+        got["spikes"] = spikes.detach().to(torch.bool)
+        got["generator"] = fin.generator.get_state()
+        return spikes.mean()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    peak = diff_rollout.grad_peak_memory_bytes(loss_fn, st.weights)
+    wall = time.perf_counter() - t0
+    check_launches(what, read_launches(), {})
+    grad = got["grad"]
+    check(bool(torch.isfinite(grad).all()), f"{what}: gradient not finite")
+    check(float(grad.abs().max()) > 0, f"{what}: zero gradient")
+    return dict(peak_bytes=peak, wall_s=wall, s_per_step=wall / n_steps,
+                spikes=got["spikes"], grad=grad,
+                generator=got["generator"])
+
+
+def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
+    """Differentiable simulation: (a) the surrogate forward of the main
+    path through ``"cuda"`` (inference's fused K1 and K3, the spike cast
+    to float), bitwise the ``main`` run; (b) the gradient of
+    ``mean(spikes)`` through the rollout at ``brunel(1.0)`` on ``"flat"``,
+    naive twice and checkpointed; (c) the reference's reduced inversion
+    fit; (d) the SNN classifier.  Returns
+    (a)'s launches."""
+    n_steps = len(main_out["spikes"])
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
+                              surrogate=DIFF_SURROGATE)
+    _, fin, spikes, rec = run_counted("diff surrogate", spec, g, table, cfg,
+                                      n_steps, DIFF_KERNELS)
+    check(spikes.dtype == torch.float32, "diff: surrogate spikes not float")
+    same = {"raster": torch.equal(spikes.cpu(),
+                                  main_out["spikes"].to(torch.float32)),
+            "weights": torch.equal(fin.weights.cpu(), main_out["weights"]),
+            "v_m": torch.equal(fin.neurons.v_m.cpu(), main_out["v_m"]),
+            "k_pre": torch.equal(fin.traces.k_pre.cpu(), main_out["k_pre"]),
+            "k_post": torch.equal(fin.traces.k_post.cpu(),
+                                  main_out["k_post"])}
+    for k, ok in same.items():
+        check(ok, f"diff surrogate: {k} differs from the main run")
+    surrogate_rec = dict(
+        network=f"hpc_benchmark(1.0, stdp=True), \"cuda\", surrogate="
+                f"{DIFF_SURROGATE!r}", steps=n_steps,
+        spikes=int(spikes.sum()), bitwise_equal_to_main=same,
+        steps_per_s=rec["steps_per_s"],
+        main_steps_per_s=n_steps / main_out["wall_s"],
+        wall_s=rec["wall_s"],
+        peak_device_mem_bytes=rec["peak_device_mem_bytes"],
+        launches={k: c for k, c in rec["launches"].items() if c})
+    del fin, spikes
+
+    # (b) the gradient rollout at brunel(1.0)
+    bspec, _ = models.brunel(1.0)
+    t0 = time.perf_counter()
+    host = builder.build_shards(bspec, builder.decompose(bspec, 1))[0]
+    bgr = host.to(DEV)
+    del host
+    build_s = time.perf_counter() - t0
+    btable = snn.make_param_table(list(bspec.groups), models.DT_MS,
+                                  device=DEV)
+    gcfg = engine.EngineConfig(dt=models.DT_MS, sweep="flat",
+                               surrogate=DIFF_SURROGATE,
+                               external_drive_mode="diffusion")
+    # from rest brunel's first spikes come after about 140 steps: every
+    # run starts from one membrane state drawn uniformly in [e_l, v_th)
+    # from the seed, as NEST's brunel example draws V_m
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    gid = bgr.group_id.long().cpu()
+    e_l, v_th = (torch.tensor([getattr(p, k) for p in bspec.groups])[gid]
+                 for k in ("e_l", "v_th"))
+    v0 = (e_l + (v_th - e_l) * torch.rand(bgr.n_local, generator=gen)).to(
+        DEV)
+
+    def fresh():
+        # a fresh state for each run: the drive's generator is the state's,
+        # and a run advances it
+        st = engine.init_state(bgr, list(bspec.groups), SEED, device=DEV)
+        return dataclasses.replace(st, neurons=dataclasses.replace(
+            st.neurons, v_m=v0.clone()))
+
+    runs = {name: _diff_grad_run(f"diff grad {name}", fresh(), bgr, btable,
+                                 gcfg, n, chunk)
+        for name, n, chunk in (
+            ("naive", DIFF_GRAD_STEPS, None),
+            ("naive_again", DIFF_GRAD_STEPS, None),
+            ("checkpointed", DIFF_GRAD_STEPS, DIFF_GRAD_CHUNK),
+            ("checkpointed_long", DIFF_GRAD_LONG, DIFF_GRAD_CHUNK))}
+    a, a2, c = runs["naive"], runs["naive_again"], runs["checkpointed"]
+    cl = runs["checkpointed_long"]
+    check(int(a["spikes"].sum()) > 0, "diff grad: silent raster - vacuous")
+    check(torch.equal(cl["spikes"][:DIFF_GRAD_STEPS], a["spikes"]),
+          "diff grad: the long checkpointed run's first steps differ from "
+          "the naive run's")
+    check(int(cl["spikes"][DIFF_GRAD_STEPS:].sum()) > 0,
+          "diff grad: the long run's second half is silent")
+    check(cl["peak_bytes"] < a["peak_bytes"],
+          f"diff grad: the long checkpointed peak {cl['peak_bytes']} not "
+          f"below the naive {a['peak_bytes']} at half its steps")
+    for name in ("naive_again", "checkpointed"):
+        r = runs[name]
+        check(torch.equal(r["spikes"], a["spikes"]),
+              f"diff grad: {name}'s raster differs from the naive run's")
+        check(torch.equal(r["generator"], a["generator"]),
+              f"diff grad: {name}'s generator state differs")
+        check(torch.allclose(r["grad"], a["grad"], rtol=1e-5, atol=1e-8),
+              f"diff grad: {name}'s gradient differs from the naive run's "
+              f"by {max_abs(r['grad'], a['grad'])}")
+    check(c["peak_bytes"] < a["peak_bytes"],
+          f"diff grad: checkpointed peak {c['peak_bytes']} not below the "
+          f"naive {a['peak_bytes']}")
+    grad_rec = dict(
+        network="brunel(1.0), \"flat\", diffusion drive, surrogate="
+                f"{DIFF_SURROGATE!r}, v_m uniform in [e_l, v_th) from the "
+                "seed", neurons=bspec.n_neurons,
+        synapses=int((bgr.delay > 0).sum()), max_delay=bgr.max_delay,
+        host_build_s=build_s, steps=DIFF_GRAD_STEPS,
+        steps_long=DIFF_GRAD_LONG, checkpoint_every=DIFF_GRAD_CHUNK,
+        spikes=int(a["spikes"].sum()),
+        spikes_long=int(cl["spikes"].sum()),
+        rasters_bitwise_equal=True,
+        grad_bitwise_naive_twice=torch.equal(a["grad"], a2["grad"]),
+        grad_bitwise_checkpointed=torch.equal(c["grad"], a["grad"]),
+        grad_max_abs_diff_checkpointed=max_abs(c["grad"], a["grad"]),
+        grad_max_abs=float(a["grad"].abs().max()),
+        grad_nonzero=int((a["grad"] != 0).sum()),
+        **{f"{k}_{f}": runs[k][f] for k in runs
+           for f in ("peak_bytes", "wall_s", "s_per_step")})
+    del runs, a, a2, c, cl, bgr, btable, v0
+
+    # (c) the reference's reduced inversion fit, on the card
+    reset_launches()
+    t0 = time.perf_counter()
+    res = diff_inverse.invert_brunel(device=DEV, **DIFF_INVERSION_SMOKE)
+    inv_wall = time.perf_counter() - t0
+    check_launches("diff inversion", read_launches(), {})
+    check(res.final_loss < res.loss_history[0],
+          f"diff inversion: loss did not descend {res.loss_history}")
+    for k, bar in DIFF_INVERSION_BARS.items():
+        check(res.rel_error[k] <= bar, f"diff inversion: relative error "
+              f"in {k} {res.rel_error[k]} above {bar}")
+    inv_rec = dict(fit=dict(DIFF_INVERSION_SMOKE,
+                            g_rounds=[list(r) for r in
+                                      DIFF_INVERSION_SMOKE["g_rounds"]]),
+                   g=res.g, eta=res.eta, rel_error=res.rel_error,
+                   bars=DIFF_INVERSION_BARS, final_loss=res.final_loss,
+                   loss_history=list(res.loss_history), n_evals=res.n_evals,
+                   wall_s=inv_wall)
+
+    # (d) the SNN classifier, the reference's acceptance case
+    model = diff_classify.SNNClassifier(device=DEV)
+    tcfg = TrainConfig(optimizer="adamw", lr=0.05, weight_decay=0.0)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = diff_classify.train_classifier(
+        model, tcfg, epochs=DIFF_CLASSIFIER_EPOCHS, data_parallel=True)
+    cls_wall = time.perf_counter() - t0
+    check_launches("diff classifier", read_launches(), {})
+    chance = 1.0 / model.n_classes
+    check(hist[-1]["eval_accuracy"] >= 3.0 * chance,
+          f"diff classifier: eval accuracy {hist[-1]['eval_accuracy']} "
+          f"below 3x chance")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          "diff classifier: train loss did not fall")
+    emit({"phase": "diff", "surrogate_forward": surrogate_rec,
+          "grad_rollout": grad_rec, "inversion_smoke": inv_rec,
+          "classifier": {"epochs": DIFF_CLASSIFIER_EPOCHS,
+                         "eval_accuracy": [h["eval_accuracy"] for h in hist],
+                         "train_loss": [h["train_loss"] for h in hist],
+                         "chance": chance, "wall_s": cls_wall}})
+    return {k: c for k, c in rec["launches"].items() if c}
+
+
+def phase_full_inversion() -> dict:
+    """The reference's acceptance fit, ``invert_brunel(4.0, 2.5)`` with its
+    defaults, on the card: both parameters within 5 %.  Not part of
+    :func:`main` (it takes minutes); run it as
+    ``python3 -c "import chip_smoke as c; c.phase_device();
+    c.phase_full_inversion()"``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    res = diff_inverse.invert_brunel(4.0, 2.5, device=DEV)
+    wall = time.perf_counter() - t0
+    check_launches("full inversion", read_launches(), {})
+    out = {"phase": "full_inversion", "g": res.g, "eta": res.eta,
+           "rel_error": res.rel_error, "bars": DIFF_FULL_BARS,
+           "final_loss": res.final_loss,
+           "loss_history": list(res.loss_history), "n_evals": res.n_evals,
+           "wall_s": wall}
+    emit(out)
+    for k, bar in DIFF_FULL_BARS.items():
+        check(res.rel_error[k] <= bar, f"full inversion: relative error "
+              f"in {k} {res.rel_error[k]} above {bar}")
+    return out
 
 
 def mh_sup_run(what: str, argv: list):
@@ -3216,6 +3482,7 @@ def main() -> None:
                                                  main_out)}
     sess_launches = phase_sessions(len(main_out["spikes"])
                                    / main_out["wall_s"])
+    diff_launches = phase_diff(spec, stdp, g, table, main_out)
     del main_out
     sup_launches.update(phase_mh_supervised(mh_main_rec))
     del g, table
@@ -3241,6 +3508,7 @@ def main() -> None:
                 for leg, ps in sup_launches.items() if leg != "ckpt_main"}},
          "launches_sessions": {part: got.get(name, 0)
                                for part, got in sess_launches.items()},
+         "launches_diff": diff_launches.get(name, 0),
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

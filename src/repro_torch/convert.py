@@ -19,7 +19,10 @@ tests use these functions so that both packages start from the same state.
   distributed engine's state from and to the reference ``DistState``'s
   leaves (:func:`dist_state_leaves`), weights flat on the numpy side;
 * :func:`lm_params_from_numpy` - the LM face: a port ``DecoderLM``
-  ``state_dict`` from the reference's parameter tree.
+  ``state_dict`` from the reference's parameter tree;
+* :func:`classifier_params_from_numpy` and :func:`opt_state_from_numpy` -
+  the differentiable slice: the SNN classifier's params and an optimizer
+  state of :mod:`repro_torch.train.optimizer`, as nested dicts of tensors.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from repro_torch.core.layout import BlockedGraph
 __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
            "state_leaves", "lm_params_from_numpy", "STATE_LEAVES",
            "stacked_net_from_numpy", "dist_state_from_numpy",
-           "dist_state_to_numpy", "dist_state_leaves", "DIST_STATE_LEAVES"]
+           "dist_state_to_numpy", "dist_state_leaves", "DIST_STATE_LEAVES",
+           "classifier_params_from_numpy", "opt_state_from_numpy"]
 
 #: leaf names of a single-shard engine state, as dataclass paths (a LIF
 #: state; other models add their extra variables, :func:`state_leaves`)
@@ -322,3 +326,36 @@ def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
         arr, device=dev,
         dtype=(torch.float32 if name.rsplit(".", 1)[-1] in _LM_FP32_LEAVES
                else dtype)) for name, arr in flat.items()}
+
+
+def _tree_to_torch(tree, dev):
+    """A nested dict of numpy arrays (or scalars) as one of tensors on
+    ``dev``, each a copy in its own dtype; a bf16 leaf (ml_dtypes) stays
+    bf16 (it widens exactly to fp32 on the way)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(arr, device=dev)
+
+
+def classifier_params_from_numpy(params, *, device="cuda") -> dict:
+    """The port ``SNNClassifier``'s params (``{"w_in", "w_out", "b_out"}``,
+    tensors on ``device``) from the reference's ``SNNClassifier.init`` tree
+    with numpy leaves, each in its own dtype."""
+    dev = resolve_device(device)
+    want = {"w_in", "w_out", "b_out"}
+    if set(params) != want:
+        raise ValueError(f"classifier params must have the leaves "
+                         f"{sorted(want)}, got {sorted(params)}")
+    return _tree_to_torch(dict(params), dev)
+
+
+def opt_state_from_numpy(state, *, device="cuda") -> dict:
+    """An optimizer state of :mod:`repro_torch.train.optimizer` (``m``,
+    ``v``, ``master``; ``v_row``, ``v_col``; or SGD's ``m``), as nested
+    dicts of tensors on ``device``, from the reference's
+    ``init_opt_state``/``apply_updates`` tree with numpy leaves."""
+    return _tree_to_torch(dict(state), resolve_device(device))

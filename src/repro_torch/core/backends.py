@@ -31,7 +31,14 @@ so that a backend can fuse them:
   ``"cuda"``.  ``"cuda:sparse:<rate>"`` and ``"cuda:sparse:measured:<path>"``
   pick its capacity (:class:`CudaSparseBackend`).
 * ``"flat"`` - plain torch on the flat owner-sorted arrays, the twin of the
-  reference's ``flat``.
+  reference's ``flat``, and the gradient path (DESIGN.md §17).
+
+Surrogate mode (``surrogate=``, DESIGN.md §17) runs the kernel backends'
+inference route and casts the spike to the membrane's float: the surrogate
+forward's values are the bool spike's, so the trajectory is inference
+mode's bit for bit.  The kernels have no backward: each wrapper raises
+when grad mode is on and an input requires grad, so that a gradient never
+silently stops at a kernel; gradients run on ``"flat"``.
 
 Weights layout: a backend declares ``weights_layout`` - ``"flat"``
 (owner-sorted (E,)) or ``"blocked"`` (ELL slot order, (NB*EB,)).  Run-time
@@ -138,6 +145,16 @@ def _accumulate(layout: EdgeLayout, weights, arrived):
     ).index_add_(0, layout.post_idx,
                  torch.where(layout.channel == c, contrib, zero))
     return out(0), out(1)
+
+
+def _surrogate_cast(neurons, surrogate):
+    """A kernel route's state in surrogate mode: the bool spike as the
+    membrane's float, the surrogate forward's exact values.  No gradient
+    can reach it - each kernel wrapper refuses inputs that require grad."""
+    if surrogate is None:
+        return neurons
+    return dataclasses.replace(neurons,
+                               spike=neurons.spike.to(neurons.v_m.dtype))
 
 
 def _fresh_value(fresh):
@@ -384,15 +401,18 @@ class SweepBackend:
     def neuron_update(self, layout: EdgeLayout, neurons, table, input_ex,
                       input_in, *,
                       synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                      model=None, seed=None, t=None, gid=None, uniform=None):
+                      model=None, seed=None, t=None, gid=None, uniform=None,
+                      surrogate=None):
         """Fused propagate/threshold/reset/refractory for one dt, through
         the NeuronModel registry (``model`` None = "lif").  ``seed``,
         ``t``, ``gid`` (global ids) and ``uniform`` feed stochastic models'
-        draws; deterministic models ignore them."""
+        draws; deterministic models ignore them.  ``surrogate`` (a spec,
+        DESIGN.md §17) makes the spike the float surrogate spike; models
+        without a threshold raise."""
         m = neuron_models_mod.get_model("lif" if model is None else model)
         return m.step(neurons, table, input_ex, input_in,
                       synapse_model=synapse_model, seed=seed, t=t, gid=gid,
-                      uniform=uniform)
+                      uniform=uniform, surrogate=surrogate)
 
     # -- sweep, drive and neuron step as one -------------------------------
     def update_route(self, model, synapse_model: str) -> str:
@@ -406,7 +426,7 @@ class SweepBackend:
                      table, drive, *,
                      synapse_model: str = snn.SynapseModel.CURRENT_EXP,
                      model=None, seed=None, gid=None, uniform=None,
-                     fresh=None):
+                     fresh=None, surrogate=None):
         """One dt's sweep, external drive and neuron step: returns
         ``(new_neurons, arrived, gate_overflow, ring)``, ``arrived`` as
         :meth:`sweep` gives it and ``gate_overflow`` as
@@ -415,7 +435,7 @@ class SweepBackend:
         spikes not yet in the ring, as :meth:`sweep_overlap` takes them)
         makes the sweep :meth:`sweep_overlap`'s, and ``ring`` is then the
         ring with them written to slot ``t-1``; without it ``ring`` is the
-        ring given.
+        ring given.  ``surrogate`` goes to :meth:`neuron_update`.
 
         This is the composed route: :meth:`sweep_with_stats` (or
         :meth:`sweep_overlap_with_stats`), ``+ drive``,
@@ -430,7 +450,8 @@ class SweepBackend:
             ex = ex + drive
         new = self.neuron_update(layout, neurons, table, ex, inh,
                                  synapse_model=synapse_model, model=model,
-                                 seed=seed, t=t, gid=gid, uniform=uniform)
+                                 seed=seed, t=t, gid=gid, uniform=uniform,
+                                 surrogate=surrogate)
         return new, arrived, overflow, ring
 
     # -- plasticity -------------------------------------------------------
@@ -523,14 +544,17 @@ class CudaBackend(SweepBackend):
 
     def neuron_update(self, layout, neurons, table, input_ex, input_in, *,
                       synapse_model: str = snn.SynapseModel.CURRENT_EXP,
-                      model=None, seed=None, t=None, gid=None, uniform=None):
+                      model=None, seed=None, t=None, gid=None, uniform=None,
+                      surrogate=None):
         # the kernel when the model has one (lif K2, izhikevich K4, adex
         # K5, and their +poisson composites); poisson runs its plain draw
         m = neuron_models_mod.get_model("lif" if model is None else model)
+        m.spike_fn(surrogate)   # raises on models without a threshold
         step = m.step if m.kernel_step is None else m.kernel_step
-        return step(neurons, table, input_ex, input_in,
-                    synapse_model=synapse_model, seed=seed, t=t, gid=gid,
-                    uniform=uniform)
+        return _surrogate_cast(
+            step(neurons, table, input_ex, input_in,
+                 synapse_model=synapse_model, seed=seed, t=t, gid=gid,
+                 uniform=uniform), surrogate)
 
     def update_route(self, model, synapse_model: str) -> str:
         """``"fused:lif"`` for the LIF model (current or conductance),
@@ -538,7 +562,8 @@ class CudaBackend(SweepBackend):
         (current): K1 takes the neuron step as its epilogue.
         ``"composed"`` for every other model - the ``+poisson`` composites,
         ``poisson`` - and synapse model (a two-variable model's own step
-        then rejects the conductance form)."""
+        then rejects the conductance form).  The same in surrogate mode,
+        whose spike is the route's cast to float."""
         name = neuron_models_mod.get_model(
             "lif" if model is None else model).name
         if name == "lif" and synapse_model in (snn.SynapseModel.CURRENT_EXP,
@@ -552,13 +577,13 @@ class CudaBackend(SweepBackend):
     def sweep_update(self, layout, weights, ring, t, neurons, table, drive,
                      *, synapse_model: str = snn.SynapseModel.CURRENT_EXP,
                      model=None, seed=None, gid=None, uniform=None,
-                     fresh=None):
+                     fresh=None, surrogate=None):
         route = self.update_route(model, synapse_model)
         if route == "composed":
             return super().sweep_update(
                 layout, weights, ring, t, neurons, table, drive,
                 synapse_model=synapse_model, model=model, seed=seed, gid=gid,
-                uniform=uniform, fresh=fresh)
+                uniform=uniform, fresh=fresh, surrogate=surrogate)
         # one launch: K1's edge pass (delay-1 arrivals from ``fresh`` when
         # given, which a pending exchange is waited on for first), + drive,
         # and the model's step; the state goes in and comes out in
@@ -583,6 +608,8 @@ class CudaBackend(SweepBackend):
         extra = {k: got.pop(k, x) for k, x in neurons.extra.items()}
         new = snn.NeuronState(v_m=got.pop("v"), **got, spike=out[-1],
                               group_id=neurons.group_id, extra=extra)
+        neuron_models_mod.get_model(neuron).spike_fn(surrogate)
+        new = _surrogate_cast(new, surrogate)
         if fresh is not None:
             ring = _write_ring(ring, fresh,
                                torch.remainder(t - 1, layout.max_delay))

@@ -1064,6 +1064,13 @@ class DistributedStep:
     def __init__(self, net: StackedNetwork, table, cfg: DistributedConfig,
                  exchange: _Exchange | None, dev: torch.device):
         _require_net_on(net, dev)
+        if (cfg.engine.surrogate is not None
+                or cfg.engine.external_drive_mode != "poisson"):
+            raise NotImplementedError(
+                "the distributed step runs inference with the Poisson drive "
+                "only: surrogate= and external_drive_mode='diffusion' are "
+                "not ported to it yet (ROADMAP, open from PR 22); run them "
+                "through repro_torch.core.engine.run")
         self.net, self.table, self.cfg, self.dev = net, table, cfg, dev
         self.backend = backends_mod.get_backend(cfg.engine.sweep)
         if self.backend.weights_layout == "blocked" and (

@@ -39,7 +39,18 @@ Differences from the reference, by design:
   key stream;
 * the pre trace is incremented with ``scatter_reduce_(..., "amax")`` from
   zeros, where the reference's ``segment_max`` leaves ``-inf`` on mirrors
-  with no edge; no weight reads those entries.
+  with no edge; no weight reads those entries;
+* the diffusion drive's normal draws (``external_drive_mode="diffusion"``)
+  come from the state's generator too, and are injected the same way
+  (``drive_noise``), which keeps the drive a differentiable function of
+  ``graph.ext_rate``.
+
+Surrogate-gradient mode (``EngineConfig.surrogate``, DESIGN.md §17): the
+threshold models emit float spikes (:mod:`repro_torch.diff.surrogate`)
+with the inference trajectory's values, so a loss of the raster
+differentiates through ring, sweep and membrane on the ``"flat"`` backend;
+the ``"cuda"`` kernels run the surrogate forward (bitwise inference mode)
+but refuse inputs that require grad.
 
 Writes are conflict-free by construction: every backend reduces over
 owner-sorted post rows it exclusively owns (eq. 14).
@@ -71,6 +82,7 @@ from repro_torch.core.device import resolve_device
 
 __all__ = ["ShardGraph", "EngineConfig", "EngineState", "init_state",
            "engine_step", "run", "state_with_weights_layout", "clone_state",
+           "normalize_spike_dtype",
            "StepContext", "make_step_context", "make_step_fn", "SlotBatch",
            "stack_states", "slot_state", "set_slot_state", "masked_select",
            "make_session_step_fn"]
@@ -152,6 +164,13 @@ class EngineConfig:
     sweep: str = "cuda"                    # backend name: "cuda" | "flat"
     external_drive: bool = True            # per-neuron Poisson (graph.ext_*)
     neuron_model: str = "lif"
+    # surrogate-gradient mode (DESIGN.md §17): None = inference; "st[:w]" /
+    # "fast_sigmoid[:beta]" give the threshold models a float spike with a
+    # pseudo-derivative.  The forward trajectory is the same either way.
+    surrogate: str | None = None
+    # external drive sampler: "poisson" (integer events) or "diffusion"
+    # (mean + sqrt(var) * normal, differentiable w.r.t. graph.ext_rate)
+    external_drive_mode: str = "poisson"
 
 
 @dataclasses.dataclass
@@ -258,8 +277,40 @@ def _poisson_drive(generator, graph: ShardGraph, dt: float, dtype):
     return (graph.ext_weight * events).to(dtype)
 
 
+def _diffusion_drive(eps, graph: ShardGraph, dt: float, dtype):
+    """Gaussian diffusion approximation of the Poisson drive: the same mean
+    and variance, ``lam + sqrt(lam) * eps`` events for standard-normal
+    ``eps``, REPARAMETERIZED - a smooth function of ``graph.ext_rate``, so
+    reverse-mode AD reaches the drive rate (the ``eta`` axis of brunel
+    inversion, DESIGN.md §17)."""
+    lam = graph.ext_rate * (dt * 1e-3)
+    events = lam + torch.sqrt(lam) * eps
+    return (graph.ext_weight * events).to(dtype)
+
+
+def _external_drive(state: EngineState, graph: ShardGraph,
+                    cfg: EngineConfig, dtype, drive_noise=None):
+    """This step's external drive ((n_local,) or None when off): a Poisson
+    draw, or the diffusion drive of ``drive_noise``, (n_local,) float32
+    standard-normal draws from the state's generator when not given."""
+    if not cfg.external_drive or graph.ext_rate is None:
+        return None
+    if cfg.external_drive_mode == "poisson":
+        return _poisson_drive(state.generator, graph, cfg.dt, dtype)
+    if cfg.external_drive_mode != "diffusion":
+        raise ValueError(
+            f"unknown external_drive_mode {cfg.external_drive_mode!r}; "
+            "available: ['diffusion', 'poisson']")
+    if drive_noise is None:
+        drive_noise = torch.randn((graph.n_local,), generator=state.generator,
+                                  dtype=torch.float32,
+                                  device=graph.ext_rate.device)
+    return _diffusion_drive(drive_noise, graph, cfg.dt, dtype)
+
+
 def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
                 cfg: EngineConfig, *, drive: torch.Tensor | None = None,
+                drive_noise: torch.Tensor | None = None,
                 model_uniform: torch.Tensor | None = None,
                 backend: "backends_mod.SweepBackend | None" = None,
                 layout: "backends_mod.EdgeLayout | None" = None,
@@ -270,10 +321,18 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     (:meth:`~repro_torch.core.backends.SweepBackend.stdp_in_place`).
 
     ``drive`` ((n_local,), the state dtype) replaces this step's own
-    Poisson draw; ``model_uniform`` ((n_local,) float32) a stochastic
-    model's own uniforms.  ``backend``/``layout``/``model`` may be
-    pre-resolved by callers that step in a loop (:func:`run` does).
+    drive; ``drive_noise`` ((n_local,) float32) replaces only the diffusion
+    drive's normal draws, so the drive stays a differentiable function of
+    ``graph.ext_rate`` (``external_drive_mode="diffusion"``);
+    ``model_uniform`` ((n_local,) float32) a stochastic model's own
+    uniforms.  ``backend``/``layout``/``model`` may be pre-resolved by
+    callers that step in a loop (:func:`run` does).
     """
+    if drive is not None and drive_noise is not None:
+        raise ValueError("give drive= or drive_noise=, not both")
+    if drive_noise is not None and cfg.external_drive_mode != "diffusion":
+        raise ValueError("drive_noise= feeds the diffusion drive; cfg has "
+                         f"external_drive_mode={cfg.external_drive_mode!r}")
     dtype = state.weights.dtype
     if backend is None:
         backend = backends_mod.get_backend(cfg.sweep)
@@ -296,15 +355,15 @@ def engine_step(state: EngineState, graph: ShardGraph, table: torch.Tensor,
     # (1) external stochastic drive, drawn first: it is the generator's
     #     only consumer in a step, so the stream is the same as when it was
     #     drawn after the sweep
-    if drive is None and cfg.external_drive and graph.ext_rate is not None:
-        drive = _poisson_drive(state.generator, graph, cfg.dt, dtype)
+    if drive is None:
+        drive = _external_drive(state, graph, cfg, dtype, drive_noise)
 
     # (2) synaptic sweep over owned edges, + drive, neuron dynamics (+ the
     #     gate's saturation count, the int 0 where no gate can saturate)
     neurons, arrived, gate_ovf, _ = backend.sweep_update(
         layout, w_native, state.ring, state.t, state.neurons, table, drive,
         synapse_model=cfg.synapse_model, model=model, seed=state.model_seed,
-        gid=graph.global_id, uniform=model_uniform)
+        gid=graph.global_id, uniform=model_uniform, surrogate=cfg.surrogate)
     spike_bits = neurons.spike
     gate_overflow = (state.gate_overflow if state.gate_overflow is not None
                      else torch.zeros((), dtype=torch.int32,
@@ -547,28 +606,56 @@ def make_session_step_fn(graph: ShardGraph, table: torch.Tensor,
     return step, ctx
 
 
+def normalize_spike_dtype(state: EngineState,
+                          cfg: EngineConfig) -> EngineState:
+    """The state's ``spike`` in the config's spike dtype: the membrane's
+    float in surrogate mode (the spikes ARE the gradient path), bool in
+    inference mode.  Values are exactly {0, 1}, so the cast is lossless
+    both ways."""
+    want = (state.neurons.v_m.dtype if cfg.surrogate is not None
+            else torch.bool)
+    if state.neurons.spike.dtype == want:
+        return state
+    neurons = dataclasses.replace(state.neurons,
+                                  spike=state.neurons.spike.to(want))
+    return dataclasses.replace(state, neurons=neurons)
+
+
+def _check_step_inputs(graph: ShardGraph, n_steps: int, **inputs) -> None:
+    """Per-step input arrays (None or ``(n_steps, n_local)``); ``drive``
+    and ``drive_noise`` exclude each other."""
+    for name, x in inputs.items():
+        if x is not None and tuple(x.shape) != (n_steps, graph.n_local):
+            raise ValueError(f"{name} must be ({n_steps}, {graph.n_local}), "
+                             f"got {tuple(x.shape)}")
+    if (inputs.get("drive") is not None
+            and inputs.get("drive_noise") is not None):
+        raise ValueError("give drive= or drive_noise=, not both")
+
+
 def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
         cfg: EngineConfig, n_steps: int, *,
         drive: torch.Tensor | None = None,
+        drive_noise: torch.Tensor | None = None,
         model_uniform: torch.Tensor | None = None, device="cuda"):
     """Step ``n_steps`` times on ``device`` (the card unless
     ``device="cpu"``); returns ``(final_state, spikes)``, spikes
-    (n_steps, n_local) bool.
+    (n_steps, n_local) in the spike dtype (bool; the membrane's float in
+    surrogate mode).
 
     Flat-facing: whatever layout ``state`` arrives in, the loop carries the
     backend's NATIVE weights (one conversion in) and the returned state is
     FLAT (one conversion out).  ``drive`` ((n_steps, n_local)) replaces the
-    per-step Poisson draws, ``model_uniform`` ((n_steps, n_local)) a
-    stochastic model's per-step uniforms.  The loop never syncs with the
+    per-step drive draws, ``drive_noise`` (the same shape) only the
+    diffusion drive's normal draws, ``model_uniform`` ((n_steps, n_local))
+    a stochastic model's per-step uniforms.  The loop never syncs with the
     host; ``run`` synchronises the device once, at the end.
     """
     dev = resolve_device(device)
     _require_on(dev, weights=state.weights, ring=state.ring,
                 pre_idx=graph.pre_idx, table=table)
-    for name, x in (("drive", drive), ("model_uniform", model_uniform)):
-        if x is not None and tuple(x.shape) != (n_steps, graph.n_local):
-            raise ValueError(f"{name} must be ({n_steps}, {graph.n_local}), "
-                             f"got {tuple(x.shape)}")
+    _check_step_inputs(graph, n_steps, drive=drive, drive_noise=drive_noise,
+                       model_uniform=model_uniform)
     backend = backends_mod.get_backend(cfg.sweep)
     layout = backend.prepare(graph)
     model = neuron_models_mod.get_model(cfg.neuron_model)
@@ -584,13 +671,15 @@ def run(state: EngineState, graph: ShardGraph, table: torch.Tensor,
         w = w.clone()   # the caller's weights stay as they were
     state = dataclasses.replace(state, weights=w, weights_layout=native_tag)
     del w   # else the first step's weights stay alive through the loop
+    state = normalize_spike_dtype(state, cfg)
 
-    spikes = torch.empty((n_steps, graph.n_local), dtype=torch.bool,
-                         device=dev)
+    spikes = torch.empty((n_steps, graph.n_local),
+                         dtype=state.neurons.spike.dtype, device=dev)
     for i in range(n_steps):
         state, spikes[i] = engine_step(
             state, graph, table, cfg,
             drive=None if drive is None else drive[i],
+            drive_noise=None if drive_noise is None else drive_noise[i],
             model_uniform=None if model_uniform is None else model_uniform[i],
             backend=backend, layout=layout, model=model)
     if state.weights_layout != "flat":

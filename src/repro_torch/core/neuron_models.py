@@ -25,9 +25,14 @@ ops: invariant to row order and to decomposition, as DESIGN.md §14 asks of
 the reference's, and independent of the drive's generator, so that
 deterministic models leave the external-drive stream untouched.
 
-Surrogate-gradient mode (``spike_fn`` / ``supports_surrogate`` in the
-reference) belongs to the differentiable slice of the port: ``step`` raises
-``NotImplementedError`` when given ``surrogate``.
+Surrogate-gradient mode (DESIGN.md §17): the threshold models
+(``supports_surrogate``: lif, izhikevich, adex) take ``step(...,
+surrogate=<spec>)`` and return the float spike of
+:mod:`repro_torch.diff.surrogate` (:meth:`NeuronModel.spike_fn`), the same
+values as the bool with a pseudo-derivative; ``poisson`` and the
+``+poisson`` composites refuse a surrogate, as in the reference.  The
+kernels have no surrogate form: the ``"cuda"`` backend runs them as in
+inference and casts their spike to float.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from repro_torch.core import snn
 from repro_torch.core.device import resolve_device
+from repro_torch.diff import surrogate as surrogate_mod
 from repro_torch.kernels import adex_step as adex_kernel_mod
 from repro_torch.kernels import izhikevich_step as izh_kernel_mod
 from repro_torch.kernels.adex_step import EXP_CLAMP
@@ -154,6 +160,10 @@ class NeuronModel:
     stochastic: bool = False
     #: kernel twin of ``step`` (same signature) or None
     kernel_step = None
+    #: True iff ``step`` accepts ``surrogate=`` (DESIGN.md §17): a
+    #: surrogate-gradient spec ("st[:width]" / "fast_sigmoid[:beta]")
+    #: that turns the returned ``spike`` into the float surrogate spike
+    supports_surrogate: bool = False
 
     # -- build-time -------------------------------------------------------
     def check_groups(self, groups) -> None:
@@ -226,17 +236,25 @@ class NeuronModel:
 
         Stochastic models take ``uniform`` ((n,) float32 draws) or draw
         :func:`gid_uniform` from ``seed``, step ``t`` and GLOBAL ids
-        ``gid``; deterministic models ignore all four.
+        ``gid``; deterministic models ignore all four.  Models with
+        ``supports_surrogate`` also take ``surrogate=`` (a spec, None for
+        inference): the returned ``spike`` is then the float surrogate
+        spike (same values, surrogate derivative) - DESIGN.md §17.
         """
         raise NotImplementedError
 
-
-def _no_surrogate(surrogate) -> None:
-    if surrogate is not None:
-        raise NotImplementedError(
-            "surrogate-gradient mode (step(surrogate=...)) comes with the "
-            "differentiable-simulation slice of the port (ROADMAP Queue 1 "
-            "item 9)")
+    def spike_fn(self, surrogate: str | None):
+        """The spike function ``step`` emits under ``surrogate`` (None =
+        inference: the bool, no function); raises for models without a
+        threshold to differentiate."""
+        if surrogate is None:
+            return None
+        if not self.supports_surrogate:
+            raise ValueError(
+                f"model {self.name!r} does not support surrogate-gradient "
+                "mode (no spike threshold to differentiate); use one of "
+                "the threshold models (lif / izhikevich / adex)")
+        return surrogate_mod.get_surrogate(surrogate)
 
 
 def _draws(model: NeuronModel, n: int, seed, t, gid, uniform):
@@ -272,6 +290,7 @@ class LIFModel(NeuronModel):
 
     name = "lif"
     param_cls = snn.LIFParams
+    supports_surrogate = True
 
     def make_param_table(self, groups, dt, dtype=torch.float32,
                          device="cuda"):
@@ -288,9 +307,9 @@ class LIFModel(NeuronModel):
     def step(self, state, table, input_ex, input_in, *,
              synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None, t=None,
              gid=None, uniform=None, surrogate=None):
-        _no_surrogate(surrogate)
         return snn.lif_step(state, table, input_ex, input_in,
-                            synapse_model=synapse_model)
+                            synapse_model=synapse_model,
+                            spike_fn=self.spike_fn(surrogate))
 
     def kernel_step(self, state, table, input_ex, input_in, *,
                     synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None,
@@ -319,13 +338,15 @@ class _TwoVariableModel(NeuronModel):
 
     _plain = None    # staticmethod: the plain twin
     _kernel = None   # staticmethod: the kernel wrapper
+    supports_surrogate = True
 
-    def _run(self, fn, state, table, input_ex, input_in, synapse_model):
+    def _run(self, fn, state, table, input_ex, input_in, synapse_model,
+             **kw):
         _require_current(self, synapse_model)
         (x_name,) = self.extra_fields
         v, x, se, si, rc, sp = fn(
             state.v_m, state.extra[x_name], state.syn_ex, state.syn_in,
-            state.ref_count, state.group_id, input_ex, input_in, table)
+            state.ref_count, state.group_id, input_ex, input_in, table, **kw)
         return snn.NeuronState(v_m=v, syn_ex=se, syn_in=si, ref_count=rc,
                                spike=sp, group_id=state.group_id,
                                extra={x_name: x})
@@ -333,9 +354,8 @@ class _TwoVariableModel(NeuronModel):
     def step(self, state, table, input_ex, input_in, *,
              synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None, t=None,
              gid=None, uniform=None, surrogate=None):
-        _no_surrogate(surrogate)
         return self._run(self._plain, state, table, input_ex, input_in,
-                         synapse_model)
+                         synapse_model, spike_fn=self.spike_fn(surrogate))
 
     def kernel_step(self, state, table, input_ex, input_in, *,
                     synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None,
@@ -431,7 +451,7 @@ class PoissonModel(NeuronModel):
     def step(self, state, table, input_ex, input_in, *,
              synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None, t=None,
              gid=None, uniform=None, surrogate=None):
-        _no_surrogate(surrogate)
+        self.spike_fn(surrogate)
         p = table[state.group_id.long(), 0]
         u = _draws(self, p.shape[0], seed, t, gid, uniform)
         return dataclasses.replace(state, spike=u < p)
@@ -516,7 +536,7 @@ class PoissonDriveModel(NeuronModel):
     def step(self, state, table, input_ex, input_in, *,
              synapse_model=snn.SynapseModel.CURRENT_EXP, seed=None, t=None,
              gid=None, uniform=None, surrogate=None):
-        _no_surrogate(surrogate)
+        self.spike_fn(surrogate)
         new = self.base.step(state, table[:, :-1], input_ex, input_in,
                              synapse_model=synapse_model)
         return self._overlay(state, new, table, seed, t, gid, uniform)

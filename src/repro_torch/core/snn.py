@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.device import resolve_device
 
 __all__ = ["LIFParams", "NeuronState", "make_param_table", "init_state",
-           "lif_step", "SynapseModel", "COL", "NCOL"]
+           "lif_step", "surrogate_spike", "SynapseModel", "COL", "NCOL"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,14 +141,30 @@ def init_state(n: int, group_id, groups: list[LIFParams], *,
     )
 
 
+def surrogate_spike(spike_fn, refractory, v_new, threshold):
+    """The float spike of surrogate mode: ``spike_fn(v_new - threshold)``,
+    0 where ``refractory`` (the ``where`` also stops the refractory rows'
+    gradient).  Its values are the inference bool's."""
+    return torch.where(refractory, torch.zeros_like(v_new),
+                       spike_fn(v_new - threshold))
+
+
 def lif_step(state: NeuronState, table: torch.Tensor,
              input_ex: torch.Tensor, input_in: torch.Tensor, *,
-             synapse_model: str = SynapseModel.CURRENT_EXP) -> NeuronState:
+             synapse_model: str = SynapseModel.CURRENT_EXP,
+             spike_fn=None) -> NeuronState:
     """One dt of neuron dynamics, elementwise in plain torch.
 
     ``input_ex`` / ``input_in`` are the per-neuron synaptic increments the
     sweep accumulated this step; they add AFTER the decay (NEST convention:
     a spike arriving at t affects v from t+dt on).
+
+    ``spike_fn`` (surrogate mode, DESIGN.md §17; from
+    :func:`repro_torch.diff.surrogate.get_surrogate`): the returned
+    ``spike`` is the float ``spike_fn(v - v_th)``, 0 where refractory -
+    the inference bool's values, with a surrogate derivative.  Reset and
+    refractory bookkeeping stay keyed off the bool (a detached reset), so
+    every other field is bitwise inference mode's.
     """
     t = table[state.group_id]  # (n, NCOL) gather
     col = lambda name: t[:, COL[name]]
@@ -173,9 +189,11 @@ def lif_step(state: NeuronState, table: torch.Tensor,
     refractory = state.ref_count > 0
     v_new = torch.where(refractory, v_reset, v_prop)
     spike = ~refractory & (v_new >= v_th)
+    spike_out = spike if spike_fn is None else surrogate_spike(
+        spike_fn, refractory, v_new, v_th)
     v_new = torch.where(spike, v_reset, v_new)
     ref_count = torch.where(spike, ref_steps,
                             torch.clamp(state.ref_count - 1, min=0))
     return NeuronState(v_m=v_new, syn_ex=syn_ex, syn_in=syn_in,
-                       ref_count=ref_count.to(torch.int32), spike=spike,
+                       ref_count=ref_count.to(torch.int32), spike=spike_out,
                        group_id=state.group_id, extra=state.extra)

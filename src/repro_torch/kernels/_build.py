@@ -19,6 +19,12 @@ header, is newer.  :func:`build_all` starts one ``nvcc`` per source, all
 at once, and waits for them.  The wrappers
 validate every tensor with :func:`check_tensor` (a parameter table with
 :func:`check_table`) before its pointer goes to C, and raise on the error code each entry point returns (:func:`check`).
+
+A kernel called through ``ctypes`` is invisible to autograd: its outputs
+would come back cut from the graph, and a loss through them would get zero
+gradients without an error.  So every wrapper first calls
+:func:`require_no_grad`, on the CPU twin's route too: with grad mode on,
+an input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["load", "build_all", "check", "check_tensor", "check_table",
-           "dispatch_device", "KERNELS", "BUILD_DIR", "CSRC"]
+           "dispatch_device", "require_no_grad", "KERNELS", "BUILD_DIR",
+           "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -173,3 +180,16 @@ def dispatch_device(x):
                          f"got a tensor on {x.device}")
     return x.device.type
 
+
+def require_no_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and one of ``tensors`` (tensors or None)
+    requires grad: kernel ``what`` has no backward."""
+    if not torch.is_grad_enabled():
+        return
+    for x in tensors:
+        if x is not None and x.requires_grad:
+            raise RuntimeError(
+                f"{what}: an input requires grad, but this CUDA kernel has "
+                "no backward and would cut the gradient; run gradients on "
+                "the plain backend (EngineConfig(sweep=\"flat\")), or call "
+                "under torch.no_grad()")

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.snn import surrogate_spike
 from repro_torch.kernels import _build, _two_variable
 
 __all__ = ["adex_step", "adex_step_plain", "COL", "NCOL", "_COLS",
@@ -55,8 +56,12 @@ NCOL = len(_COLS)
 
 
 def adex_step_plain(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
-                    input_in, table):
-    """Plain-torch twin: ``(v, w_ad, syn_ex, syn_in, ref_count, spike)``."""
+                    input_in, table, *, spike_fn=None):
+    """Plain-torch twin: ``(v, w_ad, syn_ex, syn_in, ref_count, spike)``.
+
+    ``spike_fn`` (surrogate mode): the spike is the float
+    ``spike_fn(v_new - v_peak)``, 0 where refractory, as in the reference's
+    ``adex_math``; every other output is unchanged."""
     tb = table[group_id.long()]
     get = lambda name: tb[:, COL[name]]
     se_new = syn_ex * get("p_ee") + input_ex
@@ -72,11 +77,13 @@ def adex_step_plain(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
     v_reset = get("v_reset")
     v_new = torch.where(refractory, v_reset, v_prop)
     spike = ~refractory & (v_new >= get("v_peak"))
+    spike_out = spike if spike_fn is None else surrogate_spike(
+        spike_fn, refractory, v_new, get("v_peak"))
     v_new = torch.where(spike, v_reset, v_new)
     w_new = torch.where(spike, w_prop + get("b"), w_prop)
     rc_new = torch.where(spike, get("ref_steps").to(torch.int32),
                          torch.clamp(ref_count - 1, min=0)).to(torch.int32)
-    return v_new, w_new, se_new, si_new, rc_new, spike
+    return v_new, w_new, se_new, si_new, rc_new, spike_out
 
 
 def adex_step(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
@@ -86,6 +93,8 @@ def adex_step(v, w_ad, syn_ex, syn_in, ref_count, group_id, input_ex,
     its rows contiguous but possibly further apart.  Returns the new
     ``(v, w_ad, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group
     ids are not range-checked on the card."""
+    _build.require_no_grad("adex_step", v, w_ad, syn_ex, syn_in, input_ex,
+                           input_in, table)
     if _build.dispatch_device(v) == "cpu":
         return adex_step_plain(v, w_ad, syn_ex, syn_in, ref_count, group_id,
                                input_ex, input_in, table)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.snn import surrogate_spike
 from repro_torch.kernels import _build, _two_variable
 
 __all__ = ["izhikevich_step", "izhikevich_step_plain", "COL", "NCOL",
@@ -50,8 +51,12 @@ NCOL = len(_COLS)
 
 
 def izhikevich_step_plain(v, u, syn_ex, syn_in, ref_count, group_id,
-                          input_ex, input_in, table):
-    """Plain-torch twin: ``(v, u, syn_ex, syn_in, ref_count, spike)``."""
+                          input_ex, input_in, table, *, spike_fn=None):
+    """Plain-torch twin: ``(v, u, syn_ex, syn_in, ref_count, spike)``.
+
+    ``spike_fn`` (surrogate mode): the spike is the float
+    ``spike_fn(v_new - v_peak)``, 0 where refractory, as in the reference's
+    ``izhikevich_math``; every other output is unchanged."""
     tb = table[group_id.long()]
     get = lambda name: tb[:, COL[name]]
     dt = get("dt")
@@ -65,11 +70,13 @@ def izhikevich_step_plain(v, u, syn_ex, syn_in, ref_count, group_id,
     c = get("c")
     v_new = torch.where(refractory, c, v_prop)
     spike = ~refractory & (v_new >= get("v_peak"))
+    spike_out = spike if spike_fn is None else surrogate_spike(
+        spike_fn, refractory, v_new, get("v_peak"))
     v_new = torch.where(spike, c, v_new)
     u_new = torch.where(spike, u_prop + get("d"), u_prop)
     rc_new = torch.where(spike, get("ref_steps").to(torch.int32),
                          torch.clamp(ref_count - 1, min=0)).to(torch.int32)
-    return v_new, u_new, se_new, si_new, rc_new, spike
+    return v_new, u_new, se_new, si_new, rc_new, spike_out
 
 
 def izhikevich_step(v, u, syn_ex, syn_in, ref_count, group_id, input_ex,
@@ -79,6 +86,8 @@ def izhikevich_step(v, u, syn_ex, syn_in, ref_count, group_id, input_ex,
     rows contiguous but possibly further apart.  Returns the new
     ``(v, u, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group
     ids are not range-checked on the card (that would sync every step)."""
+    _build.require_no_grad("izhikevich_step", v, u, syn_ex, syn_in,
+                           input_ex, input_in, table)
     if _build.dispatch_device(v) == "cpu":
         return izhikevich_step_plain(v, u, syn_ex, syn_in, ref_count,
                                      group_id, input_ex, input_in, table)

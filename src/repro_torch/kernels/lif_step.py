@@ -18,15 +18,20 @@ import ctypes
 
 import torch
 
-from repro_torch.core.snn import COL, NCOL
+from repro_torch.core.snn import COL, NCOL, surrogate_spike
 from repro_torch.kernels import _build
 
 __all__ = ["lif_step", "lif_step_plain"]
 
 
 def lif_step_plain(v, syn_ex, syn_in, ref_count, group_id, input_ex,
-                   input_in, table, *, cond: bool = False):
-    """Plain-torch twin: ``(v, syn_ex, syn_in, ref_count, spike)``."""
+                   input_in, table, *, cond: bool = False, spike_fn=None):
+    """Plain-torch twin: ``(v, syn_ex, syn_in, ref_count, spike)``.
+
+    ``spike_fn`` (surrogate mode): the spike is the float
+    ``spike_fn(v_new - v_th)``, 0 where refractory; every other output,
+    and the spike's values, are unchanged (see
+    :func:`repro_torch.core.snn.lif_step`)."""
     tb = table[group_id.long()]
     get = lambda name: tb[:, COL[name]]
     p_vv, p_ee, p_ii = get("p_vv"), get("p_ee"), get("p_ii")
@@ -45,10 +50,12 @@ def lif_step_plain(v, syn_ex, syn_in, ref_count, group_id, input_ex,
     refractory = ref_count > 0
     v_new = torch.where(refractory, v_reset, v_prop)
     spike = ~refractory & (v_new >= v_th)
+    spike_out = spike if spike_fn is None else surrogate_spike(
+        spike_fn, refractory, v_new, v_th)
     v_new = torch.where(spike, v_reset, v_new)
     rc_new = torch.where(spike, ref_steps,
                          torch.clamp(ref_count - 1, min=0)).to(torch.int32)
-    return v_new, se_new, si_new, rc_new, spike
+    return v_new, se_new, si_new, rc_new, spike_out
 
 
 def _launcher():
@@ -67,6 +74,8 @@ def lif_step(v, syn_ex, syn_in, ref_count, group_id, input_ex, input_in,
     further apart (a composite's ``table[:, :-1]``).  Returns the new
     ``(v, syn_ex, syn_in, ref_count, spike)``, ``spike`` bool.  Group ids
     are not range-checked on the card (that would sync every step)."""
+    _build.require_no_grad("lif_step", v, syn_ex, syn_in, input_ex,
+                           input_in, table)
     if _build.dispatch_device(v) == "cpu":
         return lif_step_plain(v, syn_ex, syn_in, ref_count, group_id,
                               input_ex, input_in, table, cond=cond)

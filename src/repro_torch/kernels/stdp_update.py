@@ -81,6 +81,8 @@ def stdp_update(weights, pre_idx, post_idx, plastic, arrived, post_spike,
     ``post_spike`` (n_local,) f32; traces ``k_pre`` (M,), ``k_post``
     (n_local,) f32.  ``params`` is (lam, alpha, mu, w0, w_min, w_max).
     Returns the new (E,) weights in the same order."""
+    _build.require_no_grad("stdp_update", weights, arrived, post_spike,
+                           k_pre, k_post)
     if _build.dispatch_device(weights) == "cpu":
         return stdp_update_plain(weights, pre_idx, post_idx, plastic,
                                  arrived, post_spike, k_pre, k_post,
@@ -169,6 +171,8 @@ def stdp_update_worklist(weights, pre_idx, post_rel, plastic, arrived,
     f32, traces ``k_pre`` (M,) and ``k_post`` (n_local,) f32; ``params`` is
     (lam, alpha, mu, w0, w_min, w_max).
     """
+    _build.require_no_grad("stdp_update_worklist", weights, arrived,
+                           post_spike, k_pre, k_post)
     if _build.dispatch_device(weights) == "cpu":
         return stdp_update_worklist_plain(
             weights, pre_idx, post_rel, plastic, arrived, worklist, n_active,

@@ -165,6 +165,7 @@ def synaptic_gather(pre_idx, post_rel, weight, delay, channel, ring, t, *,
     the layout: callers on the hot path pass the one they built at prepare
     time, else it is built here.
     """
+    _build.require_no_grad("synaptic_gather", weight, ring, fresh)
     if _build.dispatch_device(weight) == "cpu":
         return synaptic_gather_plain(pre_idx, post_rel, weight, delay,
                                      channel, ring, t, max_delay=max_delay,
@@ -287,6 +288,8 @@ def synaptic_gather_update(pre_idx, post_rel, weight, delay, channel, ring,
     Group ids are not range-checked on the card (that would sync every
     step).
     """
+    _build.require_no_grad("synaptic_gather_update", weight, ring, fresh,
+                           *state, table, drive)
     if _build.dispatch_device(weight) == "cpu":
         return synaptic_gather_update_plain(
             pre_idx, post_rel, weight, delay, channel, ring, t, state,
@@ -397,6 +400,7 @@ def blocked_reduce_sweep(post_rel, delay, weight, arrived, channel, *,
     """
     if (worklist is None) != (n_active is None):
         raise ValueError("give both worklist and n_active, or neither")
+    _build.require_no_grad("blocked_reduce_sweep", weight, arrived)
     if _build.dispatch_device(weight) == "cpu":
         return blocked_reduce_sweep_plain(post_rel, weight, arrived, channel,
                                           pb=pb, worklist=worklist,

@@ -328,7 +328,9 @@ def test_port_imports_neither_jax_nor_reference():
         "          'models.model', 'serve.engine',\n"
         "          'kernels.flash_attention', 'core.wire',\n"
         "          'core.distributed', 'core.multihost', 'launch.mesh',\n"
-        "          'launch.multihost', 'serve.sessions', 'serve.snn'):\n"
+        "          'launch.multihost', 'serve.sessions', 'serve.snn',\n"
+        "          'diff.surrogate', 'diff.rollout', 'diff.classify',\n"
+        "          'diff.inverse', 'train.optimizer', 'train.loop'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},

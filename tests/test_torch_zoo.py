@@ -237,9 +237,24 @@ def test_registry_contents_and_errors():
     m = neuron_models.get_model("izhikevich")
     g = [neuron_models.IzhikevichParams()]
     st = m.init_state(4, np.zeros(4, np.int32), g, device=CPU)
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        m.step(st, m.make_param_table(g, 0.1, device=CPU), torch.zeros(4),
-               torch.zeros(4), surrogate="st")
+    # surrogate mode: float spikes equal to the bool ones (two of the four
+    # neurons start past v_peak, so both values occur)
+    tbl = m.make_param_table(g, 0.1, device=CPU)
+    near = dataclasses.replace(st, v_m=torch.tensor([20.0, 31.0, 35.0,
+                                                     -60.0]))
+    hard = m.step(near, tbl, torch.zeros(4), torch.zeros(4))
+    soft = m.step(near, tbl, torch.zeros(4), torch.zeros(4), surrogate="st")
+    assert hard.spike.dtype == torch.bool
+    assert soft.spike.dtype == torch.float32
+    assert hard.spike.any() and not hard.spike.all()
+    assert torch.equal(soft.spike, hard.spike.to(torch.float32))
+    assert torch.equal(soft.v_m, hard.v_m)
+    p = neuron_models.get_model("poisson")
+    pg = [neuron_models.PoissonParams()]
+    with pytest.raises(ValueError, match="does not support surrogate"):
+        p.step(p.init_state(4, np.zeros(4, np.int32), pg, device=CPU),
+               p.make_param_table(pg, 0.1, device=CPU), torch.zeros(4),
+               torch.zeros(4), uniform=torch.zeros(4), surrogate="st")
     with pytest.raises(ValueError, match="current-based"):
         m.step(st, m.make_param_table(g, 0.1, device=CPU), torch.zeros(4),
                torch.zeros(4), synapse_model="cond_exp")
