@@ -231,6 +231,34 @@ after ``sessions``:
            reference's full fit (5 % bars, minutes) is
            ``phase_full_inversion()``, run on its own.
 
+The (PB, EB) block shapes (``repro_torch.core.autotune``), after
+``gate_main``, on ``main``'s graph:
+
+21. shape_tune - (a) at each candidate PB (128, 256, 512, 1024, each with
+                 the tuner's EB) the graph laid out again on the host: K1 +
+                 K2 as in phase 2 (against K1 -> add -> K2 and its twin,
+                 timed alone and in turns with K1), K3 against its twin,
+                 K6 and K7 as in phase 10 (worklists of 8, 0 and NB
+                 blocks), each timed (median of 25); one line a PB, and
+                 the ``shape_tune/<signature>/pb{PB}xeb{EB}`` records
+                 (``us_per_call`` = K1 + K2 + K3) written to
+                 ``build/shape_tune.json``;
+    shapes     - (b) 2000 steps through ``"cuda:auto"`` from ``main``'s
+                 seed: the tuned shape, raster, flat weights, ``v_m`` and
+                 traces bitwise ``main``'s, K1 + K2 and K3 2000 launches
+                 each, steps/s beside ``main``'s; (c)
+                 ``"measured:build/shape_tune.json"`` resolves to the
+                 fastest measured candidate, and 200 steps through
+                 ``CudaBackend(block_shapes=<that>)`` are bitwise a 200-step
+                 ``"cuda"`` run; (d) the gate at the tuned shape,
+                 ``CudaSparseBackend(block_shapes="auto")`` at the default
+                 rate and at 1e-7, 2000 steps each, bitwise ``main``,
+                 ``gate_overflow`` against the raster, steps/s beside
+                 ``gate_main``'s.
+
+The lockstep phase (3) also steps the plain ``"bucketed"`` backend beside
+``"flat"`` from the same states.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -261,6 +289,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import backends, builder, engine, models, snn  # noqa: E402
+from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import neuron_models  # noqa: E402
 from repro_torch.core import wire as wire_mod  # noqa: E402
@@ -470,6 +499,10 @@ DIFF_INVERSION_BARS = {"g": 0.25, "eta": 0.05}
 #: (phase_full_inversion, run on its own: it takes minutes)
 DIFF_FULL_BARS = {"g": 0.05, "eta": 0.05}
 DIFF_CLASSIFIER_EPOCHS = 10
+# the shapes phase: the records it writes for "measured:", and the length
+# of the measured run
+SHAPES_FILE = os.path.join(ROOT, "build", "shape_tune.json")
+SHAPES_MEASURED_STEPS = 200
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -792,7 +825,22 @@ def phase_kernels(g) -> dict:
           "launches_timed": LOOP_LAUNCHES, "plain_ms": p_ms,
           "bound_ms": b_ms, "bytes": nbytes})
 
-    # K3: the blocked pl-STDP update over every slot
+    out["stdp_update"] = kernel_stdp(g, rng)
+
+    # K1 + K2: the main path's fused kernel, on the same layout
+    table = snn.make_param_table([snn.LIFParams(t_ref=0.5),
+                                  snn.LIFParams(tau_m=8.0)], models.DT_MS,
+                                 device=DEV)
+    out.update(phase_fused_kernel("lif", g, table, rng, drive_on=True))
+    out["synaptic_gather"]["ms_per_launch"] = out.pop("_k1_ms_per_launch")
+    return out
+
+
+def kernel_stdp(g, rng) -> dict:
+    """K3, the blocked pl-STDP update over every slot of ``g``'s layout,
+    on seeded inputs: deterministic, against its twin, timed."""
+    bg = g.blocked
+    nb, eb, pb, m, n = bg.nb, bg.eb, bg.pb, g.n_mirror, g.n_local
     e = nb * eb
     n_plastic = int(bg.plastic.sum())
     sargs = (torch.from_numpy(rng.uniform(1, 100, e).astype(np.float32)
@@ -821,21 +869,13 @@ def phase_kernels(g) -> dict:
     nbytes = (n_plastic * 17 + (e - n_plastic) * 5 + e * 4
               + (2 * n + m) * 4)
     b_ms, b_by = bound(nbytes, 20 * n_plastic)
-    out["stdp_update"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
-    emit({"phase": "kernel", "name": "stdp_update", "slots": e,
+    emit({"phase": "kernel", "name": "stdp_update", "pb": pb, "slots": e,
           "plastic_slots": n_plastic, "max_abs_err": err,
           "tolerance": "rtol 2e-6 (expf/logf vs torch exp/log)",
           "deterministic": True, "kernel_ms": k_ms, "plain_ms": p_ms,
           "bound_ms": b_ms, "bytes": nbytes})
-
-    # K1 + K2: the main path's fused kernel, on the same layout
-    table = snn.make_param_table([snn.LIFParams(t_ref=0.5),
-                                  snn.LIFParams(tau_m=8.0)], models.DT_MS,
-                                 device=DEV)
-    out.update(phase_fused_kernel("lif", g, table, rng, drive_on=True))
-    out["synaptic_gather"]["ms_per_launch"] = out.pop("_k1_ms_per_launch")
-    return out
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes)
 
 
 def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
@@ -961,10 +1001,16 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
 # --------------------------------------------------------------------------
 
 def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
+    """``"cuda"`` against ``"flat"`` from the same state and drive every
+    step (spikes may differ only within ``v_tol`` of the threshold); the
+    plain ``"bucketed"`` backend beside ``"flat"`` from the flat state:
+    identical spikes."""
     cb, fb = backends.get_backend("cuda"), backends.get_backend("flat")
-    lc, lf = cb.prepare(g), fb.prepare(g)
+    bb = backends.get_backend("bucketed")
+    lc, lf, lb = cb.prepare(g), fb.prepare(g), bb.prepare(g)
     cfg_c = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda")
     cfg_f = dataclasses.replace(cfg_c, sweep="flat")
+    cfg_b = dataclasses.replace(cfg_c, sweep="bucketed")
     st = engine.init_state(g, list(spec.groups), SEED, sweep="cuda",
                            device=DEV)
     # from rest the network is nearly silent for ~250 steps: start from a
@@ -978,6 +1024,8 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
     v_tol, n_near, n_flip, n_spk = 1e-3, 0, 0, 0
     worst = dict(i_ex=0.0, i_in=0.0, v_m=0.0, weights=0.0, k_pre=0.0,
                  k_post=0.0)
+    worst_b = dict(i_ex=0.0, i_in=0.0, v_m=0.0, weights=0.0)
+    n_spk_b = 0
     real = g.delay > 0
     reset_launches()
     for _ in range(n_steps):
@@ -987,8 +1035,18 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
                                              generator=gen)
         ex_c, in_c, _ = cb.sweep(lc, st.weights, st.ring, st.t)
         ex_f, in_f, _ = fb.sweep(lf, stf.weights, stf.ring, stf.t)
+        ex_b, in_b, _ = bb.sweep(lb, stf.weights, stf.ring, stf.t)
         new_c, sp_c = engine.engine_step(st, g, table, cfg_c, drive=drive)
         new_f, sp_f = engine.engine_step(stf, g, table, cfg_f, drive=drive)
+        new_b, sp_b = engine.engine_step(stf, g, table, cfg_b, drive=drive)
+        check(torch.equal(sp_b, sp_f),
+              "lockstep: bucketed spikes differ from flat's")
+        n_spk_b += int(sp_b.sum())
+        for key, a, b in (
+                ("i_ex", ex_b, ex_f), ("i_in", in_b, in_f),
+                ("v_m", new_b.neurons.v_m, new_f.neurons.v_m),
+                ("weights", new_b.weights[real], new_f.weights[real])):
+            worst_b[key] = max(worst_b[key], max_abs(a, b))
         nv = st.neurons
         v_prop = (nv.v_m * col("p_vv") + nv.syn_ex * col("p_ve")
                   + nv.syn_in * col("p_vi") + col("p_vconst"))
@@ -1021,10 +1079,16 @@ def phase_lockstep(spec, stdp, g, table, n_steps: int = 120) -> None:
         check(worst[key] <= lim, f"lockstep: {key} differs by {worst[key]}"
               f" > {lim}")
     check(n_spk > 0, "lockstep: nothing spiked - vacuous")
+    tol_b = dict(i_ex=1e-2, i_in=1e-2, v_m=1e-4, weights=1e-4)
+    for key, lim in tol_b.items():
+        check(worst_b[key] <= lim, f"lockstep: bucketed {key} differs from "
+              f"flat's by {worst_b[key]} > {lim}")
     emit({"phase": "lockstep", "steps": n_steps, "spikes": n_spk,
           "near_threshold": n_near, "flipped": n_flip,
           "v_threshold_tol_mV": v_tol, "max_abs_err": worst,
           "tolerance": tol,
+          "bucketed_vs_flat": {"spikes": n_spk_b, "spikes_identical": True,
+                               "max_abs_err": worst_b, "tolerance": tol_b},
           "launches": {k: v for k, v in launches.items() if v}})
 
 
@@ -2998,8 +3062,8 @@ def phase_gate_main(spec, stdp, g, table, main_out: dict,
                     n_steps: int = 2000) -> dict:
     """The gate on the main path: both runs must give the ``main`` run's
     spikes, voltages and weights (``main_out``, on the host) bitwise.
-    Returns the forced run's launches."""
-    launches = {}
+    Returns the forced run's launches and each run's steps/s."""
+    launches, rates = {}, {}
     for sweep, kernels in GATE_KERNELS.items():
         cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=sweep)
         backend = backends.get_backend(sweep)
@@ -3032,6 +3096,186 @@ def phase_gate_main(spec, stdp, g, table, main_out: dict,
               "steps_by_branch": branches, "bitwise_equal_to_main": True,
               **rec, "profile": _profile(g, table, cfg, spec)})
         launches = rec["launches"]
+        rates[sweep] = rec["steps_per_s"]
+    return launches, rates
+
+
+# --------------------------------------------------------------------------
+# phase 21: the (PB, EB) block shapes
+# --------------------------------------------------------------------------
+
+def phase_shape_tune(g) -> dict:
+    """(a) K1 + K2, K3, K6 and K7 at each candidate (PB, EB) of ``g``,
+    the graph laid out again by ``CudaBackend(block_shapes=(PB, EB))``:
+    each against its twin and timed.  Writes the ``shape_tune/`` records
+    to :data:`SHAPES_FILE` and returns them by PB."""
+    rng = np.random.default_rng(SEED + 7)
+    cands = autotune._candidates([g], autotune.DEFAULT_PB_CANDIDATES,
+                                 autotune.DEFAULT_EB_MULTIPLE,
+                                 autotune.DEFAULT_DEVICE_BUDGET)
+    sig = autotune.degree_signature(autotune.degrees_from_graphs([g]))
+    table = snn.make_param_table([snn.LIFParams(t_ref=0.5),
+                                  snn.LIFParams(tau_m=8.0)], models.DT_MS,
+                                 device=DEV)
+    out, records = {}, []
+    for c in cands:
+        check(c.feasible, f"shape_tune: pb={c.pb} infeasible: {c}")
+        t0 = time.perf_counter()
+        lay = backends.CudaBackend(block_shapes=c.as_tuple()).prepare(g)
+        torch.cuda.synchronize()
+        relayout_s = time.perf_counter() - t0
+        bg = lay.blocked
+        check((bg.pb, bg.eb, bg.nb) == (c.pb, c.eb, c.nb),
+              f"shape_tune: laid out {(bg.pb, bg.eb, bg.nb)} for {c}")
+        check(int((bg.delay > 0).sum()) == int((g.delay > 0).sum()),
+              f"shape_tune: pb={c.pb} lost edges in the relayout")
+        gp = dataclasses.replace(g, blocked=bg)
+        fused = phase_fused_kernel("lif", gp, table, rng, drive_on=True)
+        k12 = fused["synaptic_gather_lif"]
+        k3 = kernel_stdp(gp, rng)
+        gate = phase_gate_kernels(gp)
+        us = (k12["ms"] + k3["ms"]) * 1e3
+        rec = {"pb": c.pb, "eb": c.eb, "nb": c.nb,
+               "padded_slots": c.padded_slots,
+               "live_slots": int((bg.delay > 0).sum()),
+               "bounds_bytes": lay.seg_bounds.numel() * 4,
+               "device_bytes_model": c.device_bytes,
+               "relayout_s": relayout_s,
+               "k1k2_ms": k12["ms"], "k1k2_ms_per_launch":
+                   k12["ms_per_launch"],
+               "k1_ms_per_launch": fused["_k1_ms_per_launch"],
+               "k1k2_bound_ms": k12["bound_ms"], "k3_ms": k3["ms"],
+               "k3_bound_ms": k3["bound_ms"],
+               "k6_ms": gate["blocked_reduce_sweep"]["ms"],
+               "k7_saturated_ms": gate["stdp_update_worklist"]["ms"],
+               "max_abs_err": {"k1k2": k12["max_abs_err"],
+                               "k3": k3["max_abs_err"],
+                               "k6": gate["blocked_reduce_sweep"][
+                                   "max_abs_err"],
+                               "k7": gate["stdp_update_worklist"][
+                                   "max_abs_err"]},
+               "us_per_call": us}
+        emit({"phase": "shape_tune", "signature": sig, **rec})
+        records.append({"name": f"shape_tune/{sig}/pb{c.pb}xeb{c.eb}",
+                        **rec})
+        out[c.pb] = rec
+        del lay, bg, gp
+    os.makedirs(os.path.dirname(SHAPES_FILE), exist_ok=True)
+    with open(SHAPES_FILE, "w") as f:
+        json.dump({"card": torch.cuda.get_device_name(0),
+                   "records": records}, f, indent=1)
+    return out
+
+
+def _check_same_run(what: str, fin, spikes, want: dict) -> None:
+    """Raster, flat weights, ``v_m`` and traces bitwise ``want``'s (on
+    the host)."""
+    for name, a in (("spikes", spikes), ("v_m", fin.neurons.v_m),
+                    ("weights", fin.weights), ("k_pre", fin.traces.k_pre),
+                    ("k_post", fin.traces.k_post)):
+        check(torch.equal(a.cpu(), want[name]),
+              f"{what}: {name} differ from the reference run's")
+
+
+def phase_shapes(spec, stdp, g, table, main_out: dict, tuned: dict,
+                 gate_rates: dict) -> dict:
+    """(b) ``"cuda:auto"``, (c) ``"measured:"`` and (d) the gate at the
+    tuned shape, each bitwise its dense PB-256 run.  Returns each run's
+    launches."""
+    launches = {}
+    n_steps = len(main_out["spikes"])
+    main_rate = n_steps / main_out["wall_s"]
+
+    # (b) the tuner's choice, laid out before the timed run
+    auto = backends.get_backend("cuda:auto")
+    t0 = time.perf_counter()
+    bg = auto.prepare(g).blocked
+    torch.cuda.synchronize()
+    relayout_s = time.perf_counter() - t0
+    want = autotune.autotune_block_shapes(g)
+    check((bg.pb, bg.eb) == want.as_tuple(),
+          f"shapes: cuda:auto laid out {(bg.pb, bg.eb)}, tuner {want}")
+    cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda:auto")
+    _, fin, spikes, rec = run_counted("shapes cuda:auto", spec, g, table,
+                                      cfg, n_steps, MAIN_KERNELS)
+    _check_same_run("shapes cuda:auto", fin, spikes, main_out)
+    launches["auto"] = rec["launches"]
+    emit({"phase": "shapes", "part": "auto", "pb": bg.pb, "eb": bg.eb,
+          "nb": bg.nb, "padded_slots": bg.nb * bg.eb,
+          "device_bytes_model": want.device_bytes, "relayout_s": relayout_s,
+          "bitwise_equal_to_main": True, "main_steps_per_s": main_rate,
+          **rec, "profile": _profile(g, table, cfg, spec)})
+
+    # (c) the measured records of (a)
+    measured = autotune.load_measured_timings(SHAPES_FILE)
+    sig = autotune.degree_signature(autotune.degrees_from_graphs([g]))
+    fastest = min((r for r in tuned.values()),
+                  key=lambda r: (r["us_per_call"], -r["pb"]))
+    check(len(measured) == len(tuned)
+          and all(k[0] == sig for k in measured),
+          f"shapes: {SHAPES_FILE} holds {sorted(measured)}")
+    spec_m = f"measured:{SHAPES_FILE}"
+    got = autotune.resolve_block_shapes(g, spec_m)
+    check((got.pb, got.eb) == (fastest["pb"], fastest["eb"]),
+          f"shapes: measured: resolved {got.as_tuple()}, fastest "
+          f"{(fastest['pb'], fastest['eb'])}")
+    short = {}
+    for name, sweep in (("cuda", "cuda"),
+                        ("measured", backends.CudaBackend(
+                            block_shapes=spec_m))):
+        cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=sweep)
+        _, fin, sp, rec = run_counted(f"shapes {name}", spec, g, table, cfg,
+                                      SHAPES_MEASURED_STEPS, MAIN_KERNELS)
+        short[name] = {"spikes": sp.cpu(), "v_m": fin.neurons.v_m.cpu(),
+                       "weights": fin.weights.cpu(),
+                       "k_pre": fin.traces.k_pre.cpu(),
+                       "k_post": fin.traces.k_post.cpu()}
+        if name == "measured":
+            launches[name] = rec["launches"]
+    for name in ("spikes", "v_m", "weights", "k_pre", "k_post"):
+        check(torch.equal(short["measured"][name], short["cuda"][name]),
+              f"shapes measured: {name} differ from the 200-step cuda run")
+    check(torch.equal(short["cuda"]["spikes"],
+                      main_out["spikes"][:SHAPES_MEASURED_STEPS]),
+          "shapes: the 200-step cuda run is not main's first 200 steps")
+    emit({"phase": "shapes", "part": "measured", "file": SHAPES_FILE,
+          "pb": got.pb, "eb": got.eb, "us_per_call": fastest["us_per_call"],
+          "steps": SHAPES_MEASURED_STEPS, "bitwise_equal_to_cuda": True})
+
+    # (d) the gate at the tuned shape, at gate_main's rates
+    for gate_name, kernels in GATE_KERNELS.items():
+        backend = backends.CudaSparseBackend(
+            gate_rate=backends.get_backend(gate_name).gate_rate,
+            block_shapes="auto")
+        lay = backend.prepare(g)
+        cap = backend.gate_capacity(lay)
+        cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep=backend)
+        what = f"shapes gate {backend.name}"
+        _, fin, spikes, rec = run_counted(what, spec, g, table, cfg,
+                                          n_steps, kernels)
+        _check_same_run(what, fin, spikes, main_out)
+        gp = dataclasses.replace(g, blocked=lay.blocked)
+        branches = gate_branches(gp, spikes, cap)
+        overflow = int(fin.gate_overflow)
+        if cap >= lay.blocked.nb:
+            check(overflow == 0, f"{what}: overflow {overflow} at full "
+                  "capacity")
+        else:
+            check(overflow == branches["sweep_saturated"],
+                  f"{what}: gate_overflow {overflow} != "
+                  f"{branches['sweep_saturated']} saturated steps")
+            check(branches["sweep_gated"] > 0
+                  and branches["stdp_gated_live"] > 0,
+                  f"{what}: the gated branch never ran: {branches}")
+        launches[f"gate {backend.name}"] = rec["launches"]
+        emit({"phase": "shapes", "part": "gate", "sweep": backend.name,
+              "pb": lay.blocked.pb, "eb": lay.blocked.eb,
+              "nb": lay.blocked.nb, "capacity": cap,
+              "gate_overflow": overflow, "steps_by_branch": branches,
+              "bitwise_equal_to_main": True,
+              "gate_main_steps_per_s": gate_rates[gate_name],
+              **rec})
+        del backend, lay, gp
     return launches
 
 
@@ -3474,8 +3718,10 @@ def main() -> None:
     runs = {}
     runs["main"], main_out = phase_main(spec, stdp, g, table)
     kern.update(phase_gate_kernels(g))
-    runs["gate_main cuda:sparse:1e-7"] = phase_gate_main(spec, stdp, g,
-                                                         table, main_out)
+    runs["gate_main cuda:sparse:1e-7"], gate_rates = phase_gate_main(
+        spec, stdp, g, table, main_out)
+    shapes_launches = phase_shapes(spec, stdp, g, table, main_out,
+                                   phase_shape_tune(g), gate_rates)
     runs["dist_main 2x2"] = phase_dist(spec, stdp, g, table)
     mh_launches, mh_main_rec = phase_multihost()
     sup_launches = {"ckpt_main": phase_ckpt_main(spec, stdp, g, table,
@@ -3509,6 +3755,8 @@ def main() -> None:
          "launches_sessions": {part: got.get(name, 0)
                                for part, got in sess_launches.items()},
          "launches_diff": diff_launches.get(name, 0),
+         "launches_shapes": {part: got.get(name, 0)
+                             for part, got in shapes_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

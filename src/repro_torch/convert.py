@@ -202,6 +202,12 @@ def stacked_net_from_numpy(fields) -> dist_mod.StackedNetwork:
             val = {k: np.asarray(v) for k, v in val.items()}
         elif f.name in ("blocked_meta", "local_slice"):
             val = None if val is None else tuple(int(x) for x in val)
+        elif f.name == "block_shapes_spec":
+            # None or a spec string as it is; a reference BlockShapes or a
+            # pair as the pinned (pb, eb) pair it stands for
+            if val is not None and not isinstance(val, str):
+                val = ((int(val.pb), int(val.eb)) if hasattr(val, "pb")
+                       else tuple(int(x) for x in val))
         elif np.ndim(val) == 0:
             val = int(val)
         else:

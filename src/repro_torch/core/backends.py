@@ -30,8 +30,17 @@ so that a backend can fuse them:
   a fixed-capacity worklist of active post blocks, bit-identical to
   ``"cuda"``.  ``"cuda:sparse:<rate>"`` and ``"cuda:sparse:measured:<path>"``
   pick its capacity (:class:`CudaSparseBackend`).
+* ``"cuda:auto"`` - ``"cuda"`` on (PB, EB) block shapes tuned from the
+  graph's degree distribution (:mod:`repro_torch.core.autotune`), the
+  mirror of the reference's ``pallas:auto``; ``CudaBackend(block_shapes=)``
+  and ``CudaSparseBackend(block_shapes=)`` take any spec.
 * ``"flat"`` - plain torch on the flat owner-sorted arrays, the twin of the
   reference's ``flat``, and the gradient path (DESIGN.md §17).
+* ``"bucketed"`` - the paper's literal low-to-high delay sweep, the
+  reference's structural cross-check, in plain torch.
+
+Backends register under their ``EngineConfig.sweep`` names with
+:func:`register_backend`.
 
 Surrogate mode (``surrogate=``, DESIGN.md §17) runs the kernel backends'
 inference route and casts the spike to the membrane's float: the surrogate
@@ -57,13 +66,15 @@ import dataclasses
 import weakref
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import neuron_models as neuron_models_mod
 from repro_torch.core import snn
 from repro_torch.core import stdp as stdp_mod
-from repro_torch.core.layout import BlockedGraph
+from repro_torch.core.layout import (BlockedGraph, blocked_layout,
+                                     blocked_layout_streamed)
 from repro_torch.kernels.stdp_update import stdp_update as stdp_update_kernel
 from repro_torch.kernels.stdp_update import stdp_update_worklist
 from repro_torch.kernels.synaptic_gather import (NEURON_STATE,
@@ -72,8 +83,9 @@ from repro_torch.kernels.synaptic_gather import (NEURON_STATE,
                                                  synaptic_gather,
                                                  synaptic_gather_update)
 
-__all__ = ["EdgeLayout", "SweepBackend", "FlatBackend", "CudaBackend",
-           "CudaSparseBackend", "get_backend", "available_backends",
+__all__ = ["EdgeLayout", "SweepBackend", "FlatBackend", "BucketedBackend",
+           "CudaBackend", "CudaSparseBackend", "register_backend",
+           "get_backend", "available_backends",
            "layout_of", "to_native_weights", "to_flat_weights",
            "flat_edge_values", "convert_weights", "layout_tag",
            "layout_kind", "resolve_runtime_weights"]
@@ -92,7 +104,9 @@ class EdgeLayout:
     pre index aligned with the backend's ``arrived`` (the index
     ``scatter_reduce_`` needs) and the run table of K1 and K6.  The gated
     backend also fills ``gate_index``, ``ring_offsets`` and ``block_ids``
-    for its pre-pass and worklist.
+    for its pre-pass and worklist.  ``bucket_ptr`` (numpy, the edge range
+    of each delay) exists for a builder's graph only; the stacked step's
+    shard views have None, and the bucketed backend masks by delay there.
     """
 
     n_local: int
@@ -103,6 +117,7 @@ class EdgeLayout:
     delay: Any         # (E,) int32; 0 marks padding
     channel: Any       # (E,) int32
     plastic: Any       # (E,) bool
+    bucket_ptr: np.ndarray | None = None   # (max_delay + 2,) int64
     blocked: BlockedGraph | None = None
     arrival_pre: Any = None   # (native E,) int64
     seg_bounds: Any = None    # (NB, D*PB + 1) int32, kernel backends only
@@ -124,7 +139,23 @@ def layout_of(graph) -> EdgeLayout:
         max_delay=graph.max_delay,
         pre_idx=graph.pre_idx, post_idx=graph.post_idx, delay=graph.delay,
         channel=graph.channel, plastic=graph.plastic,
-        blocked=graph.blocked)
+        bucket_ptr=graph.bucket_ptr, blocked=graph.blocked)
+
+
+def device_blocked(bg: BlockedGraph, device) -> BlockedGraph:
+    """``bg``'s run-time fields as tensors on ``device``, without its
+    build-time ``weight``."""
+    def t(a, dtype):
+        return None if a is None else torch.as_tensor(
+            a if isinstance(a, torch.Tensor) else np.asarray(a),
+            dtype=dtype, device=device)
+
+    return dataclasses.replace(
+        bg, pre_idx=t(bg.pre_idx, torch.int32),
+        post_rel=t(bg.post_rel, torch.int32),
+        delay=t(bg.delay, torch.int32), channel=t(bg.channel, torch.int32),
+        plastic=t(bg.plastic, torch.bool),
+        edge_perm=t(bg.edge_perm, torch.int32), weight=None)
 
 
 def _flat_arrivals(layout: EdgeLayout, ring, t):
@@ -314,15 +345,19 @@ class SweepBackend:
         # derived device tensors instead of rebuilding them
         self._layouts: dict[int, tuple] = {}
 
-    def prepare(self, graph) -> EdgeLayout:
+    def prepare(self, graph, *, baked: bool = False) -> EdgeLayout:
         """ShardGraph (on its device) -> the layout this backend consumes;
         cached per graph object, and dropped when the graph is freed (the
-        layout holds device tensors as large as the graph's)."""
-        key = id(graph)
+        layout holds device tensors as large as the graph's).
+
+        ``baked=True`` takes the graph's blocked twin as it was built,
+        whatever block shapes the backend was given: the stacked step's
+        shards share the shape baked into their net."""
+        key = (id(graph), baked)
         hit = self._layouts.get(key)
         if hit is not None and hit[0]() is graph:
             return hit[1]
-        layout = self._prepare(graph)
+        layout = self._prepare(graph, baked)
 
         def drop(ref, cache=self._layouts):
             if cache.get(key, (None,))[0] is ref:
@@ -331,7 +366,7 @@ class SweepBackend:
         self._layouts[key] = (weakref.ref(graph, drop), layout)
         return layout
 
-    def _prepare(self, graph) -> EdgeLayout:
+    def _prepare(self, graph, baked: bool) -> EdgeLayout:
         lay = layout_of(graph)
         return dataclasses.replace(lay, arrival_pre=lay.pre_idx.long())
 
@@ -494,6 +529,50 @@ class FlatBackend(SweepBackend):
         return (ex_o + ex_n, in_o + in_n, arrived_old + arrived_new, ring)
 
 
+class BucketedBackend(SweepBackend):
+    """The paper's literal low-to-high delay sweep (what a Fugaku thread
+    does), the reference's structural cross-check, in plain torch: one
+    ring row, gather and ``index_add_`` per delay, each delay's sums added
+    to the running total.  On a builder's graph it walks the static
+    ``bucket_ptr`` slices; on the stacked step's shard views (no
+    ``bucket_ptr``) one masked pass over every edge per delay."""
+
+    name = "bucketed"
+
+    def sweep(self, layout, weights, ring, t):
+        d_max = layout.max_delay
+        dtype = weights.dtype
+        ex = torch.zeros(layout.n_local, dtype=dtype, device=weights.device)
+        inh = torch.zeros_like(ex)
+        row = lambda d: ring.index_select(
+            0, torch.remainder(t - d, d_max).reshape(1).long())[0]
+        if layout.bucket_ptr is not None:
+            arrived = torch.zeros(layout.delay.shape, dtype=dtype,
+                                  device=weights.device)
+            bp = np.asarray(layout.bucket_ptr)
+            for d in range(1, d_max + 1):
+                lo, hi = int(bp[d]), int(bp[d + 1])
+                if lo == hi:
+                    continue
+                a = row(d)[layout.pre_idx[lo:hi].long()].to(dtype)
+                bucket = dataclasses.replace(
+                    layout, post_idx=layout.post_idx[lo:hi],
+                    channel=layout.channel[lo:hi])
+                ex_d, in_d = _accumulate(bucket, weights[lo:hi], a)
+                ex, inh = ex + ex_d, inh + in_d
+                arrived[lo:hi] = a
+            return ex, inh, arrived
+        arrived = torch.zeros(layout.delay.shape, dtype=ring.dtype,
+                              device=ring.device)
+        for d in range(1, d_max + 1):
+            a = (row(d)[layout.pre_idx.long()]
+                 * (layout.delay == d).to(ring.dtype))
+            ex_d, in_d = _accumulate(layout, weights, a)
+            ex, inh = ex + ex_d, inh + in_d
+            arrived = arrived + a
+        return ex, inh, arrived
+
+
 class CudaBackend(SweepBackend):
     """Kernel path: K1 edge pass, the neuron model's kernel (K2 LIF, K4
     Izhikevich, K5 AdEx) and K3 blocked STDP update on the post-block ELL
@@ -507,13 +586,45 @@ class CudaBackend(SweepBackend):
     arrivals and weights directly with block-relative post rows.  The
     kernels take float32 only; on CPU tensors the wrappers run their plain
     twins, which take any float dtype.
+
+    ``block_shapes``: None steps the graph's own blocked twin (the
+    builder's shapes); ``"auto"``, ``"measured:<path>"``, a
+    :class:`~repro_torch.core.autotune.BlockShapes` or a ``(pb, eb)`` pair
+    resolves (PB, EB) against the graph (:func:`~repro_torch.core.autotune.
+    resolve_block_shapes`), and :meth:`prepare` lays the graph out again at
+    those shapes when its twin does not satisfy them: once per graph, on
+    the host, the result moved to the graph's device.
     """
 
     name = "cuda"
     weights_layout = "blocked"
 
-    def _prepare(self, graph):
-        lay = layout_of(graph)
+    def __init__(self, block_shapes=None):
+        super().__init__()
+        self.block_shapes = block_shapes
+
+    def _blocked(self, graph, baked: bool):
+        """The blocked twin this backend steps ``graph`` with."""
+        bg = graph.blocked
+        if self.block_shapes is None or baked:
+            return bg
+        # the graph is on its device and the layout code is numpy: the flat
+        # edge arrays go to the host once, the relayout comes back
+        host = dataclasses.replace(graph, **{
+            k: getattr(graph, k).cpu().numpy()
+            for k in ("pre_idx", "post_idx", "delay", "channel", "plastic",
+                      "weight_init")})
+        shapes = autotune_mod.resolve_block_shapes(host, self.block_shapes)
+        if bg is not None and bg.pb == shapes.pb and bg.eb >= shapes.eb:
+            return bg   # a wider (stacking) EB satisfies the shapes too
+        fill = (blocked_layout if graph.bucket_ptr is None
+                else blocked_layout_streamed)
+        return device_blocked(fill(host, pb=shapes.pb, eb_min=shapes.eb),
+                              graph.pre_idx.device)
+
+    def _prepare(self, graph, baked: bool):
+        lay = dataclasses.replace(layout_of(graph),
+                                  blocked=self._blocked(graph, baked))
         bg = _require_blocked(lay)
         return dataclasses.replace(
             lay, arrival_pre=bg.pre_idx.reshape(-1).long(),
@@ -669,8 +780,9 @@ class CudaSparseBackend(CudaBackend):
     sweep_update = SweepBackend.sweep_update
 
     def __init__(self, gate_rate=autotune_mod.DEFAULT_GATE_RATE,
-                 min_capacity: int = autotune_mod.DEFAULT_GATE_MIN_CAPACITY):
-        super().__init__()
+                 min_capacity: int = autotune_mod.DEFAULT_GATE_MIN_CAPACITY,
+                 block_shapes=None):
+        super().__init__(block_shapes=block_shapes)
         if isinstance(gate_rate, str):
             # "measured:<path>": capacity from the BENCH file's gate_tune/
             # records for this layout's degree signature
@@ -691,8 +803,8 @@ class CudaSparseBackend(CudaBackend):
         # id(layout) -> (weakref(layout), capacity)
         self._caps: dict[int, tuple] = {}
 
-    def _prepare(self, graph):
-        lay = super()._prepare(graph)
+    def _prepare(self, graph, baked: bool):
+        lay = super()._prepare(graph, baked)
         bg = lay.blocked
         d, m, dev = lay.max_delay, lay.n_mirror, bg.delay.device
         return dataclasses.replace(
@@ -843,19 +955,31 @@ class CudaSparseBackend(CudaBackend):
 # --------------------------------------------------------------------------
 
 #: ``EngineConfig.sweep`` name -> backend (the reference's ``pallas``
-#: names are ``cuda`` here; its ``bucketed`` is not ported)
-_REGISTRY: dict[str, SweepBackend] = {"cuda": CudaBackend(),
-                                      "cuda:sparse": CudaSparseBackend(),
-                                      "flat": FlatBackend()}
+#: names are ``cuda`` here)
+_REGISTRY: dict[str, SweepBackend] = {}
 
-#: parameterized gate variants ("cuda:sparse:<rate>",
+#: parameterized variants ("cuda:auto", "cuda:sparse:<rate>",
 #: "cuda:sparse:measured:<path>") resolve into THIS side cache, never the
 #: registry, so ``available_backends()`` stays the same however many
 #: variants a run touches
 _VARIANT_CACHE: dict[str, SweepBackend] = {}
 
 
+def register_backend(name: str, backend: SweepBackend,
+                     *, overwrite: bool = False) -> None:
+    """Register an execution backend under ``EngineConfig.sweep`` name
+    ``name``; a registered name raises unless ``overwrite``."""
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"backend {name!r} already registered")
+    _REGISTRY[name] = backend
+
+
 def _resolve_variant(name: str) -> SweepBackend | None:
+    if name == "cuda:auto":
+        hit = _VARIANT_CACHE.get(name)
+        if hit is None:
+            hit = _VARIANT_CACHE[name] = CudaBackend(block_shapes="auto")
+        return hit
     prefix = "cuda:sparse:"
     if not name.startswith(prefix):
         return None
@@ -896,4 +1020,10 @@ def get_backend(name) -> SweepBackend:
 
 def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+register_backend("flat", FlatBackend())
+register_backend("bucketed", BucketedBackend())
+register_backend("cuda", CudaBackend())
+register_backend("cuda:sparse", CudaSparseBackend())
 

@@ -42,6 +42,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.autotune import resolve_block_shapes
 from repro_torch.core.decomposition import (AreaSpec, Decomposition,
                                             area_process_mapping,
                                             random_equivalent_mapping)
@@ -545,6 +546,7 @@ def finalize_shards(spec: NetworkSpec, dec: Decomposition, raw: list, *,
                     pad_to_multiple: int = 8,
                     uniform_pad: bool = True,
                     with_blocked: bool = True,
+                    block_shapes=None,
                     streamed: bool = False,
                     pad_dims: tuple[int, int, int] | None = None,
                     blocked_eb_min: int | None = None) -> list[ShardGraph]:
@@ -554,7 +556,8 @@ def finalize_shards(spec: NetworkSpec, dec: Decomposition, raw: list, *,
     n_mirror_pad): the stacked builds that hold one shard at a time, or
     only a process's own rows, pass the global maxima here so that every
     shard pads to the same shape.  ``blocked_eb_min`` likewise raises the
-    cross-shard EB floor to an agreed width.
+    cross-shard EB floor to an agreed width.  ``block_shapes`` picks the
+    blocked (PB, EB) pair, as :func:`build_shards` says.
     ``streamed`` selects :func:`repro_torch.core.layout.blocked_layout_streamed`
     (bit-identical, O(owned rows) peak) for builder-ordered shards.
     """
@@ -628,11 +631,27 @@ def finalize_shards(spec: NetworkSpec, dec: Decomposition, raw: list, *,
         # one (NB, EB) shape across shards so the shards can be stacked on a
         # leading device axis; the widest shard is found with a counts-only
         # pass so each shard converts once
+        shapes = resolve_block_shapes(shards, block_shapes)
         fill = blocked_layout_streamed if streamed else blocked_layout
-        eb_min = max(blocked_eb(g) for g in shards) if uniform_pad else 0
+        if shapes is None:
+            pb_kw = {}
+            eb_min = max(blocked_eb(g) for g in shards) if uniform_pad else 0
+        else:
+            pb_kw = dict(pb=shapes.pb)
+            eb_min = shapes.eb
+            if uniform_pad:
+                # a pinned EB below the widest shard's need would widen
+                # only that shard and break stacking later
+                need = max(blocked_eb(g, pb=shapes.pb) for g in shards)
+                if eb_min < need:
+                    raise ValueError(
+                        f"block_shapes eb={eb_min} is below the widest "
+                        f"shard's per-block edge count {need} at "
+                        f"pb={shapes.pb} - raise eb (or use 'auto')")
         if blocked_eb_min is not None:
             eb_min = max(eb_min, blocked_eb_min)
-        shards = [dataclasses.replace(g, blocked=fill(g, eb_min=eb_min))
+        shards = [dataclasses.replace(g, blocked=fill(g, eb_min=eb_min,
+                                                      **pb_kw))
                   for g in shards]
     return shards
 
@@ -662,15 +681,16 @@ def build_shards(spec: NetworkSpec, dec: Decomposition, *,
     backend is selectable without a separate conversion pass.  Shards built
     for stacking share one blocked shape: a first pass finds the widest
     per-block edge count, the second pads every shard to it.
-    ``block_shapes`` other than None (the fixed defaults) raises
-    ``NotImplementedError``: the reference's autotuner sizes (PB, EB)
-    against TPU VMEM, and the port has no Hopper resource model yet.
+    ``block_shapes`` picks the (PB, EB) pair: None keeps the fixed
+    defaults, ``"auto"`` (or ``"measured:<path>"``) tunes them from the
+    shards' degree distribution against the card's resources
+    (:mod:`repro_torch.core.autotune`), a ``BlockShapes`` or a
+    ``(pb, eb)`` pair pins them.
     """
-    if block_shapes is not None:
-        raise NotImplementedError(
-            "block_shapes needs an autotuner with a Hopper resource model, "
-            "which the port does not have yet; build with the fixed "
-            "defaults (block_shapes=None)")
+    if block_shapes is not None and not with_blocked:
+        raise ValueError("block_shapes has no effect with "
+                         "with_blocked=False - drop it or build the "
+                         "blocked layout")
     if spec.connectivity not in ("materialized", "procedural"):
         raise ValueError(
             f"unknown connectivity {spec.connectivity!r} "
@@ -686,6 +706,7 @@ def build_shards(spec: NetworkSpec, dec: Decomposition, *,
                            pad_to_multiple=pad_to_multiple,
                            uniform_pad=uniform_pad,
                            with_blocked=with_blocked,
+                           block_shapes=block_shapes,
                            streamed=streamed)
 
 

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Sequence
 
 import numpy as np
@@ -87,7 +88,8 @@ __all__ = ["mesh_decompose", "StackedNetwork", "prepare_stacked",
            "DistributedConfig", "DistState", "init_stacked_state",
            "shard_generators", "advance_generators", "StackedExchange", "HostExchange",
            "ProcessGroupExchange",
-           "DistributedStep", "make_distributed_step", "run",
+           "DistributedStep", "check_net_backend", "make_distributed_step",
+           "run",
            "global_spikes",
            "wire_bytes_per_step", "wire_bytes_for_dims", "wire_bytes_split"]
 
@@ -224,6 +226,10 @@ class StackedNetwork:
     mirror_src_flat: Any       # (S, n_mirror) int32 source shard (global)
     # (nb, eb, pb) when graph carries the stacked ELL arrays blk_*
     blocked_meta: tuple[int, int, int] | None = None
+    # the ``block_shapes`` spec the net was built with (None: the fixed
+    # defaults): a backend-side spec on a net built without one warns
+    # (:func:`check_net_backend`)
+    block_shapes_spec: Any = None
     # per-shard ShardGraph views of the stacked tensors (set by ``to``), by
     # row: the backends cache their layouts per graph object
     shard_graphs: tuple[ShardGraph, ...] | None = None
@@ -388,7 +394,8 @@ def _mirror_meta_row(src: np.ndarray, idx: np.ndarray, s: int,
 def _stack_and_index(spec: NetworkSpec, shard_iter, *, S: int,
                      row_width: int, e_pad: int, n_local: int,
                      n_mirror: int, blocked_meta,
-                     pad_to_multiple: int) -> StackedNetwork:
+                     pad_to_multiple: int,
+                     block_shapes_spec=None) -> StackedNetwork:
     """Consume shard graphs one at a time into the stacked const arrays and
     derive the exchange metadata."""
     row_of = np.arange(S) // row_width
@@ -432,7 +439,7 @@ def _stack_and_index(spec: NetworkSpec, shard_iter, *, S: int,
     return StackedNetwork(
         n_shards=S, row_width=row_width, n_local=n_local, n_mirror=n_mirror,
         n_edges=e_pad, b_pad=b_pad, max_delay=spec.max_delay, graph=graph,
-        blocked_meta=blocked_meta,
+        blocked_meta=blocked_meta, block_shapes_spec=block_shapes_spec,
         boundary_slots=boundary_slots, mirror_is_intra=mirror_is_intra,
         mirror_row_gather=mirror_row_gather,
         mirror_remote_gather=mirror_remote_gather,
@@ -441,7 +448,8 @@ def _stack_and_index(spec: NetworkSpec, shard_iter, *, S: int,
 
 def procedural_stack_plan(spec: NetworkSpec, dec: Decomposition, *,
                           devices=None, pad_to_multiple: int = 8,
-                          with_blocked: bool = True) -> dict:
+                          with_blocked: bool = True,
+                          block_shapes=None) -> dict:
     """Dims pre-pass of the procedural stacked build (pass A only, per
     shard): what every shard must agree on before any array is filled -
     the uniform pads and the shared blocked shape - without ever holding
@@ -464,7 +472,8 @@ def procedural_stack_plan(spec: NetworkSpec, dec: Decomposition, *,
     if devices is None:
         plan["pads"] = resolve_stack_pads(plan, spec,
                                           pad_to_multiple=pad_to_multiple,
-                                          with_blocked=with_blocked)
+                                          with_blocked=with_blocked,
+                                          block_shapes=block_shapes)
     return plan
 
 
@@ -474,9 +483,10 @@ def resolve_stack_pads(plan: dict, spec: NetworkSpec, *,
                        block_shapes=None) -> dict:
     """Per-shard dims (possibly all-gathered) -> the agreed uniform pads
     and blocked meta.  Pure arithmetic, no RNG, so every process that
-    holds the same dims derives the same answer.  ``block_shapes`` other
-    than None raises ``NotImplementedError``
-    (:func:`repro_torch.core.autotune.resolve_block_shapes_from_degrees`).
+    holds the same dims derives the same answer.  ``block_shapes`` picks
+    the shared (PB, EB) from the per-shard row degrees
+    (:func:`repro_torch.core.autotune.resolve_block_shapes_from_degrees`);
+    a pinned EB below the widest shard's need raises.
     """
     _pad = lambda n: max(((int(n) + pad_to_multiple - 1) // pad_to_multiple)
                          * pad_to_multiple, pad_to_multiple)
@@ -487,11 +497,17 @@ def resolve_stack_pads(plan: dict, spec: NetworkSpec, *,
     if with_blocked:
         shapes = autotune_mod.resolve_block_shapes_from_degrees(
             plan["row_degree"], block_shapes, n_local=n_local_pad,
-            n_mirror=n_mirror_pad, max_delay=spec.max_delay)   # None
-        eb = max(autotune_mod.eb_from_degrees(rd, n_local_pad)
-                 for rd in plan["row_degree"])
-        blocked_meta = (max(-(-n_local_pad // DEFAULT_PB), 1), eb,
-                        DEFAULT_PB)
+            n_mirror=n_mirror_pad, max_delay=spec.max_delay)
+        pb = DEFAULT_PB if shapes is None else shapes.pb
+        need = max(autotune_mod.eb_from_degrees(rd, n_local_pad, pb=pb)
+                   for rd in plan["row_degree"])
+        eb = need if shapes is None else shapes.eb
+        if eb < need:
+            raise ValueError(
+                f"block_shapes eb={eb} is below the widest shard's "
+                f"per-block edge count {need} at pb={pb} - raise eb (or "
+                "use 'auto')")
+        blocked_meta = (max(-(-n_local_pad // pb), 1), eb, pb)
     return dict(e_pad=e_pad, n_local_pad=n_local_pad,
                 n_mirror_pad=n_mirror_pad, blocked_meta=blocked_meta,
                 shapes=shapes)
@@ -511,7 +527,8 @@ def procedural_shard_graphs(spec: NetworkSpec, dec: Decomposition,
         raw = builder_mod.procedural_shard_raw(spec, dec, int(s))
         [g] = builder_mod.finalize_shards(
             spec, dec, [raw], pad_to_multiple=pad_to_multiple,
-            with_blocked=with_blocked, streamed=True, pad_dims=pad_dims,
+            with_blocked=with_blocked, block_shapes=pads["shapes"],
+            streamed=True, pad_dims=pad_dims,
             blocked_eb_min=None if bm is None else bm[1])
         yield g
 
@@ -519,12 +536,14 @@ def procedural_shard_graphs(spec: NetworkSpec, dec: Decomposition,
 def prepare_stacked(spec: NetworkSpec, dec: Decomposition,
                     n_rows: int, row_width: int, *,
                     pad_to_multiple: int = 8,
-                    with_blocked: bool = True) -> StackedNetwork:
+                    with_blocked: bool = True,
+                    block_shapes=None) -> StackedNetwork:
     """Build uniform shards and the area/remote exchange index tables, as
     numpy; move the result with :meth:`StackedNetwork.to`.
 
     ``with_blocked=False`` skips the post-block ELL arrays, for runs that
-    never select a kernel backend.
+    never select a kernel backend.  ``block_shapes`` picks the shared
+    (PB, EB) pair, as ``builder.build_shards`` says.
 
     A materialized spec goes through ``builder.build_shards(uniform_pad=
     True)``.  A procedural spec is built AND stacked one shard at a time: a
@@ -540,7 +559,8 @@ def prepare_stacked(spec: NetworkSpec, dec: Decomposition,
     if spec.connectivity == "procedural":
         pads = procedural_stack_plan(spec, dec,
                                      pad_to_multiple=pad_to_multiple,
-                                     with_blocked=with_blocked)["pads"]
+                                     with_blocked=with_blocked,
+                                     block_shapes=block_shapes)["pads"]
         shard_iter = procedural_shard_graphs(
             spec, dec, range(S), pads, pad_to_multiple=pad_to_multiple,
             with_blocked=with_blocked)
@@ -549,7 +569,8 @@ def prepare_stacked(spec: NetworkSpec, dec: Decomposition,
         blocked_meta = pads["blocked_meta"]
     else:
         shards = build_shards(spec, dec, pad_to_multiple=pad_to_multiple,
-                              uniform_pad=True, with_blocked=with_blocked)
+                              uniform_pad=True, with_blocked=with_blocked,
+                              block_shapes=block_shapes)
         blocked_meta = None
         if with_blocked:
             bgs = [g.blocked for g in shards]
@@ -560,7 +581,7 @@ def prepare_stacked(spec: NetworkSpec, dec: Decomposition,
     return _stack_and_index(
         spec, shard_iter, S=S, row_width=row_width, e_pad=e_pad,
         n_local=n_local, n_mirror=n_mirror, blocked_meta=blocked_meta,
-        pad_to_multiple=pad_to_multiple)
+        pad_to_multiple=pad_to_multiple, block_shapes_spec=block_shapes)
 
 
 # --------------------------------------------------------------------------
@@ -1051,6 +1072,27 @@ class _Carry:
     wire_overflow: torch.Tensor  # (S_loc,) int32
 
 
+def check_net_backend(net: StackedNetwork,
+                      cfg: DistributedConfig) -> backends_mod.SweepBackend:
+    """``cfg``'s backend, checked against ``net``: a blocked backend needs
+    the stacked ELL arrays.  The stacked step runs the shapes baked into
+    the net; a backend-side ``block_shapes`` spec (``"cuda:auto"``) on a
+    net built without one warns: the stacked path tunes through
+    ``prepare_stacked(block_shapes=)``."""
+    backend = backends_mod.get_backend(cfg.engine.sweep)
+    if backend.weights_layout == "blocked" and net.blocked_meta is None:
+        raise ValueError(
+            f"sweep={cfg.engine.sweep!r} needs a StackedNetwork built "
+            "with blocked layouts (prepare_stacked(with_blocked=True))")
+    if (getattr(backend, "block_shapes", None) is not None
+            and net.block_shapes_spec is None):
+        warnings.warn(
+            f"sweep={cfg.engine.sweep!r}: the distributed step uses the "
+            f"StackedNetwork's baked block shapes {net.blocked_meta}; pass "
+            "block_shapes to prepare_stacked to tune them", stacklevel=3)
+    return backend
+
+
 class DistributedStep:
     """The distributed step for the shards of ``exchange`` (all of them by
     default, through a :class:`StackedExchange`).  Built by
@@ -1072,18 +1114,14 @@ class DistributedStep:
                 "not ported to it yet (ROADMAP, open from PR 22); run them "
                 "through repro_torch.core.engine.run")
         self.net, self.table, self.cfg, self.dev = net, table, cfg, dev
-        self.backend = backends_mod.get_backend(cfg.engine.sweep)
-        if self.backend.weights_layout == "blocked" and (
-                net.blocked_meta is None):
-            raise ValueError(
-                f"sweep={cfg.engine.sweep!r} needs a StackedNetwork built "
-                "with blocked layouts (prepare_stacked(with_blocked=True))")
+        self.backend = check_net_backend(net, cfg)
         self.model = neuron_models_mod.get_model(cfg.engine.neuron_model)
         self.exchange = (StackedExchange(net, cfg) if exchange is None
                          else exchange)
         self.shards = self.exchange.shards
         self.graphs = [net.shard_graphs[r] for r in net.rows_of(self.shards)]
-        self.layouts = [self.backend.prepare(g) for g in self.graphs]
+        self.layouts = [self.backend.prepare(g, baked=True)
+                        for g in self.graphs]
         self.native_tag = _layout_tag_of(net, self.backend.weights_layout)
 
     # -- DistState <-> loop carry -----------------------------------------

@@ -13,7 +13,8 @@ into one launch for LIF and AdEx) -> STDP -> trace update -> ring write,
 dispatching the hot path through the backend registry of
 :mod:`repro_torch.core.backends`
 (``EngineConfig.sweep``: ``"cuda"``, the kernel path, by default;
-``"cuda:sparse"``, the activity gate; or ``"flat"``).  A step issues no
+``"cuda:auto"``, the same on tuned block shapes; ``"cuda:sparse"``, the
+activity gate; ``"flat"``; or ``"bucketed"``).  A step issues no
 host synchronisation: the step counter ``t`` lives on the device and the
 kernels read it there, and the gate decides its branch on the device;
 :func:`run` syncs once, at the end.  ``EngineState.gate_overflow`` counts
@@ -82,6 +83,7 @@ from repro_torch.core.device import resolve_device
 
 __all__ = ["ShardGraph", "EngineConfig", "EngineState", "init_state",
            "engine_step", "run", "state_with_weights_layout", "clone_state",
+           "synaptic_sweep",
            "normalize_spike_dtype",
            "StepContext", "make_step_context", "make_step_fn", "SlotBatch",
            "stack_states", "slot_state", "set_slot_state", "masked_select",
@@ -130,15 +132,8 @@ class ShardGraph:
                 np.asarray(a) if not isinstance(a, torch.Tensor) else a,
                 dtype=dtype, device=dev)
 
-        bg = self.blocked
-        if bg is not None:
-            bg = dataclasses.replace(
-                bg, pre_idx=t(bg.pre_idx, torch.int32),
-                post_rel=t(bg.post_rel, torch.int32),
-                delay=t(bg.delay, torch.int32),
-                channel=t(bg.channel, torch.int32),
-                plastic=t(bg.plastic, torch.bool),
-                edge_perm=t(bg.edge_perm, torch.int32), weight=None)
+        bg = (None if self.blocked is None
+              else backends_mod.device_blocked(self.blocked, dev))
         return dataclasses.replace(
             self,
             pre_idx=t(self.pre_idx, torch.int32),
@@ -161,7 +156,7 @@ class EngineConfig:
     dt: float = 0.1                        # [ms]
     synapse_model: str = snn.SynapseModel.CURRENT_EXP
     stdp: stdp_mod.STDPParams | None = None
-    sweep: str = "cuda"                    # backend name: "cuda" | "flat"
+    sweep: str = "cuda"                    # backends.available_backends()
     external_drive: bool = True            # per-neuron Poisson (graph.ext_*)
     neuron_model: str = "lif"
     # surrogate-gradient mode (DESIGN.md §17): None = inference; "st[:w]" /
@@ -268,6 +263,27 @@ def state_with_weights_layout(state: EngineState, graph: ShardGraph,
     w = backends_mod.convert_weights(layout, state.weights,
                                      state.weights_layout, tag)
     return dataclasses.replace(state, weights=w, weights_layout=tag)
+
+
+def synaptic_sweep(graph: ShardGraph, weights: torch.Tensor,
+                   ring: torch.Tensor, t: torch.Tensor, *,
+                   mode: str = "flat"):
+    """Accumulate ``(input_ex, input_in, arrived[E])`` for step ``t`` (a
+    () int32 tensor) through the ``mode`` backend
+    (:mod:`repro_torch.core.backends`).
+
+    Flat-facing: ``weights`` and the returned ``arrived`` are in FLAT edge
+    order whatever the backend's native layout (the hot path keeps
+    everything native; this entry point converts at both ends).
+    ``arrived[e]`` is 1.0 iff edge ``e``'s pre spike arrives exactly now.
+    """
+    backend = backends_mod.get_backend(mode)
+    layout = backend.prepare(graph)
+    w = backend.to_native_weights(layout, weights)
+    ex, inh, arrived = backend.sweep(layout, w, ring, t)
+    arrived = backends_mod.flat_edge_values(layout, arrived,
+                                            backend.weights_layout)
+    return ex, inh, arrived
 
 
 def _poisson_drive(generator, graph: ShardGraph, dt: float, dtype):

@@ -18,7 +18,8 @@ used only at the build / checkpoint / telemetry boundaries
 (``repro_torch.core.backends.to_native_weights`` / ``to_flat_weights``),
 never per step.
 
-Block shapes (PB, EB) are the fixed constants below.
+The default block shapes are the constants below; ``block_shapes=``
+specs (:mod:`repro_torch.core.autotune`) pick others.
 
 The fill is a single vectorized scatter (no per-block Python loop): edges
 are lexsorted by (block, delay, post), their within-block rank is computed

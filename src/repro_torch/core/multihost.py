@@ -290,7 +290,8 @@ def replicate_to_host(x) -> np.ndarray:
 
 def prepare_stacked_local(spec, dec, n_rows: int, row_width: int,
                           mesh: HostMesh, *, pad_to_multiple: int = 8,
-                          with_blocked: bool = True) -> dist.StackedNetwork:
+                          with_blocked: bool = True,
+                          block_shapes=None) -> dist.StackedNetwork:
     """The O(owned rows) multi-process twin of
     :func:`repro_torch.core.distributed.prepare_stacked` for procedural
     specs.
@@ -300,9 +301,10 @@ def prepare_stacked_local(spec, dec, n_rows: int, row_width: int,
     agree on the stacked geometry and the exchange tables:
 
     * per-shard edge counts, row degrees (hence the shared blocked
-      (PB, EB) shape) and local sizes are analytic under the
-      fixed-indegree rule: every process derives them for all shards with
-      no RNG and no communication;
+      (PB, EB) shape, tuned from them when ``block_shapes`` asks) and
+      local sizes are analytic under the fixed-indegree rule: every
+      process derives them for all shards with no RNG and no
+      communication;
     * only the remote-mirror tables need real draws: each process runs
       the counting pass (pass A) over its own shards and all-gathers the
       padded remote gid sets;
@@ -365,7 +367,8 @@ def prepare_stacked_local(spec, dec, n_rows: int, row_width: int,
                 row_degree=degrees)
     pads = dist.resolve_stack_pads(plan, spec,
                                    pad_to_multiple=pad_to_multiple,
-                                   with_blocked=with_blocked)
+                                   with_blocked=with_blocked,
+                                   block_shapes=block_shapes)
     consumers: list[list[np.ndarray]] = [[] for _ in range(S)]
     for s in range(S):
         rg = tables[s, :int(counts_all[s])]
@@ -407,7 +410,8 @@ def prepare_stacked_local(spec, dec, n_rows: int, row_width: int,
         n_shards=S, row_width=row_width, n_local=pads["n_local_pad"],
         n_mirror=nm, n_edges=pads["e_pad"], b_pad=b_pad,
         max_delay=spec.max_delay, graph=graph,
-        blocked_meta=pads["blocked_meta"], local_slice=(lo, hi),
+        blocked_meta=pads["blocked_meta"], block_shapes_spec=block_shapes,
+        local_slice=(lo, hi),
         boundary_slots=boundary_slots[lo:hi],
         mirror_is_intra=mirror_is_intra,
         mirror_row_gather=mirror_row_gather,

@@ -93,8 +93,9 @@ def test_graph_algebra_copy_agrees():
 def test_procedural_plan_equals_reference():
     """The procedural stacked plan: pass A's dims per shard, the agreed
     pads and blocked meta, and ``eb_from_degrees`` per shard equal the
-    reference's on the same 4x2 decomposition; a shape spec other than
-    the fixed defaults raises."""
+    reference's on the same 4x2 decomposition; a tuned shape spec resolves
+    to the tuner's shapes, and its pads equal the reference's at those
+    shapes pinned."""
     from repro.core import autotune as ref_autotune
     from repro.core import distributed as ref_dist
     from repro_torch.core import autotune
@@ -131,8 +132,18 @@ def test_procedural_plan_equals_reference():
     assert autotune.resolve_block_shapes_from_degrees(
         got["row_degree"], None, n_local=n_local, n_mirror=8,
         max_delay=spec.max_delay) is None
-    with pytest.raises(NotImplementedError, match="Hopper"):
-        dist.resolve_stack_pads(got, spec, block_shapes="auto")
+    pads = dist.resolve_stack_pads(got, spec, block_shapes="auto")
+    tuned = autotune.autotune_block_shapes_from_degrees(
+        got["row_degree"], n_local=n_local,
+        n_mirror=pads["n_mirror_pad"], max_delay=spec.max_delay)
+    assert pads["shapes"] == tuned
+    nb, eb, pb = pads["blocked_meta"]
+    assert (pb, eb) == tuned.as_tuple() and nb == -(-n_local // pb)
+    ref_pads = ref_dist.resolve_stack_pads(ref, ref_spec,
+                                           block_shapes=(pb, eb))
+    assert tuple(ref_pads["blocked_meta"]) == (nb, eb, pb)
+    for k in ("e_pad", "n_local_pad", "n_mirror_pad"):
+        assert pads[k] == ref_pads[k], k
 
 
 def test_finalize_with_agreed_pads_equals_uniform_build():
@@ -170,11 +181,24 @@ def test_finalize_with_agreed_pads_equals_uniform_build():
                          getattr(g.blocked, f.name))
 
 
-def test_block_shapes_wait_for_a_hopper_autotuner():
+def test_build_shards_tunes_block_shapes():
+    """``build_shards(block_shapes="auto")`` lays the shard out at the
+    tuner's (PB, EB) - PB 1024 at hpc_benchmark(0.02), where every
+    candidate pads to one block - bit for bit ``blocked_layout`` at those
+    shapes."""
+    from repro_torch.core import autotune
+    from repro_torch.core.layout import blocked_layout
     spec, _ = models.hpc_benchmark(0.02)
-    with pytest.raises(NotImplementedError, match="Hopper"):
-        builder.build_shards(spec, builder.decompose(spec, 1),
-                             block_shapes="auto")
+    dec = builder.decompose(spec, 1)
+    [raw] = builder.build_shards(spec, dec, with_blocked=False)
+    [g] = builder.build_shards(spec, dec, block_shapes="auto")
+    chosen = autotune.autotune_block_shapes(raw)
+    assert (g.blocked.pb, g.blocked.eb) == chosen.as_tuple()
+    assert chosen.pb == 1024 and g.blocked.nb == 1
+    want = blocked_layout(raw, pb=chosen.pb, eb_min=chosen.eb)
+    for f in dataclasses.fields(BlockedGraph):
+        _assert_same(f"blocked.{f.name}", getattr(want, f.name),
+                     getattr(g.blocked, f.name))
 
 
 def test_a_library_is_stale_when_a_header_is_newer(tmp_path, monkeypatch):

@@ -251,7 +251,8 @@ EQUIV_COMBOS = ([("flat", m, o, True) for m in ("global", "area")
                  for o in (False, True)]
                 + [("cuda", "area", True, True),
                    ("cuda", "global", False, False),
-                   ("cuda:sparse", "area", True, True)])
+                   ("cuda:sparse", "area", True, True),
+                   ("bucketed", "area", True, True)])
 
 
 @pytest.mark.parametrize("sweep,mode,overlap,native", EQUIV_COMBOS)
@@ -268,8 +269,9 @@ def test_stacked_equals_reference_single_shard(equiv, sweep, mode, overlap,
         comm_mode=mode, overlap=overlap)
     st = convert.dist_state_from_numpy(
         equiv["leaves"], net, sweep=sweep if native else None, device=CPU)
-    assert st.weights_layout == ("flat" if not native or sweep == "flat"
-                                 else "blocked:256x640")
+    assert st.weights_layout == (
+        "flat" if not native or sweep in ("flat", "bucketed")
+        else "blocked:256x640")
     fin, spikes = dist.run(st, net, equiv["table"], cfg, N_EQUIV,
                            device=CPU)
     np.testing.assert_array_equal(_raster(spikes, net, spec.n_neurons), ref)

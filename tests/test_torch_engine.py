@@ -262,7 +262,8 @@ def test_mismatched_blocked_shapes_rejected():
 
 
 def test_registries_and_defaults():
-    assert backends.available_backends() == ("cuda", "cuda:sparse", "flat")
+    assert backends.available_backends() == ("bucketed", "cuda",
+                                             "cuda:sparse", "flat")
     assert engine.EngineConfig().sweep == "cuda"
     with pytest.raises(ValueError, match="unknown sweep backend"):
         backends.get_backend("pallas")

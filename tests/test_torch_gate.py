@@ -140,7 +140,7 @@ def test_degree_signature_matches_reference(n_shards):
 
 def test_registry_stable_under_variant_resolution():
     before = backends.available_backends()
-    assert before == ("cuda", "cuda:sparse", "flat")
+    assert before == ("bucketed", "cuda", "cuda:sparse", "flat")
     s1 = backends.get_backend("cuda:sparse:0.01")
     s2 = backends.get_backend("cuda:sparse:0.010")   # same canonical rate
     assert s1 is s2 and isinstance(s1, backends.CudaSparseBackend)
@@ -151,6 +151,8 @@ def test_registry_stable_under_variant_resolution():
     m = backends.get_backend("cuda:sparse:measured:/nowhere.json")
     assert m.gate_rate == "measured:/nowhere.json"
     assert backends.get_backend("cuda:sparse:measured:/nowhere.json") is m
+    assert backends.get_backend("cuda:auto") is backends.get_backend(
+        "cuda:auto")
     assert backends.available_backends() == before
     for bad in ("cuda:sparse:nope", "cuda:sparse:0", "cuda:sparse:2.0",
                 "cuda:sparse:", "cuda:dense", "pallas:sparse"):

@@ -284,7 +284,7 @@ def test_interleaved_sessions_match_reference(sweep, reference_interleave):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("sweep,scale", [
-    ("flat", 0.02), ("cuda", 0.02),
+    ("flat", 0.02), ("cuda", 0.02), ("bucketed", 0.02),
     # the forced gate updates weights in place (K7): at scale 0.2 its
     # capacity, 8 blocks, is below the 9 blocks of the net
     ("cuda:sparse:1e-7", 0.2)])
@@ -541,7 +541,7 @@ def test_one_scenario_per_engine_and_the_device_rule():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SessionEngine()
     with pytest.raises(ValueError, match="unknown sweep backend"):
-        _engine(sweep="bucketed")
+        _engine(sweep="triton")
     with pytest.raises(RuntimeError, match="no sessions"):
         _engine(ckpt_dir="unused").run_supervised(1)
     with pytest.raises(RuntimeError, match="needs ckpt_dir"):
