@@ -259,6 +259,27 @@ The (PB, EB) block shapes (``repro_torch.core.autotune``), after
 The lockstep phase (3) also steps the plain ``"bucketed"`` backend beside
 ``"flat"`` from the same states.
 
+The SNN dry run (``repro_torch.launch.dryrun_snn`` over the raw
+distributed step), after ``mh_supervised``:
+
+22. dryrun - (a) the 24 cells of its ``main`` (16x16 and 2x16x16 meshes,
+             scales 1 and 4, six wire / dtype / overlap variants), one
+             shard's step each on ``meta``, counted per aten op: every cell
+             completes with its gathered bytes equal to the wire model's,
+             one line each with the three roofline terms at an H100 SXM's
+             rates and the dominant one; (b) shard 0 of the 16x16 cells at
+             scales 1 and 4 (14.8 M and 59.4 M edges, D = 64) materialized
+             on the card from the seed, in int32 and compact dtypes: one
+             ``"flat"`` step (peak memory beside the arguments' bytes) and
+             200 steps through ``"cuda"`` over blocked consts from the
+             port's layout code (K1 + K2 and K3 once a step, the shard
+             firing, the two dtypes' rasters equal; ms a step, the host
+             relayout's seconds), then 20 steps of ``"cuda"`` against
+             ``"flat"`` from the same state and drive each step (spikes
+             may differ only near the threshold, as in phase 3), and K1 +
+             K2 and K3 against their twins at those shapes; (c) the firing probe at ``hpc_benchmark(1.0)``, 400
+             steps, 4x2 rows, through ``"cuda"`` (K1 + K2 400 times).
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -320,6 +341,7 @@ from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.diff import classify as diff_classify  # noqa: E402
 from repro_torch.diff import inverse as diff_inverse  # noqa: E402
 from repro_torch.diff import rollout as diff_rollout  # noqa: E402
+from repro_torch.launch import dryrun_snn  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -503,6 +525,15 @@ DIFF_CLASSIFIER_EPOCHS = 10
 # of the measured run
 SHAPES_FILE = os.path.join(ROOT, "build", "shape_tune.json")
 SHAPES_MEASURED_STEPS = 200
+#: the dry run (phase 22): one shard of the 16x16 cells at these scales
+#: materialized on the card (the scale-1 and scale-4 shards: 14.8 M and
+#: 59.4 M edges, D = 64), DRYRUN_CUDA_STEPS steps through "cuda" in each
+#: dtype, then DRYRUN_LOCKSTEP steps of "cuda" against "flat" in lockstep;
+#: the firing probe at hpc_benchmark(DRYRUN_PROBE["scale"])
+DRYRUN_SHARD_SCALES = (1.0, 4.0)
+DRYRUN_CUDA_STEPS = 200
+DRYRUN_LOCKSTEP = 20
+DRYRUN_PROBE = dict(scale=1.0, steps=400, n_rows=4, row_width=2)
 #: the profiled window's labels for the exchange, by tier
 EXCHANGE_LABELS = {"_issue_remote": "exchange.remote",
                    "_finish_remote": "exchange.remote",
@@ -836,9 +867,10 @@ def phase_kernels(g) -> dict:
     return out
 
 
-def kernel_stdp(g, rng) -> dict:
+def kernel_stdp(g, rng, label: str = "kernel") -> dict:
     """K3, the blocked pl-STDP update over every slot of ``g``'s layout,
-    on seeded inputs: deterministic, against its twin, timed."""
+    on seeded inputs: deterministic, against its twin, timed; its line
+    under the phase name ``label``."""
     bg = g.blocked
     nb, eb, pb, m, n = bg.nb, bg.eb, bg.pb, g.n_mirror, g.n_local
     e = nb * eb
@@ -869,7 +901,7 @@ def kernel_stdp(g, rng) -> dict:
     nbytes = (n_plastic * 17 + (e - n_plastic) * 5 + e * 4
               + (2 * n + m) * 4)
     b_ms, b_by = bound(nbytes, 20 * n_plastic)
-    emit({"phase": "kernel", "name": "stdp_update", "pb": pb, "slots": e,
+    emit({"phase": label, "name": "stdp_update", "pb": pb, "slots": e,
           "plastic_slots": n_plastic, "max_abs_err": err,
           "tolerance": "rtol 2e-6 (expf/logf vs torch exp/log)",
           "deterministic": True, "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -878,7 +910,8 @@ def kernel_stdp(g, rng) -> dict:
                 bound_by=b_by, bytes=nbytes)
 
 
-def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
+def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool,
+                       label: str = "kernel"):
     """K1 with the ``neuron`` epilogue at network ``g``'s shapes (its
     layout, ``n_local`` and group ids, with ``table``) on seeded inputs.
     Each case (LIF: current and conductance; drive off and on) bitwise
@@ -888,9 +921,9 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
     own check holds it, the synaptic state within K1's sums tolerance.
     Timed in the path's case (``drive_on``: the drive as the path has it)
     alone and in turns with K1 alone, per launch over many:
-    ``epilogue_ms`` = fused - K1.
-    Returns the kernels-line record, and K1's per-launch time under
-    ``_k1_ms_per_launch``."""
+    ``epilogue_ms`` = fused - K1.  Its line goes under the phase name
+    ``label``.  Returns the kernels-line record, and K1's per-launch time
+    under ``_k1_ms_per_launch``."""
     bg = g.blocked
     nb, eb, pb, d, m, n = bg.nb, bg.eb, bg.pb, g.max_delay, g.n_mirror, \
         g.n_local
@@ -975,7 +1008,7 @@ def phase_fused_kernel(neuron: str, g, table, rng, *, drive_on: bool):
               + n * (n_state * 4 + 1))
     b_ms, b_by = bound(nbytes, 2 * live + ops * n)
     worst = max(max(e.values()) for e in errs.values())
-    emit({"phase": "kernel", "name": name, "nb": nb, "eb": eb, "pb": pb,
+    emit({"phase": label, "name": name, "nb": nb, "eb": eb, "pb": pb,
           "d": d, "m": m, "n_local": n, "live_slots": live,
           "max_abs_err": errs,
           "tolerance": "bitwise equal to K1 -> add -> "
@@ -2581,6 +2614,203 @@ def phase_mh_supervised(mh_main_rec: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 22: the dry run
+# --------------------------------------------------------------------------
+
+def dryrun_lockstep(cuda, flat, st, table, tag: str) -> dict:
+    """DRYRUN_LOCKSTEP steps of a shard's ``"cuda"`` step against its
+    ``"flat"`` step (both :class:`~repro_torch.core.distributed.
+    DistributedStep` bindings of one consts dict) from the same state and
+    drive every step, continuing from ``"cuda"``'s, as
+    :func:`phase_lockstep` checks the single-shard engine: spikes may
+    differ only within ``v_tol`` of the threshold; the synaptic currents,
+    ``k_pre``, and ``v_m``, ``k_post`` and the weights of the neurons (and
+    the edges onto them) whose spikes agree within its tolerances.
+    Returns the counts and the worst differences."""
+    g = flat.graphs[0]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 24)
+    col = lambda name: table[g.group_id, snn.COL[name]]
+    real = g.delay > 0
+    v_tol, n_near, n_flip, n_spk = 1e-3, 0, 0, 0
+    tol = dict(syn_ex=1e-2, syn_in=1e-2, v_m=1e-4, weights=1e-4,
+               k_pre=1e-5, k_post=1e-5)
+    worst = dict.fromkeys(tol, 0.0)
+    for _ in range(DRYRUN_LOCKSTEP):
+        drive = engine._poisson_drive(gen, g, models.DT_MS,
+                                      torch.float32)[None]
+        new_c, sp_c = cuda(st, drive)
+        new_f, sp_f = flat(st, drive)
+        v_prop = (st.v_m * col("p_vv") + st.syn_ex * col("p_ve")
+                  + st.syn_in * col("p_vi") + col("p_vconst"))
+        near = ((v_prop - col("v_th")).abs() < v_tol) & (st.ref_count == 0)
+        flip = sp_c != sp_f
+        check(not bool((flip & ~near).any()), f"dryrun lockstep {tag}: "
+              "spikes differ away from the threshold")
+        n_near += int(near.sum())
+        n_flip += int(flip.sum())
+        n_spk += int(sp_c.sum())
+        same = ~flip[0]
+        edges = real & same[g.post_idx]
+        for key, a, b in (
+                ("syn_ex", new_c.syn_ex, new_f.syn_ex),
+                ("syn_in", new_c.syn_in, new_f.syn_in),
+                ("k_pre", new_c.k_pre, new_f.k_pre),
+                ("v_m", new_c.v_m[0][same], new_f.v_m[0][same]),
+                ("k_post", new_c.k_post[0][same], new_f.k_post[0][same]),
+                ("weights", new_c.weights[0][edges],
+                 new_f.weights[0][edges])):
+            worst[key] = max(worst[key], max_abs(a, b))
+        st = new_c
+    for key, lim in tol.items():
+        check(worst[key] <= lim, f"dryrun lockstep {tag}: {key} differs by "
+              f"{worst[key]} > {lim}")
+    check(n_spk > 0, f"dryrun lockstep {tag}: no spike in "
+          f"{DRYRUN_LOCKSTEP} steps")
+    return {"lockstep_steps": DRYRUN_LOCKSTEP, "lockstep_spikes": n_spk,
+            "lockstep_near_threshold": n_near, "lockstep_flips": n_flip,
+            "lockstep_max_abs_err": worst, "lockstep_tolerance": tol}
+
+
+def dryrun_shard(scale: float, card: str) -> dict:
+    """Shard 0 of the 16x16 cell at ``scale``, its consts drawn from the
+    seed (``dryrun_snn.state_and_consts_meta`` on the card) and laid out
+    by the port's own layout code: per dtype (int32, compact) one
+    ``"flat"`` step (its peak memory beside the arguments' bytes),
+    DRYRUN_CUDA_STEPS steps through ``"cuda"`` (K1 + K2 and K3 once a
+    step, ms a step; the shard fires, the raster equal to int32's), then
+    ``"cuda"`` against ``"flat"`` in lockstep from there
+    (:func:`dryrun_lockstep`); K1 + K2 and K3 against their twins at
+    these shapes (D = 64).  Returns the launches of each ``"cuda"``
+    run."""
+    mesh = dryrun_snn.make_production_mesh()
+    S, rw = mesh.size, mesh.shape["model"]
+    dims = dryrun_snn.shard_dims(int(1_000_000 * scale),
+                                 int(3_800_000_000 * scale), S, rw)
+    groups = list(dryrun_snn.GROUPS)
+    table = snn.make_param_table(groups, models.DT_MS, device=DEV)
+    kw = dict(max_delay=dims["max_delay"], n_local=dims["n_local"],
+              n_mirror=dims["n_mirror"], shards=(0,),
+              exchange=dist.StandInExchange, device=DEV)
+    cfg = lambda sweep: dist.DistributedConfig(
+        engine=engine.EngineConfig(dt=models.DT_MS, stdp=models.HPC_STDP,
+                                   sweep=sweep),
+        comm_mode="area", spike_wire="packed")
+    launches, rasters = {}, {}
+    blk = None
+    for compact in (False, True):
+        tag = f"scale {scale:g} {'compact' if compact else 'i32'}"
+        # one "flat" step: the allocator's peak above what was held before
+        # its arguments were made, beside the arguments' bytes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        st0, consts = dryrun_snn.state_and_consts_meta(
+            dims, mesh, compact=compact, device=DEV, seed=SEED)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t1
+        arg_bytes = dryrun_snn.argument_bytes(st0, consts)
+        flat = dist.make_raw_distributed_step(
+            mesh, groups, cfg("flat"), **kw).bind(consts)
+        reset_launches()
+        fin, _ = flat(st0, None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_launches(f"dryrun flat {tag}", read_launches(), {})
+        check(bool(torch.isfinite(fin.v_m).all()), f"dryrun {tag}: flat "
+              "step not finite")
+        del fin
+        # DRYRUN_CUDA_STEPS steps through "cuda" on the blocked consts
+        if blk is None:   # laid out once, from the int32 consts
+            blk, blocked_meta, relayout_s = dryrun_snn.blocked_consts(
+                consts, dims)
+        t1 = time.perf_counter()
+        step = dist.make_raw_distributed_step(
+            mesh, groups, cfg("cuda"), blocked_meta=blocked_meta,
+            **kw).bind({**consts, **blk})
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t1
+        # the flat step drew from st0's generators: the same stream anew
+        st = dataclasses.replace(st0, generators=dist.shard_generators(
+            SEED, (0,), DEV))
+        reset_launches()
+        t1 = time.perf_counter()
+        fin, spikes = step.run(st, DRYRUN_CUDA_STEPS)
+        wall = time.perf_counter() - t1
+        launches[tag] = read_launches()
+        check_launches(f"dryrun cuda {tag}", launches[tag],
+                       {k: DRYRUN_CUDA_STEPS for k in MAIN_KERNELS})
+        check(bool(torch.isfinite(fin.v_m).all())
+              and bool(torch.isfinite(fin.weights).all()),
+              f"dryrun {tag}: state not finite")
+        n_spikes = int(spikes.sum())
+        check(n_spikes > 0, f"dryrun {tag}: the shard did not fire in "
+              f"{DRYRUN_CUDA_STEPS} steps")
+        rasters[tag] = spikes
+        check(torch.equal(spikes, rasters[f"scale {scale:g} i32"]),
+              f"dryrun {tag}: the cuda raster differs from int32's")
+        lock = dryrun_lockstep(step, flat, fin, table, tag)
+        if not compact:
+            g = step.graphs[0]   # the int32 shard, for the twins below
+        emit({"phase": "dryrun_shard", "cell": f"16x16 {tag}", **dims,
+              "blocked_meta": blocked_meta, "draw_s": draw_s,
+              "relayout_s": relayout_s, "argument_gib": arg_bytes / 2**30,
+              "flat_step_peak_gib": peak / 2**30,
+              "cuda_bind_s": bind_s, "cuda_steps": DRYRUN_CUDA_STEPS,
+              "cuda_ms_per_step": wall / DRYRUN_CUDA_STEPS * 1e3,
+              "spikes": n_spikes, **lock, "card": card})
+        del step, flat, st, fin, consts, st0
+    # K1 + K2 and K3 against their twins at the shard's shapes
+    rng = np.random.default_rng(SEED + 22)
+    label = f"dryrun_kernel scale {scale:g}"
+    phase_fused_kernel("lif", g, table, rng, drive_on=True, label=label)
+    kernel_stdp(g, rng, label=label)
+    return launches
+
+
+def phase_dryrun(card: str) -> dict:
+    """The SNN dry run (``repro_torch.launch.dryrun_snn``): (a) the 24
+    cells of its ``main`` on ``meta``, each with its gathered bytes equal
+    to the wire model; (b) one shard of the 16x16 cells at scales 1 and 4
+    materialized on the card (:func:`dryrun_shard`); (c) the firing probe
+    at hpc_benchmark(1.0), 400 steps, 4x2 rows, through ``"cuda"``.
+    Returns the launches of each counted run."""
+    t_phase = t0 = time.perf_counter()
+    for multi_pod in (False, True):
+        for scale in (1.0, 4.0):
+            for w, rw, compact, overlap in dryrun_snn.VARIANTS:
+                rec = dryrun_snn.run_cell(scale, multi_pod, w,
+                                          compact=compact, overlap=overlap,
+                                          wire_remote=rw)
+                check(rec["collective_bytes"] == rec["wire_model_bytes"],
+                      f"dryrun cell {rec['mesh']} {scale} {w}+{rw}: "
+                      f"gathered {rec['collective_bytes']} B against the "
+                      f"wire model's {rec['wire_model_bytes']}")
+                print(dryrun_snn.cell_line(rec, card), flush=True)
+    emit({"phase": "dryrun_meta", "cells": 24,
+          "seconds": time.perf_counter() - t0})
+    launches = {}
+    for scale in DRYRUN_SHARD_SCALES:
+        launches.update(dryrun_shard(scale, card))
+    reset_launches()
+    t0 = time.perf_counter()
+    probe = dryrun_snn.measure_firing_rates(seed=SEED, device=DEV,
+                                            **DRYRUN_PROBE)
+    launches["probe"] = read_launches()
+    check_launches("dryrun probe", launches["probe"],
+                   {"synaptic_gather_lif": DRYRUN_PROBE["steps"]})
+    n = models.hpc_benchmark(DRYRUN_PROBE["scale"])[0].n_neurons
+    check(sum(r["n"] for r in probe["rows"]) == n and probe["frac_peak"] > 0
+          and probe["recommended_gate"].startswith("cuda:sparse:"),
+          f"dryrun probe: {probe}")
+    emit({"phase": "dryrun_probe", "seconds": time.perf_counter() - t0,
+          **probe})
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phases 6-9: the neuron-model zoo
 # --------------------------------------------------------------------------
 
@@ -3732,6 +3962,7 @@ def main() -> None:
     del main_out
     sup_launches.update(phase_mh_supervised(mh_main_rec))
     del g, table
+    dryrun_launches = phase_dryrun(smi)
     phase_gate_activity()
     zoo_kern, zoo_runs = zoo()
     kern.update(zoo_kern)
@@ -3757,6 +3988,8 @@ def main() -> None:
          "launches_diff": diff_launches.get(name, 0),
          "launches_shapes": {part: got.get(name, 0)
                              for part, got in shapes_launches.items()},
+         "launches_dryrun": {part: got.get(name, 0)
+                             for part, got in dryrun_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

@@ -21,8 +21,9 @@ half runs the same per-shard hot path as the single-shard engine, through
 the backend registry of :mod:`repro_torch.core.backends` (the ``"cuda"``
 kernels with the neuron step as K1's epilogue, ``"cuda:sparse"`` or
 ``"flat"``); only the exchange and its schedule are distributed-specific.
-The exchange is written against an exchange object with three
-implementations:
+The exchange is written against an exchange object with four
+implementations, each built on the index tables of the shards it steps
+(:class:`ExchangeTables`, from a net or a raw step's consts):
 
 * :class:`StackedExchange` - every shard in one process on one device.  A
   tier's all-gather is the stacked payload itself (the intra tier's viewed
@@ -35,7 +36,10 @@ implementations:
 * :class:`ProcessGroupExchange` - one shard per ``torch.distributed`` rank:
   the remote tier over the world group, the intra tier over a row
   subgroup, both issued with ``async_op=True`` (remote first) and waited
-  on only where the bits are consumed.
+  on only where the bits are consumed;
+* :class:`StandInExchange` - one shard of a grid stepped alone (the dry
+  run): each gather is made up from the local payload and its delivered
+  bytes are counted.
 
 Overlap (paper §III.C): spikes fired at step t-1 are exchanged at the start
 of step t, and the sweep takes them as ``fresh`` (delay-1 arrivals), so the
@@ -54,8 +58,17 @@ Differences from the reference, by design:
   it off or inject per-shard slices of one drive array (:func:`run`'s
   ``drive``).  A stochastic model's per-neuron draws hash the global id
   (``neuron_models.gid_uniform``) and are decomposition-invariant;
-* the raw (dry-run) step and key advancing for elastic restarts are not
-  ported.
+* the external drive is Poisson only: the reference's step draws
+  ``jax.random.poisson`` whatever ``external_drive_mode`` says, so the
+  diffusion drive is refused here rather than silently replaced.
+
+The raw step (:func:`make_raw_distributed_step`) is the same step as
+``fn(state, consts)``: the per-shard graph and exchange tables come in as a
+dict of tensors (:func:`stacked_consts` makes one from a net) instead of a
+:class:`StackedNetwork`, in int32 or compact dtypes.  With
+:class:`StandInExchange` it steps one shard of a grid alone, on any device
+including ``meta``, which is how :mod:`repro_torch.launch.dryrun_snn` costs
+a production-scale step without building its graph.
 """
 
 from __future__ import annotations
@@ -88,8 +101,10 @@ __all__ = ["mesh_decompose", "StackedNetwork", "prepare_stacked",
            "DistributedConfig", "DistState", "init_stacked_state",
            "shard_generators", "advance_generators", "StackedExchange", "HostExchange",
            "ProcessGroupExchange",
+           "StandInExchange", "ExchangeTables",
            "DistributedStep", "check_net_backend", "make_distributed_step",
-           "run",
+           "stacked_consts", "RawDistributedStep",
+           "make_raw_distributed_step", "run",
            "global_spikes",
            "wire_bytes_per_step", "wire_bytes_for_dims", "wire_bytes_split"]
 
@@ -200,8 +215,36 @@ _META_FIELDS = ("boundary_slots", "mirror_is_intra", "mirror_row_gather",
                 "mirror_remote_gather", "mirror_src_flat")
 
 
+class _HeldShards:
+    """The rows of a grid's shards that an object's (S, ...) arrays hold:
+    shards ``lo..hi-1`` of ``n_shards`` (``local_slice``; None: all)."""
+
+    n_shards: int
+    row_width: int
+    local_slice: tuple[int, int] | None
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_shards // self.row_width
+
+    @property
+    def shard_range(self) -> tuple[int, int]:
+        """The global shards ``lo..hi-1`` whose rows the arrays hold."""
+        return ((0, self.n_shards) if self.local_slice is None
+                else tuple(self.local_slice))
+
+    def rows_of(self, shards) -> list[int]:
+        """The rows of the (S, ...) arrays that hold global ``shards``."""
+        lo, hi = self.shard_range
+        bad = [int(s) for s in shards if not lo <= s < hi]
+        if bad:
+            raise ValueError(f"shards {bad} are not held by this net (it "
+                             f"holds shards {lo}..{hi - 1})")
+        return [int(s) - lo for s in shards]
+
+
 @dataclasses.dataclass(frozen=True)
-class StackedNetwork:
+class StackedNetwork(_HeldShards):
     """All shard graphs stacked on a leading shard axis, plus exchange
     metadata.  Every array field has shape (S, ...): numpy at build,
     tensors after :meth:`to`.
@@ -236,25 +279,6 @@ class StackedNetwork:
     # (lo, hi): the global shards the arrays hold; None: all of them
     local_slice: tuple[int, int] | None = None
 
-    @property
-    def n_rows(self) -> int:
-        return self.n_shards // self.row_width
-
-    @property
-    def shard_range(self) -> tuple[int, int]:
-        """The global shards ``lo..hi-1`` whose rows the arrays hold."""
-        return ((0, self.n_shards) if self.local_slice is None
-                else tuple(self.local_slice))
-
-    def rows_of(self, shards) -> list[int]:
-        """The rows of the (S, ...) arrays that hold global ``shards``."""
-        lo, hi = self.shard_range
-        bad = [int(s) for s in shards if not lo <= s < hi]
-        if bad:
-            raise ValueError(f"shards {bad} are not held by this net (it "
-                             f"holds shards {lo}..{hi - 1})")
-        return [int(s) - lo for s in shards]
-
     def select_shards(self, lo: int, hi: int) -> "StackedNetwork":
         """This net holding only the rows of global shards ``lo..hi-1``
         (host arrays: the per-shard views are dropped)."""
@@ -288,21 +312,44 @@ class StackedNetwork:
 
         graph = {k: t(v) for k, v in self.graph.items()}
         meta = {k: t(getattr(self, k)) for k in _META_FIELDS}
-        shards = []
-        for s in range(len(meta["mirror_src_flat"])):
-            bg = None
-            if self.blocked_meta is not None and "blk_pre_idx" in graph:
-                nb, eb, pb = self.blocked_meta
-                bg = BlockedGraph(nb=nb, eb=eb, pb=pb, n_local=nb * pb,
-                                  **{k: graph[f"blk_{k}"][s]
-                                     for k in _BLOCKED_FIELDS})
-            shards.append(ShardGraph(
-                n_local=self.n_local, n_mirror=self.n_mirror,
-                max_delay=self.max_delay, bucket_ptr=None,
-                mirror_src_shard=meta["mirror_src_flat"][s], blocked=bg,
-                **{k: graph[k][s] for k in _GRAPH_FIELDS}))
+        shards = _shard_views({**graph, **meta}, n_local=self.n_local,
+                              n_mirror=self.n_mirror,
+                              max_delay=self.max_delay,
+                              blocked_meta=self.blocked_meta)
         return dataclasses.replace(self, graph=graph, **meta,
-                                   shard_graphs=tuple(shards))
+                                   shard_graphs=shards)
+
+    def exchange_tables(self) -> "ExchangeTables":
+        """The exchange's index tables of the shards the net holds."""
+        return ExchangeTables(
+            n_shards=self.n_shards, row_width=self.row_width,
+            n_local=self.n_local, b_pad=self.b_pad,
+            local_slice=self.shard_range,
+            mirror_src_idx=self.graph["mirror_src_idx"],
+            **{k: getattr(self, k) for k in _META_FIELDS})
+
+
+def _shard_views(consts: dict, *, n_local: int, n_mirror: int,
+                 max_delay: int, blocked_meta) -> tuple[ShardGraph, ...]:
+    """One :class:`ShardGraph` view per row of the (S, ...) tensors of
+    ``consts`` (a net's graph and exchange tables, or a raw step's
+    consts); the blocked twin where ``blocked_meta`` is given and the
+    ``blk_*`` tensors are there.  ``global_id`` may be absent (None)."""
+    shards = []
+    for s in range(consts["mirror_src_flat"].shape[0]):
+        bg = None
+        if blocked_meta is not None and "blk_pre_idx" in consts:
+            nb, eb, pb = blocked_meta
+            bg = BlockedGraph(nb=nb, eb=eb, pb=pb, n_local=nb * pb,
+                              **{k: consts[f"blk_{k}"][s]
+                                 for k in _BLOCKED_FIELDS})
+        fields = {k: (None if consts.get(k) is None else consts[k][s])
+                  for k in _GRAPH_FIELDS}
+        shards.append(ShardGraph(
+            n_local=n_local, n_mirror=n_mirror, max_delay=max_delay,
+            bucket_ptr=None, mirror_src_shard=consts["mirror_src_flat"][s],
+            blocked=bg, **fields))
+    return tuple(shards)
 
 
 def _alloc_stacked_graph(S: int, e_pad: int, n_local: int, n_mirror: int,
@@ -735,13 +782,17 @@ def _layout_tag_of(net: StackedNetwork, kind: str) -> str:
         backends_mod.layout_of(net.shard_graphs[0]), kind)
 
 
+def _on_device(x: torch.Tensor, dev: torch.device) -> bool:
+    return x.device.type == dev.type and (dev.index is None
+                                          or x.device.index == dev.index)
+
+
 def _require_net_on(net: StackedNetwork, dev: torch.device) -> None:
     if net.shard_graphs is None:
         raise TypeError(f"the StackedNetwork holds host arrays; move it "
                         f"with net.to({str(dev)!r})")
     x = net.graph["pre_idx"]
-    if x.device.type != dev.type or (dev.index is not None
-                                     and x.device.index != dev.index):
+    if not _on_device(x, dev):
         raise ValueError(f"the StackedNetwork is on {x.device} but the run "
                          f"is on {dev}")
 
@@ -808,10 +859,35 @@ class _Ready:
         return self.value
 
 
+@dataclasses.dataclass(frozen=True)
+class ExchangeTables(_HeldShards):
+    """The exchange's index tables of shards ``lo..hi-1`` of a grid
+    (``local_slice``), each (S_loc, ...): what an exchange reads, from a
+    :class:`StackedNetwork` (:meth:`StackedNetwork.exchange_tables`) or from
+    a raw step's consts."""
+
+    n_shards: int
+    row_width: int
+    n_local: int
+    b_pad: int
+    local_slice: tuple[int, int] | None
+    boundary_slots: Any        # (S_loc, B) local idx published per slot
+    mirror_is_intra: Any       # (S_loc, n_mirror) bool
+    mirror_row_gather: Any     # (S_loc, n_mirror) -> row-gathered flat idx
+    mirror_remote_gather: Any  # (S_loc, n_mirror) -> remote-gathered idx
+    mirror_src_flat: Any       # (S_loc, n_mirror) source shard (global)
+    mirror_src_idx: Any        # (S_loc, n_mirror) source's local idx
+
+
+def _exchange_tables(src) -> ExchangeTables:
+    return src if isinstance(src, ExchangeTables) else src.exchange_tables()
+
+
 class _Exchange:
     """The exchange's index tables for the shards a process steps, and its
     two collectives; the tier logic is :func:`_exchange_issue` and
-    :func:`_exchange_finish`.
+    :func:`_exchange_finish`.  Every exchange is built from a
+    :class:`StackedNetwork` on its device or from :class:`ExchangeTables`.
 
     ``gather_world(payload)`` and ``gather_row(payload)`` take the local
     shards' payloads (S_loc, W) and return a handle whose ``wait()`` gives
@@ -821,24 +897,24 @@ class _Exchange:
     world gather of whole payloads ("global" mode), each (S_loc,
     n_mirror)."""
 
-    def __init__(self, net: StackedNetwork, cfg: DistributedConfig,
-                 shards: Sequence[int]):
+    def __init__(self, src, cfg: DistributedConfig, shards: Sequence[int]):
+        tab = _exchange_tables(src)
         self.mode = cfg.comm_mode
         if self.mode not in ("area", "global"):
             raise ValueError(f"unknown comm mode {self.mode!r}")
         self.wire, self.remote_wire = cfg.wire, cfg.remote_wire
-        self.n_local, self.b_pad = net.n_local, net.b_pad
+        self.n_local, self.b_pad = tab.n_local, tab.b_pad
         self.shards = tuple(shards)
-        dev = net.graph["pre_idx"].device
-        idx = torch.tensor(net.rows_of(self.shards), dtype=torch.long,
+        dev = tab.mirror_src_flat.device
+        idx = torch.tensor(tab.rows_of(self.shards), dtype=torch.long,
                            device=dev)
         take = lambda x: x.index_select(0, idx)
-        self.boundary = take(net.boundary_slots).long()
-        self.is_intra = take(net.mirror_is_intra)
-        self.row_idx = take(net.mirror_row_gather).long()
-        self.remote_idx = take(net.mirror_remote_gather).long()
-        self.global_idx = (take(net.mirror_src_flat).long() * net.n_local
-                           + take(net.graph["mirror_src_idx"]).long())
+        self.boundary = take(tab.boundary_slots).long()
+        self.is_intra = take(tab.mirror_is_intra)
+        self.row_idx = take(tab.mirror_row_gather).long()
+        self.remote_idx = take(tab.mirror_remote_gather).long()
+        self.global_idx = (take(tab.mirror_src_flat).long() * tab.n_local
+                           + take(tab.mirror_src_idx).long())
 
     def gather_world(self, payload):
         raise NotImplementedError
@@ -848,21 +924,21 @@ class _Exchange:
 
 
 class _WholeRows(_Exchange):
-    """Every shard of the whole rows ``net`` holds, in this process on one
+    """Every shard of the whole rows ``src`` holds, in this process on one
     device: the row tier's all-gather is the stacked payload itself, and
     its decoded bits are indexed across the held rows at once
     (``row_idx`` offset by the shard's row among them)."""
 
-    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
-        lo, hi = net.shard_range
-        if lo % net.row_width or hi % net.row_width:
+    def __init__(self, src, cfg: DistributedConfig):
+        lo, hi = src.shard_range
+        if lo % src.row_width or hi % src.row_width:
             raise ValueError(f"shards {lo}..{hi - 1} split a row of "
-                             f"{net.row_width}: a row must not span "
+                             f"{src.row_width}: a row must not span "
                              "processes")
-        super().__init__(net, cfg, range(lo, hi))
+        super().__init__(src, cfg, range(lo, hi))
         row = torch.arange(hi - lo, device=self.row_idx.device
-                           ) // net.row_width
-        self.row_idx = (row[:, None] * (net.row_width * net.n_local)
+                           ) // src.row_width
+        self.row_idx = (row[:, None] * (src.row_width * src.n_local)
                         + self.row_idx)
 
     def gather_row(self, payload):
@@ -873,16 +949,50 @@ class StackedExchange(_WholeRows):
     """Every shard in this process, on one device: a tier's all-gather is
     the stacked payload itself."""
 
-    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
-        if net.shard_range != (0, net.n_shards):
+    def __init__(self, src, cfg: DistributedConfig):
+        if src.shard_range != (0, src.n_shards):
             raise ValueError(
-                f"the net holds shards {net.shard_range} of "
-                f"{net.n_shards}; step a process's own rows with "
+                f"the net holds shards {src.shard_range} of "
+                f"{src.n_shards}; step a process's own rows with "
                 "HostExchange")
-        super().__init__(net, cfg)
+        super().__init__(src, cfg)
 
     def gather_world(self, payload):
         return _Ready(payload)
+
+
+class StandInExchange(_Exchange):
+    """One shard of a grid stepped alone, with no other shard anywhere
+    (the dry run, :mod:`repro_torch.launch.dryrun_snn`): each gather gives
+    a payload of the gathered shape made from the local one, (n_shards, W)
+    for the world and (row_width, W) for the row, as a view.  The spikes
+    it maps are not the grid's; its cost is.
+
+    ``gathered_bytes`` accumulates each gather's output bytes by tier
+    (``"world"``, ``"row"``), the bytes the gather would deliver to this
+    shard: the reference's HLO analyser counts a collective so
+    (``src/repro/utils/hlo_analysis.py``), and
+    :func:`wire_bytes_split` is the model they meet."""
+
+    def __init__(self, src, cfg: DistributedConfig):
+        lo, hi = src.shard_range
+        if hi - lo != 1:
+            raise ValueError(f"the stand-in steps one shard; got shards "
+                             f"{lo}..{hi - 1}")
+        super().__init__(src, cfg, (lo,))
+        self.n_shards, self.row_width = src.n_shards, src.row_width
+        self.gathered_bytes = {"world": 0, "row": 0}
+
+    def _stand_in(self, payload, n: int, tier: str):
+        out = payload.expand(n, payload.shape[-1])
+        self.gathered_bytes[tier] += out.numel() * out.element_size()
+        return _Ready(out)
+
+    def gather_world(self, payload):
+        return self._stand_in(payload, self.n_shards, "world")
+
+    def gather_row(self, payload):
+        return self._stand_in(payload, self.row_width, "row")
 
 
 class _Pending:
@@ -915,7 +1025,7 @@ class HostExchange(_WholeRows):
     (its CUDA all-gather copies to pinned buffers on side streams, and
     ``wait()`` makes the current stream wait on the copies back)."""
 
-    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
+    def __init__(self, net, cfg: DistributedConfig):
         import torch.distributed as tdist
         self._dist = tdist
         if tdist.is_initialized():
@@ -953,7 +1063,7 @@ class ProcessGroupExchange(_Exchange):
 
     Every rank must construct it (``new_group`` is collective)."""
 
-    def __init__(self, net: StackedNetwork, cfg: DistributedConfig):
+    def __init__(self, net, cfg: DistributedConfig):
         import torch.distributed as dist
         self._dist = dist
         rank, world = dist.get_rank(), dist.get_world_size()
@@ -1094,35 +1204,46 @@ def check_net_backend(net: StackedNetwork,
 
 
 class DistributedStep:
-    """The distributed step for the shards of ``exchange`` (all of them by
-    default, through a :class:`StackedExchange`).  Built by
-    :func:`make_distributed_step`; :func:`run` drives it in a loop.
+    """The distributed step for the shards of ``exchange``, over their
+    :class:`ShardGraph` views ``graphs`` (one per shard, in the exchange's
+    order).  Built by :func:`make_distributed_step` (a net's shards) or
+    :func:`make_raw_distributed_step` (a consts dict's); :func:`run`
+    drives it in a loop.
 
     Calling it on a :class:`DistState` takes one step and returns
     ``(new_state, spike_bits (S_loc, n_local) bool)``, the state in the
-    layout it came in.
+    layout it came in.  In surrogate mode (``EngineConfig.surrogate``) the
+    carried ``prev_bits`` hold the float surrogate spike, the gradient
+    path, and the returned raster is its bool cast, as in the single-shard
+    engine (:func:`~repro_torch.core.engine.normalize_spike_dtype`).
     """
 
-    def __init__(self, net: StackedNetwork, table, cfg: DistributedConfig,
-                 exchange: _Exchange | None, dev: torch.device):
-        _require_net_on(net, dev)
-        if (cfg.engine.surrogate is not None
-                or cfg.engine.external_drive_mode != "poisson"):
+    def __init__(self, graphs, table, cfg: DistributedConfig,
+                 exchange: _Exchange, dev: torch.device, *,
+                 backend: backends_mod.SweepBackend):
+        if cfg.engine.external_drive_mode != "poisson":
             raise NotImplementedError(
-                "the distributed step runs inference with the Poisson drive "
-                "only: surrogate= and external_drive_mode='diffusion' are "
-                "not ported to it yet (ROADMAP, open from PR 22); run them "
-                "through repro_torch.core.engine.run")
-        self.net, self.table, self.cfg, self.dev = net, table, cfg, dev
-        self.backend = check_net_backend(net, cfg)
+                "the distributed step draws the Poisson drive only: the "
+                "reference's distributed step has no diffusion drive (it "
+                "draws jax.random.poisson whatever external_drive_mode "
+                "says), so external_drive_mode="
+                f"{cfg.engine.external_drive_mode!r} is refused rather than "
+                "replaced; run it through repro_torch.core.engine.run")
+        self.table, self.cfg, self.dev = table, cfg, dev
+        self.backend = backend
         self.model = neuron_models_mod.get_model(cfg.engine.neuron_model)
-        self.exchange = (StackedExchange(net, cfg) if exchange is None
-                         else exchange)
-        self.shards = self.exchange.shards
-        self.graphs = [net.shard_graphs[r] for r in net.rows_of(self.shards)]
+        self.exchange = exchange
+        self.shards = exchange.shards
+        self.graphs = list(graphs)
+        if len(self.graphs) != len(self.shards):
+            raise ValueError(f"{len(self.graphs)} shard graphs for shards "
+                             f"{self.shards}")
+        self.n_local = self.graphs[0].n_local
+        self.max_delay = self.graphs[0].max_delay
         self.layouts = [self.backend.prepare(g, baked=True)
                         for g in self.graphs]
-        self.native_tag = _layout_tag_of(net, self.backend.weights_layout)
+        self.native_tag = backends_mod.layout_tag(
+            self.layouts[0], self.backend.weights_layout)
 
     # -- DistState <-> loop carry -----------------------------------------
     def _check_state(self, state: DistState) -> None:
@@ -1144,11 +1265,10 @@ class DistributedStep:
         neurons, weights, traces = [], [], []
         for i, (g, lay) in enumerate(zip(self.graphs, self.layouts)):
             neurons.append(_neurons_of(state, i, g))
-            w = backends_mod.convert_weights(lay, state.weights[i],
-                                             state.weights_layout,
+            w_in = state.weights[i]
+            w = backends_mod.convert_weights(lay, w_in, state.weights_layout,
                                              self.native_tag)
-            if (w.data_ptr() == state.weights[i].data_ptr()
-                    and self.cfg.engine.stdp is not None
+            if (w is w_in and self.cfg.engine.stdp is not None
                     and self.backend.stdp_in_place(lay)):
                 w = w.clone()   # the caller's weights stay as they were
             weights.append(w)
@@ -1199,7 +1319,13 @@ class DistributedStep:
         ((S_loc, n_local) bool, allocated if None) and returns it."""
         cfg, ecfg, model = self.cfg, self.cfg.engine, self.model
         dtype = carry.prev_bits.dtype
-        t, D = carry.t, self.net.max_delay
+        t, D = carry.t, self.max_delay
+        if (drive is None and ecfg.external_drive
+                and len(carry.generators) != len(self.shards)):
+            raise ValueError(
+                f"the state has {len(carry.generators)} drive generators "
+                f"for {len(self.shards)} shards (a state on the meta "
+                "device has none): pass drive=")
 
         # (1) two-tier exchange of last step's spikes: both tiers are
         #     issued here, and waited on only where the bits are consumed
@@ -1233,7 +1359,7 @@ class DistributedStep:
                 lay, carry.weights[i], ring, t, carry.neurons[i],
                 self.table, d_i, synapse_model=ecfg.synapse_model,
                 model=model, seed=carry.model_seed, gid=g.global_id,
-                fresh=f_i)
+                fresh=f_i, surrogate=ecfg.surrogate)
             spike = neurons.spike
             # (4) plasticity, as the single-shard engine
             if ecfg.stdp is not None:
@@ -1250,8 +1376,16 @@ class DistributedStep:
                 carry.gate_overflow[i] = carry.gate_overflow[i] + gate_ovf
             carry.neurons[i], carry.ring[i] = neurons, ring
             bits.append(spike)
-        out = torch.stack(bits, out=out)
-        carry.prev_bits = out.to(dtype)
+        if ecfg.surrogate is None:
+            out = torch.stack(bits, out=out)
+            carry.prev_bits = out.to(dtype)
+        else:
+            # the float surrogate spike is the gradient path: the carry
+            # takes it as it is, and only the returned raster is cast
+            spikes = torch.stack(bits)
+            carry.prev_bits = spikes.to(dtype)
+            out = (spikes.to(torch.bool) if out is None
+                   else out.copy_(spikes))
         carry.t = t + 1
         if overflow is not None:
             carry.wire_overflow = carry.wire_overflow + overflow
@@ -1264,7 +1398,7 @@ class DistributedStep:
 
     def run(self, state: DistState, n_steps: int, drive=None):
         """Step ``n_steps`` times: :func:`run` with this step."""
-        S, n = len(self.shards), self.net.n_local
+        S, n = len(self.shards), self.n_local
         if drive is not None and tuple(drive.shape) != (n_steps, S, n):
             raise ValueError(f"drive must be ({n_steps}, {S}, {n}), "
                              f"got {tuple(drive.shape)}")
@@ -1298,7 +1432,156 @@ def make_distributed_step(net: StackedNetwork, table,
     table ``table``: every shard through a :class:`StackedExchange`, or the
     shards of ``exchange`` (a :class:`HostExchange` or
     :class:`ProcessGroupExchange`)."""
-    return DistributedStep(net, table, cfg, exchange, resolve_device(device))
+    dev = resolve_device(device)
+    _require_net_on(net, dev)
+    backend = check_net_backend(net, cfg)
+    if exchange is None:
+        exchange = StackedExchange(net, cfg)
+    graphs = [net.shard_graphs[r] for r in net.rows_of(exchange.shards)]
+    return DistributedStep(graphs, table, cfg, exchange, dev,
+                           backend=backend)
+
+
+def stacked_consts(net: StackedNetwork, *, needs_blocked: bool) -> dict:
+    """The (S, ...) const arrays the raw step consumes: the net's graph
+    arrays (the ``blk_*`` ones only with ``needs_blocked``) plus the
+    exchange tables, as the net holds them (numpy, or tensors after
+    :meth:`StackedNetwork.to`)."""
+    consts = {k: v for k, v in net.graph.items()
+              if needs_blocked or not k.startswith("blk_")}
+    consts.update({k: getattr(net, k) for k in _META_FIELDS})
+    return consts
+
+
+#: const arrays the raw step takes in a compact dtype (uint16 ids, int8
+#: delays and channels) and widens to int32, as the reference's step does
+_WIDENED = ("pre_idx", "post_idx", "delay", "channel", "mirror_src_idx",
+            "boundary_slots", "mirror_row_gather", "mirror_remote_gather",
+            "mirror_src_flat", "global_id", "blk_pre_idx", "blk_post_rel",
+            "blk_delay", "blk_channel", "blk_edge_perm")
+#: the consts every raw step needs (global_id is optional)
+_RAW_CONSTS = ("pre_idx", "post_idx", "delay", "channel", "plastic",
+               "weight_init", "group_id", "ext_rate", "ext_weight",
+               "mirror_src_idx", *_META_FIELDS)
+
+
+class RawDistributedStep:
+    """The distributed step as ``fn(state, consts)``: the graph and
+    exchange tables of the shards it steps come in as a dict of (S_loc,
+    ...) tensors, with no :class:`StackedNetwork`.  Built by
+    :func:`make_raw_distributed_step`.
+
+    A call binds ``consts`` first (:meth:`bind`): compact arrays are
+    widened to int32 (the reference widens them at the top of its step),
+    and the per-shard views, their backend layouts and the exchange are
+    built.  Eager PyTorch cannot fuse the cast into its consumers as XLA
+    does, so a caller that steps more than once binds once and steps the
+    :class:`DistributedStep` that :meth:`bind` returns."""
+
+    def __init__(self, mesh, groups, cfg: DistributedConfig, *,
+                 max_delay: int, n_local: int, n_mirror: int,
+                 blocked_meta, shards, exchange, dev: torch.device):
+        self.cfg, self.dev = cfg, dev
+        self.n_shards = int(mesh.size)
+        self.row_width = int(mesh.shape[mesh.axis_names[-1]])
+        shards = (tuple(range(self.n_shards)) if shards is None
+                  else tuple(int(s) for s in shards))
+        if (not shards or shards != tuple(range(shards[0],
+                                                shards[0] + len(shards)))
+                or shards[0] < 0 or shards[-1] >= self.n_shards):
+            raise ValueError(f"shards must be a run of consecutive shards "
+                             f"of 0..{self.n_shards - 1}, got {shards}")
+        self.shards = shards
+        self.max_delay, self.n_local, self.n_mirror = (max_delay, n_local,
+                                                       n_mirror)
+        self.blocked_meta = (None if blocked_meta is None
+                             else tuple(int(x) for x in blocked_meta))
+        self.exchange_cls = exchange
+        self.backend = backends_mod.get_backend(cfg.engine.sweep)
+        model = neuron_models_mod.get_model(cfg.engine.neuron_model)
+        self.table = model.make_param_table(list(groups), cfg.engine.dt,
+                                            device=dev)
+
+    def bind(self, consts: dict) -> DistributedStep:
+        """The step over ``consts``, built anew on every call."""
+        missing = [k for k in _RAW_CONSTS if k not in consts]
+        if self.backend.weights_layout == "blocked":
+            missing += [f"blk_{k}" for k in _BLOCKED_FIELDS
+                        if f"blk_{k}" not in consts]
+        if missing:
+            raise ValueError(f"consts lack {missing}")
+        s_loc = len(self.shards)
+        bad = {k: (type(v).__name__ if not isinstance(v, torch.Tensor)
+                   else f"{tuple(v.shape)} on {v.device}")
+               for k, v in consts.items()
+               if not isinstance(v, torch.Tensor) or v.shape[0] != s_loc
+               or not _on_device(v, self.dev)}
+        if bad:
+            raise ValueError(f"consts must be (S_loc={s_loc}, ...) tensors "
+                             f"on {self.dev}; got {bad}")
+        g = {k: (v.to(torch.int32) if k in _WIDENED
+                 and v.dtype != torch.int32 else v)
+             for k, v in consts.items()}
+        tables = ExchangeTables(
+            n_shards=self.n_shards, row_width=self.row_width,
+            n_local=self.n_local, b_pad=int(g["boundary_slots"].shape[1]),
+            local_slice=(self.shards[0], self.shards[-1] + 1),
+            mirror_src_idx=g["mirror_src_idx"],
+            **{k: g[k] for k in _META_FIELDS})
+        if self.exchange_cls is not None:
+            exchange = self.exchange_cls(tables, self.cfg)
+        elif len(self.shards) == self.n_shards:
+            exchange = StackedExchange(tables, self.cfg)
+        else:
+            raise ValueError(
+                f"the raw step runs shards {self.shards} of "
+                f"{self.n_shards}: pass exchange= (StandInExchange for one "
+                "shard alone, HostExchange for a process's rows)")
+        graphs = _shard_views(g, n_local=self.n_local,
+                              n_mirror=self.n_mirror,
+                              max_delay=self.max_delay,
+                              blocked_meta=self.blocked_meta)
+        return DistributedStep(graphs, self.table, self.cfg, exchange,
+                               self.dev, backend=self.backend)
+
+    def __call__(self, state: DistState, consts: dict, drive=None):
+        """One step, ``consts`` bound for it: ``(new_state, spike_bits
+        (S_loc, n_local) bool)``."""
+        return self.bind(consts)(state, drive)
+
+    def run(self, state: DistState, consts: dict, n_steps: int, drive=None):
+        """``n_steps`` steps, as :func:`run`: ``(final_state, spikes)``."""
+        return self.bind(consts).run(state, n_steps, drive)
+
+
+def make_raw_distributed_step(mesh, groups, cfg: DistributedConfig, *,
+                              max_delay: int, n_local: int, n_mirror: int,
+                              blocked_meta=None, shards=None, exchange=None,
+                              device="cuda") -> RawDistributedStep:
+    """The distributed step as ``fn(state, consts)`` on ``device`` (the
+    card unless ``device="cpu"`` or ``"meta"``), the port of the
+    reference's ``make_raw_distributed_step``.
+
+    ``mesh`` gives the grid: ``mesh.size`` shards in rows of
+    ``mesh.shape[mesh.axis_names[-1]]`` (:mod:`repro_torch.launch.mesh`).
+    The step runs ``shards`` (consecutive global indices; all by default),
+    whose (S_loc, ...) consts carry the keys of :func:`stacked_consts`
+    (``global_id`` optional; ``blk_*`` with ``blocked_meta=(nb, eb, pb)``
+    for a blocked backend), in int32 or compact dtypes.  ``exchange`` is
+    the exchange's class, built on the consts' tables: by default a
+    :class:`StackedExchange` over every shard; :class:`StandInExchange`
+    steps one shard alone.  On ``meta`` the drive comes in through
+    ``drive=`` (no generator exists there)."""
+    backend = backends_mod.get_backend(cfg.engine.sweep)
+    if backend.weights_layout == "blocked" and blocked_meta is None:
+        raise ValueError(
+            f"sweep={cfg.engine.sweep!r} on the raw step needs "
+            "blocked_meta=(nb, eb, pb) plus blk_* entries in the consts "
+            "(incl. blk_plastic) and blocked-resident state weights")
+    return RawDistributedStep(
+        mesh, groups, cfg, max_delay=max_delay, n_local=n_local,
+        n_mirror=n_mirror, blocked_meta=blocked_meta, shards=shards,
+        exchange=exchange, dev=resolve_device(device))
 
 
 def run(state: DistState, net: StackedNetwork, table,

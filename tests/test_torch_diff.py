@@ -626,21 +626,142 @@ def test_kernel_wrapper_refuses_inputs_that_require_grad(kernel):
         call(w.clone().requires_grad_(True))
 
 
+def _i_e_800(pkg_models):
+    """hpc_benchmark(0.02) with pl-STDP and the constant drive i_e = 800
+    pA: the distributed tests' EQUIV spec, firing with the drive off."""
+    spec, stdp = pkg_models.hpc_benchmark(scale=0.02, stdp=True)
+    return dataclasses.replace(spec, groups=[dataclasses.replace(
+        spec.groups[0], i_e=800.0)]), stdp
+
+
+N_DIST_SURROGATE = 120
+
+
+@pytest.fixture(scope="module")
+def dist_surrogate_reference():
+    """The reference single-shard engine's surrogate raster of
+    :func:`_i_e_800` (flat, drive off, key 0)."""
+    spec, stdp = _i_e_800(ref_models)
+    gd = ref_builder.build_shards(spec, ref_builder.decompose(spec, 1))[0] \
+        .device_arrays()
+    rtable = ref_snn.make_param_table(list(spec.groups), dt=0.1)
+    cfg = ref_engine.EngineConfig(dt=0.1, stdp=stdp, external_drive=False,
+                                  surrogate=SURROGATE)
+    st = ref_engine.init_state(gd, list(spec.groups), jax.random.key(0))
+    _, sp = jax.jit(lambda s: ref_engine.run(s, gd, rtable, cfg,
+                                             N_DIST_SURROGATE))(st)
+    return np.asarray(sp)[:, :spec.n_neurons]
+
+
+def _dist_net(grid=(2, 2)):
+    from repro_torch.core import distributed as dist
+    spec, stdp = _i_e_800(models)
+    net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, *grid),
+                               *grid).to(CPU)
+    table = snn.make_param_table(list(spec.groups), 0.1, device=CPU)
+    return spec, stdp, net, table
+
+
+def _dist_surrogate_runs(sweep, exchange=None):
+    """The 2x2 stacked run in inference and in surrogate mode (overlap,
+    area mode, packed wire), through ``exchange`` (a class; the stacked
+    exchange by default)."""
+    from repro_torch.core import distributed as dist
+    spec, stdp, net, table = _dist_net()
+    out = {}
+    for mode in (None, SURROGATE):
+        cfg = dist.DistributedConfig(engine=engine.EngineConfig(
+            dt=0.1, stdp=stdp, sweep=sweep, external_drive=False,
+            surrogate=mode))
+        st = dist.init_stacked_state(net, list(spec.groups), sweep=sweep,
+                                     device=CPU)
+        step = dist.make_distributed_step(
+            net, table, cfg, device=CPU,
+            exchange=None if exchange is None else exchange(net, cfg))
+        out[mode] = step.run(st, N_DIST_SURROGATE)
+    return spec, net, out
+
+
+@pytest.mark.parametrize("sweep", ["flat", "cuda"])
+def test_stacked_surrogate_equals_inference_and_reference(
+        sweep, dist_surrogate_reference):
+    """Surrogate mode through the stacked step (2x2): the raster (bool),
+    every state tensor and the counters bitwise inference mode's, on
+    ``"flat"`` and on the ``"cuda"`` twin; the carried ``prev_bits`` float;
+    and the global raster the reference single-shard engine's surrogate
+    raster."""
+    from repro_torch.core import distributed as dist
+    spec, net, out = _dist_surrogate_runs(sweep)
+    (f0, s0), (f1, s1) = out[None], out[SURROGATE]
+    assert s0.dtype == s1.dtype == torch.bool
+    assert s0.sum() > 100, "vacuous - nothing spiked"
+    assert torch.equal(s0, s1)
+    for k in ("v_m", "syn_ex", "syn_in", "ref_count", "ring", "weights",
+              "k_pre", "k_post", "prev_bits", "t", "wire_overflow",
+              "gate_overflow"):
+        assert torch.equal(getattr(f0, k), getattr(f1, k)), k
+    assert f1.prev_bits.dtype == torch.float32
+    ref = dist_surrogate_reference
+    assert ref.sum() > 100
+    np.testing.assert_array_equal(
+        dist.global_spikes(s1, net, spec.n_neurons).numpy(),
+        ref.astype(bool))
+
+
+def test_stacked_surrogate_keeps_the_float_spike_and_its_gradient():
+    """On ``"flat"`` with the f32 wire (the one codec that keeps floats),
+    the carried spike is the surrogate's float with its graph: the spikes
+    of step 30 differentiate back to the initial membrane through the
+    exchange, while the returned raster stays bool."""
+    from repro_torch.core import distributed as dist
+    spec, stdp, net, table = _dist_net()
+    cfg = dist.DistributedConfig(
+        engine=engine.EngineConfig(dt=0.1, stdp=None, sweep="flat",
+                                   external_drive=False,
+                                   surrogate=SURROGATE),
+        spike_wire="f32")
+    step = dist.make_distributed_step(net, table, cfg, device=CPU)
+    st = dist.init_stacked_state(net, list(spec.groups), device=CPU)
+    v0 = st.v_m.clone().requires_grad_(True)
+    carry = step.carry_from(dataclasses.replace(st, v_m=v0))
+    for _ in range(30):
+        bits = step.advance(carry)
+    assert bits.dtype == torch.bool
+    assert carry.prev_bits.dtype == torch.float32
+    assert carry.prev_bits.grad_fn is not None
+    (grad,) = torch.autograd.grad(carry.prev_bits.sum(), v0)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+
+
 @pytest.mark.parametrize("change", [{"surrogate": SURROGATE},
                                     {"external_drive_mode": "diffusion"}],
                          ids=["surrogate", "diffusion"])
 def test_distributed_step_refuses_surrogate_and_diffusion(change):
-    """The distributed step (and the multi-host step built on it) runs
-    inference with the Poisson drive only: a config asking for surrogate
-    mode or the diffusion drive raises rather than running without it."""
+    """The distributed step refuses the diffusion drive (the reference's
+    distributed step has none: it draws Poisson whatever the mode says)
+    and runs surrogate mode: the ``surrogate`` case runs the stacked step
+    and the multi-host step's :class:`HostExchange` (one process) and
+    holds both to inference mode, bitwise."""
     from repro_torch.core import distributed as dist
     spec, _ = models.hpc_benchmark(0.02)
     net = dist.prepare_stacked(spec, dist.mesh_decompose(spec, 2, 1), 2,
                                1).to(CPU)
     table = snn.make_param_table(list(spec.groups), 0.1, device=CPU)
     cfg = dist.DistributedConfig(engine=engine.EngineConfig(**change))
-    with pytest.raises(NotImplementedError, match="not ported to it yet"):
-        dist.make_distributed_step(net, table, cfg, device=CPU)
     st = dist.init_stacked_state(net, list(spec.groups), device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported to it yet"):
-        dist.run(st, net, table, cfg, 1, device=CPU)
+    if "external_drive_mode" in change:
+        msg = "reference's distributed step has no diffusion drive"
+        with pytest.raises(NotImplementedError, match=msg):
+            dist.make_distributed_step(net, table, cfg, device=CPU)
+        with pytest.raises(NotImplementedError, match=msg):
+            dist.run(st, net, table, cfg, 1, device=CPU)
+        return
+    _, _, out = _dist_surrogate_runs("flat", exchange=dist.HostExchange)
+    (f0, s0), (f1, s1) = out[None], out[SURROGATE]
+    assert s0.sum() > 100
+    assert torch.equal(s0, s1)
+    assert torch.equal(f0.v_m, f1.v_m) and torch.equal(f0.weights,
+                                                       f1.weights)
+    fin, spikes = dist.run(st, net, table, cfg, 5, device=CPU)
+    assert spikes.dtype == torch.bool
+    assert fin.prev_bits.dtype == torch.float32

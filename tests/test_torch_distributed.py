@@ -692,6 +692,18 @@ def test_entry_points_default_to_the_card():
     cfg = dist.DistributedConfig(engine=engine.EngineConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist.run(st, net, table, cfg, 1)
+    # the raw step and the dry run's probe (the dry run's cells ask for
+    # "meta" themselves)
+    from repro_torch.launch import dryrun_snn
+    from repro_torch.launch.mesh import make_test_mesh
+    flat = dist.DistributedConfig(engine=engine.EngineConfig(sweep="flat"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist.make_raw_distributed_step(
+            make_test_mesh((2, 1)), list(spec.groups), flat,
+            max_delay=net.max_delay, n_local=net.n_local,
+            n_mirror=net.n_mirror)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_snn.measure_firing_rates(steps=1)
 
 
 def test_multihost_entry_points_default_to_the_card(tmp_path):
