@@ -106,6 +106,31 @@ The LM face's serving path (dense GQA, kernel K8), after the zoo:
                a second wave gives the same tokens.  Prints prefill and
                decode times, peak memory and two profiled windows.
 
+The LM face's other families (MoE, MLA, Mamba, RWKV-6, the encoder-decoder),
+after ``lm_serve``, each at its published width, built, checked and freed
+before the next:
+
+14b. lm_families - ``deepseek-v3-671b`` cut to 4 of 61 layers (the 3 dense
+                   MLA layers and one MoE layer: 256 experts, top 8, one
+                   shared, capacity factor 1.25) served through
+                   ``BatchServer`` as ``lm_serve`` serves qwen2.5-3b, a
+                   second wave identical and the wave's MoE drop fraction;
+                   ``qwen3-moe-30b-a3b`` (12 of 48 layers),
+                   ``jamba-v0.1-52b`` (8 of 32: one period), ``rwkv6-3b``
+                   (all 32) and ``whisper-tiny`` (4 + 4, 1500 frames drawn
+                   from the seed) through ``Model.prefill`` and
+                   ``Model.decode``.  For each: K8's launches per prefill,
+                   all on ``"wgmma"`` (MLA at dh 192, dv 128, 128 KV
+                   heads), and per decode step (Whisper's cross-attention
+                   only); the prefill's last logits against K8's twin
+                   swapped in; a decode chain against the teacher-forced
+                   forward (the MoE archs on a dropless copy of the config,
+                   its drop fraction 0); prefill and decode tokens/s, peak
+                   memory, init seconds and profiled windows by kernel
+                   class; then the fp32-output GEMMs (``matmul_f32``,
+                   ``bmm_f32``) at qwen3's and DeepSeek-V3's expert shapes
+                   against an fp64 product.
+
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
 
@@ -288,7 +313,9 @@ it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -327,7 +354,10 @@ from repro_torch.kernels import synaptic_gather as gather_mod  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
+from repro_torch.models import encdec as lm_encdec  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm_tr  # noqa: E402
+from repro_torch.models.layers import bmm_f32, matmul_f32  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchServer  # noqa: E402
 from repro_torch.launch import multihost as mh_launch  # noqa: E402
@@ -565,8 +595,12 @@ MEAN_BAND = {"izhikevich": 0.10, "adex": 0.10, "lif+poisson": 0.15}
 #: cases of tests/test_flash_attention.py (the SIMT route), then bf16 cases
 #: of the tensor-core route: qwen2.5-3b's heads at a ragged length (masks
 #: in the tail tile), internvl2-1b's LLM heads (14 over 2, dh 64), cross
-#: attention with S != T, dh 64 against dv 32, no grouping, and a long
-#: causal prefill whose 64 key tiles pass many times through the ring
+#: attention with S != T, dh 64 against dv 32, no grouping, a long
+#: causal prefill whose 64 key tiles pass many times through the ring,
+#: and the shapes phase 14b gives it: DeepSeek-V3's MLA prefill (128 heads
+#: over 128, dh 192 against dv 128), Whisper's encoder (S = T = 1500,
+#: ragged against 64-key tiles) and its cross-attention at decode (one
+#: query row against 1500 frames)
 FLASH_CASES = {
     "qwen2.5-3b_prefill": (4, 512, 512, 16, 2, 128, 128, True,
                            torch.bfloat16),
@@ -582,6 +616,11 @@ FLASH_CASES = {
     "dv_lt_dh_bf16": (1, 257, 257, 2, 1, 64, 32, True, torch.bfloat16),
     "mha_bf16": (1, 200, 200, 8, 8, 128, 128, True, torch.bfloat16),
     "long_causal": (1, 4096, 4096, 16, 2, 128, 128, True, torch.bfloat16),
+    "deepseek-v3_mla_prefill": (4, 512, 512, 128, 128, 192, 128, True,
+                                torch.bfloat16),
+    "whisper_encoder": (4, 1500, 1500, 6, 6, 64, 64, False, torch.bfloat16),
+    "whisper_cross_decode": (4, 1, 1500, 6, 6, 64, 64, False,
+                             torch.bfloat16),
 }
 #: the route each dtype's cases must take (``flash_attention._route``)
 FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "simt"}
@@ -599,6 +638,38 @@ LM_CHAIN = 4
 LM_LOGIT_ATOL = 0.1
 #: the K8/twin swap with the model in fp32: fp32 sums in another order
 LM_LOGIT_ATOL_F32 = 1e-3
+#: the lm_families cell (phase 14b): each arch at its published width,
+#: the depth run (None: all of it; a cut only where 80 GB forces one),
+#: K8's launches per prefill and per decode step at that depth, and
+#: whether the decode chain is held against forward in fp32 (its bf16
+#: chain measured, not held: rounding moves these two random-weight
+#: networks' bf16 logits past LM_LOGIT_ATOL at the decode steps, jamba's
+#: to 0.101, rwkv6-3b's to 0.99, while their fp32 chains agree)
+LM_FAMILIES = {
+    "deepseek-v3-671b": dict(layers=4, k8_prefill=4, k8_decode=0),
+    "qwen3-moe-30b-a3b": dict(layers=12, k8_prefill=12, k8_decode=0),
+    "jamba-v0.1-52b": dict(layers=8, k8_prefill=1, k8_decode=0,
+                           chain_fp32=True),
+    "rwkv6-3b": dict(layers=None, k8_prefill=0, k8_decode=0,
+                     chain_fp32=True),
+    "whisper-tiny": dict(layers=None, k8_prefill=12, k8_decode=4),
+}
+#: the arch served through ``BatchServer`` (twice, the second wave
+#: identical); the others run ``Model.prefill`` and ``Model.decode``
+LM_FAMILY_SERVED = "deepseek-v3-671b"
+#: the reference's ``_dropless``: capacity factor 16 for the decode chain
+#: against forward, whose tokens compete differently
+LM_DROPLESS_CF = 16.0
+#: the chain against forward may differ by this many times the distance
+#: of forward from itself run row by row (another rounding of the same
+#: function), where that is above the tolerance: rwkv6-3b's random
+#: weights part its bf16 forward from itself so by 0.62-1.24 on an H100
+LM_CHAIN_FLOOR_FACTOR = 2.0
+#: fp32-output GEMMs against fp64: (M, K, N) per expert and experts, at
+#: qwen3-moe's and DeepSeek-V3's expert shapes (M = the served wave's
+#: capacity: 160 and 80 rows)
+GEMM_F32_CASES = {"qwen3-moe-30b-a3b": (160, 2048, 768, 8),
+                  "deepseek-v3-671b": (80, 7168, 2048, 8)}
 
 
 def emit(record: dict) -> None:
@@ -3731,13 +3802,16 @@ def phase_flash_kernels() -> dict:
     return out
 
 
-def _lm_profile(fn, n_steps: int = 1) -> dict:
+def _lm_profile(fn, n_steps: int = 1, cpu: bool = True) -> dict:
     """Device time of ``fn`` by kernel class (K8, GEMMs, the rest), kernel
-    launches per step and the device's idle share over the window."""
+    launches per step and the device's idle share over the window.  With
+    ``cpu`` off the host's ops are not traced (the numbers read only the
+    device's events): a window of 100 000 launches then costs seconds to
+    reduce, not minutes."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3766,6 +3840,16 @@ def _lm_profile(fn, n_steps: int = 1) -> dict:
             "launches_per_step": launches / n_steps,
             "top_kernels_ms": {k.replace("(anonymous namespace)::", "")[:70]:
                                v for k, v in top}}
+
+
+@contextlib.contextmanager
+def _k8_twin():
+    """The model's attention through K8's plain twin while in use."""
+    lm_attn.flash_attention = fa_mod.flash_attention_plain
+    try:
+        yield
+    finally:
+        lm_attn.flash_attention = fa_mod.flash_attention
 
 
 def _clear_margin(ref, tol: float):
@@ -3829,13 +3913,10 @@ def phase_lm_serve() -> int:
           f"lm_serve: prefill took K8's routes {prefill_routes}")
     last = logits[:, -1]
     check(bool(torch.isfinite(last).all()), "lm_serve: prefill logits")
-    lm_attn.flash_attention = fa_mod.flash_attention_plain
-    try:
+    with _k8_twin():
         plain_last = m.prefill(params, {"tokens": tokens}, m.init_cache(
             LM_SLOTS, LM_MAX_LEN, dtype=torch.bfloat16,
             device=DEV))[0][:, -1]
-    finally:
-        lm_attn.flash_attention = fa_mod.flash_attention
     swap_err = max_abs(last, plain_last)
     check(swap_err <= LM_LOGIT_ATOL, f"lm_serve: prefill logits with K8 "
           f"differ from the plain twin's by {swap_err}")
@@ -3877,12 +3958,9 @@ def phase_lm_serve() -> int:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     m32 = build_model(cfg32)
     params32 = m32.init(SEED, device=DEV)
-    lm_attn.flash_attention = fa_mod.flash_attention_plain
-    try:
+    with _k8_twin():
         want32 = m32.prefill(params32, {"tokens": tokens}, m32.init_cache(
             LM_SLOTS, LM_MAX_LEN, dtype=torch.float32, device=DEV))[0]
-    finally:
-        lm_attn.flash_attention = fa_mod.flash_attention
     got32 = m32.prefill(params32, {"tokens": tokens}, m32.init_cache(
         LM_SLOTS, LM_MAX_LEN, dtype=torch.float32, device=DEV))[0]
     swap_err32 = max_abs(got32, want32)
@@ -3930,6 +4008,380 @@ def phase_lm_serve() -> int:
     return launches["flash_attention"]
 
 
+# --------------------------------------------------------------------------
+# phase 14b: the LM face's other families
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _moe_drops():
+    """Yields a list that gathers the drop fraction of every ``moe_apply``
+    call made while in use (the calls' results pass through)."""
+    drops, inner = [], lm_moe.moe_apply
+
+    def recording(*args, **kwargs):
+        y, aux = inner(*args, **kwargs)
+        drops.append(aux["drop_frac"])
+        return y, aux
+    lm_moe.moe_apply = recording
+    try:
+        yield drops
+    finally:
+        lm_moe.moe_apply = inner
+
+
+@contextlib.contextmanager
+def _moe_routes(replay=None):
+    """Yields ``{"idx": [...], "moved": n}``: each MoE dispatch block's
+    top-k experts, in call order.  With ``replay`` (such a list) every
+    block takes the experts recorded for it instead of its own, gated by
+    its own probabilities there, and ``moved`` counts the rows whose own
+    top-k would have differed.  With the routes pinned, a comparison of
+    two runs measures what differs between them and not the top-k's
+    jumps: a hidden state one bf16 ulp away can pick another expert."""
+    out, inner = {"idx": [], "moved": 0}, lm_moe._route
+    pinned = iter(replay) if replay is not None else None
+
+    def route(p, e, xt):
+        probs, gate, idx = inner(p, e, xt)
+        if pinned is not None:
+            own, idx = idx, next(pinned)
+            out["moved"] += int((own.sort(-1).values
+                                 != idx.sort(-1).values).any(-1).sum())
+            gate = probs.gather(-1, idx)
+            gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+        out["idx"].append(idx)
+        return probs, gate, idx
+    lm_moe._route = route
+    try:
+        yield out
+    finally:
+        lm_moe._route = inner
+
+
+def _reset_k8_routes() -> dict:
+    by_route = fa_mod.flash_attention.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
+    return by_route
+
+
+def _family_batch(cfg, rng):
+    """The lm_serve mix as one left-aligned padded batch (and the
+    requests), with ``encoder_seq`` seeded frames for the audio stub."""
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in LM_PROMPT_LENS]
+    toks = np.zeros((LM_SLOTS, max(LM_PROMPT_LENS)), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r)] = r
+    batch = {"tokens": torch.from_numpy(toks).to(DEV)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (LM_SLOTS, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)).to(DEV)
+    return reqs, batch
+
+
+def _serve_wave(arch, m, params, reqs, k8_prefill: int) -> dict:
+    """Two ``BatchServer`` waves of the mix: K8 in the prefill only, the
+    second wave's tokens identical; the wave's MoE drop fractions."""
+    srv = BatchServer(m, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      eos_id=-1, device=DEV)
+    srv.serve(reqs, max_new_tokens=2)          # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    with _moe_drops() as drops:
+        outs, stats = srv.serve(reqs, max_new_tokens=LM_NEW_TOKENS)
+    launches = read_launches()
+    check_launches(f"lm_families {arch} wave", launches,
+                   {"flash_attention": k8_prefill})
+    check(all(len(o) == LM_NEW_TOKENS for o in outs)
+          and stats.tokens_out == LM_SLOTS * LM_NEW_TOKENS,
+          f"lm_families {arch}: {stats.tokens_out} tokens out")
+    again, _ = srv.serve(reqs, max_new_tokens=LM_NEW_TOKENS)
+    check(again == outs, f"lm_families {arch}: a second wave gave other "
+          "tokens")
+    n_moe = sum(k[1] == "moe" for k in lm_tr.layer_kinds(m.cfg))
+    return {"launches": launches, "served": {
+        "prefill_ms": stats.prefill_s * 1e3,
+        "decode_tok_per_s": stats.decode_tok_per_s,
+        "prefill_drop_frac_per_moe_layer": [float(d) for d in drops[:n_moe]],
+        "decode_drop_frac_max": max(float(d) for d in drops[n_moe:]),
+        "second_wave_identical": True,
+        "first_tokens": [o[:8] for o in outs]}}
+
+
+def _chain_vs_forward(cfg, params, batch, atol: float = LM_LOGIT_ATOL,
+                      gate: bool = True) -> dict:
+    """A LM_CHAIN-step decode chain against the teacher-forced forward
+    over every row's prompt + fed tokens, the whole batch at once (so the
+    prompt positions take the prefill's own kernels, and the two part only
+    at the decode steps), on a dropless copy of the config (a capacity
+    factor of at least E / k, so that capacity covers every token, and at
+    least the reference's 16); the forward takes the chain's MoE routes.
+    At each position the chain must stay within ``atol`` of forward, or
+    within LM_CHAIN_FLOOR_FACTOR times the distance between forward and
+    the same forward run row by row, where that is larger: a network
+    whose logits move by more than the tolerance under another rounding
+    of its own forward cannot be held closer than that.  With ``gate``
+    off the distances are measured and returned, not checked (the drop
+    fraction is checked either way)."""
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=max(
+                LM_DROPLESS_CF, cfg.moe.n_experts / cfg.moe.top_k)))
+    m = build_model(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    pos = torch.full((b,), s, dtype=torch.int64, device=DEV)
+    with _moe_drops() as drops, _moe_routes() as chain_routes:
+        logits, cache = m.prefill(params, batch, m.init_cache(
+            b, LM_MAX_LEN, dtype=getattr(torch, cfg.dtype), device=DEV))
+        tok, fed, dec = logits[:, -1].argmax(-1), [], [logits[:, -1]]
+        for i in range(LM_CHAIN):
+            fed.append(tok)
+            lg, cache = m.decode(params, cache, tok, pos + i)
+            dec.append(lg)
+            tok = lg.argmax(-1)
+    # each row's routes: its prefill rows, then its row of each step
+    idx = chain_routes["idx"]
+    n_moe = len(idx) // (1 + LM_CHAIN)
+    replay = [torch.cat([idx[j].reshape(b, s, -1)] + [
+        idx[n_moe * (1 + i) + j][:, None] for i in range(LM_CHAIN)],
+        dim=1).reshape(b * (s + LM_CHAIN), -1) for j in range(n_moe)]
+    seq = torch.cat([tokens, torch.stack(fed, 1)], 1)
+
+    def forward(rows, routes):
+        """The teacher-forced logits at the chain's positions."""
+        with _moe_routes(routes) as pinned:
+            if cfg.family == "audio":
+                out = lm_encdec.forward(params, cfg, seq[rows],
+                                        batch["frames"][rows])[0][:, s - 1:]
+            else:
+                hid = lm_tr.hidden_states(params, cfg, seq[rows])[:, s - 1:]
+                out = lm_tr._unembed(params, cfg, hid)
+        return out, pinned["moved"]
+
+    def row_routes(r):
+        n = s + LM_CHAIN
+        return [x[r * n:(r + 1) * n] for x in replay]
+
+    with _moe_drops() as fwd_drops:
+        fwd, moved = forward(slice(None), replay)
+        # the same forward row by row: other GEMM shapes, so another
+        # rounding of the same function; their distance is this
+        # network's noise floor at these positions
+        alone = torch.cat([forward(slice(r, r + 1), row_routes(r))[0]
+                           for r in range(b)])
+    chain = torch.stack(dec, 1)                  # (B, LM_CHAIN + 1, vocab)
+    dist = lambda a, c: (a.double() - c.double()).abs().amax((0, 2))
+    by_pos, floor = dist(chain, fwd), dist(alone, fwd)
+    limit = torch.clamp_min(LM_CHAIN_FLOOR_FACTOR * floor, atol)
+    clear = _clear_margin(fwd, float(limit.max()))
+    if gate:
+        check(bool((by_pos <= limit).all()), f"lm_families {cfg.name} "
+              f"{cfg.dtype}: decode chain differs from forward by "
+              f"{by_pos.tolist()}, limits {limit.tolist()}")
+        check(torch.equal(chain.argmax(-1)[clear], fwd.argmax(-1)[clear]),
+              f"lm_families {cfg.name} {cfg.dtype}: decode chain and "
+              "forward pick other tokens")
+    drop = max((float(d) for d in drops + fwd_drops), default=None)
+    check(drop in (None, 0.0), f"lm_families {cfg.name}: the dropless "
+          f"copy dropped {drop}")
+    return {"dtype": cfg.dtype, "gated": gate,
+            "chain_vs_forward_logits_max_abs_err": float(by_pos.max()),
+            "chain_vs_forward_err_by_position": by_pos.tolist(),
+            "forward_by_row_vs_batch_err_by_position": floor.tolist(),
+            "chain_limit_by_position": limit.tolist(),
+            "chain_vs_forward_positions_argmax_checked": int(clear.sum()),
+            "chain_forward_route_rows_moved": moved if n_moe else None,
+            "dropless_capacity_factor": (cfg.moe.capacity_factor
+                                         if cfg.moe else None),
+            "dropless_drop_frac": drop}
+
+
+def lm_family(arch: str) -> dict:
+    """One family of phase 14b; returns its kernel launches (the served
+    wave's, else the counted prefill's and decode's)."""
+    t_family = time.perf_counter()
+    spec = LM_FAMILIES[arch]
+    pub = lm_configs.get(arch)
+    cfg = (pub if spec["layers"] is None
+           else dataclasses.replace(pub, n_layers=spec["layers"]))
+    check(cfg.dtype == "bfloat16" and cfg.moe == pub.moe,
+          f"lm_families: {arch} is not at its published width")
+    m = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = m.init(SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 13)
+    reqs, batch = _family_batch(cfg, rng)
+    rec = {}
+    if arch == LM_FAMILY_SERVED:
+        rec = _serve_wave(arch, m, params, reqs, spec["k8_prefill"])
+
+    # the wave by hand: the prefill counted alone, then the decode steps
+    new_cache = lambda: m.init_cache(LM_SLOTS, LM_MAX_LEN,   # noqa: E731
+                                     dtype=torch.bfloat16, device=DEV)
+    cache = new_cache()
+    m.prefill(params, batch, cache)            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    by_route = _reset_k8_routes()
+    t0 = time.perf_counter()
+    logits, cache = m.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches, prefill_routes = read_launches(), dict(by_route)
+    k8 = spec["k8_prefill"]
+    check_launches(f"lm_families {arch} prefill", prefill_launches,
+                   {"flash_attention": k8})
+    check(prefill_routes == {"wgmma": k8, "simt": 0},
+          f"lm_families {arch}: prefill took K8's routes {prefill_routes}")
+    last = logits[:, -1]
+    check(bool(torch.isfinite(last).all()), f"lm_families {arch}: logits")
+    pos = torch.full((LM_SLOTS,), batch["tokens"].shape[1],
+                     dtype=torch.int64, device=DEV)
+    reset_launches()
+    _reset_k8_routes()
+    tok = last.argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(LM_NEW_TOKENS):
+        lg, cache = m.decode(params, cache, tok, pos + i)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(lg).all()), f"lm_families {arch}: decode")
+    decode_launches, decode_routes = read_launches(), dict(by_route)
+    k8_dec = spec["k8_decode"] * LM_NEW_TOKENS
+    check_launches(f"lm_families {arch} decode", decode_launches,
+                   {"flash_attention": k8_dec})
+    check(decode_routes == {"wgmma": k8_dec, "simt": 0},
+          f"lm_families {arch}: decode took K8's routes {decode_routes}")
+
+    if k8:           # K8 against its twin, in the same model
+        with _moe_routes() as k8_routes:
+            again = m.prefill(params, batch, new_cache())[0][:, -1]
+        check(torch.equal(again, last),
+              f"lm_families {arch}: the prefill is not deterministic")
+        with _k8_twin(), _moe_routes(k8_routes["idx"]) as pinned:
+            plain_last = m.prefill(params, batch, new_cache())[0][:, -1]
+        swap_err = max_abs(last, plain_last)
+        check(swap_err <= LM_LOGIT_ATOL, f"lm_families {arch}: prefill "
+              f"logits with K8 differ from the twin's by {swap_err}")
+        clear = _clear_margin(plain_last, LM_LOGIT_ATOL)
+        check(torch.equal(last.argmax(-1)[clear],
+                          plain_last.argmax(-1)[clear]),
+              f"lm_families {arch}: K8 and its twin pick other tokens")
+        rec.update(k8_vs_twin_logits_max_abs_err=swap_err,
+                   k8_vs_twin_rows_argmax_checked=int(clear.sum()))
+        if k8_routes["idx"]:   # the same swap with the twin's own routes
+            with _k8_twin():
+                free = m.prefill(params, batch, new_cache())[0][:, -1]
+            rec.update(k8_vs_twin_route_rows_moved=pinned["moved"],
+                       k8_vs_twin_unpinned_logits_max_abs_err=max_abs(
+                           last, free))
+    rec["chain"] = _chain_vs_forward(cfg, params, batch,
+                                     gate=not spec.get("chain_fp32"))
+
+    def decode_steps(n=4):
+        t, c, p = last.argmax(-1), cache, pos + LM_NEW_TOKENS
+        for i in range(n):
+            lg, c = m.decode(params, c, t, p + i)
+            t = lg.argmax(-1)
+            t.cpu()
+    prof_prefill = _lm_profile(lambda: m.prefill(params, batch, cache),
+                               cpu=False)
+    prof_decode = _lm_profile(decode_steps, n_steps=4, cpu=False)
+    n_pad = LM_SLOTS * batch["tokens"].shape[1]
+    launches = rec.pop("launches", None) or {
+        k: prefill_launches[k] + decode_launches[k] for k in prefill_launches}
+    rec.update(params=sum(p.numel() for p in params.parameters()),
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in params.parameters()),
+               logit_abs_max=float(last.abs().max()))
+    del m, params, cache, logits, last, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("chain_fp32"):
+        # the decode path held where rounding is 2^16 finer: the same
+        # arch and prompts in fp32, weights drawn anew from the seed
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params = build_model(cfg32).init(SEED, device=DEV)
+        rec["chain_fp32"] = _chain_vs_forward(cfg32, params, batch,
+                                              atol=LM_LOGIT_ATOL_F32)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_families", "arch": arch, "layers": cfg.n_layers,
+          "published_layers": pub.n_layers,
+          "depth_cut": (None if cfg.n_layers == pub.n_layers else
+                        f"{cfg.n_layers} of {pub.n_layers} layers: the "
+                        "published depth does not fit 80 GB"),
+          "layer_kinds": sorted({"+".join(k) for k in
+                                 lm_tr.layer_kinds(cfg)}) if
+          cfg.family != "audio" else ["encoder", "decoder"],
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
+          "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+          "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
+          "encoder_seq": cfg.encoder_seq or None, "init_s": init_s, "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+          "prompt_lens": list(LM_PROMPT_LENS), "new_tokens": LM_NEW_TOKENS,
+          "prefill_k8_launches": prefill_launches["flash_attention"],
+          "prefill_k8_routes": prefill_routes,
+          "decode_k8_launches_per_step":
+              decode_launches["flash_attention"] / LM_NEW_TOKENS,
+          "decode_k8_routes": decode_routes,
+          "prefill_ms": prefill_s * 1e3,
+          "prefill_tok_per_s_padded": n_pad / prefill_s,
+          "prefill_tok_per_s_real": sum(LM_PROMPT_LENS) / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3 / LM_NEW_TOKENS,
+          "decode_tok_per_s": LM_SLOTS * LM_NEW_TOKENS / decode_s,
+          "peak_device_mem_bytes": peak, "logit_tolerance": LM_LOGIT_ATOL,
+          "launches": {k: v for k, v in launches.items() if v}, **rec,
+          "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+          "family_s": time.perf_counter() - t_family})
+    return launches
+
+
+def gemm_f32_check() -> None:
+    """``bmm_f32`` and ``matmul_f32`` (cuBLAS with an fp32 output) at the
+    expert shapes against an fp64 product: an fp32 reduction over K
+    stays within K * 2^-24 of the scale sum |a| |b| (a split-K sum
+    reduced in bf16 would reach 2^-9 of it)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    rows = {}
+    for arch, (m_, k_, n_, e) in GEMM_F32_CASES.items():
+        a = torch.randn((e, m_, k_), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        b = (torch.randn((e, k_, n_), generator=gen, device=DEV)
+             / np.sqrt(k_)).to(torch.bfloat16)
+        want = torch.bmm(a.double(), b.double())
+        scale = float(torch.bmm(a.double().abs(), b.double().abs()).max())
+        got = {"bmm_f32": bmm_f32(a, b), "matmul_f32": matmul_f32(a[0], b[0])}
+        rel = {}
+        for name, y in got.items():
+            check(y.dtype == torch.float32, f"{name} returned {y.dtype}")
+            rel[name] = max_abs(y, want if y.dim() == 3 else want[0]) / scale
+        limit = k_ * 2.0 ** -24
+        check(all(r <= limit for r in rel.values()),
+              f"gemm_f32 {arch}: errors {rel} above the fp32 bound {limit}")
+        rows[arch] = {"m": m_, "k": k_, "n": n_, "experts": e,
+                      "max_abs_err_over_scale": rel, "fp32_bound": limit,
+                      "scale": scale}
+    emit({"phase": "gemm_f32", "reference": "torch.bmm in float64",
+          "cases": rows})
+
+
+def phase_lm_families() -> dict:
+    """Phase 14b; returns each family's kernel launches."""
+    out = {arch: lm_family(arch) for arch in LM_FAMILIES}
+    gemm_f32_check()
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -3969,6 +4421,7 @@ def main() -> None:
     runs.update(zoo_runs)
     kern.update(phase_flash_kernels())
     runs["lm_serve"] = {"flash_attention": phase_lm_serve()}
+    lm_fam_launches = phase_lm_families()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/"
@@ -3990,6 +4443,8 @@ def main() -> None:
                              for part, got in shapes_launches.items()},
          "launches_dryrun": {part: got.get(name, 0)
                              for part, got in dryrun_launches.items()},
+         "launches_lm_families": {arch: got.get(name, 0) for arch, got
+                                  in lm_fam_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

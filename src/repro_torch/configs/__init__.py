@@ -2,9 +2,7 @@
 
 ``get(name)`` -> full ModelConfig; ``get_smoke(name)`` -> reduced same-family
 config for CPU tests.  A copy of the reference's registry
-(``src/repro/configs``); every name resolves, but the port serves only the
-archs whose layers are all dense attention (``models.transformer.
-check_supported``).
+(``src/repro/configs``); the port builds and serves every arch.
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ tests use these functions so that both packages start from the same state.
 * :func:`dist_state_from_numpy` and :func:`dist_state_to_numpy` - the
   distributed engine's state from and to the reference ``DistState``'s
   leaves (:func:`dist_state_leaves`), weights flat on the numpy side;
-* :func:`lm_params_from_numpy` - the LM face: a port ``DecoderLM``
-  ``state_dict`` from the reference's parameter tree;
+* :func:`lm_params_from_numpy` and :func:`encdec_params_from_numpy` - the
+  LM face: a port ``DecoderLM`` / ``EncDecLM`` ``state_dict`` from the
+  reference's parameter tree;
 * :func:`classifier_params_from_numpy` and :func:`opt_state_from_numpy` -
   the differentiable slice: the SNN classifier's params and an optimizer
   state of :mod:`repro_torch.train.optimizer`, as nested dicts of tensors.
@@ -42,7 +43,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedGraph
 
 __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
-           "state_leaves", "lm_params_from_numpy", "STATE_LEAVES",
+           "state_leaves", "lm_params_from_numpy", "encdec_params_from_numpy",
+           "STATE_LEAVES",
            "stacked_net_from_numpy", "dist_state_from_numpy",
            "dist_state_to_numpy", "dist_state_leaves", "DIST_STATE_LEAVES",
            "classifier_params_from_numpy", "opt_state_from_numpy"]
@@ -281,10 +283,20 @@ def dist_state_to_numpy(state: dist_mod.DistState,
     return out
 
 
-#: leaves of an LM parameter tree kept in fp32 (the reference adds biases
-#: and applies norm scales in fp32); every other leaf is a matrix or the
-#: embedding, stored in the config's compute dtype
-_LM_FP32_LEAVES = ("b", "scale", "bias")
+#: leaves of an LM parameter tree kept in fp32, by the end of their dotted
+#: name: those the reference keeps in fp32 whatever the dtype, or widens
+#: to fp32 before every use - biases (added in fp32 before the one
+#: rounding), norm scales and biases, the MoE router (fp32 logits), RWKV's
+#: decay base, bonus and GroupNorm, Mamba's dt bias, ``a_log`` and skip.
+#: Every other leaf is a matrix, a mix or the embedding, stored in the
+#: config's compute dtype (the cast every reference use applies first)
+_LM_FP32_LEAVES = ("b", "scale", "bias", "router.w", "decay_base",
+                   "bonus_u", "gn_scale", "gn_bias", "dt_bias_init", "a_log",
+                   "d_skip")
+
+
+def _lm_fp32(name: str) -> bool:
+    return any(name == s or name.endswith("." + s) for s in _LM_FP32_LEAVES)
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -300,38 +312,64 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
     return out
 
 
+def _unstack(tree, prefix: str, index, out: dict) -> dict:
+    """The leaves of a tree stacked ``(n, ...)`` as ``{prefix}{index(i)}.
+    <name>`` for each ``i``."""
+    for name, arr in _flatten(tree, "", {}).items():
+        for i in range(arr.shape[0]):
+            out[f"{prefix}{index(i)}.{name}"] = arr[i]
+    return out
+
+
+def _lm_tensors(flat: dict, cfg, dev, fp32=()) -> dict:
+    dtype = getattr(torch, cfg.dtype)
+    return {name: torch.tensor(      # a copy: the tree may be read-only
+        arr, device=dev,
+        dtype=(torch.float32 if _lm_fp32(name) or name in fp32 else dtype))
+        for name, arr in flat.items()}
+
+
 def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
     """A port ``DecoderLM`` ``state_dict`` from the reference's parameter
     tree (``repro.models.transformer.init_params``) with numpy leaves.
 
-    The reference stacks each period slot's leaves ``(n_periods, ...)``;
-    layer ``p * len(period) + j`` of the port is slot ``j`` at index ``p``.
-    Matrices and the embedding are stored in ``cfg.dtype`` (the cast every
-    reference use applies first), biases and norm scales in fp32 (the
-    reference adds the bias in fp32 before its one rounding).  Load the
-    result with ``DecoderLM(cfg, device=...).load_state_dict(...)``."""
+    The port's layers are the prefix stack's (``params["prefix"][i]`` is
+    layer ``i``), then the periods': the reference stacks each period
+    slot's leaves ``(n_periods, ...)``, and slot ``j`` at index ``p`` is
+    layer ``n_prefix + p * len(period) + j``.  A leaf whose dotted name
+    ends in one of ``_LM_FP32_LEAVES`` is stored in fp32, every other one
+    in ``cfg.dtype``.  Load the result with ``DecoderLM(cfg,
+    device=...).load_state_dict(...)``."""
     from repro_torch.models import transformer   # the LM face only
     dev = resolve_device(device)
-    transformer.check_supported(cfg)
-    if "prefix" in params:
-        raise NotImplementedError("a dense prefix stack belongs to the MoE "
-                                  "archs, which are not ported yet")
-    _, period, n_periods = transformer.period_structure(cfg)
+    prefix, period, n_periods = transformer.period_structure(cfg)
     flat = {}
     for key in ("embed", "final_norm", "unembed"):
         if key in params:
             _flatten(params[key], key + ".", flat)
+    for i in range(len(prefix)):
+        _flatten(params["prefix"][i], f"layers.{i}.", flat)
     for j in range(len(period)):
-        slot = _flatten(params["period"][j], "", {})
-        for p in range(n_periods):
-            i = p * len(period) + j
-            for name, arr in slot.items():
-                flat[f"layers.{i}.{name}"] = arr[p]
-    dtype = getattr(torch, cfg.dtype)
-    return {name: torch.tensor(      # a copy: the tree may be read-only
-        arr, device=dev,
-        dtype=(torch.float32 if name.rsplit(".", 1)[-1] in _LM_FP32_LEAVES
-               else dtype)) for name, arr in flat.items()}
+        _unstack(params["period"][j], "layers.",
+                 lambda p, j=j: len(prefix) + p * len(period) + j, flat)
+    return _lm_tensors(flat, cfg, dev)
+
+
+def encdec_params_from_numpy(params, cfg, *, device="cuda") -> dict:
+    """A port ``EncDecLM`` ``state_dict`` from the reference's
+    ``repro.models.encdec.init_params`` tree with numpy leaves: its
+    stacked ``encoder`` / ``decoder`` leaves ``(L, ...)`` as
+    ``encoder.{i}`` / ``decoder.{i}``, the rule of
+    :func:`lm_params_from_numpy` for dtypes, and the token and position
+    tables in fp32 (the reference adds them in fp32 before it rounds)."""
+    dev = resolve_device(device)
+    flat = {}
+    for key in ("embed", "pos_dec", "enc_norm", "final_norm"):
+        _flatten(params[key], key + ".", flat)
+    for key in ("encoder", "decoder"):
+        _unstack(params[key], f"{key}.", lambda i: i, flat)
+    return _lm_tensors(flat, cfg, dev,
+                       fp32=("embed.table", "pos_dec.table"))
 
 
 def _tree_to_torch(tree, dev):

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Norm", "Linear", "MLP", "rms_norm", "layer_norm", "norm_apply",
-           "linear", "matmul_f32", "mlp_apply", "rope_freqs", "apply_rope",
+           "linear", "matmul_f32", "bmm_f32", "mlp_apply", "rope_freqs", "apply_rope",
            "init_norm", "init_linear", "mlp_init", "embed_init"]
 
 _HALF = (torch.bfloat16, torch.float16)
@@ -114,6 +114,15 @@ def matmul_f32(a, b):
         y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
         return y.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
+
+
+def bmm_f32(a, b):
+    """The batched ``a @ b`` (``(E, M, K) @ (E, K, N)``) in fp32,
+    unrounded, for operands already in the compute dtype: as
+    :func:`matmul_f32`, one product per leading index."""
+    if a.is_cuda and a.dtype in _HALF:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def linear(p: Linear, x, compute_dtype=torch.bfloat16):

@@ -1,4 +1,4 @@
-"""Port LM face (dense GQA serving) vs the reference, on the CPU.
+"""Port LM face (serving, every family) vs the reference, on the CPU.
 
 * K8 (``flash_attention``): the plain twin against the reference's Pallas
   kernel in interpret mode, on ``tests/test_flash_attention.py``'s cases;
@@ -6,14 +6,16 @@
   rounding), MLPs, RoPE;
 * ``gqa_prefill`` / ``gqa_decode``, outputs and the cache rows they write;
 * ``Model.prefill`` / ``decode``, a 3-step decode chain and ``forward``
-  for the smoke configs of the five dense archs, a narrow variant with
+  for the smoke configs of all ten archs (the MoE ones dropless, as the
+  reference's own consistency tests run them), a narrow variant with
   qwen2.5-3b's full head layout and a bf16 variant;
 * the port's ``BatchServer`` against the reference's on
   ``tests/test_serve.py``'s requests: identical tokens.
 
 Both packages start from the same parameters: the reference's tree, its
 biases and norm scales perturbed away from 0 and 1 so that they matter,
-carried across by ``convert.lm_params_from_numpy``.  Inputs are drawn
+carried across by ``convert.lm_params_from_numpy`` (or
+``encdec_params_from_numpy``).  Inputs are drawn
 with numpy.  Tolerances: fp32 cases differ only by summation order
 (XLA's and torch's matmuls), so 1e-5 on values of order 1; bf16 cases
 round intermediate values to 8 bits, so an operand that lands on the
@@ -33,19 +35,24 @@ import torch
 from repro import configs as ref_configs
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.models import attention as ref_attn
+from repro.models import encdec as ref_encdec
 from repro.models import layers as ref_layers
 from repro.models import transformer as ref_tr
 from repro.models.model import build_model as ref_build_model
 from repro.serve.engine import BatchServer as RefBatchServer
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, encdec, layers, transformer
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import BatchServer
+
+from test_torch_moe import load_module
 
 CPU = "cpu"
 DENSE_ARCHS = ("qwen2.5-3b", "internlm2-1.8b", "phi3-medium-14b",
                "command-r-plus-104b", "internvl2-1b")
+OTHER_ARCHS = ("deepseek-v3-671b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b",
+               "rwkv6-3b", "whisper-tiny")
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -301,8 +308,20 @@ def _narrow_full_heads(cfg):
                                dtype="float32")
 
 
+def _dropless(cfg):
+    """The reference's ``tests/test_models_smoke.py::_dropless``: MoE
+    capacity drops depend on which tokens compete (a batch in prefill, one
+    token per row in decode), so the consistency checks compare the
+    drop-free function."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+
+
 def _cfgs(arch, variant):
     ref, port = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    ref, port = _dropless(ref), _dropless(port)
     if variant == "full_heads":
         return _narrow_full_heads(ref), _narrow_full_heads(port)
     if variant == "bf16":
@@ -374,6 +393,85 @@ def test_gqa_train_matches_reference_bidirectional():
 
 
 # --------------------------------------------------------------------------
+# MLA
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["smoke", "bf16"])
+def test_mla_prefill_decode_match_reference(variant):
+    """``mla_train``, ``mla_prefill`` (output and the compressed cache
+    rows, over stale rows) and, in fp32, three absorbed decode steps at
+    per-row positions, against the reference."""
+    rcfg, cfg = _cfgs("deepseek-v3-671b", variant)
+    cdt, jdt = getattr(torch, cfg.dtype), jnp.dtype(cfg.dtype)
+    p = _perturb(ref_attn.mla_init(jax.random.key(7), rcfg), 7)
+    mod = load_module(attention.MLA(cfg, dtype=cdt, device=CPU), p)
+    tol = _tol(cfg.dtype) if variant == "smoke" else LOGIT_TOL["bf16"]
+    rng = np.random.default_rng(7)
+    b, s, t = 2, 12, 20
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s), (b, s))
+    jx = jnp.asarray(x).astype(jdt)
+    r_train = jax.jit(ref_attn.mla_train, static_argnums=(1, 4))(
+        p, rcfg, jx, jnp.asarray(pos), jdt)
+    t_train = attention.mla_train(mod, cfg, _t(x, cdt),
+                                  torch.from_numpy(pos.copy()), cdt)
+    np.testing.assert_allclose(_np(t_train), _np(r_train), **tol)
+    rc = ref_attn.init_mla_cache(rcfg, b, t, jdt)
+    r_out, rc = jax.jit(ref_attn.mla_prefill, static_argnums=(1, 5))(
+        p, rcfg, jx, jnp.asarray(pos), rc, jdt)
+    tc = attention.init_mla_cache(cfg, b, t, cdt, device=CPU)
+    for v in tc.values():
+        v.normal_()                      # stale rows: masked, never read
+    t_out, tc = attention.mla_prefill(mod, cfg, _t(x, cdt), torch.from_numpy(
+        pos.copy()), tc, cdt)
+    np.testing.assert_allclose(_np(t_out), _np(r_out), **tol)
+    for name in ("c_kv", "k_rope"):
+        np.testing.assert_allclose(_np(tc[name][:, :s]),
+                                   _np(rc[name][:, :s]), **tol)
+    if variant == "bf16":
+        # the reference's bf16 absorbed decode does not run on XLA's CPU
+        # backend (a batched bf16 x bf16 -> f32 dot it does not take)
+        return
+    r_decode = jax.jit(ref_attn.mla_decode, static_argnums=(1, 5))
+    dpos = np.array([s, s - 3])
+    for step in range(3):
+        x1 = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+        r_out, rc = r_decode(p, rcfg, jnp.asarray(x1).astype(jdt),
+                             jnp.asarray(dpos + step), rc, jdt)
+        t_out, tc = attention.mla_decode(mod, cfg, _t(x1, cdt),
+                                         torch.from_numpy(dpos + step), tc,
+                                         cdt)
+        np.testing.assert_allclose(_np(t_out), _np(r_out), **tol)
+        for row in range(b):
+            hi = dpos[row] + step + 1
+            for name in ("c_kv", "k_rope"):
+                np.testing.assert_allclose(_np(tc[name][row, :hi]),
+                                           _np(rc[name][row, :hi]), **tol)
+
+
+def test_mla_absorbed_decode_matches_train():
+    """The reference's ``tests/test_attention.py`` identity on the port:
+    the compressed-space decode equals the expanded attention's last
+    row."""
+    _, cfg = _cfgs("deepseek-v3-671b", "smoke")
+    p = _perturb(ref_attn.mla_init(jax.random.key(0), cfg), 0)
+    mod = load_module(attention.MLA(cfg, dtype=torch.float32, device=CPU), p)
+    b, s = 2, 10
+    x = _t(np.random.default_rng(1).standard_normal((b, s, cfg.d_model))
+           * 0.1)
+    pos = torch.arange(s).expand(b, s)
+    full = attention.mla_train(mod, cfg, x, pos, torch.float32)
+    cache = attention.init_mla_cache(cfg, b, 16, torch.float32, device=CPU)
+    _, cache = attention.mla_prefill(mod, cfg, x[:, :-1], pos[:, :-1], cache,
+                                     torch.float32)
+    step, _ = attention.mla_decode(mod, cfg, x[:, -1:],
+                                   torch.full((b,), s - 1), cache,
+                                   torch.float32)
+    torch.testing.assert_close(step[:, 0], full[:, -1], rtol=1e-5,
+                               atol=1e-5)
+
+
+# --------------------------------------------------------------------------
 # whole models
 # --------------------------------------------------------------------------
 
@@ -385,9 +483,19 @@ def _models(arch, variant):
     rm = ref_build_model(rcfg)
     rp = _perturb(rm.init(jax.random.key(11)), 11)
     m = build_model(cfg)
-    tp = transformer.DecoderLM(cfg, device=CPU)
-    tp.load_state_dict(convert.lm_params_from_numpy(rp, cfg, device=CPU))
-    return rcfg, rm, rp, cfg, m, tp
+    return rcfg, rm, rp, cfg, m, _port_params(rp, cfg)
+
+
+def _port_params(rp, cfg):
+    """The reference tree ``rp`` loaded into the port's module."""
+    if cfg.family == "audio":
+        tp = encdec.EncDecLM(cfg, device=CPU)
+        tp.load_state_dict(convert.encdec_params_from_numpy(rp, cfg,
+                                                            device=CPU))
+    else:
+        tp = transformer.DecoderLM(cfg, device=CPU)
+        tp.load_state_dict(convert.lm_params_from_numpy(rp, cfg, device=CPU))
+    return tp
 
 
 def _batch(cfg, tokens, rng):
@@ -396,13 +504,46 @@ def _batch(cfg, tokens, rng):
         batch["patches"] = (rng.standard_normal(
             (tokens.shape[0], cfg.n_prefix_embeds, cfg.d_model)) * 0.02
         ).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (tokens.shape[0], cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
     return batch
+
+
+#: cache entries indexed by position (compared up to the rows written);
+#: every other entry is a recurrent state, compared whole
+_POSITIONAL = ("k", "v", "c_kv", "k_rope")
+
+
+def _cache_pairs(cfg, tc, rc, i):
+    """(name, port entry, reference entry) of layer ``i``'s caches."""
+    if cfg.family == "audio":
+        return [(f"{part}.{name}", tc[part][i][name], rc[part][name][i])
+                for part in ("self", "cross_kv") for name in ("k", "v")]
+    prefix, period, _ = transformer.period_structure(cfg)
+    if i < len(prefix):
+        ref = rc["prefix"][i]
+    else:
+        p, j = divmod(i - len(prefix), len(period))
+        ref = jax.tree.map(lambda x: x[p], rc["period"][j])
+    return [(name, tc["layers"][i][name], ref[name])
+            for name in tc["layers"][i]]
+
+
+def _forward(cfg, tp, batch):
+    """The port's teacher-forced logits for a numpy batch."""
+    pt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if cfg.family == "audio":
+        return encdec.forward(tp, cfg, pt["tokens"], pt["frames"])
+    return transformer.forward(tp, cfg, pt["tokens"],
+                               prefix_embeds=pt.get("patches"))
 
 
 #: logits are of order 1; bf16 runs round every activation
 LOGIT_TOL = {"smoke": FP32_TOL, "full_heads": FP32_TOL,
              "bf16": dict(rtol=0, atol=3e-2)}
-MODEL_CASES = [(a, "smoke") for a in DENSE_ARCHS] + [
+MODEL_CASES = [(a, "smoke") for a in DENSE_ARCHS + OTHER_ARCHS] + [
     ("qwen2.5-3b", "full_heads"), ("qwen2.5-3b", "bf16")]
 
 
@@ -453,22 +594,24 @@ def test_prefill_decode_chain_match_reference(arch, variant):
         _assert_logits(t_logits, r_logits, variant)
         tok = np.asarray(jnp.argmax(r_logits, -1)).astype(np.int32)
         seq.append(tok)
-    # the cache rows written by prefill and the chain, first and last layer
+    # the caches written by prefill and the chain, first and last layer
     n = s + n_pre + 3
     kv_tol = FP32_TOL if variant != "bf16" else dict(rtol=2e-2, atol=2e-2)
     for i in (0, cfg.n_layers - 1):
-        for name in ("k", "v"):
-            np.testing.assert_allclose(
-                _np(tc["layers"][i][name][:, :n]),
-                _np(rc["period"][0][name][i][:, :n]), **kv_tol)
+        for name, got, want in _cache_pairs(cfg, tc, rc, i):
+            tol = dict(kv_tol)
+            if name.rsplit(".", 1)[-1] in _POSITIONAL:
+                got, want = got[:, :n], want[:, :n]
+            else:
+                # a recurrent state sums a term per step: its rounding
+                # scales with the largest entry, not with each entry
+                tol["atol"] *= max(1.0, float(np.abs(_np(want)).max()))
+            np.testing.assert_allclose(_np(got), _np(want), **tol,
+                                       err_msg=f"layer {i} {name}")
 
     # the chain equals the port's own forward over prompt ++ tokens
     full = np.concatenate([toks] + [x[:, None] for x in seq[:-1]], axis=1)
-    fwd_batch = dict(batch, tokens=full)
-    logits, _ = transformer.forward(
-        tp, cfg, torch.from_numpy(full),
-        prefix_embeds=(torch.from_numpy(fwd_batch["patches"])
-                       if "patches" in fwd_batch else None))
+    logits, _ = _forward(cfg, tp, dict(batch, tokens=full))
     got = logits[:, n_pre + s - 1:].argmax(-1).numpy()
     if variant != "bf16":   # bf16: the reference's own check is fp32-only
         np.testing.assert_array_equal(got, np.stack(seq, axis=1))
@@ -480,15 +623,21 @@ def test_forward_matches_reference(arch, variant):
     rng = np.random.default_rng(13)
     toks = rng.integers(1, cfg.vocab_size, (2, 10))
     batch = _batch(cfg, toks, rng)
-    pe = batch.get("patches")
-    ref, _ = jax.jit(functools.partial(ref_tr.forward, cfg=rcfg,
-                                       remat=False))(
-        rp, tokens=jnp.asarray(toks),
-        prefix_embeds=None if pe is None else jnp.asarray(pe))
-    got, aux = transformer.forward(
-        tp, cfg, torch.from_numpy(toks),
-        prefix_embeds=None if pe is None else torch.from_numpy(pe))
-    assert got.shape == ref.shape and float(aux["load_balance_loss"]) == 0
+    if cfg.family == "audio":
+        ref, r_aux = jax.jit(functools.partial(ref_encdec.forward, cfg=rcfg))(
+            rp, tokens=jnp.asarray(toks), frames=jnp.asarray(batch["frames"]))
+    else:
+        pe = batch.get("patches")
+        ref, r_aux = jax.jit(functools.partial(ref_tr.forward, cfg=rcfg,
+                                               remat=False))(
+            rp, tokens=jnp.asarray(toks),
+            prefix_embeds=None if pe is None else jnp.asarray(pe))
+    got, aux = _forward(cfg, tp, batch)
+    assert got.shape == ref.shape
+    # the summed MoE load-balance loss (0 without MoE layers)
+    np.testing.assert_allclose(float(aux["load_balance_loss"]),
+                               float(r_aux["load_balance_loss"]),
+                               **FP32_TOL)
     _assert_logits(got, ref, variant)
 
 
@@ -561,18 +710,50 @@ def test_server_stops_at_eos(servers):
 
 
 # --------------------------------------------------------------------------
-# what the port does not serve, and where it runs
+# every arch builds, and where it runs
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-3b",
-                                  "whisper-tiny", "deepseek-v3-671b",
-                                  "jamba-v0.1-52b"])
-def test_unsupported_archs_raise(arch):
-    cfg = configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError):
-        transformer.DecoderLM(cfg, device=CPU)
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_every_arch_builds(arch):
+    """``Model.init`` draws every smoke config on the CPU, each parameter
+    in the dtype the converter gives it; the published config builds its
+    full module on ``meta`` (no memory)."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="bfloat16")
+    params = build_model(cfg).init(0, device=CPU)
+    sd = params.state_dict()
+    assert all(bool(torch.isfinite(v.float()).all()) for v in sd.values())
+    fp32_tables = (("embed.table", "pos_dec.table")
+                   if cfg.family == "audio" else ())
+    for name, v in sd.items():
+        fp32 = convert._lm_fp32(name) or name in fp32_tables
+        assert v.dtype == (torch.float32 if fp32 else torch.bfloat16), name
+    full = configs.get(arch)
+    module = (encdec.EncDecLM if full.family == "audio"
+              else transformer.DecoderLM)(full, device="meta")
+    assert sum(p.numel() for p in module.parameters()) > 0
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS[:4])
+def test_converted_fp32_leaves(arch):
+    """The converter's state dict loads into the module at a bf16 config,
+    and the leaves the reference keeps in fp32 or widens before use stay
+    fp32 (MoE's router, RWKV's decay base, bonus and GroupNorm, Mamba's
+    dt bias, ``a_log`` and skip)."""
+    rcfg, cfg = (dataclasses.replace(c, dtype="bfloat16") for c in
+                 (ref_configs.get_smoke(arch), configs.get_smoke(arch)))
+    rp = jax.tree.map(np.asarray,
+                      ref_build_model(rcfg).init(jax.random.key(0)))
+    sd = convert.lm_params_from_numpy(rp, cfg, device=CPU)
+    mod = transformer.DecoderLM(cfg, device=CPU)
+    want = mod.state_dict()
+    assert sorted(sd) == sorted(want)
+    for k, v in sd.items():
+        assert v.dtype == want[k].dtype and v.shape == want[k].shape, k
+    mod.load_state_dict(sd)
+    fp32 = {"router.w", "decay_base", "bonus_u", "gn_scale", "gn_bias",
+            "dt_bias_init", "a_log", "d_skip"}
+    special = [k for k in sd if any(k.endswith(f) for f in fp32)]
+    assert special and all(sd[k].dtype == torch.float32 for k in special)
 
 
 def test_every_arch_config_matches_reference():
@@ -587,14 +768,16 @@ def test_every_arch_config_matches_reference():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card every LM entry point raises instead of running on the
-    CPU: a silent fallback would report CPU numbers as the card's."""
+    CPU: a silent fallback would report CPU numbers as the card's.  A
+    dense arch, an MoE one and the encoder-decoder."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = configs.get_smoke("qwen2.5-3b")
-    m = build_model(cfg)
-    with pytest.raises(RuntimeError):
-        m.init(0)
-    with pytest.raises(RuntimeError):
-        m.init_cache(1, 8)
-    tp = m.init(0, device=CPU)
-    with pytest.raises(RuntimeError):
-        BatchServer(m, tp, slots=1, max_len=8)
+    for arch in ("qwen2.5-3b", "qwen3-moe-30b-a3b", "whisper-tiny"):
+        cfg = configs.get_smoke(arch)
+        m = build_model(cfg)
+        with pytest.raises(RuntimeError):
+            m.init(0)
+        with pytest.raises(RuntimeError):
+            m.init_cache(1, 8)
+        tp = m.init(0, device=CPU)
+        with pytest.raises(RuntimeError):
+            BatchServer(m, tp, slots=1, max_len=8)
