@@ -131,6 +131,33 @@ before the next:
                    ``bmm_f32``) at qwen3's and DeepSeek-V3's expert shapes
                    against an fp64 product.
 
+LM training (``Model.loss``, ``train.loop``, ``launch/train.py``), after
+``lm_families``; attention takes its train route there (the reference's
+``_sdpa`` in torch ops), so no train step launches K8:
+
+14c. lm_train - (a) ``matmul_f32`` / ``bmm_f32`` differentiated with bf16
+                operands at the unembedding's shape (4096 x 2048 x
+                151 936, the tied table's transposed view) and at
+                qwen3-moe's expert shape: the product and both gradients
+                against fp64 within the fp32 sum's bound (and the
+                gradients' one bf16 rounding); (b) qwen2.5-3b's smoke
+                config in fp32 and in bf16 on fp32 parameters: one step's
+                loss and gradients on the card against the port on the CPU
+                from the same parameters (tolerances printed), K8 0 times
+                in the step, then a ``BatchServer`` wave of the same model
+                launching K8 once per layer; (c) every arch's smoke config,
+                fp32 and bf16: one AdamW step, loss finite, gradient norm
+                nonzero; (d) the cell: ``launch/train.py --full`` for
+                qwen2.5-3b at full width and depth (36 layers, remat
+                "dots"), B 4, S 1024, fp32 parameters, AdamW, 10 steps:
+                the loss falls, s/step, tokens/s, peak memory, and one
+                more step profiled by kernel class; (e) qwen3-moe-30b-a3b
+                at full width cut to 4 of 48 layers, 5 steps: s/step, peak
+                memory, the MoE drop fraction; (f) the launcher in two
+                processes, deterministic mode: 10 steps uninterrupted and 5
+                + ``--resume`` + 5 of qwen3-moe's smoke config, the
+                step-10 checkpoints bitwise equal.
+
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
 
@@ -372,6 +399,10 @@ from repro_torch.diff import classify as diff_classify  # noqa: E402
 from repro_torch.diff import inverse as diff_inverse  # noqa: E402
 from repro_torch.diff import rollout as diff_rollout  # noqa: E402
 from repro_torch.launch import dryrun_snn  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -4382,6 +4413,373 @@ def phase_lm_families() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14c: LM training
+# --------------------------------------------------------------------------
+
+#: the fp32-output GEMMs' gradients against fp64: (M, K, N, experts) at
+#: the lm_train cell's unembedding (B * S = 4096 rows, d 2048, the tied
+#: vocab of 151 936, the table's transposed view) and at qwen3-moe's
+#: expert GEMM (the served wave's capacity of 160 rows per expert)
+TRAIN_GEMM_CASES = {"unembed": (4096, 2048, 151_936, None),
+                    "qwen3-moe-30b-a3b_experts": (160, 2048, 768, 8)}
+#: one step on the card against the port on the CPU from the same fp32
+#: parameters: in fp32 the two differ by summation order (each leaf's
+#: max |diff| within this share of its max |grad|); in bf16 every
+#: activation rounds to 8 bits (the gradients' global relative L2)
+TRAIN_CPU_TOL = {"float32": dict(loss_rtol=1e-5, leaf_rel=1e-4),
+                 "bfloat16": dict(loss_rtol=1e-2, grad_rel_l2=5e-2)}
+TRAIN_SMOKE_SEQ, TRAIN_SMOKE_BATCH = 64, 4
+#: the lm_train cell: qwen2.5-3b at full width and depth through the
+#: launcher, fp32 parameters and AdamW
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
+#: qwen3-moe-30b-a3b at full width, cut to 4 of its 48 layers (80 GB
+#: holds fp32 parameters, gradients and AdamW's two moments of about
+#: 3.1 B parameters, not of 30.5 B)
+TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = "qwen3-moe-30b-a3b", 4, 5
+#: the resume check: a smoke config whose backward sums by atomics on
+#: CUDA unless deterministic (the embedding's gather and the MoE token
+#: gather), run in deterministic mode
+TRAIN_RESUME_ARCH = "qwen3-moe-30b-a3b"
+TRAIN_RESUME_DIR = os.path.join(ROOT, "build", "lm_train_resume")
+TRAIN_RESUME_CODE = """
+import os, sys
+sys.path.insert(0, os.path.join(sys.argv[1], "src"))
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.launch import train
+base = sys.argv[3:]
+if sys.argv[2] == "uninterrupted":
+    train.main(base + ["--steps", "10"])
+else:
+    train.main(base + ["--steps", "5"])
+    train.main(base + ["--steps", "10", "--resume"])
+"""
+
+
+def _gemm_grads(name, m_, k_, n_, e, gen) -> dict:
+    """One case of :func:`train_gemm_check`."""
+    bf = torch.bfloat16
+    if e is None:       # the tied unembedding: x @ table.t()
+        a = torch.randn((m_, k_), generator=gen, device=DEV).to(bf)
+        b = (torch.randn((n_, k_), generator=gen, device=DEV) * 0.02).to(bf)
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        y = matmul_f32(a, b.t())
+        mm = torch.mm
+    else:
+        a = torch.randn((e, m_, k_), generator=gen, device=DEV).to(bf)
+        b = (torch.randn((e, k_, n_), generator=gen, device=DEV)
+             / np.sqrt(k_)).to(bf)
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        y = bmm_f32(a, b)
+        mm = torch.bmm
+    g = torch.randn(y.shape, generator=gen, device=DEV)
+    ga, gb = torch.autograd.grad(y, (a, b), g)
+    check(y.dtype == torch.float32 and ga.dtype == bf and gb.dtype == bf,
+          f"lm_train gemm {name}: dtypes {y.dtype} {ga.dtype} {gb.dtype}")
+    tr = lambda x: x.transpose(-1, -2)                  # noqa: E731
+    a64, g64 = a.detach().double(), g.double()
+    b64 = b.detach().double()
+    if e is None:
+        b64 = b64.t()                                   # (K, N)
+        gb = gb.t()
+    del g
+    rows = {}
+    # (got, fp64 product, its scale sum |x| |y|, reduction length, and
+    # whether the result was rounded to bf16 after the fp32 sum)
+    for what, got, x, w, red, rounded in (
+            ("y", y.detach(), a64, b64, k_, False),
+            ("grad_a", ga, g64, tr(b64), n_, True),
+            ("grad_b", gb, tr(a64), g64, m_, True)):
+        want = mm(x, w)
+        scale = float(mm(x.abs(), w.abs()).max())
+        err = (got.double() - want).abs()
+        # the fp32 sum's bound, and for a gradient its one rounding to
+        # bf16: half an ulp of the fp32 value, at most 2^-8 of it
+        bound = red * 2.0 ** -24 * scale
+        limit = (bound * (1 + 2.0 ** -8) + 2.0 ** -8 * want.abs()
+                 if rounded else bound)
+        ratio = float((err / limit).max())
+        rows[what] = {"max_abs_err": float(err.max()), "scale": scale,
+                      "fp32_bound": bound,
+                      "bf16_rounding": rounded,
+                      "max_err_over_limit": ratio}
+        check(ratio <= 1.0, f"lm_train gemm {name} {what}: error "
+              f"{float(err.max())} beyond its limit (ratio {ratio})")
+        del want, err, limit
+    return {"m": m_, "k": k_, "n": n_, "experts": e, **rows}
+
+
+def train_gemm_check() -> dict:
+    """(a) ``matmul_f32`` / ``bmm_f32`` differentiated on the card (bf16
+    operands, the fp32-output GEMM through ``F32Product``): the product
+    and both gradients against fp64."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = {name: _gemm_grads(name, *case, gen)
+           for name, case in TRAIN_GEMM_CASES.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _smoke_batch(cfg, step: int = 0) -> dict:
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_SEQ,
+                         global_batch=TRAIN_SMOKE_BATCH, seed=SEED)
+    return launch_train.make_batch(cfg, pipe, step, DEV)
+
+
+def train_vs_cpu(dtype: str) -> dict:
+    """(b) qwen2.5-3b's smoke config computing in ``dtype``: one step's
+    loss and gradients on the card against the port on the CPU from the
+    same fp32 parameters (K8 never launched in the step), then a
+    ``BatchServer`` wave of the same model (K8 once per layer in the
+    prefill)."""
+    cfg = dataclasses.replace(lm_configs.get_smoke(TRAIN_ARCH), dtype=dtype)
+    m = build_model(cfg)
+    host = m.init(SEED, device="cpu", dtype=torch.float32)
+    params = m.init(SEED, device=DEV, dtype=torch.float32)
+    params.load_state_dict(host.state_dict())
+    batch = _smoke_batch(cfg)
+    reset_launches()
+    loss, met, grads = train_loop._value_and_grad(m, params, batch)
+    torch.cuda.synchronize()
+    check_launches(f"lm_train {dtype} step", read_launches(), {})
+    c_loss, c_met, c_grads = train_loop._value_and_grad(
+        m, host, {k: v.cpu() for k, v in batch.items()})
+    tol = TRAIN_CPU_TOL[dtype]
+    loss_rel = abs(float(loss) - float(c_loss)) / abs(float(c_loss))
+    check(loss_rel <= tol["loss_rtol"], f"lm_train {dtype}: loss "
+          f"{float(loss)} on the card, {float(c_loss)} on the CPU")
+    leaf_rel = max(float((grads[k].cpu() - g).abs().max())
+                   / float(g.abs().max()) for k, g in c_grads.items())
+    num = sum(float(torch.sum((grads[k].cpu() - g) ** 2))
+              for k, g in c_grads.items())
+    den = sum(float(torch.sum(g ** 2)) for g in c_grads.values())
+    rel_l2 = float(np.sqrt(num / den))
+    if "leaf_rel" in tol:
+        check(leaf_rel <= tol["leaf_rel"], f"lm_train {dtype}: a gradient "
+              f"leaf differs from the CPU's by {leaf_rel} of its max")
+    else:
+        check(rel_l2 <= tol["grad_rel_l2"], f"lm_train {dtype}: gradients "
+              f"differ from the CPU's by a relative L2 of {rel_l2}")
+    srv = BatchServer(m, params, slots=2, max_len=32, eos_id=-1, device=DEV)
+    by_route = _reset_k8_routes()
+    reset_launches()
+    outs, _ = srv.serve([[5, 6, 7], [8, 9]], max_new_tokens=4)
+    serve_launches = read_launches()
+    check_launches(f"lm_train {dtype} serve", serve_launches,
+                   {"flash_attention": cfg.n_layers})
+    return {"dtype": dtype, "loss_card": float(loss),
+            "loss_cpu": float(c_loss), "loss_rel_err": loss_rel,
+            "ce_card": float(met["ce"]),
+            "grad_leaf_max_err_over_max": leaf_rel,
+            "grad_rel_l2_err": rel_l2, "tolerance": tol,
+            "step_k8_launches": 0,
+            "serve_k8_launches": serve_launches["flash_attention"],
+            "serve_k8_routes": dict(by_route),
+            "served_tokens": outs}
+
+
+def train_every_arch() -> dict:
+    """(c) one AdamW step of every arch's smoke config on the card, in
+    its fp32 and in bf16: a finite loss, a nonzero gradient norm, no K8;
+    the step's peak memory (the recurrences save a state a time step)."""
+    out = {}
+    for arch in lm_configs.ARCH_NAMES:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(lm_configs.get_smoke(arch),
+                                      dtype=dtype)
+            m = build_model(cfg)
+            tcfg = TrainConfig(lr=1e-3)
+            params = m.init(SEED, device=DEV, dtype=torch.float32)
+            opt = train_opt.init_opt_state(tcfg, train_loop.param_tree(
+                params))
+            step = train_loop.make_train_step(m, tcfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            params, opt, met = step(params, opt, _smoke_batch(cfg), 0)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            check_launches(f"lm_train {arch} {dtype}", read_launches(), {})
+            check(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0,
+                  f"lm_train {arch} {dtype}: loss {loss}, grad norm {gnorm}")
+            out[f"{arch} {dtype}"] = {
+                "loss": loss, "grad_norm": gnorm,
+                "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def train_cell() -> dict:
+    """(d) the lm_train cell: ``launch/train.py --full`` for qwen2.5-3b at
+    full width and depth, B 4, S 1024, 10 AdamW steps on fp32 parameters;
+    the loss must fall.  Then one step profiled."""
+    cfg = lm_configs.get(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype)
+          == (36, 2048, 151_936, "bfloat16"),
+          f"lm_train: {TRAIN_ARCH} is not the published config")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", TRAIN_ARCH, "--full", "--steps",
+                             str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                             "--batch", str(TRAIN_BATCH), "--device",
+                             str(DEV)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("lm_train cell", read_launches(), {})
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"lm_train: the loss went from {losses[0]} to {losses[-1]}")
+    steady = statistics.median(out["step_s"][1:])
+    params, opt = out.pop("params"), out.pop("opt_state")
+    n_params = sum(p.numel() for p in params.parameters())
+    # one more step (the launcher's step 10) profiled, by kernel class
+    step = train_loop.make_train_step(build_model(cfg), TrainConfig(lr=1e-3))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    batch = launch_train.make_batch(cfg, pipe, TRAIN_STEPS, DEV)
+    prof = _lm_profile(lambda: step(params, opt, batch, TRAIN_STEPS),
+                       cpu=False)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "remat": cfg.remat, "compute_dtype": cfg.dtype,
+            "param_dtype": "float32", "optimizer": "adamw", "lr": 1e-3,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses,
+            "grad_norms": out["grad_norms"], "step_s": out["step_s"],
+            "s_per_step_median_after_first": steady,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+            "wall_s": wall, "peak_device_mem_bytes": peak,
+            "profile_step": prof}
+
+
+def train_moe_cell() -> dict:
+    """(e) qwen3-moe-30b-a3b at full width cut to TRAIN_MOE_LAYERS layers:
+    TRAIN_MOE_STEPS AdamW steps on fp32 parameters, B 4, S 1024."""
+    pub = lm_configs.get(TRAIN_MOE_ARCH)
+    cfg = dataclasses.replace(pub, n_layers=TRAIN_MOE_LAYERS)
+    m = build_model(cfg)
+    tcfg = TrainConfig(lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = m.init(SEED, device=DEV, dtype=torch.float32)
+    opt = train_opt.init_opt_state(tcfg, train_loop.param_tree(params))
+    step = train_loop.make_train_step(m, tcfg)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    losses, step_s = [], []
+    reset_launches()
+    with _moe_drops() as drops:
+        for i in range(TRAIN_MOE_STEPS):
+            batch = launch_train.make_batch(cfg, pipe, i, DEV)
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch, i)
+            losses.append(float(met["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    check_launches("lm_train moe", read_launches(), {})
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"lm_train moe: losses {losses}")
+    # each step's forward dispatches once a layer (a backward's
+    # recomputation stops inside the dispatch, once its last saved tensor
+    # is back, and records nothing)
+    drop = [float(d) for d in drops]
+    check(len(drop) == TRAIN_MOE_STEPS * cfg.n_layers,
+          f"lm_train moe: {len(drop)} dispatches recorded")
+    by_step = np.asarray(drop).reshape(TRAIN_MOE_STEPS, -1).mean(1)
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = statistics.median(step_s[1:])
+    return {"arch": TRAIN_MOE_ARCH, "layers": cfg.n_layers,
+            "published_layers": pub.n_layers,
+            "depth_cut": f"{cfg.n_layers} of {pub.n_layers} layers: fp32 "
+                         "parameters, gradients and AdamW moments of the "
+                         "published depth do not fit 80 GB",
+            "moe": dataclasses.asdict(cfg.moe), "remat": cfg.remat,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "losses": losses, "step_s": step_s,
+            "s_per_step_median_after_first": steady,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+            "peak_device_mem_bytes": peak,
+            "drop_frac_mean": float(np.mean(drop)),
+            "drop_frac_by_step": by_step.tolist()}
+
+
+def _ckpt_arrays(directory: str, step: int) -> dict:
+    """The arrays of checkpoint ``step`` by leaf key."""
+    d = os.path.join(directory, f"step_{step:09d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return {rec["key"]: np.load(os.path.join(d, rec["file"]))
+            for rec in leaves}
+
+
+def train_resume() -> dict:
+    """(f) ``launch.train.main`` in two processes on the card, in
+    deterministic mode: 10 steps uninterrupted, and 5 steps, a resume and
+    5 more; the step-10 checkpoints (parameters and AdamW state) equal
+    bitwise."""
+    shutil.rmtree(TRAIN_RESUME_DIR, ignore_errors=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs, dirs = {}, {}
+    t0 = time.perf_counter()
+    for leg in ("uninterrupted", "resumed"):
+        dirs[leg] = os.path.join(TRAIN_RESUME_DIR, leg)
+        argv = ["--arch", TRAIN_RESUME_ARCH, "--seq", str(TRAIN_SMOKE_SEQ),
+                "--batch", str(TRAIN_SMOKE_BATCH), "--save-every", "5",
+                "--ckpt", dirs[leg], "--device", str(DEV)]
+        procs[leg] = subprocess.Popen(
+            [sys.executable, "-c", TRAIN_RESUME_CODE, ROOT, leg, *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    for leg, p in procs.items():
+        logs[leg] = p.communicate(timeout=600)[0]
+        check(p.returncode == 0, f"lm_train resume {leg}: exit "
+              f"{p.returncode}\n{logs[leg][-3000:]}")
+    check("resumed @ 5" in logs["resumed"], "lm_train resume: the second "
+          "run did not resume from step 5")
+    a, b = (_ckpt_arrays(dirs[leg], 10) for leg in ("uninterrupted",
+                                                       "resumed"))
+    check(a.keys() == b.keys(), "lm_train resume: other checkpoint leaves")
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    check(not differ, f"lm_train resume: {len(differ)} leaves differ, "
+          f"e.g. {differ[:3]}")
+    return {"arch": TRAIN_RESUME_ARCH, "leaves": len(a),
+            "bitwise_equal": True, "deterministic_algorithms": True,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_lm_train() -> dict:
+    """Phase 14c; returns K8's launches in each part (0 in every train
+    step, one per layer in the serving waves)."""
+    t_phase = time.perf_counter()
+    gc.collect()                # the cell needs 62 of the card's 80 GB
+    torch.cuda.empty_cache()
+    rec = {"gemm_grads": train_gemm_check()}
+    vs_cpu = {d: train_vs_cpu(d) for d in ("float32", "bfloat16")}
+    rec["step_vs_cpu"] = vs_cpu
+    rec["every_arch"] = train_every_arch()
+    rec["cell"] = train_cell()
+    rec["moe_cell"] = train_moe_cell()
+    rec["resume"] = train_resume()
+    emit({"phase": "lm_train", **rec,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"train_steps": 0,
+            **{f"serve {d}": r["serve_k8_launches"]
+               for d, r in vs_cpu.items()}}
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -4422,6 +4820,7 @@ def main() -> None:
     kern.update(phase_flash_kernels())
     runs["lm_serve"] = {"flash_attention": phase_lm_serve()}
     lm_fam_launches = phase_lm_families()
+    lm_train_launches = phase_lm_train()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/"
@@ -4445,6 +4844,9 @@ def main() -> None:
                              for part, got in dryrun_launches.items()},
          "launches_lm_families": {arch: got.get(name, 0) for arch, got
                                   in lm_fam_launches.items()},
+         "launches_lm_train": {
+             part: got if name == "flash_attention" else 0
+             for part, got in lm_train_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

@@ -321,15 +321,15 @@ def _unstack(tree, prefix: str, index, out: dict) -> dict:
     return out
 
 
-def _lm_tensors(flat: dict, cfg, dev, fp32=()) -> dict:
-    dtype = getattr(torch, cfg.dtype)
+def _lm_tensors(flat: dict, cfg, dev, fp32=(), dtype=None) -> dict:
+    dtype = dtype or getattr(torch, cfg.dtype)
     return {name: torch.tensor(      # a copy: the tree may be read-only
         arr, device=dev,
         dtype=(torch.float32 if _lm_fp32(name) or name in fp32 else dtype))
         for name, arr in flat.items()}
 
 
-def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
+def lm_params_from_numpy(params, cfg, *, device="cuda", dtype=None) -> dict:
     """A port ``DecoderLM`` ``state_dict`` from the reference's parameter
     tree (``repro.models.transformer.init_params``) with numpy leaves.
 
@@ -338,8 +338,11 @@ def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
     slot's leaves ``(n_periods, ...)``, and slot ``j`` at index ``p`` is
     layer ``n_prefix + p * len(period) + j``.  A leaf whose dotted name
     ends in one of ``_LM_FP32_LEAVES`` is stored in fp32, every other one
-    in ``cfg.dtype``.  Load the result with ``DecoderLM(cfg,
-    device=...).load_state_dict(...)``."""
+    in ``dtype`` (default ``cfg.dtype``; ``torch.float32`` keeps every
+    leaf fp32, as training stores them).  Load the result with
+    ``DecoderLM(cfg, device=..., dtype=...).load_state_dict(...)``.  The
+    same renaming carries a tree shaped like the parameters, such as the
+    reference's gradients, onto the port's names."""
     from repro_torch.models import transformer   # the LM face only
     dev = resolve_device(device)
     prefix, period, n_periods = transformer.period_structure(cfg)
@@ -352,16 +355,18 @@ def lm_params_from_numpy(params, cfg, *, device="cuda") -> dict:
     for j in range(len(period)):
         _unstack(params["period"][j], "layers.",
                  lambda p, j=j: len(prefix) + p * len(period) + j, flat)
-    return _lm_tensors(flat, cfg, dev)
+    return _lm_tensors(flat, cfg, dev, dtype=dtype)
 
 
-def encdec_params_from_numpy(params, cfg, *, device="cuda") -> dict:
+def encdec_params_from_numpy(params, cfg, *, device="cuda",
+                             dtype=None) -> dict:
     """A port ``EncDecLM`` ``state_dict`` from the reference's
     ``repro.models.encdec.init_params`` tree with numpy leaves: its
     stacked ``encoder`` / ``decoder`` leaves ``(L, ...)`` as
     ``encoder.{i}`` / ``decoder.{i}``, the rule of
     :func:`lm_params_from_numpy` for dtypes, and the token and position
-    tables in fp32 (the reference adds them in fp32 before it rounds)."""
+    tables in fp32 (the reference adds them in fp32 before it rounds);
+    ``dtype`` as there."""
     dev = resolve_device(device)
     flat = {}
     for key in ("embed", "pos_dec", "enc_norm", "final_norm"):
@@ -369,7 +374,7 @@ def encdec_params_from_numpy(params, cfg, *, device="cuda") -> dict:
     for key in ("encoder", "decoder"):
         _unstack(params[key], f"{key}.", lambda i: i, flat)
     return _lm_tensors(flat, cfg, dev,
-                       fp32=("embed.table", "pos_dec.table"))
+                       fp32=("embed.table", "pos_dec.table"), dtype=dtype)
 
 
 def _tree_to_torch(tree, dev):

@@ -191,5 +191,5 @@ def require_no_grad(what: str, *tensors) -> None:
             raise RuntimeError(
                 f"{what}: an input requires grad, but this CUDA kernel has "
                 "no backward and would cut the gradient; run gradients on "
-                "the plain backend (EngineConfig(sweep=\"flat\")), or call "
-                "under torch.no_grad()")
+                "the plain backend (EngineConfig(sweep=\"flat\")) or the "
+                "LM's train route, or call under torch.no_grad()")

@@ -184,7 +184,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512):
     """q: (B, S, H, dh); k / v: (B, T, Hk, dh | dv), one dtype (fp32 or
     bf16 on the card), each with a contiguous last dim -> (B, S, H * dv)
-    in q's dtype."""
+    in q's dtype.  The kernel has no backward: an input that requires
+    grad raises on both routes (the LM's train route,
+    ``models.attention._sdpa``, never calls it with one)."""
+    _build.require_no_grad("flash_attention", q, k, v)
     if _build.dispatch_device(q) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)

@@ -4,8 +4,9 @@ DeepSeek's multi-head latent attention (MLA).
 Ports ``src/repro/models/attention.py``:
 
 * :func:`gqa_train` / :func:`mla_train` - full-sequence attention
-  (forward only); also the body of :func:`gqa_prefill` /
-  :func:`mla_prefill`, which additionally fill the cache;
+  (differentiable, on the train route of :func:`_sdpa`); also the body
+  of :func:`gqa_prefill` / :func:`mla_prefill`, which additionally fill
+  the cache;
 * :func:`gqa_decode` / :func:`mla_decode` - one token per row against a
   static-length cache.
 
@@ -27,14 +28,18 @@ gives the same tokens as a fresh one.
 kernel K8, ``kernels.flash_attention``, which computes the reference
 Pallas kernel's function; a masked case (decode's single query row
 against ``arange(T) <= pos``) runs in torch ops, as the reference runs it
-in jnp.  The reference's ``_sdpa_chunked`` (its XLA online softmax for
-long sequences) needs no port: K8 is that loop.
+in jnp.  K8 has no backward, so a full-sequence call whose q requires grad
+(grad mode on) takes the train route instead: the reference's own
+``_sdpa`` in torch ops, and above ``CHUNK_THRESHOLD`` score elements its
+``_sdpa_chunked`` (the online softmax over 1024 x 1024 blocks), ported
+here as :func:`_sdpa_chunked`.  Serving never takes that route.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -89,40 +94,125 @@ def _qkv(p: GQA, cfg, x, positions, compute_dtype):
     return q, k, v
 
 
+#: above this many score elements (S * T) the train route runs the
+#: online-softmax loop over (Q_CHUNK, KV_CHUNK) blocks, as the reference's
+#: ``_sdpa`` switches to ``_sdpa_chunked``
+CHUNK_THRESHOLD = 4096 * 4096 + 1
+Q_CHUNK = 1024
+KV_CHUNK = 1024
+
+
+def _train_route(q) -> bool:
+    """Whether attention on ``q`` must carry a gradient: K8 has none."""
+    return torch.is_grad_enabled() and q.requires_grad
+
+
 def _sdpa(q, k, v, mask, *, scale, causal=False):
     """q: (B,S,H,dh), k/v: (B,T,Hk,dh|dv) grouped; mask: (B,1,S,T) or None.
 
     Without a mask the positions run from 0 on both sides and ``causal``
-    says whether ``q_pos >= kv_pos`` is required: that is K8's function
-    (which takes its scale as ``1 / sqrt(dh)``).  With a mask: scores in
-    fp32, the mask as ``NEG_INF``, softmax in fp32, the weights rounded to
-    q's dtype before the product with v, fp32 accumulation."""
+    says whether ``q_pos >= kv_pos`` is required.  That case goes to K8
+    (which takes its scale as ``1 / sqrt(dh)``), unless grad mode is on
+    and q requires grad: then it takes the train route, the reference's
+    own ``_sdpa`` in torch ops (the causal mask built here, or none), and
+    above ``CHUNK_THRESHOLD`` score elements its ``_sdpa_chunked``.  With a
+    mask (decode): scores in fp32, the mask as ``NEG_INF``, softmax in
+    fp32, the weights rounded to q's dtype before the product with v,
+    fp32 accumulation."""
     b, s, h, dh = q.shape
+    if mask is None and _train_route(q):
+        t = k.shape[1]
+        if s > 1 and s * t > CHUNK_THRESHOLD:
+            return _sdpa_chunked(q, k, v, scale=scale, causal=causal)
+        if causal:
+            mask = _causal_mask(b, s, q.device)
+        return _sdpa_masked(q, k, v, mask, scale=scale)
     if mask is None:
         if scale != 1.0 / np.sqrt(dh):
             raise ValueError(f"the flash path scales by 1/sqrt(dh) = "
                              f"{1.0 / np.sqrt(dh)}, got {scale}")
         return flash_attention(q, k, v, causal=causal)
+    return _sdpa_masked(q, k, v, mask, scale=scale)
+
+
+def _sdpa_masked(q, k, v, mask, *, scale):
+    """The reference's ``_sdpa`` body; ``mask`` (B,1,S,T) or None."""
+    b, s, h, dh = q.shape
     hk, dv = k.shape[2], v.shape[-1]
     group = h // hk
     qg = q.reshape(b, s, hk, group, dh)
     logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                           k.float()) * scale
-    logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", w.to(q.dtype).float(),
                        v.float())
     return out.reshape(b, s, h * dv).to(q.dtype)
 
 
-def _causal_mask(b, s):
-    m = torch.tril(torch.ones((s, s), dtype=torch.bool))
+def _sdpa_chunked(q, k, v, *, scale, causal=True, q_chunk=Q_CHUNK,
+                  kv_chunk=KV_CHUNK):
+    """The reference's ``_sdpa_chunked``: online-softmax attention over
+    (q_chunk, kv_chunk) blocks, so that no S x T score matrix is
+    materialised; positions from 0 on both sides, the padded tail keys
+    masked.  q: (B,S,H,dh), k/v: (B,T,Hk,dh|dv)."""
+    b, s, h, dh = q.shape
+    t, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    group = h // hk
+    qc, kc = min(q_chunk, s), min(kv_chunk, t)
+    nq, nk = -(-s // qc), -(-t // kc)
+    pad_q, pad_k = nq * qc - s, nk * kc - t
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    # (nq, B, Hk, G, qc, dh) and (nk, B, Hk, kc, dh | dv)
+    qg = qp.reshape(b, nq, qc, hk, group, dh).permute(1, 0, 3, 4, 2, 5)
+    kg = kp.reshape(b, nk, kc, hk, dh).permute(1, 0, 3, 2, 4)
+    vg = vp.reshape(b, nk, kc, hk, dv).permute(1, 0, 3, 2, 4)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qb = qg[qi]
+        q_pos = qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((b, hk, group, qc), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hk, group, qc), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((b, hk, group, qc, dv), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            sc = torch.einsum("bhgqd,bhkd->bhgqk", qb.float(),
+                              kg[ki].float()) * scale
+            kv_pos = ki * kc + torch.arange(kc, device=dev)
+            valid = kv_pos[None, :] < t
+            if causal:
+                valid = valid & (q_pos[:, None] >= kv_pos[None, :])
+            sc = torch.where(valid, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p.to(qb.dtype).float(),
+                vg[ki].float())
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    # (nq, B, Hk, G, qc, dv) -> (B, S, H * dv)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(
+        b, nq * qc, h * dv)
+    return out[:, :s].to(q.dtype)
+
+
+def _causal_mask(b, s, device=None):
+    m = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
     return m.expand(b, 1, s, s)
 
 
 def gqa_train(p: GQA, cfg, x, positions, compute_dtype=torch.bfloat16, *,
               causal=True):
-    """Full-sequence attention from position 0 (forward only)."""
+    """Full-sequence attention from position 0; differentiable (the
+    train route of :func:`_sdpa`)."""
     q, k, v = _qkv(p, cfg, x, positions, compute_dtype)
     scale = 1.0 / np.sqrt(cfg.resolved_head_dim)
     out = _sdpa(q, k, v, None, scale=scale, causal=causal)
@@ -250,7 +340,8 @@ def _mla_attend(p: MLA, cfg, x, positions, c_kv, k_rope, compute_dtype):
 
 
 def mla_train(p: MLA, cfg, x, positions, compute_dtype=torch.bfloat16):
-    """Full-sequence causal attention from position 0 (forward only)."""
+    """Full-sequence causal attention from position 0; differentiable
+    (the train route of :func:`_sdpa`)."""
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions, compute_dtype)
     return _mla_attend(p, cfg, x, positions, c_kv, k_rope, compute_dtype)
 

@@ -1,8 +1,8 @@
 """Encoder-decoder backbone (Whisper-style) with a stub audio frontend.
 
-Ports the serving half of ``src/repro/models/encdec.py``: the conv/mel
-frontend is a stub, so the caller supplies precomputed frame embeddings
-``frames (B, encoder_seq, d_model)``.  The encoder is a bidirectional
+Ports ``src/repro/models/encdec.py``: the conv/mel frontend is a stub,
+so the caller supplies precomputed frame embeddings ``frames (B,
+encoder_seq, d_model)``.  The encoder is a bidirectional
 transformer over the frames; the decoder is a causal LM with
 cross-attention whose keys and values are computed once at prefill and
 cached.  LayerNorm, GELU MLP, learned decoder positions; the self-attention
@@ -18,7 +18,10 @@ The token table and the position table are kept in fp32: the reference
 adds the two in fp32 and rounds once (the tied unembedding casts the
 token table to the compute dtype, as the reference does).  The caches are
 written in place (``cross_kv`` at prefill, ``self`` at every step).
-``loss`` comes with training.
+:func:`train_forward` is the loss's forward (it carries gradients; K8
+then gives way to attention's train route); :func:`encode`,
+:func:`forward`, :func:`prefill` and :func:`decode_step` run without
+grad.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -33,10 +37,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Norm, embed_init, init_norm,
                                        linear, matmul_f32, mlp_apply,
                                        mlp_init, norm_apply)
-from repro_torch.models.transformer import Embedding
+from repro_torch.models.transformer import Embedding, _generator
 
-__all__ = ["EncDecLM", "init_params", "encode", "forward", "init_cache",
-           "prefill", "decode_step"]
+__all__ = ["EncDecLM", "init_params", "encode", "forward", "train_forward",
+           "init_cache", "prefill", "decode_step"]
 
 
 class EncoderLayer(nn.Module):
@@ -68,12 +72,13 @@ class DecoderLayer(nn.Module):
 
 class EncDecLM(nn.Module):
     """``embed`` and ``pos_dec`` (fp32 tables), ``encoder``, ``enc_norm``,
-    ``decoder``, ``final_norm``; allocated uninitialised."""
+    ``decoder``, ``final_norm``; allocated uninitialised, the matrices in
+    ``dtype`` (default ``cfg.dtype``, fp32 for training)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
         device = resolve_device(device)
-        dtype = getattr(torch, cfg.dtype)
+        dtype = dtype or getattr(torch, cfg.dtype)
         f32 = dict(dtype=torch.float32, device=device)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **f32)
         self.pos_dec = Embedding(cfg.max_seq, cfg.d_model, **f32)
@@ -88,14 +93,13 @@ class EncDecLM(nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device="cuda") -> EncDecLM:
+def init_params(cfg: ModelConfig, seed=0, *, device="cuda",
+                dtype=None) -> EncDecLM:
     """An :class:`EncDecLM` with the reference's initial distributions
     (positions ``N(0, 0.01)``), drawn on ``device`` from
-    ``torch.Generator`` ``seed``."""
-    m = EncDecLM(cfg, device=device)
-    gen = torch.Generator(device=m.embed.table.device)
-    gen.manual_seed(seed)
+    ``torch.Generator`` ``seed`` (an int, or the generator itself)."""
+    m = EncDecLM(cfg, device=device, dtype=dtype)
+    gen = _generator(seed, m.embed.table.device)
     embed_init(m.embed.table, gen)
     m.pos_dec.table.normal_(0.0, 0.01, generator=gen)
     for layer in m.encoder:
@@ -115,9 +119,7 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
-@torch.no_grad()
-def encode(params: EncDecLM, cfg: ModelConfig, frames):
-    """frames: (B, S_enc, d) stub embeddings -> encoder memory."""
+def _encode(params: EncDecLM, cfg: ModelConfig, frames):
     compute_dtype = getattr(torch, cfg.dtype)
     x = frames.to(compute_dtype)
     b, s, _ = x.shape
@@ -174,24 +176,47 @@ def _mlp_block(p, cfg, x, compute_dtype):
 
 
 @torch.no_grad()
-def forward(params: EncDecLM, cfg: ModelConfig, tokens, frames):
-    """Teacher-forced pass -> logits (B, S_dec, vocab) fp32 and the
-    reference's aux dict (no load-balance loss: 0)."""
+def encode(params: EncDecLM, cfg: ModelConfig, frames):
+    """frames: (B, S_enc, d) stub embeddings -> encoder memory."""
+    return _encode(params, cfg, frames)
+
+
+def _decoder_layer(p: DecoderLayer, cfg, x, positions, memory,
+                   compute_dtype):
+    h = norm_apply(p.norm1, x, cfg.norm)
+    x = x + attn.gqa_train(p.self_attn, cfg, h, positions, compute_dtype)
+    hx = norm_apply(p.norm_x, x, cfg.norm)
+    x = x + _cross_attend(p.cross, cfg, hx, memory, compute_dtype)
+    return _mlp_block(p, cfg, x, compute_dtype)
+
+
+def train_forward(params: EncDecLM, cfg: ModelConfig, tokens, frames, *,
+                  remat: bool = True):
+    """:func:`forward` that carries gradients (the loss's forward);
+    attention takes its train route wherever q requires grad, and with
+    ``remat`` each decoder layer is recomputed in the backward, as the
+    reference checkpoints its decoder's scan body."""
     compute_dtype = getattr(torch, cfg.dtype)
-    memory = encode(params, cfg, frames)
+    memory = _encode(params, cfg, frames)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(params, cfg, tokens, positions, compute_dtype)
     for p in params.decoder:
-        h = norm_apply(p.norm1, x, cfg.norm)
-        x = x + attn.gqa_train(p.self_attn, cfg, h, positions,
-                               compute_dtype)
-        hx = norm_apply(p.norm_x, x, cfg.norm)
-        x = x + _cross_attend(p.cross, cfg, hx, memory, compute_dtype)
-        x = _mlp_block(p, cfg, x, compute_dtype)
+        if remat:
+            x = checkpoint(_decoder_layer, p, cfg, x, positions, memory,
+                           compute_dtype, use_reentrant=False)
+        else:
+            x = _decoder_layer(p, cfg, x, positions, memory, compute_dtype)
     x = norm_apply(params.final_norm, x, cfg.norm)
     return _unembed(params, cfg, x), {
         "load_balance_loss": torch.zeros((), device=x.device)}
+
+
+@torch.no_grad()
+def forward(params: EncDecLM, cfg: ModelConfig, tokens, frames):
+    """Teacher-forced pass -> logits (B, S_dec, vocab) fp32 and the
+    reference's aux dict (no load-balance loss: 0)."""
+    return train_forward(params, cfg, tokens, frames, remat=False)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Norm", "Linear", "MLP", "rms_norm", "layer_norm", "norm_apply",
-           "linear", "matmul_f32", "bmm_f32", "mlp_apply", "rope_freqs", "apply_rope",
-           "init_norm", "init_linear", "mlp_init", "embed_init"]
+           "linear", "matmul_f32", "bmm_f32", "F32Product", "mlp_apply",
+           "rope_freqs", "apply_rope", "init_norm", "init_linear",
+           "mlp_init", "embed_init"]
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -105,13 +106,61 @@ def norm_apply(p: Norm, x, kind: str):
     return rms_norm(p, x) if kind == "rmsnorm" else layer_norm(p, x)
 
 
+def _col_major(x) -> bool:
+    """A 2-d tensor laid out column by column (a transposed view), as
+    ``mm``'s own backward tests it."""
+    return x.stride(0) == 1 and x.stride(1) == x.shape[0]
+
+
+class F32Product(torch.autograd.Function):
+    """``a @ b`` of two compute-dtype operands with an fp32 result: ``mm``
+    (2-d ``a``) or ``bmm`` (3-d, one product per leading index).
+
+    The forward on the card is the GEMM that writes fp32 directly
+    (``out_dtype=torch.float32``), which has no derivative of its own; on
+    the CPU, which lacks that overload, it is the upcast product.  The
+    backward is what autograd computes through the upcast product
+    ``a.float() @ b.float()``: the fp32 cotangent times the other operand
+    upcast to fp32 (``mm``'s backward rules, its column-major branch
+    included), cast back to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":
+            return (torch.mm if a.dim() == 2 else torch.bmm)(a.float(),
+                                                             b.float())
+        return (torch.mm if a.dim() == 2 else torch.bmm)(
+            a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        af, bf = a.float(), b.float()
+        ga = gb = None
+        if a.dim() == 3:
+            if ctx.needs_input_grad[0]:
+                ga = g.bmm(bf.transpose(1, 2)).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                gb = af.transpose(1, 2).bmm(g).to(b.dtype)
+            return ga, gb
+        if ctx.needs_input_grad[0]:
+            ga = (bf.mm(g.t()).t() if _col_major(a) else g.mm(bf.t()))
+            ga = ga.to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (g.t().mm(af).t() if _col_major(b) else af.t().mm(g))
+            gb = gb.to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a, b):
     """``a @ b`` in fp32, unrounded, for operands already in the compute
     dtype: the reference's ``einsum(..., preferred_element_type=float32)``.
     A product of two bf16 (or fp16) values is exact in fp32, so the CPU
-    path upcasts; on the card the GEMM writes fp32 directly."""
+    path upcasts; on the card the GEMM writes fp32 directly, through
+    :class:`F32Product`, which carries its gradient."""
     if a.is_cuda and a.dtype in _HALF:
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        y = F32Product.apply(a.reshape(-1, a.shape[-1]), b)
         return y.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 
@@ -121,7 +170,7 @@ def bmm_f32(a, b):
     unrounded, for operands already in the compute dtype: as
     :func:`matmul_f32`, one product per leading index."""
     if a.is_cuda and a.dtype in _HALF:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return F32Product.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

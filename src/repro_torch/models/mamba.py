@@ -8,9 +8,12 @@ state ``n``::
 with ``a = -exp(a_log)`` and the selective ``dt, B, C`` projected from the
 causally convolved input.  The reference scans in chunks with a
 ``jax.checkpoint`` around each chunk, which bounds training memory and
-leaves the forward's values as they are; the port serves (forward only)
-and steps one plain loop over time in torch ops, the same function.
-Decode carries ``(conv window, state)`` per layer, updated in place.
+leaves the forward's values as they are; the port steps one plain loop
+over time in torch ops, the same function.  Under autograd (training)
+each time step saves its state: nothing in the loop writes in place, and
+the layer's remat (``transformer._remat_layer``) bounds what the backward
+holds.  Decode carries ``(conv window, state)`` per layer, updated in
+place, without grad.
 """
 
 from __future__ import annotations

@@ -2,13 +2,18 @@
 
     m = build_model(cfg)
     params = m.init(seed, device="cuda")     # a DecoderLM or EncDecLM
+    loss, metrics = m.loss(params, batch)    # train
     cache = m.init_cache(batch, max_len, device="cuda")
     logits, cache = m.prefill(params, batch, cache)  # serving
     logits, cache = m.decode(params, cache, token, pos)
 
-Ports ``src/repro/models/model.py`` for the serving half: ``batch`` is a
-dict with ``tokens`` and, for the VLM stub, ``patches`` or, for the audio
-stub, ``frames``.  ``loss`` and ``cross_entropy`` come with training.
+Ports ``src/repro/models/model.py``: ``batch`` is a dict with ``tokens``
+and, for the VLM stub, ``patches`` or, for the audio stub, ``frames``.
+``loss`` runs on the parameters' device (a numpy batch is moved there)
+and carries gradients to every parameter that requires grad
+(``train.loop`` differentiates it); ``init(..., dtype=torch.float32)``
+stores fp32 parameters for training, as the reference's
+``TrainConfig.param_dtype`` does.
 """
 
 from __future__ import annotations
@@ -21,13 +26,27 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "cross_entropy", "MOE_AUX_COEF"]
+
+MOE_AUX_COEF = 0.01
+
+
+def cross_entropy(logits, targets, *, ignore: int = -1):
+    """logits (B,S,V) fp32; targets (B,S) int; mean over non-ignored."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(targets.long(), 0)[..., None])[..., 0]
+    nll = lse - gold
+    mask = (targets != ignore).float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
@@ -39,9 +58,38 @@ def build_model(cfg: ModelConfig) -> Model:
     return _build_decoder_only(cfg)
 
 
+def _init_device(seed, device):
+    """A generator draws on its own device; a seed on ``device``, the
+    card unless given."""
+    if device is None:
+        return seed.device if isinstance(seed, torch.Generator) else "cuda"
+    return device
+
+
+def _on(params, batch) -> dict:
+    """``batch``'s arrays as tensors on the parameters' device."""
+    dev = next(params.parameters()).device
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
 def _build_decoder_only(cfg: ModelConfig) -> Model:
-    def init(seed: int = 0, *, device="cuda"):
-        return transformer.init_params(cfg, seed, device=device)
+    def init(seed=0, *, device=None, dtype=None):
+        return transformer.init_params(cfg, seed,
+                                       device=_init_device(seed, device),
+                                       dtype=dtype)
+
+    def loss(params, batch):
+        batch = _on(params, batch)
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        prefix_embeds = batch.get("patches")
+        logits, aux = transformer.train_forward(params, cfg, inputs,
+                                                prefix_embeds=prefix_embeds)
+        if prefix_embeds is not None:
+            logits = logits[:, prefix_embeds.shape[1]:]
+        ce = cross_entropy(logits, targets)
+        total = ce + MOE_AUX_COEF * aux["load_balance_loss"]
+        return total, {"ce": ce, **aux}
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, *, device="cuda"):
         return transformer.init_cache(cfg, batch, max_len, dtype,
@@ -54,12 +102,23 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
     def decode(params, cache, token, pos):
         return transformer.decode_step(params, cfg, token, pos, cache)
 
-    return Model(cfg, init, init_cache, prefill, decode)
+    return Model(cfg, init, loss, init_cache, prefill, decode)
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
-    def init(seed: int = 0, *, device="cuda"):
-        return encdec.init_params(cfg, seed, device=device)
+    def init(seed=0, *, device=None, dtype=None):
+        return encdec.init_params(cfg, seed,
+                                  device=_init_device(seed, device),
+                                  dtype=dtype)
+
+    def loss(params, batch):
+        batch = _on(params, batch)
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        logits, aux = encdec.train_forward(params, cfg, inputs,
+                                           batch["frames"])
+        ce = cross_entropy(logits, targets)
+        return ce, {"ce": ce, **aux}
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, *, device="cuda"):
         return encdec.init_cache(cfg, batch, max_len, dtype, device=device)
@@ -71,4 +130,4 @@ def _build_encdec(cfg: ModelConfig) -> Model:
     def decode(params, cache, token, pos):
         return encdec.decode_step(params, cfg, token, pos, cache)
 
-    return Model(cfg, init, init_cache, prefill, decode)
+    return Model(cfg, init, loss, init_cache, prefill, decode)

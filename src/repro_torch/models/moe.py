@@ -19,7 +19,12 @@ atomics:
   through the owner sort's permutation and sums each token's ``k`` of them
   in a fixed order.
 
-So a wave served twice gives the same tokens.  Against the reference the
+So a wave served twice gives the same tokens.  Under autograd the
+indexed write and the combine carry the gradient back to the kept rows
+(a dropped row's spare buffer row is sliced off, so it takes none, as
+the reference's ``keep`` mask zeroes it), the gates carry theirs to the
+router, and so does the load-balance loss through the mean router
+probabilities.  Against the reference the
 result agrees to the rounding of another summation order (fp32 sums;
 the reference's bf16 segment sum rounds after each add, this one once).
 

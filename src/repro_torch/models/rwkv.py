@@ -13,9 +13,10 @@ and an output gate g.  Channel mixing is the squared-ReLU MLP with token
 shift.
 
 The reference scans in checkpointed chunks, which bounds training memory
-and leaves the forward's values as they are; the port serves (forward
-only) and steps one plain loop over time in torch ops.  The decode cache
-(``s``, ``x_tm``, ``x_cm``) is updated in place.
+and leaves the forward's values as they are; the port steps one plain
+loop over time in torch ops.  Under autograd (training) each time step
+saves its state; nothing in the loop writes in place.  The decode cache
+(``s``, ``x_tm``, ``x_cm``) is updated in place, without grad.
 """
 
 from __future__ import annotations

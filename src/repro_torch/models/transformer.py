@@ -12,18 +12,27 @@ constraints have no counterpart (without a mesh they are no-ops, and the
 port has none).  ``parallel_block``, ``layernorm``, ``gelu``, ``qk_norm``,
 ``qkv_bias``, ``tie_embeddings`` and ``prefix_embeds`` are kept.
 
-Inference only: :func:`forward` (no remat; its aux holds the summed MoE
-``load_balance_loss``), :func:`prefill` and :func:`decode_step`.  The
-caches are written in place; a prefill starts every row at position 0,
-so a recurrent layer's state starts from zero whatever the cache held.
+:func:`train_forward` is the loss's forward: it carries gradients
+(attention takes its train route) and runs each period layer under
+``cfg.remat`` (``torch.utils.checkpoint``), as the reference's
+``forward(..., remat=True)`` does; its aux holds the summed MoE
+``load_balance_loss``.  :func:`forward` is the same function under
+``torch.no_grad()`` without remat; :func:`prefill` and
+:func:`decode_step` serve, also without grad.  The caches are written in
+place; a prefill starts every row at position 0, so a recurrent layer's
+state starts from zero whatever the cache held.
 The encoder-decoder family is :mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -36,8 +45,8 @@ from repro_torch.models.layers import (MLP, Linear, Norm, _param, embed_init,
                                        mlp_apply, mlp_init, norm_apply)
 
 __all__ = ["period_structure", "layer_kinds", "DecoderLayer", "DecoderLM",
-           "Embedding", "init_params", "forward", "hidden_states",
-           "init_cache", "prefill", "decode_step"]
+           "Embedding", "init_params", "forward", "train_forward",
+           "hidden_states", "init_cache", "prefill", "decode_step"]
 
 
 # --------------------------------------------------------------------------
@@ -126,15 +135,18 @@ class DecoderLM(nn.Module):
     """``embed``, ``layers`` (the prefix stack, then the periods),
     ``final_norm`` and, unless the embeddings are tied, ``unembed``;
     allocated uninitialised (:func:`init_params` draws the weights,
-    ``load_state_dict`` takes converted ones)."""
+    ``load_state_dict`` takes converted ones).  The matrices, mixes and
+    the embedding are stored in ``dtype`` (default ``cfg.dtype``; fp32
+    for training, whose every use casts to ``cfg.dtype`` first as the
+    reference's does), the other leaves in fp32."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
         if cfg.family == "audio":
             raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
                              "with models.encdec")
         device = resolve_device(device)
-        dtype = getattr(torch, cfg.dtype)
+        dtype = dtype or getattr(torch, cfg.dtype)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype,
                                device=device)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
@@ -168,15 +180,28 @@ def _layer_init(layer: DecoderLayer, cfg: ModelConfig,
     return layer
 
 
-@torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device="cuda") -> DecoderLM:
-    """A :class:`DecoderLM` with the reference's initial distributions,
-    drawn on ``device`` in the stored dtypes from ``torch.Generator``
-    ``seed``."""
-    m = DecoderLM(cfg, device=device)
-    gen = torch.Generator(device=m.embed.table.device)
+def _generator(seed, device) -> torch.Generator:
+    """``seed`` itself if it is a ``torch.Generator`` (on ``device``),
+    else a generator on ``device`` seeded with it."""
+    if isinstance(seed, torch.Generator):
+        if seed.device.type != device.type:
+            raise ValueError(f"a generator on {seed.device} cannot draw "
+                             f"parameters on {device}")
+        return seed
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return gen
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, seed=0, *, device="cuda",
+                dtype=None) -> DecoderLM:
+    """A :class:`DecoderLM` with the reference's initial distributions,
+    drawn on ``device`` in the stored dtypes (``dtype``, see
+    :class:`DecoderLM`) from ``torch.Generator`` ``seed`` (an int, or the
+    generator itself)."""
+    m = DecoderLM(cfg, device=device, dtype=dtype)
+    gen = _generator(seed, m.embed.table.device)
     embed_init(m.embed.table, gen)
     init_norm(m.final_norm)
     if not cfg.tie_embeddings:
@@ -243,15 +268,58 @@ def _positions(x):
     return torch.arange(s, device=x.device).expand(b, s)
 
 
-def _forward_hidden(params: DecoderLM, cfg, tokens, prefix_embeds):
-    """(final-normed hidden states, summed load-balance loss)."""
+def _layer_out(p: DecoderLayer, cfg, x, positions, compute_dtype):
+    """One layer -> (x, its load-balance loss, 0 without MoE)."""
+    x, aux = _apply_layer(p, cfg, x, positions, compute_dtype)
+    return x, aux.get("load_balance_loss", torch.zeros((), device=x.device))
+
+
+#: the matrix products a ``"dots"`` remat keeps: the reference's
+#: ``dots_with_no_batch_dims_saveable`` keeps the outputs of products
+#: without batch dims, which here are the 2-d GEMMs (a linear's folded
+#: product and the fp32-output one); the batched ones (attention's
+#: einsums, the expert GEMMs) are recomputed with everything else
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(cfg, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: ``"full"`` keeps only the
+    layer's inputs and recomputes the rest in the backward, ``"dots"``
+    also keeps the 2-d GEMMs' outputs, ``"none"`` keeps everything."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def _forward_hidden(params: DecoderLM, cfg, tokens, prefix_embeds,
+                    remat: bool = False):
+    """(final-normed hidden states, summed load-balance loss).  With
+    ``remat`` each layer of the periods (not the prefix stack) runs under
+    ``cfg.remat``, as the reference's scan body over the periods does."""
     compute_dtype = getattr(torch, cfg.dtype)
     x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
     positions = _positions(x)
+    n_prefix = len(period_structure(cfg)[0])
     aux_sum = torch.zeros((), device=x.device)
-    for layer in params.layers:
-        x, aux = _apply_layer(layer, cfg, x, positions, compute_dtype)
-        aux_sum = aux_sum + aux.get("load_balance_loss", 0.0)
+    for i, layer in enumerate(params.layers):
+        if remat and i >= n_prefix:
+            x, lb = _remat_layer(cfg, _layer_out, layer, cfg, x, positions,
+                                 compute_dtype)
+        else:
+            x, lb = _layer_out(layer, cfg, x, positions, compute_dtype)
+        aux_sum = aux_sum + lb
     return norm_apply(params.final_norm, x, cfg.norm), aux_sum
 
 
@@ -263,6 +331,15 @@ def hidden_states(params: DecoderLM, cfg: ModelConfig, tokens, *,
     return _forward_hidden(params, cfg, tokens, prefix_embeds)[0]
 
 
+def train_forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
+                  prefix_embeds=None, remat: bool = True):
+    """:func:`forward` that carries gradients (the loss's forward): the
+    same logits and aux, attention on its train route wherever q requires
+    grad, and with ``remat`` each period layer under ``cfg.remat``."""
+    x, aux_sum = _forward_hidden(params, cfg, tokens, prefix_embeds, remat)
+    return _unembed(params, cfg, x), {"load_balance_loss": aux_sum}
+
+
 @torch.no_grad()
 def forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
             prefix_embeds=None):
@@ -270,8 +347,8 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
     aux dict: the MoE layers' summed ``load_balance_loss`` (0 without).
 
     ``prefix_embeds`` (B, P, d) are prepended (VLM patch stub)."""
-    x, aux_sum = _forward_hidden(params, cfg, tokens, prefix_embeds)
-    return _unembed(params, cfg, x), {"load_balance_loss": aux_sum}
+    return train_forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                         remat=False)
 
 
 # --------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro.diff import surrogate as ref_surrogate
 from repro_torch import convert
 from repro_torch.core import builder, engine, models, neuron_models, snn
 from repro_torch.diff import rollout, surrogate
+from repro_torch.kernels import flash_attention as fa_kernels
 from repro_torch.kernels import lif_step as lif_step_kernel_mod
 from repro_torch.kernels import stdp_update as stdp_kernels
 from repro_torch.kernels import synaptic_gather as gather_kernels
@@ -608,14 +609,18 @@ def _guard_cases():
             w, pre.reshape(-1), post.reshape(-1), plastic,
             torch.ones(nb * eb), wl, na, torch.ones(n), torch.ones(m),
             torch.ones(n), params=params, eb=eb, pb=pb),
+        "flash_attention": lambda w: fa_kernels.flash_attention(
+            w.reshape(1, 1, 1, 4), torch.ones(1, 2, 1, 4),
+            torch.ones(1, 2, 1, 4), causal=False),
     }
 
 
 @pytest.mark.parametrize("kernel", sorted(_guard_cases()))
 def test_kernel_wrapper_refuses_inputs_that_require_grad(kernel):
-    """K1, K1 with its epilogue, K3, K6 and K7: the guard raises on the
-    twin's route as on the card's, before any launch, and lets the same
-    call through under ``torch.no_grad()`` or without grad."""
+    """K1, K1 with its epilogue, K3, K6, K7 and K8 (its query in the
+    weight slot): the guard raises on the twin's route as on the card's,
+    before any launch, and lets the same call through under
+    ``torch.no_grad()`` or without grad."""
     call = _guard_cases()[kernel]
     w = torch.full((4,), 2.0)
     call(w.clone())

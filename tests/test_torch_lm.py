@@ -769,7 +769,11 @@ def test_every_arch_config_matches_reference():
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card every LM entry point raises instead of running on the
     CPU: a silent fallback would report CPU numbers as the card's.  A
-    dense arch, an MoE one and the encoder-decoder."""
+    dense arch, an MoE one and the encoder-decoder.  ``Model.loss`` runs
+    where its parameters are (a numpy batch is moved there), so it trains
+    on the card unless it is given parameters on the CPU; the training
+    launcher defaults to the card."""
+    from repro_torch.launch import train as launch_train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for arch in ("qwen2.5-3b", "qwen3-moe-30b-a3b", "whisper-tiny"):
         cfg = configs.get_smoke(arch)
@@ -777,7 +781,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError):
             m.init(0)
         with pytest.raises(RuntimeError):
+            m.init(0, dtype=torch.float32)
+        with pytest.raises(RuntimeError):
             m.init_cache(1, 8)
         tp = m.init(0, device=CPU)
         with pytest.raises(RuntimeError):
             BatchServer(m, tp, slots=1, max_len=8)
+        batch = _batch(cfg, np.ones((1, 5), np.int32),
+                       np.random.default_rng(0))
+        loss, _ = m.loss(tp, batch)
+        assert loss.device.type == "cpu" and loss.dim() == 0
+        with pytest.raises(RuntimeError):
+            launch_train.main(["--arch", arch, "--steps", "1"])
