@@ -89,8 +89,10 @@ The LM face's serving path (dense GQA, kernel K8), after the zoo:
                bf16, causal), the four fp32 cases of
                ``tests/test_flash_attention.py`` and six bf16 cases (ragged,
                internvl2-1b's heads, cross, dv < dh, no grouping, S = T =
-               4096): each through the route its dtype must take (bf16 on
-               the tensor cores, fp32 on the CUDA cores), against its plain
+               4096), and qwen2.5-3b's prefill_32k share (B 2, S = T =
+               32 768; its twin timed over 5 calls): each through the
+               route its dtype must take (bf16 on the tensor cores, fp32
+               on the CUDA cores), against its plain
                twin (tolerance printed), twice for bitwise determinism,
                timed, beside one call of PyTorch's
                ``scaled_dot_product_attention`` (a yardstick the port never
@@ -157,6 +159,22 @@ LM training (``Model.loss``, ``train.loop``, ``launch/train.py``), after
                 processes, deterministic mode: 10 steps uninterrupted and 5
                 + ``--resume`` + 5 of qwen3-moe's smoke config, the
                 step-10 checkpoints bitwise equal.
+
+The LM dry run (``launch/dryrun.py``), after ``lm_train``: one device's
+share of three 16x16 cells of qwen2.5-3b at full width and depth,
+parameters and inputs drawn on the card from the seed:
+
+14d. lm_dryrun - ``prefill_32k`` (B 2, S 32 768), ``decode_32k`` (B 8,
+                 one token against a 32 768-row cache) and ``train_4k``
+                 (16 microbatches of B 1, S 4 096, fp32 AdamW; depth
+                 cut to 28 of 36 layers, which 80 GB holds); each share
+                 counted on ``meta`` by the dry run (by trip count), timed
+                 on the card without the counter (peak memory), then
+                 counted on the card under ``OpCounter``: the two counts
+                 equal op for op (calls, FLOPs, bytes); K8's launches equal
+                 the count's K8 calls (36 per prefill at S = T = 32 768);
+                 the output finite; ms against the roofline bound
+                 ``max(FLOPs / 989e12, bytes / 3.35e12)``.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -398,11 +416,15 @@ from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.diff import classify as diff_classify  # noqa: E402
 from repro_torch.diff import inverse as diff_inverse  # noqa: E402
 from repro_torch.diff import rollout as diff_rollout  # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import dryrun_snn  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.configs.shapes import SHAPES as LM_SHAPES  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.utils import op_costs  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -652,7 +674,11 @@ FLASH_CASES = {
     "whisper_encoder": (4, 1500, 1500, 6, 6, 64, 64, False, torch.bfloat16),
     "whisper_cross_decode": (4, 1, 1500, 6, 6, 64, 64, False,
                              torch.bfloat16),
+    "qwen2.5-3b_prefill_32k": (2, 32_768, 32_768, 16, 2, 128, 128, True,
+                               torch.bfloat16),
 }
+#: cases this long time the twin over fewer calls (each is about a second)
+FLASH_LONG_PAIRS, FLASH_LONG_REPS = 2 ** 28, 5
 #: the route each dtype's cases must take (``flash_attention._route``)
 FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: K8 against its twin: fp32 sums in another order; bf16 adds the output's
@@ -3751,11 +3777,11 @@ def phase_gate_activity(nb=64, pb=256, eb=196_608,
 
 def _flash_work(b, s, t, h, hk, dh, dv, causal, dtype):
     """Bytes (each input read once, the output written once) and
-    operations (both products over the unmasked pairs) of one call."""
+    operations (both products over the unmasked pairs) of one call, as
+    the dry run charges it (``utils.op_costs.flash_work``), and the rate
+    of its dtype."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (b * s * h * dh + b * t * hk * (dh + dv) + b * s * h * dv)
-    pairs = (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
-    ops = 2 * b * h * pairs * (dh + dv)
+    nbytes, ops = op_costs.flash_work(b, s, t, h, hk, dh, dv, causal, size)
     return nbytes, ops, (BF16_OPS_PER_S if dtype == torch.bfloat16
                          else F32_OPS_PER_S)
 
@@ -3807,7 +3833,8 @@ def phase_flash_kernels() -> dict:
         k_ms = median_ms(lambda: fa_mod.flash_attention(q, k, v,
                                                         causal=causal))
         p_ms = median_ms(lambda: fa_mod.flash_attention_plain(
-            q, k, v, causal=causal))
+            q, k, v, causal=causal),
+            reps=FLASH_LONG_REPS if s * t >= FLASH_LONG_PAIRS else 25)
         l_ms = median_ms(lib)
         nbytes, ops, rate = _flash_work(b, s, t, h, hk, dh, dv, causal,
                                         dtype)
@@ -4780,6 +4807,117 @@ def phase_lm_train() -> dict:
                for d, r in vs_cpu.items()}}
 
 
+#: the lm_dryrun cell: one device's share of three 16x16 cells of
+#: qwen2.5-3b at full width and depth (the dry run's per-device record)
+DRYRUN_LM_ARCH = "qwen2.5-3b"
+DRYRUN_LM_SHAPES = ("prefill_32k", "decode_32k", "train_4k")
+#: the train share's depth: 80 GB does not hold fp32 parameters, their
+#: gradients, the microbatch accumulator and AdamW's two moments of all
+#: 36 layers with S 4 096's activations (the first call ran out at 74 GB
+#: allocated), so width stays and depth is cut, on the card and on meta
+DRYRUN_LM_TRAIN_LAYERS = 28
+#: timed runs of a serving share (the train share's one step is timed once)
+DRYRUN_LM_SERVE_RUNS = 3
+
+
+def _first_diffs(a: dict, b: dict, n: int = 5) -> list:
+    return [(k, a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)][:n]
+
+
+def lm_dryrun_share(shape_name: str) -> dict:
+    """One device's share of ``shape_name`` (16x16 mesh): counted on
+    ``meta`` by the dry run (by trip count), then built on the card from
+    the seed, (b) timed without the counter with its peak memory, (a)
+    counted under ``OpCounter``, which must equal the ``meta`` count op
+    for op, (c) set against the roofline of its count, (d) K8's launches
+    against the count's K8 calls."""
+    pub = lm_configs.get(DRYRUN_LM_ARCH)
+    shape = LM_SHAPES[shape_name]
+    cfg = (dataclasses.replace(pub, n_layers=DRYRUN_LM_TRAIN_LAYERS)
+           if shape.kind == "train" else pub)
+    mesh = make_production_mesh()
+    t0 = time.perf_counter()
+    meta_ops, info = lm_dryrun.count_share(cfg, shape, mesh)
+    meta_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cell = lm_dryrun.build_cell(cfg, shape, mesh, device=DEV, seed=SEED)
+    runs = 1 if shape.kind == "train" else DRYRUN_LM_SERVE_RUNS
+    reset_launches()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    with op_costs.OpCounter() as counter:
+        out = cell.run()
+        torch.cuda.synchronize()
+    card_ops = {k: list(v) for k, v in counter.by_op.items()}
+    check(card_ops == meta_ops, f"lm_dryrun {shape_name}: the card's count "
+          f"differs from meta's: {_first_diffs(card_ops, meta_ops)}")
+    k8 = card_ops.get("repro_torch::flash_attention", [0, 0, 0])
+    check_launches(f"lm_dryrun {shape_name}", launches,
+                   {"flash_attention": runs * k8[0]})
+    if shape.kind == "prefill":
+        check(k8[0] == cfg.n_layers, f"lm_dryrun prefill: {k8[0]} K8 calls")
+        logits = out[0]
+        want = (cell.share_batch, 1, cfg.vocab_size)
+    elif shape.kind == "decode":
+        logits = out[0]
+        want = (cell.share_batch, cfg.vocab_size)
+    else:
+        logits = torch.stack([out[2]["loss"], out[2]["grad_norm"]])
+        want = (2,)
+    check(tuple(logits.shape) == want
+          and bool(torch.isfinite(logits).all()),
+          f"lm_dryrun {shape_name}: output {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    flops = sum(v[1] for v in card_ops.values())
+    nbytes = sum(v[2] for v in card_ops.values())
+    bound_ms = max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    ms = statistics.median(times)
+    rec = {"arch": DRYRUN_LM_ARCH, "mesh": "16x16", "shape": shape_name,
+           "layers": cfg.n_layers, "published_layers": pub.n_layers,
+           "batch_rows": cell.share_batch, "seq": shape.seq_len,
+           "microbatches": cell.microbatches,
+           "meta_count": info, "meta_count_s": meta_s,
+           "ops": sum(v[0] for v in card_ops.values()),
+           "counts_equal_op_for_op": True, "flops": flops, "bytes": nbytes,
+           "flops_bound_ms": flops / BF16_OPS_PER_S * 1e3,
+           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_ms": bound_ms, "ms": ms, "ms_runs": times,
+           "roofline_fraction": bound_ms / ms,
+           "peak_device_mem_bytes": peak,
+           "k8_calls": k8[0], "k8_launches": launches["flash_attention"],
+           "k8_flops": k8[1], "k8_bytes": k8[2],
+           "top_ops_by_bytes": dict(sorted(
+               card_ops.items(), key=lambda kv: -kv[1][2])[:6])}
+    del cell, out, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_dryrun() -> dict:
+    """Phase 14d: the LM dry run's three qwen2.5-3b shares on the card;
+    returns K8's launches in each."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for name in DRYRUN_LM_SHAPES:
+        rec = lm_dryrun_share(name)
+        emit({"phase": "lm_dryrun", "share": name, **rec})
+        launches[name] = rec["k8_launches"]
+    emit({"phase": "lm_dryrun", "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -4821,6 +4959,7 @@ def main() -> None:
     runs["lm_serve"] = {"flash_attention": phase_lm_serve()}
     lm_fam_launches = phase_lm_families()
     lm_train_launches = phase_lm_train()
+    lm_dryrun_launches = phase_lm_dryrun()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/"
@@ -4847,6 +4986,9 @@ def main() -> None:
          "launches_lm_train": {
              part: got if name == "flash_attention" else 0
              for part, got in lm_train_launches.items()},
+         "launches_lm_dryrun": {
+             part: got if name == "flash_attention" else 0
+             for part, got in lm_dryrun_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

@@ -3,7 +3,7 @@
 Every assigned architecture is one :class:`ModelConfig` instance in
 ``repro_torch/configs/<id>.py`` plus a reduced ``smoke()`` variant of the same
 family for CPU tests.  Shapes come from :class:`ShapeConfig` (the assigned
-shape set is in ``repro/configs/shapes.py``, not ported yet).
+shape set is :mod:`repro_torch.configs.shapes`).
 """
 
 from __future__ import annotations

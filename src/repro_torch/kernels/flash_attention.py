@@ -19,9 +19,12 @@ q's dtype.  The arithmetic is the reference kernel's:
 
 :func:`flash_attention_plain` repeats that loop chunk by chunk over
 ``kv_chunk``, padding the last chunk with zeros as the reference does; the
-CPU path and the tests use it.  For CPU tensors :func:`flash_attention`
-runs the twin; for CUDA tensors it launches one of the two hand-written
-routes of ``csrc/flash_attention.cu`` or raises, and never falls back:
+CPU path and the tests use it.  :func:`flash_attention` is the op
+``repro_torch::flash_attention``: for CPU tensors it runs the twin, for
+``meta`` tensors its fake gives the output's shape (a dry run counts the
+call as one op, ``utils.op_costs``), and for CUDA tensors it launches one
+of the two hand-written routes of ``csrc/flash_attention.cu`` or raises,
+and never falls back:
 
 * ``"wgmma"`` - bf16 on the tensor cores (``wgmma``, K/V by TMA into a
   ring of stages, a producer warpgroup and two consumers), for bf16 inputs
@@ -185,9 +188,30 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
     """q: (B, S, H, dh); k / v: (B, T, Hk, dh | dv), one dtype (fp32 or
     bf16 on the card), each with a contiguous last dim -> (B, S, H * dv)
     in q's dtype.  The kernel has no backward: an input that requires
-    grad raises on both routes (the LM's train route,
-    ``models.attention._sdpa``, never calls it with one)."""
+    grad raises on every device (the LM's train route,
+    ``models.attention._sdpa``, never calls it with one).
+
+    The call is the op ``repro_torch::flash_attention``: on the card its
+    body launches the kernel, on the CPU it runs the twin, and on
+    ``meta`` its fake gives the output's shape and dtype after the
+    kernel's own checks, so a count of a step on ``meta``
+    (``utils.op_costs.OpCounter``) sees one op per call, as on the
+    card."""
     _build.require_no_grad("flash_attention", q, k, v)
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"kernels run on cpu (plain version), cuda or "
+                         f"meta (shapes only), got a tensor on {q.device}")
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, q_chunk,
+                                                 kv_chunk)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, q_chunk: int,
+                        kv_chunk: int) -> torch.Tensor:
+    """The op's body on the CPU (the twin) and on the card (the launch of
+    one of the two routes, counted)."""
     if _build.dispatch_device(q) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -211,6 +235,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
     return out
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, q_chunk, kv_chunk):
+    _check(q, k, v, q_chunk, kv_chunk)
+    b, s, h, _ = q.shape
+    return q.new_empty((b, s, h * v.shape[3]))
 
 
 #: kernel launches so far (plain-version calls do not count), in all and

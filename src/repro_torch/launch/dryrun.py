@@ -1,0 +1,561 @@
+"""Multi-pod dry run of the LM face: every (arch x shape x mesh) cell on
+``meta``.
+
+The reference (``src/repro/launch/dryrun.py``) lowers and compiles each
+cell's step on 256 or 512 placeholder devices and reads XLA's
+``memory_analysis()``, ``cost_analysis()`` and the partitioned HLO's
+collectives.  The port has no partitioner and one card, so it models the
+same record from the sharding rules (:mod:`repro_torch.sharding.rules`)
+and one device's share of the step, run on ``meta`` (nothing allocated),
+as the SNN dry run does (:mod:`repro_torch.launch.dryrun_snn`).  For every
+cell this module:
+
+  1. builds the step (train / prefill / decode per the shape kind) with
+     the module and optimizer state on ``meta`` at their global shapes,
+     and the batch and cache at one device's data-parallel share (the
+     global batch divided by the ``batch`` axes, as ``batch_spec`` divides
+     it);
+  2. gives each argument its spec (params and optimizer state by
+     ``param_specs``, the batch by ``batch_spec``, caches by
+     ``cache_specs``);
+  3. records ``memory``: the argument, output and donated (alias) bytes
+     one device holds, exact arithmetic on the local shapes the specs
+     give, set against the card's 80 GB.  ``temp_bytes`` is None: with no
+     partitioner, activations under tensor parallelism are not modelled;
+  4. records ``cost``: the share's FLOPs and traffic counted per aten op
+     (:class:`repro_torch.utils.op_costs.OpCounter`; K8 charged its own
+     work), split evenly over the ``model`` axis, with ``by_op`` and K8's
+     calls;
+  5. records ``collectives``, parameter-side only (from the specs): an
+     all-gather of each leaf's ``data``-sharded dims, and in a train step
+     the gradient's reduce-scatter (all-reduce where the leaf is
+     replicated over ``data``) and its all-reduce over ``pod``; expert
+     leaves are resident (never gathered, their gradients local where
+     ``data`` shards them).  Each once a step: XLA hoists parameter
+     gathers out of the microbatch loop.  Ring volumes are ``(n-1)/n``.
+     Tensor-parallel activation traffic and the MoE all-to-all wait for
+     the mesh half of the rules and ``moe_manual`` (ROADMAP Queue 1 item
+     3);
+  6. adds the roofline terms at an H100 SXM's rates
+     (:func:`repro_torch.launch.roofline.roofline_terms`).
+
+Counting by trip count.  A cell's count is affine in the number of
+identical periods of its layers (after a dense prefix), and affine in the
+number of microbatches of a train step (the accumulation branch; one
+microbatch takes another branch), jointly bilinear.  So the step is
+counted at 0 and 1 periods (1 and 2 with MoE layers) and at 2 and 3
+microbatches, and each op's calls, FLOPs and bytes are solved for the
+cell's (:func:`count_share`), exact when the layers of a period have one
+shape, as they do in every config.  The count runs under
+:class:`~repro_torch.utils.op_costs.MetaOpCounter`, which makes a
+repeated call's outputs from a cache of their shapes.  What is left is
+the period's own ops: the Mamba and RWKV mixers step a Python loop over
+time, so their cells dispatch an op or more per token and layer of a
+period, and take minutes.
+
+Results go to ``experiments/dryrun_torch_<mesh>.json``.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+        [--shape S] [--multi-pod | --both-meshes] [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import math
+import os
+import time
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from repro_torch import configs
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs.shapes import SHAPES, shape_applicable
+from repro_torch.launch import roofline
+from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.models import encdec, transformer
+from repro_torch.models.model import build_model
+from repro_torch.sharding import rules
+from repro_torch.train.loop import make_train_step, param_tree
+from repro_torch.train.optimizer import init_opt_state, torch_dtype
+from repro_torch.utils.op_costs import DOT_OPS, MetaOpCounter
+
+__all__ = ["input_specs", "build_cell", "run_cell", "train_config_for",
+           "count_share", "param_collectives", "memory_record", "ArgSpec",
+           "Cell", "DEFAULT_RESULT_DIR", "CARD_BYTES", "main"]
+
+DEFAULT_RESULT_DIR = "experiments"
+#: one H100 SXM's device memory (80 GB)
+CARD_BYTES = 80 * 10**9
+_META = torch.device("meta")
+_ONE = MeshShape(("data", "model"), (1, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArgSpec:
+    """An argument's global shape, dtype and spec: the reference's
+    ``ShapeDtypeStruct`` with a sharding."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: rules.PartitionSpec
+
+    def local_bytes(self, mesh) -> int:
+        """The bytes one device holds."""
+        return (math.prod(rules.shard_shape(self.shape, self.spec, mesh))
+                * self.dtype.itemsize)
+
+
+def train_config_for(cfg: ModelConfig) -> TrainConfig:
+    """Per-arch optimizer policy, the reference's: AdamW fp32 everywhere
+    except MoE archs (Adafactor + bf16 params: expert weights are
+    expert-resident, replicated over the axes E does not cover, so fp32
+    AdamW state would replicate too; deepseek also needs bf16 grad
+    accumulation)."""
+    if cfg.moe is not None:
+        return TrainConfig(optimizer="adafactor", param_dtype="bfloat16",
+                           acc_dtype="bfloat16")
+    # XLA already hoists the loop-invariant parameter all-gathers out of
+    # the microbatch scan (the reference's note on gather_once)
+    return TrainConfig(optimizer="adamw", param_dtype="float32")
+
+
+def _batch_divides(shape: ShapeConfig, mesh) -> bool:
+    return shape.global_batch % max(
+        rules.MeshCtx(mesh).axis_size("batch"), 1) == 0
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                mesh) -> dict[str, ArgSpec]:
+    """Global shape, dtype and spec of every model input of this cell."""
+    b = shape.global_batch
+    bs = rules.batch_spec(mesh) if _batch_divides(shape, mesh) else rules.P()
+    out: dict[str, ArgSpec] = {}
+    if shape.kind == "train":
+        out["tokens"] = ArgSpec((b, shape.seq_len + 1), torch.int32, bs)
+    elif shape.kind == "prefill":
+        out["tokens"] = ArgSpec((b, shape.seq_len), torch.int32, bs)
+    elif shape.kind == "decode":
+        out["token"] = ArgSpec((b,), torch.int32, bs)
+        out["pos"] = ArgSpec((b,), torch.int32, bs)
+    act = getattr(torch, cfg.dtype)
+    if cfg.family == "audio" and shape.kind in ("train", "prefill"):
+        out["frames"] = ArgSpec((b, cfg.encoder_seq, cfg.d_model), act, bs)
+    if cfg.family == "vlm" and shape.kind in ("train", "prefill"):
+        out["patches"] = ArgSpec((b, cfg.n_prefix_embeds, cfg.d_model), act,
+                                 bs)
+    return out
+
+
+def _microbatches(shape: ShapeConfig, mesh) -> int:
+    bsz = rules.MeshCtx(mesh).axis_size("batch")
+    return max(1, min(shape.microbatches, shape.global_batch // bsz))
+
+
+def share_batch(shape: ShapeConfig, mesh) -> int:
+    """Rows of the global batch one device holds."""
+    if not _batch_divides(shape, mesh):
+        return shape.global_batch
+    return shape.global_batch // rules.MeshCtx(mesh).axis_size("batch")
+
+
+def _arg_specs(tree, specs) -> Any:
+    """A tree of tensors (a module: its named parameters) zipped with its
+    spec tree into :class:`ArgSpec` leaves."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    if isinstance(tree, dict):
+        return {k: _arg_specs(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_arg_specs(v, s) for v, s in zip(tree, specs))
+    return ArgSpec(tuple(tree.shape), tree.dtype, specs)
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell's step at one device's share: ``run()`` takes the step
+    and returns its outputs; ``args`` holds every argument
+    as a tree of :class:`ArgSpec` (global shapes) by role (``params``,
+    ``opt_state``, ``batch``, ``step``, ``cache``) and ``donated`` the
+    roles whose buffers the step's outputs reuse."""
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Any
+    microbatches: int
+    share_batch: int
+    args: dict
+    donated: tuple[str, ...]
+    run: Callable[[], Any]
+    tcfg: TrainConfig | None = None
+
+
+def _share_inputs(cfg, shape, mesh, rows: int, device, seed: int) -> dict:
+    """The share's inputs, ``rows`` rows of each: empty on ``meta``; on
+    another device drawn from ``seed`` (tokens uniform over the
+    vocabulary, the stub embeddings N(0, 0.02^2)), a decode's positions
+    at the cache's last row."""
+    specs = input_specs(cfg, shape, mesh)
+    shapes = {k: (rows,) + a.shape[1:] for k, a in specs.items()}
+    if device.type == "meta":
+        return {k: torch.empty(shapes[k], dtype=a.dtype, device=device)
+                for k, a in specs.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for k, a in specs.items():
+        if k == "pos":
+            out[k] = torch.full(shapes[k], shape.seq_len - 1,
+                                dtype=a.dtype, device=device)
+        elif a.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab_size, shapes[k],
+                                   generator=gen, dtype=a.dtype,
+                                   device=device)
+        else:
+            out[k] = (0.02 * torch.randn(shapes[k], generator=gen,
+                                         device=device)).to(a.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _meta_module(cfg: ModelConfig, dtype):
+    """The model of ``cfg`` on ``meta`` in ``dtype``, built once: it holds
+    no values, so the cells of a sweep share it."""
+    ctor = encdec.EncDecLM if cfg.family == "audio" else transformer.DecoderLM
+    return ctor(cfg, device=_META, dtype=dtype)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+               microbatches: int | None = None, device="meta",
+               seed: int = 0) -> Cell:
+    """The cell's step, on ``meta`` unless ``device`` is given (the card:
+    parameters and inputs drawn from ``seed``, the optimizer state and
+    the cache zeroed), at one device's share.  ``microbatches`` (train)
+    takes the step with that many microbatches of the cell's microbatch
+    rows in place of the cell's own (:func:`count_share`)."""
+    device = torch.device(device)
+    model = build_model(cfg)
+    rows = share_batch(shape, mesh)
+    batch_args = input_specs(cfg, shape, mesh)
+
+    def make_params(dtype=None):
+        if device.type == "meta":
+            return _meta_module(cfg, dtype)
+        return model.init(seed, device=device, dtype=dtype)
+
+    if shape.kind == "train":
+        tcfg = train_config_for(cfg)
+        mbs = _microbatches(shape, mesh)
+        n_mb = mbs if microbatches is None else microbatches
+        params = make_params(torch_dtype(tcfg.param_dtype))
+        opt = init_opt_state(tcfg, param_tree(params))
+        step_fn = make_train_step(model, tcfg, microbatches=n_mb)
+        batch = _share_inputs(cfg, shape, mesh, n_mb * (rows // mbs),
+                              device, seed)
+        args = {"params": _arg_specs(params, rules.param_specs(mesh,
+                                                               params)),
+                "opt_state": _arg_specs(opt, rules.param_specs(mesh, opt)),
+                "batch": batch_args,
+                "step": ArgSpec((), torch.int32, rules.P())}
+        return Cell(cfg, shape, mesh, mbs, rows, args,
+                    ("params", "opt_state"),
+                    lambda: step_fn(params, opt, batch, 0), tcfg)
+
+    params = make_params()
+    seq = shape.seq_len
+    if cfg.family == "vlm":
+        seq += cfg.n_prefix_embeds  # prefix patch embeds occupy cache slots
+    cache_g = model.init_cache(shape.global_batch, seq, device=_META)
+    cache = model.init_cache(rows, seq, device=device)
+    cache_sp = rules.cache_specs(mesh, cache_g,
+                                 seq_shard=shape.global_batch == 1)
+    args = {"params": _arg_specs(params, rules.param_specs(mesh, params)),
+            "cache": _arg_specs(cache_g, cache_sp), "batch": batch_args}
+    batch = _share_inputs(cfg, shape, mesh, rows, device, seed)
+    if shape.kind == "prefill":
+        run = lambda: model.prefill(params, batch, cache)
+    else:
+        run = lambda: model.decode(params, cache, batch["token"],
+                                   batch["pos"])
+    return Cell(cfg, shape, mesh, 1, rows, args, ("cache",), run)
+
+
+# --------------------------------------------------------------------------
+# the count, by trip count
+# --------------------------------------------------------------------------
+
+def _periods(cfg: ModelConfig) -> int | None:
+    """The number of identical periods of the decoder's layers (None for
+    the encoder-decoder, counted whole)."""
+    if cfg.family == "audio":
+        return None
+    return transformer.period_structure(cfg)[2]
+
+
+def _with_periods(cfg: ModelConfig, n: int) -> ModelConfig:
+    prefix, period, _ = transformer.period_structure(cfg)
+    return dataclasses.replace(cfg, n_layers=len(prefix) + n * len(period))
+
+
+def _count(cfg, shape, mesh, microbatches) -> tuple[dict, Any]:
+    cell = build_cell(cfg, shape, mesh, microbatches=microbatches)
+    with MetaOpCounter() as c:
+        out = cell.run()
+    return {k: list(v) for k, v in c.by_op.items()}, out
+
+
+def _warm(cfg: ModelConfig) -> None:
+    """One uncounted prefill of a period at 8 tokens on ``meta``: what a
+    model caches on a device at its first call (RoPE's inverse
+    frequencies) is then in place, as on a card that has served."""
+    n_p = _periods(cfg)
+    if n_p is not None and n_p > 1:
+        cfg = _with_periods(cfg, 1)
+    build_cell(cfg, ShapeConfig("warm", "prefill", 8, 1), _ONE).run()
+
+
+def _points(n: int | None, first: int) -> list:
+    """The trip counts a count is taken at for a cell's ``n``: ``n``
+    itself when it is at most ``first + 1``, else ``first`` and
+    ``first + 1``."""
+    return [n] if n is None or n <= first + 1 else [first, first + 1]
+
+
+def count_share(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                shortcut: bool = True) -> tuple[dict, dict]:
+    """``(by_op, info)``: op name -> ``[calls, flops, bytes]`` of one
+    device's share of the cell's step, and how it was counted.  With
+    ``shortcut`` the step is counted at 0 and 1 periods after the dense
+    prefix (1 and 2 for a MoE arch) and, for a train step of more than 3
+    microbatches, at 2 and 3 microbatches, and each number solved
+    bilinearly for the cell's; else counted whole."""
+    n_p = _periods(cfg)
+    n_m = _microbatches(shape, mesh) if shape.kind == "train" else None
+    # a MoE arch's loss carries its aux loss's gradient only once a MoE
+    # layer exists: its counts start at one period
+    ps = _points(n_p, int(cfg.moe is not None)) if shortcut else [n_p]
+    ms = _points(n_m, 2) if shortcut else [n_m]
+    _warm(cfg)
+    counts, out = {}, None
+    for p in ps:
+        cfg_p = cfg if p == n_p else _with_periods(cfg, p)
+        for m in ms:
+            counts[p, m], out = _count(cfg_p, shape, mesh, m)
+    p0, p1, m0, m1 = ps[0], ps[-1], ms[0], ms[-1]
+    dp = 0 if len(ps) == 1 else n_p - p0
+    dm = 0 if len(ms) == 1 else n_m - m0
+    names = set().union(*counts.values())
+    zero = [0, 0, 0]
+    by_op = {}
+    for name in sorted(names):
+        f = {k: c.get(name, zero) for k, c in counts.items()}
+        row = [f[p0, m0][i]
+               + dp * (f[p1, m0][i] - f[p0, m0][i])
+               + dm * (f[p0, m1][i] - f[p0, m0][i])
+               + dp * dm * (f[p1, m1][i] - f[p1, m0][i] - f[p0, m1][i]
+                            + f[p0, m0][i])
+               for i in range(3)]
+        if any(row):
+            by_op[name] = row
+    info = {"periods": n_p, "microbatches": n_m,
+            "counted_at": [list(k) for k in counts],
+            "metric_leaves": (len(out[2]) if shape.kind == "train"
+                              else 0)}
+    return by_op, info
+
+
+# --------------------------------------------------------------------------
+# memory and collectives, from the specs
+# --------------------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    out = []
+    rules.tree_map_with_path(lambda p, x: out.append((p, x)), tree)
+    return out
+
+
+def _role_bytes(cell: Cell, role: str) -> int:
+    return sum(a.local_bytes(cell.mesh) for _, a in _leaves(cell.args[role]))
+
+
+def memory_record(cell: Cell, metric_leaves: int = 0) -> dict:
+    """Per-device argument, output and donated bytes of the cell: exact
+    arithmetic on the local shapes the specs give."""
+    roles = {r: _role_bytes(cell, r) for r in cell.args}
+    arg = sum(roles.values())
+    alias = sum(roles[r] for r in cell.donated)
+    if cell.shape.kind == "train":
+        # the updated params and optimizer state, and 0-d fp32 metrics
+        out = alias + 4 * metric_leaves
+    else:
+        b = cell.shape.global_batch
+        logits = (b, 1, cell.cfg.vocab_size) if cell.shape.kind == "prefill" \
+            else (b, cell.cfg.vocab_size)
+        spec = (rules.batch_spec(cell.mesh)
+                if _batch_divides(cell.shape, cell.mesh) else rules.P())
+        out = ArgSpec(logits, torch.float32, spec).local_bytes(cell.mesh) \
+            + roles["cache"]
+    resident = arg + out - alias
+    return {"argument_bytes": arg, "output_bytes": out,
+            "alias_bytes": alias, "temp_bytes": None,
+            "temp_reason": "no partitioner: activations under tensor "
+                           "parallelism are not modelled",
+            "argument_bytes_by_role": roles,
+            "resident_bytes": resident, "card_bytes": CARD_BYTES,
+            "fits_card": resident <= CARD_BYTES}
+
+
+def _spec_axes(spec) -> set:
+    out = set()
+    for entry in spec:
+        if entry is not None:
+            out.update(entry if isinstance(entry, tuple) else (entry,))
+    return out
+
+
+def param_collectives(cell: Cell) -> dict:
+    """Parameter-side collective bytes one device moves in one step (ring
+    volumes): the all-gather of each leaf's ``data``-sharded dims (expert
+    leaves are resident and never gathered); in a train step the
+    gradient's reduce-scatter over ``data`` (all-reduce where the leaf is
+    replicated over ``data``; an expert leaf that ``data`` shards keeps
+    its gradient local) and its all-reduce over ``pod``."""
+    mesh = cell.mesh
+    n = mesh.shape.get("data", 1)
+    pods = mesh.shape.get("pod", 1)
+    train = cell.shape.kind == "train"
+    grad_dtype = None
+    if train and cell.microbatches > 1:
+        grad_dtype = torch_dtype(cell.tcfg.acc_dtype)
+    kinds = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    for path, a in _leaves(cell.args["params"]):
+        local = a.local_bytes(mesh)
+        on_data = "data" in _spec_axes(a.spec)
+        expert = bool(rules._EXPERT.search(path)) and len(a.shape) >= 3
+        if on_data and not expert:
+            kinds["all-gather"] += (n - 1) * local
+        if not train:
+            continue
+        g = local // a.dtype.itemsize * (grad_dtype or a.dtype).itemsize
+        if on_data:
+            if not expert:
+                kinds["reduce-scatter"] += (n - 1) * g
+        else:
+            kinds["all-reduce"] += 2 * (n - 1) / n * g
+        kinds["all-reduce"] += 2 * (pods - 1) / pods * g
+    return {"collective_model": "parameters", "by_kind": kinds,
+            "total_bytes": sum(kinds.values())}
+
+
+# --------------------------------------------------------------------------
+# one cell, and the sweep
+# --------------------------------------------------------------------------
+
+def _mesh_name(mesh) -> str:
+    return "x".join(str(d) for d in mesh.dims)
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             mesh=None, reduced: bool = False) -> dict[str, Any]:
+    """Build and count one cell on ``meta``; returns its record."""
+    cfg = configs.get_smoke(arch) if reduced else configs.get(arch)
+    shape = SHAPES[shape_name]
+    rec: dict[str, Any] = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+    }
+    if not shape_applicable(cfg.family, shape_name):
+        rec["status"] = "skipped"
+        rec["reason"] = (f"{cfg.family} family: full attention is "
+                         "quadratic at 500k; sub-quadratic archs only "
+                         "(DESIGN.md §4)")
+        return rec
+    mesh = mesh if mesh is not None else make_production_mesh(
+        multi_pod=multi_pod)
+    rec["mesh"] = _mesh_name(mesh)
+    try:
+        t0 = time.time()
+        cell = build_cell(cfg, shape, mesh)
+        rec["build_s"] = round(time.time() - t0, 2)
+        t0 = time.time()
+        by_op, info = count_share(cfg, shape, mesh)
+        rec["count_s"] = round(time.time() - t0, 2)
+        tp = mesh.shape.get("model", 1)
+        share_flops = sum(v[1] for v in by_op.values())
+        share_bytes = sum(v[2] for v in by_op.values())
+        dot = sum(v[1] for k, v in by_op.items() if k in DOT_OPS)
+        rec["share"] = {"batch_rows": cell.share_batch,
+                        "microbatches": cell.microbatches, **info}
+        rec["memory"] = memory_record(cell, info["metric_leaves"])
+        rec["cost"] = {
+            "flops": share_flops / tp, "bytes_accessed": share_bytes / tp,
+            "dot_flops": dot / tp,
+            "share_flops": share_flops, "share_bytes": share_bytes,
+            "tensor_parallel": tp,
+            "split": "even: the share's count divided by the model axis",
+            "flash_attention_calls": by_op.get(
+                "repro_torch::flash_attention", [0])[0],
+            "by_op": by_op}
+        rec["collectives"] = param_collectives(cell)
+        rec.update(roofline.roofline_terms(
+            rec["cost"]["flops"], rec["cost"]["bytes_accessed"],
+            rec["collectives"]["total_bytes"],
+            roofline.model_flops(cfg, shape), mesh.size))
+        rec["status"] = "ok"
+    except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"[:500]
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else list(configs.ARCH_NAMES)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    results = []
+    t_sweep = time.time()
+    for mp in meshes:
+        mesh = make_production_mesh(multi_pod=mp)
+        for arch in archs:
+            for shape in shapes:
+                rec = run_cell(arch, shape, multi_pod=mp, mesh=mesh)
+                results.append(rec)
+                mem = rec.get("memory", {}).get("resident_bytes", 0) / 2**30
+                print(f"[{rec['mesh']}] {arch:22s} {shape:12s} "
+                      f"{rec['status']:8s} count={rec.get('count_s', '-')}s "
+                      f"resident/dev={mem:.2f}GiB "
+                      f"{rec.get('reason', rec.get('error', ''))[:60]}",
+                      flush=True)
+
+    os.makedirs(DEFAULT_RESULT_DIR, exist_ok=True)
+    out = args.out or os.path.join(
+        DEFAULT_RESULT_DIR,
+        f"dryrun_torch_{'multi' if meshes[-1] else 'single'}.json")
+    with open(out, "w") as f:
+        json.dump(results, f, indent=1)
+    n_ok = sum(r["status"] == "ok" for r in results)
+    n_skip = sum(r["status"] == "skipped" for r in results)
+    n_err = sum(r["status"] == "error" for r in results)
+    print(f"\nDRY-RUN: ok={n_ok} skipped={n_skip} error={n_err} "
+          f"in {time.time() - t_sweep:.1f}s -> {out}")
+    if n_err:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

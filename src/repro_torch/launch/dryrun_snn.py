@@ -41,6 +41,7 @@ from repro_torch.core import distributed as dist
 from repro_torch.core.layout import DEFAULT_PB, blocked_layout_streamed
 from repro_torch.core.wire import get_wire, sparse_packed_crossover_fraction
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.roofline import HBM_BW, NVLINK_BW
 from repro_torch.utils.op_costs import OpCounter
 
 __all__ = ["shard_dims", "state_and_consts_meta", "blocked_consts",
@@ -48,13 +49,11 @@ __all__ = ["shard_dims", "state_and_consts_meta", "blocked_consts",
            "card_line", "cell_line", "VARIANTS", "main"]
 
 # An H100 SXM's published rates (NVIDIA H100 Tensor Core GPU datasheet):
-# FP32 outside the tensor cores 67 TFLOP/s, HBM3 3.35 TB/s, NVLink 4
-# 900 GB/s per GPU in both directions together, so 450 GB/s into one card.
-# The model takes every gather at the NVLink rate (an NVLink Switch System
-# spans 256 H100s; between two such pods a gather would be slower).
+# the SNN step's FP32 outside the tensor cores, 67 TFLOP/s; HBM3 and
+# NVLink as the LM roofline defines them.  The model takes every gather
+# at the NVLink rate (an NVLink Switch System spans 256 H100s; between two
+# such pods a gather would be slower).
 PEAK_FLOPS = 67e12
-HBM_BW = 3.35e12
-NVLINK_BW = 450e9
 
 #: (wire, wire_remote, compact, overlap) of each cell, as the reference's
 #: main: the f32 baseline, the packed wire, compact dtypes, overlap off,

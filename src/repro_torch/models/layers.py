@@ -158,8 +158,10 @@ def matmul_f32(a, b):
     dtype: the reference's ``einsum(..., preferred_element_type=float32)``.
     A product of two bf16 (or fp16) values is exact in fp32, so the CPU
     path upcasts; on the card the GEMM writes fp32 directly, through
-    :class:`F32Product`, which carries its gradient."""
-    if a.is_cuda and a.dtype in _HALF:
+    :class:`F32Product`, which carries its gradient.  Every device but
+    the CPU takes the card's route, so that a count on ``meta`` sees the
+    card's ops."""
+    if a.device.type != "cpu" and a.dtype in _HALF:
         y = F32Product.apply(a.reshape(-1, a.shape[-1]), b)
         return y.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
@@ -169,7 +171,7 @@ def bmm_f32(a, b):
     """The batched ``a @ b`` (``(E, M, K) @ (E, K, N)``) in fp32,
     unrounded, for operands already in the compute dtype: as
     :func:`matmul_f32`, one product per leading index."""
-    if a.is_cuda and a.dtype in _HALF:
+    if a.device.type != "cpu" and a.dtype in _HALF:
         return F32Product.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

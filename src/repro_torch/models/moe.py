@@ -97,11 +97,15 @@ def _route(p: MoE, e, xt):
 
 def _owner_sort(flat_e, n_experts: int):
     """The owner order of the assignments ``flat_e`` (T*k,): (order, the
-    sorted experts, each assignment's rank inside its expert's run)."""
+    sorted experts, each assignment's rank inside its expert's run).
+    Each expert's run starts where a search of the sorted experts puts
+    it: the reference's exclusive cumsum of the counts, in integers, with
+    a size that does not depend on the data (so it runs on ``meta``) and
+    deterministic on the card."""
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(se, minlength=n_experts)             # (E,)
-    starts = torch.cumsum(counts, 0) - counts
+    starts = torch.searchsorted(
+        se, torch.arange(n_experts, device=se.device, dtype=se.dtype))
     pos = torch.arange(se.numel(), device=se.device) - starts[se]
     return order, se, pos
 
@@ -114,9 +118,13 @@ def _dispatch_block(p: MoE, e, mlp_kind: str, xt, compute_dtype):
     cap = capacity(t, e)
     probs, gate, idx = _route(p, e, xt)
 
-    # load-balance aux (Switch-style): E * sum_e f_e * P_e
+    # load-balance aux (Switch-style): E * sum_e f_e * P_e; the one-hot
+    # of the choices as a comparison, the same ops on every device
+    # (``F.one_hot`` checks the ids' range on the host on the CPU, and
+    # takes other ops on ``meta``)
     me = probs.mean(0)
-    ce = F.one_hot(idx, e.n_experts).float().sum(1).mean(0)
+    experts = torch.arange(e.n_experts, device=idx.device)
+    ce = (idx[..., None] == experts).float().sum(1).mean(0)
     aux_loss = e.n_experts * torch.sum(me * ce)
 
     # ---- owner-sorted dispatch --------------------------------------------

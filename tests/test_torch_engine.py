@@ -331,7 +331,9 @@ def test_port_imports_neither_jax_nor_reference():
         "          'core.distributed', 'core.multihost', 'launch.mesh',\n"
         "          'launch.multihost', 'serve.sessions', 'serve.snn',\n"
         "          'diff.surrogate', 'diff.rollout', 'diff.classify',\n"
-        "          'diff.inverse', 'train.optimizer', 'train.loop'):\n"
+        "          'diff.inverse', 'train.optimizer', 'train.loop',\n"
+        "          'configs.shapes', 'sharding.rules', 'launch.dryrun',\n"
+        "          'launch.roofline', 'utils.op_costs'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": SRC,
                          "PATH": "/usr/bin:/bin"},
