@@ -176,6 +176,30 @@ parameters and inputs drawn on the card from the seed:
                  the output finite; ms against the roofline bound
                  ``max(FLOPs / 989e12, bytes / 3.35e12)``.
 
+The LM face on a process mesh (``launch.mesh.ProcessMesh``,
+``models.moe_manual``, the mesh train step), after ``lm_dryrun``: four
+processes sharing the card over gloo (``core.multihost.initialize``),
+``qwen3-moe-30b-a3b`` at published width, a (2, 2) ``("data", "model")``
+mesh (experts 4-way over ``("model", "data")``), each process drawing the
+single-device model's weights from the seed and keeping its expert block:
+
+14e. lm_mesh - (a) a prefill of 4 x 128 seeded tokens and 4 seeded
+               decode steps at capacity factor 16 (nothing drops), depth
+               cut to LM_MESH_LAYERS, in fp32 (logits within 1e-3 of the
+               single-process run's largest) and bf16 (within 0.1), the
+               routes of the single-process run replayed on the mesh and
+               the share whose own top-k differs reported; K8 once per
+               layer in each process's prefill; (b) at the published
+               capacity factor: the drop fraction, prefill and decode
+               tokens/s per process, and one ``all_to_all`` of the
+               prefill's dispatch buffer alone, by CUDA events, with its
+               bytes; (c) LM_MESH_TRAIN_LAYERS layers: 3 AdamW steps on
+               fp32 parameters (capacity factor 16) held to the
+               single-process run, a checkpoint of global leaves, one
+               Adafactor step and a loss after it; then the checkpoint
+               restored onto a (1, 2) mesh of two processes and 2 more
+               steps, held to one process resumed from it.
+
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
 
@@ -401,6 +425,10 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import encdec as lm_encdec  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import moe_manual as lm_moe_manual  # noqa: E402
+from repro_torch import convert as lm_convert  # noqa: E402
+from repro_torch.sharding import collectives as lm_coll  # noqa: E402
+from repro_torch.sharding import rules as lm_rules  # noqa: E402
 from repro_torch.models import transformer as lm_tr  # noqa: E402
 from repro_torch.models.layers import bmm_f32, matmul_f32  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -4918,7 +4946,539 @@ def phase_lm_dryrun() -> dict:
     return launches
 
 
+#: the lm_mesh cell (phase 14e): qwen3-moe-30b-a3b at published width on
+#: a (2, 2) ("data", "model") mesh of four processes sharing the card
+#: over gloo; its experts 4-way over ("model", "data"), 32 a process
+LM_MESH_ARCH = "qwen3-moe-30b-a3b"
+LM_MESH_DIMS, LM_MESH_AXES = (2, 2), ("data", "model")
+LM_MESH_RESTART_DIMS = (1, 2)
+#: (a)/(b) depth: the fp32 leg's single-process run holds 2.5 GB of
+#: embeddings and 2.5 GB a layer (fp32), four processes 2.5 GB and 0.68
+#: GB a layer each; 16 layers keep both under 60 GB of the 80
+LM_MESH_LAYERS = 16
+#: (c) depth: fp32 parameters, their gradients and AdamW's two moments
+#: (4 x 4 bytes a parameter): 10 GB of embeddings on every process (the
+#: port keeps dense parameters whole) and 2.7 GB a layer a process; 1
+#: layer keeps four processes near 65 GB with the step's transients (2
+#: passed 80 GB on an H100)
+LM_MESH_TRAIN_LAYERS = 1
+LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_DECODE = 4, 128, 4
+LM_MESH_TRAIN_STEPS, LM_MESH_RESTART_STEPS = 3, 2
+LM_MESH_LR = 1e-3
+#: fp32 logits against the single-process run's, relative to their
+#: largest magnitude; bf16 logits absolute (the families gate)
+LM_MESH_F32_RTOL = 1e-3
+#: train losses against one process: a mesh counts the load-balance loss
+#: per token slice (the reference's moe_apply_manual), so the two part
+#: by 0.01 x its difference, and bf16 GEMMs of other shapes round
+#: otherwise: the first step (the same parameters and batch), and all
+LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL = 1e-2, 3e-2
+LM_MESH_A2A_REPS = 20
+LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
+LM_MESH_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.lm_mesh_worker(sys.argv[2])
+"""
+
+
+def _lm_mesh_cfg(dtype: str, layers: int, cf: float | None = 16.0):
+    pub = lm_configs.get(LM_MESH_ARCH)
+    moe = pub.moe if cf is None else dataclasses.replace(
+        pub.moe, capacity_factor=cf)
+    return dataclasses.replace(pub, n_layers=layers, dtype=dtype, moe=moe)
+
+
+def _lm_mesh_tokens(cfg):
+    """The global prompts (B, S) and decode tokens (B, LM_MESH_DECODE)."""
+    rng = np.random.default_rng(SEED)
+    return (torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        LM_MESH_BATCH, LM_MESH_SEQ))).to(DEV),
+            torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+                LM_MESH_BATCH, LM_MESH_DECODE))).to(DEV))
+
+
+def _block(t, mesh):
+    return t if mesh is None else launch_train.batch_block(t, mesh)
+
+
+@contextlib.contextmanager
+def _mesh_routes(replay, mesh, t_loc: list):
+    """The manual dispatch's routes replaced by ``replay`` (the
+    single-process run's, one (T, k) array a call): a process's slice
+    takes the rows of its tokens (``t_loc[0]`` tokens in its block,
+    ``d * t_loc + j`` globally), its pad rows keep their own; ``moved``
+    counts the tokens whose own top-k set differs."""
+    inner, calls = lm_moe_manual._route, iter(replay)
+    out = {"moved": 0, "tokens": 0}
+    batch_ax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    d = mesh.axis_index(batch_ax)
+    m = mesh.coords["model"]
+
+    def route(router, e, x_slice):
+        probs, gate, idx = inner(router, e, x_slice)
+        want = next(calls).to(idx.device)
+        t_s, n = x_slice.shape[0], t_loc[0]
+        j = torch.arange(m * t_s, (m + 1) * t_s, device=idx.device)
+        real = j < n
+        rep = idx.clone()
+        rep[real] = want[d * n + j[real]]
+        out["moved"] += int((idx[real].sort(-1).values
+                             != rep[real].sort(-1).values).any(-1).sum())
+        out["tokens"] += int(real.sum())
+        g = probs.gather(-1, rep)
+        return probs, g / torch.clamp_min(g.sum(-1, keepdim=True),
+                                          1e-9), rep
+    lm_moe_manual._route = route
+    try:
+        yield out
+    finally:
+        lm_moe_manual._route = inner
+
+
+def lm_mesh_forward(dtype: str, mesh=None, replay=None) -> dict:
+    """(a): the prefill's last logits and each decode step's, of the
+    whole batch (``mesh`` None: recorded routes in ``routes``) or of this
+    process's block (the routes of ``replay`` taken); K8's launches in
+    the prefill; peak memory."""
+    cfg = _lm_mesh_cfg(dtype, LM_MESH_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
+    prompts, dec = (_block(t, mesh) for t in _lm_mesh_tokens(cfg))
+    b = prompts.shape[0]
+    cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + LM_MESH_DECODE,
+                             getattr(torch, dtype), device=DEV)
+    t_loc = [b * LM_MESH_SEQ]
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    routes = (_mesh_routes(replay, mesh, t_loc) if mesh is not None
+              else _moe_routes())
+    with ctx, routes as r:
+        reset_launches()
+        logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        k8 = read_launches()["flash_attention"]
+        out = [logits[:, 0]]
+        t_loc[0] = b
+        for i in range(LM_MESH_DECODE):
+            pos = torch.full((b,), LM_MESH_SEQ + i, dtype=torch.int64,
+                             device=DEV)
+            lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            out.append(lg)
+    torch.cuda.synchronize()
+    rec = {"logits": torch.stack(out).float().cpu(), "k8_prefill": k8,
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    if mesh is None:
+        rec["routes"] = [x.cpu() for x in r["idx"]]
+    else:
+        rec.update(routes_moved=r["moved"], routes_tokens=r["tokens"])
+    del params, cache
+    return rec
+
+
+def lm_mesh_published(mesh) -> dict:
+    """(b): the published capacity factor on the mesh (bf16, routes its
+    own): the drop fraction, prefill and decode tokens/s of this process,
+    and one ``all_to_all`` of the prefill's dispatch buffer alone."""
+    cfg = _lm_mesh_cfg("bfloat16", LM_MESH_LAYERS, cf=None)
+    e = cfg.moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
+    prompts, dec = (_block(t, mesh) for t in _lm_mesh_tokens(cfg))
+    b = prompts.shape[0]
+    rec = {"capacity_factor": e.capacity_factor}
+    with lm_rules.use_mesh(mesh), _moe_drops() as drops:
+        for rep in range(2):          # the second one timed
+            cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + LM_MESH_DECODE,
+                                     torch.bfloat16, device=DEV)
+            drops.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_tr.prefill(params, cfg, prompts, cache)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            pre_drops = [float(x) for x in drops]
+            t0 = time.perf_counter()
+            for i in range(LM_MESH_DECODE):
+                pos = torch.full((b,), LM_MESH_SEQ + i, dtype=torch.int64,
+                                 device=DEV)
+                lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) / LM_MESH_DECODE
+    rec.update(prefill_s=t_pre, prefill_tokens_per_s=b * LM_MESH_SEQ / t_pre,
+               decode_step_s=t_dec, decode_tokens_per_s=b / t_dec,
+               prefill_drop_frac_mean=float(np.mean(pre_drops)),
+               decode_drop_frac_mean=float(np.mean(
+                   [float(x) for x in drops[len(pre_drops):]])))
+    del params
+    # the dispatch buffer of one prefill layer: (E, cap, d) over the
+    # expert axes, from this process's token slice
+    exp_ax = lm_rules.expert_axes_for(mesh, e.n_experts)
+    t_s = b * LM_MESH_SEQ // mesh.axis_size(("model",))
+    cap = max(4, int(np.ceil(t_s * e.top_k / e.n_experts
+                             * e.capacity_factor)))
+    send = torch.randn((e.n_experts, cap, cfg.d_model), device=DEV).to(
+        torch.bfloat16)
+    for _ in range(3):
+        lm_coll.all_to_all(send, mesh, exp_ax)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LM_MESH_A2A_REPS):
+        lm_coll.all_to_all(send, mesh, exp_ax)
+    end.record()
+    torch.cuda.synchronize()
+    rec.update(a2a_ms=start.elapsed_time(end) / LM_MESH_A2A_REPS,
+               a2a_bytes=send.numel() * send.element_size(),
+               a2a_shape=list(send.shape), a2a_route=lm_coll.route(mesh, send),
+               a2a_axes=list(exp_ax))
+    return rec
+
+
+def _mesh_mean(t, mesh):
+    if mesh is None:
+        return float(t)
+    batch_ax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return float(lm_coll.all_reduce_sum(t.detach(), mesh, batch_ax)
+                 / mesh.axis_size(batch_ax))
+
+
+def _train_batch(cfg, step: int, mesh):
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LM_MESH_SEQ,
+                         global_batch=LM_MESH_BATCH, seed=SEED)
+    return {"tokens": _block(torch.as_tensor(pipe.batch(step)["tokens"],
+                                             device=DEV), mesh)}
+
+
+def lm_mesh_train(mesh=None) -> dict:
+    """(c): LM_MESH_TRAIN_STEPS AdamW steps, the checkpoint (on a mesh:
+    global leaves, written by process 0), one Adafactor step and the loss
+    after it."""
+    cfg = _lm_mesh_cfg("bfloat16", LM_MESH_TRAIN_LAYERS)
+    m = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = m.init(SEED, device=DEV, dtype=torch.float32, mesh=mesh)
+    tcfg = TrainConfig(lr=LM_MESH_LR)
+    opt = train_opt.init_opt_state(tcfg, params)
+    step = train_loop.make_train_step(m, tcfg)
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    losses, ce, step_s = [], [], []
+    with ctx:
+        for i in range(LM_MESH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, _train_batch(cfg, i, mesh),
+                                    i)
+            losses.append(float(met["loss"]))
+            ce.append(float(met["ce"]))
+            step_s.append(time.perf_counter() - t0)
+        rec = {"losses": losses, "ce": ce, "step_s": step_s}
+        if mesh is not None:
+            t0 = time.perf_counter()
+            state = lm_convert.mesh_global(
+                (train_loop.param_tree(params), opt), mesh,
+                cfg.moe.n_experts, 0)
+            if mesh.rank == 0:
+                shutil.rmtree(os.path.join(LM_MESH_DIR, "ckpt"),
+                              ignore_errors=True)
+                mgr = CheckpointManager(os.path.join(LM_MESH_DIR, "ckpt"))
+                mgr.save(LM_MESH_TRAIN_STEPS, state,
+                         metadata={"step": LM_MESH_TRAIN_STEPS})
+                rec["ckpt_bytes"] = mgr.timings[-1]["bytes"]
+            del state
+            lm_coll.all_reduce_sum(torch.zeros((), device=DEV), mesh,
+                                   mesh.axis_names)    # the save is done
+            rec["ckpt_s"] = time.perf_counter() - t0
+        del opt
+        af = TrainConfig(optimizer="adafactor", lr=LM_MESH_LR)
+        opt = train_opt.init_opt_state(af, params)
+        i = LM_MESH_TRAIN_STEPS
+        params, opt, met = train_loop.make_train_step(m, af)(
+            params, opt, _train_batch(cfg, i, mesh), i)
+        rec["adafactor_loss"] = float(met["loss"])
+        with torch.no_grad():
+            loss, _ = m.loss(params, _train_batch(cfg, i + 1, mesh))
+        rec["loss_after_adafactor"] = _mesh_mean(loss, mesh)
+    rec["peak_device_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params, opt
+    return rec
+
+
+def lm_mesh_restart(mesh=None) -> dict:
+    """(c): the step-3 checkpoint restored (on a mesh: cut for it) and
+    LM_MESH_RESTART_STEPS more AdamW steps."""
+    cfg = _lm_mesh_cfg("bfloat16", LM_MESH_TRAIN_LAYERS)
+    m = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_tr.DecoderLM(cfg, device=DEV, dtype=torch.float32,
+                             mesh=mesh)
+    tcfg = TrainConfig(lr=LM_MESH_LR)
+    target = (train_loop.param_tree(params),
+              train_opt.init_opt_state(tcfg, params))
+    sh = None
+    if mesh is not None:
+        sh = lm_rules.tree_map_with_path(
+            lambda _, sp: lm_rules.NamedSharding(mesh, sp),
+            lm_rules.local_specs(mesh, target, cfg.moe.n_experts))
+    t0 = time.perf_counter()
+    (tree, opt), meta = CheckpointManager(os.path.join(
+        LM_MESH_DIR, "ckpt")).restore(target, shardings=sh)
+    restore_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.copy_(tree[name])
+    del tree, target
+    step = train_loop.make_train_step(m, tcfg)
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    losses = []
+    with ctx:
+        for i in range(meta["step"], meta["step"] + LM_MESH_RESTART_STEPS):
+            params, opt, met = step(params, opt, _train_batch(cfg, i, mesh),
+                                    i)
+            losses.append(float(met["loss"]))
+    rec = {"start": meta["step"], "losses": losses, "restore_s": restore_s,
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt
+    return rec
+
+
+def lm_mesh_worker(job_json: str) -> None:
+    """One process of the mesh (started by :func:`_lm_mesh_spawn`):
+    joins through the launch environment, runs the job's tasks, writes
+    its record and arrays."""
+    from repro_torch.launch.mesh import join_process_mesh
+    import torch.distributed as tdist
+    job = json.loads(job_json)
+    if DEV.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = join_process_mesh(tuple(job["dims"]), tuple(job["axes"]),
+                             device=DEV)
+    rec = {"rank": mesh.rank, "coords": mesh.coords,
+           "backend": mesh.backend, "device": str(DEV)}
+    arrays = {}
+    for task in job["tasks"]:
+        t0 = time.perf_counter()
+        if task.startswith("forward_"):
+            dtype = task.split("_", 1)[1]
+            replay = [torch.from_numpy(a) for a in np.load(os.path.join(
+                LM_MESH_DIR, f"routes_{dtype}.npz")).values()]
+            out = lm_mesh_forward(dtype, mesh, replay)
+            arrays[f"logits_{dtype}"] = out.pop("logits").numpy()
+        elif task == "published":
+            out = lm_mesh_published(mesh)
+        elif task == "train":
+            out = lm_mesh_train(mesh)
+        else:
+            out = lm_mesh_restart(mesh)
+        out["task_s"] = time.perf_counter() - t0
+        print(json.dumps({"task": task, "s": out["task_s"]}), flush=True)
+        rec[task] = out
+        gc.collect()
+        torch.cuda.empty_cache()
+    name = f"{job['name']}_rank{mesh.rank}"
+    np.savez(os.path.join(LM_MESH_DIR, name + ".npz"), **arrays)
+    with open(os.path.join(LM_MESH_DIR, name + ".json"), "w") as f:
+        json.dump(rec, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def _lm_mesh_spawn(name: str, dims, tasks) -> list:
+    """``prod(dims)`` worker processes on the card, joined as a mesh;
+    their records, in rank order."""
+    size = int(np.prod(dims))
+    env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{mh_launch._free_port()}",
+               REPRO_NUM_PROC=str(size), LOCAL_WORLD_SIZE=str(size),
+               OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    job = json.dumps({"name": name, "dims": list(dims),
+                      "axes": list(LM_MESH_AXES), "tasks": list(tasks)})
+    logs = [open(os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log"), "w")
+            for r in range(size)]
+    procs = [subprocess.Popen([sys.executable, "-c", LM_MESH_WORKER, ROOT,
+                               job], cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT,
+                              env=dict(env, REPRO_PROC_ID=str(r)))
+             for r in range(size)]
+    deadline = time.monotonic() + 900
+    try:
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if any(rc not in (None, 0) for rc in rcs) or all(
+                    rc == 0 for rc in rcs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            check(False, f"lm_mesh {name}: process {r} exited "
+                  f"{p.returncode}\n{tail}")
+    return [json.load(open(os.path.join(LM_MESH_DIR,
+                                        f"{name}_rank{r}.json")))
+            for r in range(size)]
+
+
+def _rel_first(got, want, first_tol, tol, what):
+    got, want = np.asarray(got), np.asarray(want)
+    rel = np.abs(got - want) / np.abs(want)
+    check(rel[0] <= first_tol and rel.max() <= tol,
+          f"lm_mesh {what}: losses {got.tolist()} against one process's "
+          f"{want.tolist()}")
+    return float(rel.max())
+
+
+def phase_lm_mesh() -> dict:
+    """Phase 14e; returns K8's launches per process in (a)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    os.makedirs(LM_MESH_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pub = lm_configs.get(LM_MESH_ARCH)
+    check((pub.d_model, pub.n_layers, pub.moe.n_experts, pub.moe.top_k,
+           pub.vocab_size) == (2048, 48, 128, 8, 151_936),
+          f"lm_mesh: {LM_MESH_ARCH} is not the published config")
+    # the single-process runs first (the card cannot hold both at once)
+    single, single_s = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        single[dtype] = lm_mesh_forward(dtype)
+        np.savez(os.path.join(LM_MESH_DIR, f"routes_{dtype}.npz"),
+                 *[x.numpy() for x in single[dtype].pop("routes")])
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s[f"forward_{dtype}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_train = lm_mesh_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s["train"] = time.perf_counter() - t0
+    print(json.dumps({"lm_mesh single-process s": single_s,
+                      "device_mem_allocated_bytes":
+                          torch.cuda.memory_allocated()}), flush=True)
+    t0 = time.perf_counter()
+    ranks = _lm_mesh_spawn("mesh", LM_MESH_DIMS, (
+        "forward_float32", "forward_bfloat16", "published", "train"))
+    mesh_s = time.perf_counter() - t0
+    rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
+           "axes": list(LM_MESH_AXES), "processes": len(ranks),
+           "backend": ranks[0]["backend"], "layers": LM_MESH_LAYERS,
+           "train_layers": LM_MESH_TRAIN_LAYERS,
+           "published_layers": pub.n_layers, "batch": LM_MESH_BATCH,
+           "seq": LM_MESH_SEQ, "decode_steps": LM_MESH_DECODE,
+           "single_process_s": single_s, "mesh_processes_s": mesh_s}
+    check(rec["backend"] == "gloo" and all(
+        r["device"].startswith("cuda") for r in ranks),
+        f"lm_mesh: backend {rec['backend']}")
+    # (a) each process's logits against its rows of the single run's
+    for dtype in ("float32", "bfloat16"):
+        want = single[dtype]["logits"]            # (1 + decode, B, V)
+        got = torch.zeros_like(want)
+        rows = LM_MESH_BATCH // LM_MESH_DIMS[0]
+        for r in ranks:
+            d = r["coords"]["data"]
+            arr = np.load(os.path.join(LM_MESH_DIR, f"mesh_rank{r['rank']}"
+                                       ".npz"))[f"logits_{dtype}"]
+            if r["coords"]["model"] == 0:
+                got[:, d * rows:(d + 1) * rows] = torch.from_numpy(arr)
+            else:      # the processes of one block agree bit for bit
+                check(torch.equal(got[:, d * rows:(d + 1) * rows],
+                                  torch.from_numpy(arr)),
+                      f"lm_mesh {dtype}: the processes of batch block {d} "
+                      "differ")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        moved = sum(r[f"forward_{dtype}"]["routes_moved"] for r in ranks)
+        tokens = sum(r[f"forward_{dtype}"]["routes_tokens"] for r in ranks)
+        k8 = [r[f"forward_{dtype}"]["k8_prefill"] for r in ranks]
+        leg = {"max_abs_err": err, "max_abs_logit": scale,
+               "routes_moved": moved, "routes_tokens": tokens,
+               "routes_moved_share": moved / tokens,
+               "k8_prefill_per_process": k8,
+               "peak_device_mem_bytes_single":
+                   single[dtype]["peak_device_mem_bytes"],
+               "peak_device_mem_bytes_per_process": [
+                   r[f"forward_{dtype}"]["peak_device_mem_bytes"]
+                   for r in ranks],
+               "task_s_per_process": [r[f"forward_{dtype}"]["task_s"]
+                                      for r in ranks]}
+        if dtype == "float32":
+            leg["tolerance_rel"] = LM_MESH_F32_RTOL
+            check(err <= LM_MESH_F32_RTOL * scale, f"lm_mesh fp32: logits "
+                  f"differ by {err} (largest {scale})")
+        else:
+            leg["tolerance_abs"] = LM_LOGIT_ATOL
+            check(err <= LM_LOGIT_ATOL, f"lm_mesh bf16: logits differ by "
+                  f"{err}")
+        check(k8 == [LM_MESH_LAYERS] * len(ranks), f"lm_mesh {dtype}: K8 "
+              f"launched {k8} times in the processes' prefills")
+        rec[f"forward_{dtype}"] = leg
+    rec["published"] = [r["published"] for r in ranks]
+    # (c) the mesh's train steps against one process's
+    tr = ranks[0]["train"]
+    check(all(r["train"]["losses"] == tr["losses"] for r in ranks),
+          "lm_mesh train: the processes report other losses")
+    rec["train"] = {
+        "single": single_train, "mesh_rank0": tr,
+        "peak_device_mem_bytes_per_process": [
+            r["train"]["peak_device_mem_bytes"] for r in ranks],
+        "losses_max_rel_err": _rel_first(
+            tr["losses"] + [tr["adafactor_loss"], tr["loss_after_adafactor"]],
+            single_train["losses"] + [single_train["adafactor_loss"],
+                                      single_train["loss_after_adafactor"]],
+            LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL, "train"),
+        "ce_first_rel_err": abs(tr["ce"][0] - single_train["ce"][0])
+        / single_train["ce"][0]}
+    check(all(np.isfinite(tr["losses"])), f"lm_mesh train: {tr['losses']}")
+    # (c) the elastic restart onto (1, 2), against one process resumed
+    t0 = time.perf_counter()
+    restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))
+    restart_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_restart = lm_mesh_restart()
+    single_restart["s"] = time.perf_counter() - t0
+    got = restart[0]["restart"]
+    check(got["start"] == LM_MESH_TRAIN_STEPS and all(
+        r["restart"]["losses"] == got["losses"] for r in restart),
+        f"lm_mesh restart: {[r['restart'] for r in restart]}")
+    rec["restart"] = {
+        "mesh": list(LM_MESH_RESTART_DIMS), "processes": len(restart),
+        "mesh_rank0": got, "single": single_restart,
+        "peak_device_mem_bytes_per_process": [
+            r["restart"]["peak_device_mem_bytes"] for r in restart],
+        "processes_s": restart_s,
+        "losses_max_rel_err": _rel_first(
+            got["losses"], single_restart["losses"],
+            LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL, "restart")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_mesh", **rec,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"per_process": rec["forward_bfloat16"]["k8_prefill_per_process"],
+            "float32_per_process":
+                rec["forward_float32"]["k8_prefill_per_process"]}
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     smi = phase_device()
     t0 = time.perf_counter()
     spec, stdp = models.hpc_benchmark(1.0, stdp=True)
@@ -4960,6 +5520,8 @@ def main() -> None:
     lm_fam_launches = phase_lm_families()
     lm_train_launches = phase_lm_train()
     lm_dryrun_launches = phase_lm_dryrun()
+    lm_mesh_launches = phase_lm_mesh()
+    emit({"phase": "total", "script_s": time.perf_counter() - t_main})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/"
@@ -4989,6 +5551,9 @@ def main() -> None:
          "launches_lm_dryrun": {
              part: got if name == "flash_attention" else 0
              for part, got in lm_dryrun_launches.items()},
+         "launches_lm_mesh": {
+             part: got if name == "flash_attention" else [0] * len(got)
+             for part, got in lm_mesh_launches.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "ms_per_launch": kern[name].get("ms_per_launch"),
          "epilogue_ms": kern[name].get("epilogue_ms"),

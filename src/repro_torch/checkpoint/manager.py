@@ -49,7 +49,12 @@ Guarantees:
 * **Elastic restore** - arrays are stored whole; ``restore`` places every
   leaf on the target leaf's device and dtype, and ``load_host`` returns the
   host dict for a state that will be re-shaped first
-  (:func:`repro_torch.runtime.elastic.shrink_remap_state`).
+  (:func:`repro_torch.runtime.elastic.shrink_remap_state`).  On a process
+  mesh the saved leaves are global (a mesh run gathers its blocks and one
+  process writes them) and ``restore(..., shardings=)`` cuts each one to
+  the block this process holds on whatever mesh it is given, as the
+  reference's ``restore(target, shardings=)`` re-shards for the current
+  mesh.
 * **Retention** - ``keep`` newest checkpoints are retained, older ones
   garbage-collected after a successful commit.
 
@@ -453,14 +458,18 @@ class CheckpointManager:
             node[segs[-1]] = arr
         return step, tree, meta["metadata"]
 
-    def restore(self, target_tree: Any, step: int | None = None
-                ) -> tuple[Any, dict]:
+    def restore(self, target_tree: Any, step: int | None = None, *,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Load into the structure of ``target_tree``: ``(state,
         metadata)``.
 
         Structure, dtypes and devices come from the target, never its
         values (the port's steps may have overwritten them); a target
         generator is set to the saved state in place and returned.
+        ``shardings`` (optional, the target's structure with a
+        ``sharding.rules.NamedSharding`` at every leaf) cuts each saved
+        (global) leaf to this process's block on its mesh - the elastic
+        restart; the target then holds the blocks' shapes.
         ``step=None`` restores the newest READABLE checkpoint (walking past
         corrupted ones); a shape mismatch against the target is a caller
         error and raises ValueError without falling back.
@@ -472,6 +481,12 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(meta['leaves'])} leaves, target has "
                 f"{len(leaves)} - structure mismatch")
+        if shardings is not None:
+            shs = [sh for _, sh in _tree_paths(shardings)]
+            if len(shs) != len(leaves):
+                raise ValueError(f"{len(shs)} shardings for {len(leaves)} "
+                                 "leaves")
+            arrs = [sh.shard(arr) for sh, arr in zip(shs, arrs)]
         out = [_place(tgt, rec, arr) for (_, tgt), rec, arr
                in zip(leaves, meta["leaves"], arrs)]
         return _rebuild(target_tree, iter(out)), meta["metadata"]

@@ -47,7 +47,8 @@ __all__ = ["graph_from_numpy", "state_from_numpy", "state_to_numpy",
            "STATE_LEAVES",
            "stacked_net_from_numpy", "dist_state_from_numpy",
            "dist_state_to_numpy", "dist_state_leaves", "DIST_STATE_LEAVES",
-           "classifier_params_from_numpy", "opt_state_from_numpy"]
+           "classifier_params_from_numpy", "opt_state_from_numpy",
+           "mesh_local", "mesh_global"]
 
 #: leaf names of a single-shard engine state, as dataclass paths (a LIF
 #: state; other models add their extra variables, :func:`state_leaves`)
@@ -342,7 +343,8 @@ def lm_params_from_numpy(params, cfg, *, device="cuda", dtype=None) -> dict:
     leaf fp32, as training stores them).  Load the result with
     ``DecoderLM(cfg, device=..., dtype=...).load_state_dict(...)``.  The
     same renaming carries a tree shaped like the parameters, such as the
-    reference's gradients, onto the port's names."""
+    reference's gradients, onto the port's names; :func:`mesh_local`
+    cuts the result for a process of a mesh."""
     from repro_torch.models import transformer   # the LM face only
     dev = resolve_device(device)
     prefix, period, n_periods = transformer.period_structure(cfg)
@@ -356,6 +358,47 @@ def lm_params_from_numpy(params, cfg, *, device="cuda", dtype=None) -> dict:
         _unstack(params["period"][j], "layers.",
                  lambda p, j=j: len(prefix) + p * len(period) + j, flat)
     return _lm_tensors(flat, cfg, dev, dtype=dtype)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, sp) for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def mesh_local(tree, mesh, n_experts: int):
+    """A process's block of a global tree keyed by parameter names (a
+    ``state_dict``, or an optimizer state ``{"m": {name: ...}, ...}``),
+    tensors or numpy arrays: the expert stacks cut over the expert axes
+    of ``mesh`` (``sharding.rules.local_specs``), every other leaf whole
+    (the same object)."""
+    from repro_torch.sharding import rules
+    specs = rules.local_specs(mesh, tree, n_experts)
+    return _zip_map(lambda x, sp: rules.NamedSharding(mesh, sp).shard(x)
+                    if len(sp) else x, tree, specs)
+
+
+def mesh_global(tree, mesh, n_experts: int, root: int):
+    """The inverse of :func:`mesh_local`, called by every process of
+    ``mesh`` (a collective), for process ``root`` (the one that writes a
+    checkpoint): each expert stack gathered whole from the processes'
+    blocks into ``root``'s host memory, one at a time (through host
+    memory on a gloo world), every other leaf as it is; the other
+    processes get None in the gathered stacks' place."""
+    from repro_torch.sharding import rules
+    specs = rules.local_specs(mesh, tree, n_experts)
+
+    def one(x, sp):
+        if not len(sp):
+            return x
+        if mesh.backend == "gloo":
+            x = x.cpu()
+        out = rules.NamedSharding(mesh, sp).gather(x)
+        return out.cpu() if mesh.rank == root else None
+
+    return _zip_map(one, tree, specs)
 
 
 def encdec_params_from_numpy(params, cfg, *, device="cuda",

@@ -33,9 +33,8 @@ cell this module:
      leaves are resident (never gathered, their gradients local where
      ``data`` shards them).  Each once a step: XLA hoists parameter
      gathers out of the microbatch loop.  Ring volumes are ``(n-1)/n``.
-     Tensor-parallel activation traffic and the MoE all-to-all wait for
-     the mesh half of the rules and ``moe_manual`` (ROADMAP Queue 1 item
-     3);
+     Tensor-parallel activation traffic and the MoE all-to-all are not
+     counted (ROADMAP Queue 1 item 5);
   6. adds the roofline terms at an H100 SXM's rates
      (:func:`repro_torch.launch.roofline.roofline_terms`).
 
@@ -254,7 +253,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         mbs = _microbatches(shape, mesh)
         n_mb = mbs if microbatches is None else microbatches
         params = make_params(torch_dtype(tcfg.param_dtype))
-        opt = init_opt_state(tcfg, param_tree(params))
+        opt = init_opt_state(tcfg, params)
         step_fn = make_train_step(model, tcfg, microbatches=n_mb)
         batch = _share_inputs(cfg, shape, mesh, n_mb * (rows // mbs),
                               device, seed)

@@ -91,6 +91,19 @@ class EncDecLM(nn.Module):
             for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
 
+    def period_slots(self) -> dict[str, list[str]]:
+        """The reference's stacked leaves: ``{"encoder.<leaf>": [the
+        leaf's name in encoder layer 0, 1, ...], "decoder.<leaf>": ...}``
+        (:func:`repro_torch.convert.encdec_params_from_numpy`'s
+        mapping)."""
+        out = {}
+        for stack in ("encoder", "decoder"):
+            layers = getattr(self, stack)
+            for leaf, _ in layers[0].named_parameters():
+                out[f"{stack}.{leaf}"] = [f"{stack}.{i}.{leaf}"
+                                          for i in range(len(layers))]
+        return out
+
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed=0, *, device="cuda",

@@ -73,10 +73,10 @@ def _on(params, batch) -> dict:
 
 
 def _build_decoder_only(cfg: ModelConfig) -> Model:
-    def init(seed=0, *, device=None, dtype=None):
+    def init(seed=0, *, device=None, dtype=None, mesh=None):
         return transformer.init_params(cfg, seed,
                                        device=_init_device(seed, device),
-                                       dtype=dtype)
+                                       dtype=dtype, mesh=mesh)
 
     def loss(params, batch):
         batch = _on(params, batch)

@@ -31,8 +31,14 @@ the reference's bf16 segment sum rounds after each add, this one once).
 The expert products run as batched fp32-output GEMMs (:func:`layers.
 bmm_f32`), and SwiGLU applies ``silu`` to the fp32 product before the
 rounding, as the reference's expert FFN does (the dense ``mlp_apply``
-rounds first).  The reference's mesh branch (``moe_manual``) has no
-counterpart: the port runs on one card and takes the single-device path.
+rounds first).
+
+Under a process mesh (``sharding.rules.use_mesh``) whose axes can own
+the experts, :func:`moe_apply` takes :mod:`repro_torch.models.moe_manual`'s
+expert-parallel dispatch, as the reference's does; this module's path
+stays the single-device formulation and the oracle.  On such a mesh a
+:class:`MoE` holds only its process's block of the expert stacks
+(``n_local`` experts).
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from torch import nn
 from repro_torch.models.layers import (MLP, Linear, _param, bmm_f32,
                                        init_linear, mlp_apply, mlp_init)
 
-__all__ = ["MoE", "capacity", "moe_init", "moe_apply"]
+__all__ = ["MoE", "capacity", "moe_init", "moe_apply", "route",
+           "balance_loss", "pack", "combine", "expert_ffn"]
 
 
 def capacity(n_tokens: int, cfg_moe) -> int:
@@ -60,15 +67,16 @@ class MoE(nn.Module):
     compute dtype, and the ``shared`` expert MLP if ``n_shared > 0``."""
 
     def __init__(self, d_model: int, mlp_kind: str, cfg_moe, *, dtype,
-                 device):
+                 device, n_local: int | None = None):
         super().__init__()
         e = cfg_moe
         self.router = Linear(d_model, e.n_experts, dtype=torch.float32,
                              device=device)
         kw = dict(dtype=dtype, device=device)
-        self.wi_gate = _param(e.n_experts, d_model, e.expert_ff, **kw)
-        self.wi_up = _param(e.n_experts, d_model, e.expert_ff, **kw)
-        self.wo = _param(e.n_experts, e.expert_ff, d_model, **kw)
+        n = e.n_experts if n_local is None else n_local
+        self.wi_gate = _param(n, d_model, e.expert_ff, **kw)
+        self.wi_up = _param(n, d_model, e.expert_ff, **kw)
+        self.wo = _param(n, e.expert_ff, d_model, **kw)
         if e.n_shared > 0:
             self.shared = MLP(d_model, e.n_shared * e.expert_ff, mlp_kind,
                               **kw)
@@ -76,23 +84,51 @@ class MoE(nn.Module):
             self.shared = None
 
 
-def moe_init(p: MoE, gen: torch.Generator) -> MoE:
+def moe_init(p: MoE, gen: torch.Generator, *, block: int = 0) -> MoE:
+    """The reference's draws; an expert stack holding ``n`` of ``E``
+    experts (a mesh process's) draws the whole stack and keeps block
+    ``block`` (experts ``block * n`` on), so that every process's experts
+    are the single-device model's."""
     init_linear(p.router, gen)
+    n_exp = p.router.w.shape[1]
     d, ff = p.wi_gate.shape[1], p.wi_gate.shape[2]
     for w, fan_in in ((p.wi_gate, d), (p.wi_up, d), (p.wo, ff)):
-        w.normal_(0.0, float(1.0 / np.sqrt(fan_in)), generator=gen)
+        std = float(1.0 / np.sqrt(fan_in))
+        if w.shape[0] == n_exp:
+            w.normal_(0.0, std, generator=gen)
+            continue
+        whole = torch.empty((n_exp,) + tuple(w.shape[1:]), dtype=w.dtype,
+                            device=w.device).normal_(0.0, std, generator=gen)
+        n = w.shape[0]
+        w.copy_(whole[block * n:(block + 1) * n])
+        del whole
     if p.shared is not None:
         mlp_init(p.shared, gen)
     return p
 
 
-def _route(p: MoE, e, xt):
-    """The router, in fp32: (probs (T, E), gates (T, k) renormalised to
-    sum 1, their experts (T, k))."""
-    probs = torch.softmax(xt.float() @ p.router.w, dim=-1)
+def route(router_w, e, xt):
+    """The router ``router_w`` (d, E) on tokens ``xt``, in fp32: (probs
+    (T, E), gates (T, k) renormalised to sum 1, their experts (T, k))."""
+    probs = torch.softmax(xt.float() @ router_w.float(), dim=-1)
     gate, idx = torch.topk(probs, e.top_k, dim=-1)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     return probs, gate, idx
+
+
+def _route(p: MoE, e, xt):
+    return route(p.router.w, e, xt)
+
+
+def balance_loss(probs, idx, n_experts: int):
+    """The load-balance aux (Switch-style): E * sum_e f_e * P_e; the
+    one-hot of the choices as a comparison, the same ops on every device
+    (``F.one_hot`` checks the ids' range on the host on the CPU, and
+    takes other ops on ``meta``)."""
+    me = probs.mean(0)
+    experts = torch.arange(n_experts, device=idx.device)
+    ce = (idx[..., None] == experts).float().sum(1).mean(0)
+    return n_experts * torch.sum(me * ce)
 
 
 def _owner_sort(flat_e, n_experts: int):
@@ -110,50 +146,58 @@ def _owner_sort(flat_e, n_experts: int):
     return order, se, pos
 
 
-def _dispatch_block(p: MoE, e, mlp_kind: str, xt, compute_dtype):
-    """Route one token block (T, d) through the experts -> (y, aux_loss,
-    drop_frac)."""
-    t, d = xt.shape
-    k = e.top_k
-    cap = capacity(t, e)
-    probs, gate, idx = _route(p, e, xt)
-
-    # load-balance aux (Switch-style): E * sum_e f_e * P_e; the one-hot
-    # of the choices as a comparison, the same ops on every device
-    # (``F.one_hot`` checks the ids' range on the host on the CPU, and
-    # takes other ops on ``meta``)
-    me = probs.mean(0)
-    experts = torch.arange(e.n_experts, device=idx.device)
-    ce = (idx[..., None] == experts).float().sum(1).mean(0)
-    aux_loss = e.n_experts * torch.sum(me * ce)
-
-    # ---- owner-sorted dispatch --------------------------------------------
-    order, se, pos = _owner_sort(idx.reshape(-1), e.n_experts)
+def pack(xt, idx, gate, n_experts: int, cap: int, compute_dtype):
+    """The owner-sorted capacity buffer of tokens ``xt`` (T, d) routed to
+    ``idx`` (T, k): ``(buf (E, cap, d), sort)``, ``sort`` the owner
+    sort's ``(order, sorted experts, sorted gates, rank in own expert,
+    keep)``.  One writer per kept (expert, row); every dropped row goes
+    to a spare row, sliced off."""
+    k = idx.shape[1]
+    order, se, pos = _owner_sort(idx.reshape(-1), n_experts)
     st_ = torch.div(order, k, rounding_mode="floor")             # token ids
     sg = gate.reshape(-1)[order]
     keep = pos < cap
-    buf = torch.zeros((e.n_experts, cap + 1, d), dtype=compute_dtype,
-                      device=xt.device)
-    # one writer per kept (expert, row); every dropped row to the spare row
+    buf = torch.zeros((n_experts, cap + 1, xt.shape[-1]),
+                      dtype=compute_dtype, device=xt.device)
     buf[se, torch.where(keep, pos, cap)] = xt.to(compute_dtype)[st_]
-    buf = buf[:, :cap]
+    return buf[:, :cap], (order, se, sg, pos, keep)
 
-    # ---- expert FFNs (batched over the expert axis) ------------------------
+
+def combine(out_buf, sort, k: int, compute_dtype):
+    """The experts' outputs ``out_buf`` (E, cap, d) back in (token,
+    choice) order through the sort's permutation, gated, each token's
+    ``k`` summed in order -> (T, d)."""
+    order, se, sg, pos, keep = sort
+    cap, d = out_buf.shape[1], out_buf.shape[2]
+    w_keep = (sg.to(compute_dtype) * keep.to(compute_dtype))[:, None]
+    y_sorted = out_buf[se, torch.clamp_max(pos, cap - 1)] * w_keep
+    y_flat = torch.empty_like(y_sorted)
+    y_flat[order] = y_sorted
+    return y_flat.reshape(-1, k, d).sum(1)
+
+
+def expert_ffn(p: MoE, buf, mlp_kind: str, compute_dtype):
+    """``buf`` (E, R, d) through the expert stacks (batched over the
+    expert axis), fp32 products rounded once."""
     wg, wu, wo = (w.to(compute_dtype) for w in (p.wi_gate, p.wi_up, p.wo))
     if mlp_kind == "swiglu":
         h = (F.silu(bmm_f32(buf, wg)).to(compute_dtype)
              * bmm_f32(buf, wu).to(compute_dtype))
     else:
         h = F.gelu(bmm_f32(buf, wg), approximate="tanh").to(compute_dtype)
-    out_buf = bmm_f32(h, wo).to(compute_dtype)
+    return bmm_f32(h, wo).to(compute_dtype)
 
-    # ---- combine: back to (token, choice) order, k summed in order ---------
-    w_keep = (sg.to(compute_dtype) * keep.to(compute_dtype))[:, None]
-    y_sorted = out_buf[se, torch.clamp_max(pos, cap - 1)] * w_keep
-    y_flat = torch.empty_like(y_sorted)
-    y_flat[order] = y_sorted
-    y = y_flat.reshape(t, k, d).sum(1)
-    drop = 1.0 - keep.float().mean()
+
+def _dispatch_block(p: MoE, e, mlp_kind: str, xt, compute_dtype):
+    """Route one token block (T, d) through the experts -> (y, aux_loss,
+    drop_frac)."""
+    cap = capacity(xt.shape[0], e)
+    probs, gate, idx = _route(p, e, xt)
+    aux_loss = balance_loss(probs, idx, e.n_experts)
+    buf, sort = pack(xt, idx, gate, e.n_experts, cap, compute_dtype)
+    out_buf = expert_ffn(p, buf, mlp_kind, compute_dtype)
+    y = combine(out_buf, sort, e.top_k, compute_dtype)
+    drop = 1.0 - sort[-1].float().mean()
     return y, aux_loss, drop
 
 
@@ -168,6 +212,17 @@ def moe_apply(p: MoE, cfg_moe, mlp_kind: str, x,
     ``load_balance_loss`` and ``drop_frac``."""
     e = cfg_moe
     b, s, d = x.shape
+    # under a mesh, the manual expert-parallel dispatch (an all-to-all of
+    # the routed tokens to expert-resident weights), as the reference's
+    from repro_torch.sharding.rules import current_mesh
+    ctx = current_mesh()
+    if ctx is not None:
+        from repro_torch.models.moe_manual import (expert_axes_for,
+                                                   moe_apply_manual)
+        if expert_axes_for(ctx.mesh, e.n_experts):
+            return moe_apply_manual(
+                p, e, mlp_kind, x, compute_dtype, ctx.mesh,
+                batch_sharded=not ctx.replicated_batch)
     chunk_s = max(1, min(s, e.dispatch_chunk // max(b, 1)))
     while s % chunk_s != 0:  # largest divisor of s not above the target
         chunk_s -= 1

@@ -8,9 +8,11 @@ repeating period (Jamba: one attention layer in eight, MoE every other
 layer).  The reference stacks each period slot's parameters ``(n_periods,
 ...)`` and scans over depth; the port keeps one :class:`DecoderLayer` per
 layer, prefix first, in a ``ModuleList`` and loops.  Its ``shard_act``
-constraints have no counterpart (without a mesh they are no-ops, and the
-port has none).  ``parallel_block``, ``layernorm``, ``gelu``, ``qk_norm``,
-``qkv_bias``, ``tie_embeddings`` and ``prefix_embeds`` are kept.
+constraints have no counterpart: under a process mesh
+(``sharding.rules.use_mesh``) each process already holds its own batch
+rows, and the MoE layers take ``models.moe_manual``'s dispatch.
+``parallel_block``, ``layernorm``, ``gelu``, ``qk_norm``, ``qkv_bias``,
+``tie_embeddings`` and ``prefix_embeds`` are kept.
 
 :func:`train_forward` is the loss's forward: it carries gradients
 (attention takes its train route) and runs each period layer under
@@ -99,7 +101,8 @@ class DecoderLayer(nn.Module):
     (``attn``: GQA or MLA, ``mamba`` or ``rwkv``, whose parameters also
     hold the channel mix) and the ffn (``mlp`` or ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, kind, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, kind, *, dtype, device,
+                 n_local_experts: int | None = None):
         super().__init__()
         mixer, ffn = self.kind = tuple(kind)
         kw = dict(dtype=dtype, device=device)
@@ -119,7 +122,8 @@ class DecoderLayer(nn.Module):
                   else cfg.d_ff)
             self.mlp = MLP(cfg.d_model, ff, cfg.mlp, **kw)
         elif ffn == "moe":
-            self.moe = moe_mod.MoE(cfg.d_model, cfg.mlp, cfg.moe, **kw)
+            self.moe = moe_mod.MoE(cfg.d_model, cfg.mlp, cfg.moe,
+                                   n_local=n_local_experts, **kw)
 
 
 class Embedding(nn.Module):
@@ -138,9 +142,13 @@ class DecoderLM(nn.Module):
     ``load_state_dict`` takes converted ones).  The matrices, mixes and
     the embedding are stored in ``dtype`` (default ``cfg.dtype``; fp32
     for training, whose every use casts to ``cfg.dtype`` first as the
-    reference's does), the other leaves in fp32."""
+    reference's does), the other leaves in fp32.  On a process ``mesh``
+    (``launch.mesh.ProcessMesh``) each MoE layer holds this process's
+    block of the expert stacks (``models.moe_manual``); every other leaf
+    is whole."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None,
+                 mesh=None):
         super().__init__()
         if cfg.family == "audio":
             raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
@@ -153,13 +161,35 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = Linear(cfg.d_model, cfg.vocab_size, dtype=dtype,
                                   device=device)
+        n_local = None
+        if mesh is not None and cfg.moe is not None:
+            from repro_torch.models.moe_manual import local_experts
+            n_local = local_experts(mesh, cfg.moe.n_experts)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, k, dtype=dtype, device=device)
+            DecoderLayer(cfg, k, dtype=dtype, device=device,
+                         n_local_experts=n_local)
             for k in layer_kinds(cfg))
+        self.cfg = cfg
+        self.mesh = mesh
+
+    def period_slots(self) -> dict[str, list[str]]:
+        """The reference's stacked leaves: ``{"period.{j}.<leaf>": [the
+        leaf's name in period 0's layer, period 1's, ...]}`` for slot
+        ``j``'s layers ``n_prefix + p * len(period) + j``
+        (:func:`repro_torch.convert.lm_params_from_numpy`'s mapping)."""
+        prefix, period, n_periods = period_structure(self.cfg)
+        out = {}
+        for j in range(len(period)):
+            first = self.layers[len(prefix) + j]
+            for leaf, _ in first.named_parameters():
+                out[f"period.{j}.{leaf}"] = [
+                    f"layers.{len(prefix) + p * len(period) + j}.{leaf}"
+                    for p in range(n_periods)]
+        return out
 
 
 def _layer_init(layer: DecoderLayer, cfg: ModelConfig,
-               gen: torch.Generator) -> DecoderLayer:
+                gen: torch.Generator, block: int = 0) -> DecoderLayer:
     """One layer's parameters in the reference's distributions."""
     init_norm(layer.norm1)
     if not cfg.parallel_block:
@@ -176,7 +206,7 @@ def _layer_init(layer: DecoderLayer, cfg: ModelConfig,
     if ffn == "dense":
         mlp_init(layer.mlp, gen)
     elif ffn == "moe":
-        moe_mod.moe_init(layer.moe, gen)
+        moe_mod.moe_init(layer.moe, gen, block=block)
     return layer
 
 
@@ -195,19 +225,27 @@ def _generator(seed, device) -> torch.Generator:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed=0, *, device="cuda",
-                dtype=None) -> DecoderLM:
+                dtype=None, mesh=None) -> DecoderLM:
     """A :class:`DecoderLM` with the reference's initial distributions,
     drawn on ``device`` in the stored dtypes (``dtype``, see
     :class:`DecoderLM`) from ``torch.Generator`` ``seed`` (an int, or the
-    generator itself)."""
-    m = DecoderLM(cfg, device=device, dtype=dtype)
+    generator itself).  On a process ``mesh`` every draw is the
+    single-device model's and the expert stacks keep this process's
+    block."""
+    m = DecoderLM(cfg, device=device, dtype=dtype, mesh=mesh)
+    block = 0
+    if mesh is not None and cfg.moe is not None:
+        from repro_torch.models.moe_manual import (expert_axes_for,
+                                                   expert_block)
+        if expert_axes_for(mesh, cfg.moe.n_experts):
+            block = expert_block(mesh, cfg.moe.n_experts)
     gen = _generator(seed, m.embed.table.device)
     embed_init(m.embed.table, gen)
     init_norm(m.final_norm)
     if not cfg.tie_embeddings:
         init_linear(m.unembed, gen, scale=1.0 / np.sqrt(cfg.d_model))
     for layer in m.layers:
-        _layer_init(layer, cfg, gen)
+        _layer_init(layer, cfg, gen, block)
     return m
 
 

@@ -1,0 +1,266 @@
+"""The collectives of the LM face's mesh programs, each an
+``autograd.Function`` over a :class:`~repro_torch.launch.mesh.ProcessMesh`.
+
+The reference writes its mesh programs as ``shard_map`` bodies and lets
+XLA transpose their collectives.  The port runs the same bodies in the
+local view: every process runs its own share of a step and differentiates
+its own copy of the loss.  The gradient contract of that view:
+
+* each process differentiates the loss of the batch block it holds
+  (the processes along ``model`` hold the same block and compute the same
+  loss), with an unscaled cotangent;
+* a replicated parameter's gradient on a process is then the full
+  gradient of its block's loss, equal on every process of the block; the
+  train step averages it over the batch axes (``pod``, ``data``);
+* so where a body splits a replicated block's work over the processes of
+  some axes (``models.moe_manual``'s token slices), each slice's
+  cotangent is its own part, once (:func:`all_gather`'s backward takes
+  its own rows, it does not sum the copies), and the parts are gathered
+  back or summed where the block was split (:func:`own_slice`,
+  :func:`sum_grad`).
+
+Axes are a tuple of mesh axis names, the first major
+(``ProcessMesh.axis_index``); a group of one process is the identity.
+A tensor is cut into equal blocks along dim 0 ("tiled"), block ``i``
+belonging to the process of index ``i``.
+
+Routes: every collective moves bytes only (a tensor is viewed as rows of
+``uint8``), and sums are done here, in a fixed order, so each is
+deterministic and gives every process the same bits.  A CUDA tensor on a
+gloo world (processes sharing one card) is staged through pinned host
+memory on every call; on nccl, and for CPU tensors, the tensor itself is
+sent.  The route is fixed by the backend and the device: nothing is tried
+and retried.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as tdist
+
+__all__ = ["all_to_all", "all_gather", "own_slice", "sum_grad", "pmean",
+           "gather_rows", "all_reduce_sum", "route"]
+
+
+def route(mesh, t: torch.Tensor) -> str:
+    """``"host"``: a CUDA tensor on a gloo world, staged through pinned
+    host memory; ``"direct"``: the tensor itself."""
+    return "host" if (mesh.backend == "gloo" and t.is_cuda) else "direct"
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as flat uint8 (a view of a contiguous ``t``)."""
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+#: pinned host buffers of the host route, by (use, size): every copy
+#: through one is synchronous and every collective blocking, so one
+#: buffer a use and size serves every call of this process
+_PINNED: dict[tuple, torch.Tensor] = {}
+
+
+def _host(mesh, like: torch.Tensor, nbytes: int, use: str) -> torch.Tensor:
+    """A flat uint8 buffer of ``nbytes`` for the collective to read or
+    write: pinned host memory on the host route, else on ``like``'s
+    device."""
+    if route(mesh, like) == "host":
+        buf = _PINNED.get((use, nbytes))
+        if buf is None:
+            buf = _PINNED[use, nbytes] = torch.empty(
+                nbytes, dtype=torch.uint8, pin_memory=True)
+        return buf
+    return torch.empty(nbytes, dtype=torch.uint8, device=like.device)
+
+
+def _send(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes where the collective reads them."""
+    flat = _bytes(t)
+    if route(mesh, t) != "host":
+        return flat
+    buf = _host(mesh, t, flat.numel(), "send")
+    buf.copy_(flat)
+    return buf
+
+
+def _back(buf: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+    """Received bytes as a tensor of ``like``'s dtype and device."""
+    out = buf.to(like.device) if buf.device != like.device else buf.clone()
+    return out.view(like.dtype).view(shape)
+
+
+def _positions(mesh, axes) -> tuple[list[int], list[int], bool]:
+    """``(pos, inv, identity)``: ``pos[k]`` is the group rank (the
+    position among the group's sorted ranks) of the member of logical
+    index ``k``, ``inv`` its inverse."""
+    members = mesh.members(axes)
+    order = sorted(members)
+    pos = [order.index(r) for r in members]
+    inv = [pos.index(q) for q in range(len(pos))]
+    return pos, inv, pos == list(range(len(pos)))
+
+
+# torch 2.13 names the tensor all-gather ``all_gather_single``; earlier
+# releases ``all_gather_into_tensor`` (the same collective)
+_all_gather_single = getattr(tdist, "all_gather_single", None) or \
+    tdist.all_gather_into_tensor
+
+
+def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    pg = mesh.group(axes)
+    if pg is None:
+        return x
+    n = mesh.axis_size(axes)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split {n} "
+                         "ways")
+    pos, inv, ident = _positions(mesh, axes)
+    blocks = x.contiguous().view(n, -1)
+    if not ident:                 # logical block pos^-1[q] to group rank q
+        blocks = blocks[inv]
+    src = _send(mesh, blocks)
+    dst = _host(mesh, x, src.numel(), "recv")
+    tdist.all_to_all_single(dst, src, group=pg)
+    out = _back(dst, x, (n, -1))
+    if not ident:                 # back to logical order
+        out = out[pos]
+    return out.view(x.shape)
+
+
+def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every process's ``x`` over ``axes``, stacked on a new dim 0 in
+    logical order (no autograd)."""
+    pg = mesh.group(axes)
+    if pg is None:
+        return x[None]
+    n = mesh.axis_size(axes)
+    pos, _, ident = _positions(mesh, axes)
+    src = _send(mesh, x)
+    dst = _host(mesh, x, n * src.numel(), "gather")
+    _all_gather_single(dst, src, group=pg)
+    out = _back(dst, x, (n,) + tuple(x.shape))
+    return out if ident else out[pos]
+
+
+#: the most bytes of one tensor gathered at a time by :func:`all_reduce_sum`
+SUM_CHUNK_BYTES = 64 << 20
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over ``axes`` of every process's ``x``, added in logical
+    order (no autograd): the same bits on every process.  A large tensor
+    goes in chunks of :data:`SUM_CHUNK_BYTES`."""
+    if mesh.group(axes) is None:
+        return x
+    flat = x.contiguous().view(-1)
+    step = max(1, SUM_CHUNK_BYTES // x.element_size())
+    out = torch.empty_like(flat)
+    for i in range(0, flat.numel(), step):
+        parts = gather_rows(flat[i:i + step], mesh, axes)
+        acc = out[i:i + step]
+        acc.copy_(parts[0])
+        for p in parts[1:]:
+            acc += p
+    return out.view(x.shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _a2a(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.n = mesh, axes, x.shape[0]
+        parts = gather_rows(x, mesh, axes)
+        return parts.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.axis_index(ctx.axes)
+        return g[i * ctx.n:(i + 1) * ctx.n], None, None
+
+
+class _OwnSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        n = mesh.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
+                             f"{n} ways")
+        ctx.mesh, ctx.axes = mesh, axes
+        m = x.shape[0] // n
+        i = mesh.axis_index(axes)
+        return x[i * m:(i + 1) * m].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = gather_rows(g.contiguous(), ctx.mesh, ctx.axes)
+        return parts.reshape((-1,) + tuple(g.shape[1:])), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, grad_axes):
+        ctx.mesh, ctx.share = mesh, mesh.axis_size(grad_axes)
+        axes = mesh.axis_names
+        return all_reduce_sum(x.contiguous(), mesh, axes) / mesh.size
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = all_reduce_sum(g.contiguous(), mesh, mesh.axis_names) / mesh.size
+        return g / ctx.share, None, None
+
+
+def all_to_all(x, mesh, axes):
+    """Block ``k`` of ``x`` (tiled on dim 0) to the process of index
+    ``k`` over ``axes``; block ``k`` of the result came from it.  Its
+    backward is the same exchange."""
+    return _AllToAll.apply(x, mesh, tuple(axes))
+
+
+def all_gather(x, mesh, axes):
+    """Every process's ``x`` over ``axes``, concatenated on dim 0 in
+    logical order.  Backward: this process's own rows of the cotangent,
+    once (the processes holding the result hold copies of one loss)."""
+    return _AllGather.apply(x, mesh, tuple(axes))
+
+
+def own_slice(x, mesh, axes):
+    """This process's block of ``x`` (tiled on dim 0) over ``axes``, every
+    process holding the same ``x``.  Backward: the blocks' cotangents
+    gathered, so every process gets the whole of ``x``'s."""
+    return _OwnSlice.apply(x, mesh, tuple(axes))
+
+
+def sum_grad(x, mesh, axes):
+    """``x`` itself; its cotangent is summed over ``axes`` (a replicated
+    tensor used on one block of work per process of ``axes``)."""
+    return _SumGrad.apply(x, mesh, tuple(axes))
+
+
+def pmean(x, mesh, *, grad_axes=()):
+    """The mean of ``x`` over every mesh axis.  Backward: the mean of the
+    cotangents, divided by the size of ``grad_axes``, the axes whose
+    processes later sum their parts of the same block's gradient
+    (:func:`sum_grad`): with the batch average of the train step, the
+    global loss's gradient, each process's term once."""
+    return _PMean.apply(x, mesh, tuple(grad_axes))

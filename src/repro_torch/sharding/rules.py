@@ -1,9 +1,11 @@
 """Logical-axis sharding rules: parameter/activation/cache -> partition spec.
 
-Ports the spec half of the reference's ``sharding/rules.py`` (and the two
-expert-spec functions of its ``models/moe_manual.py``): the rules that
-decide how every tensor of the LM face is laid out on a production mesh,
-as pure shape logic over a :class:`~repro_torch.launch.mesh.MeshShape`.
+Ports the reference's ``sharding/rules.py`` (and the two expert-spec
+functions of its ``models/moe_manual.py``).  Its spec half holds the
+rules that decide how every tensor of the LM face is laid out on a
+production mesh, as pure shape logic over a
+:class:`~repro_torch.launch.mesh.MeshShape`; its mesh half (below) runs
+the LM face on a process mesh.
 
 * **batch**   -> ("pod", "data")   (data parallel across pods and rows)
 * **fsdp**    -> "data"            (weights fully sharded *within* a pod;
@@ -27,25 +29,43 @@ rule engine checks real shapes, so specs are always valid.
 
 A spec is a :class:`PartitionSpec`, a tuple with one entry per leading
 dim: ``None`` (replicated), a mesh axis name, or a tuple of names;
-:func:`shard_shape` gives the shape one device holds.  The other half of
-the reference's module - ``use_mesh``, ``shard_act``,
-``gather_params_once`` and ``named_sharding``, which place tensors on a
-device mesh - needs one, and waits for the port's multi-card path
-(ROADMAP Queue 1 item 3).
+:func:`shard_shape` gives the shape one device holds.
+
+The mesh half - :func:`use_mesh`, :func:`current_mesh`, :func:`shard_act`,
+:func:`gather_params_once`, :func:`named_sharding` - runs the LM face on
+a :class:`~repro_torch.launch.mesh.ProcessMesh` in the local view: each
+process holds its own blocks (its batch rows, its experts) and the model
+code calls the collectives of :mod:`repro_torch.sharding.collectives`
+itself, where the reference leaves the placement to XLA's partitioner.
+So ``shard_act`` places nothing.  The port's mesh keeps the dense
+parameters whole on every process (the reference shards them FSDP over
+``data`` and TP over ``model``: the same numbers, more memory; ROADMAP
+Queue 1); only the expert stacks are cut, by :func:`expert_param_spec`
+(:func:`local_specs`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Any
 
+import torch
 from torch import nn
 
 __all__ = ["PartitionSpec", "P", "MeshCtx", "PARAM_RULES", "ACT_KINDS",
+           "use_mesh", "current_mesh", "shard_act", "gather_params_once",
+           "named_sharding", "NamedSharding", "local_specs",
            "param_specs", "cache_specs", "batch_spec", "act_spec",
            "expert_axes_for", "expert_param_spec", "shard_shape",
            "tree_map_with_path"]
+
+#: the mesh contexts entered, innermost last: a module global where the
+#: reference keeps a ``contextvars.ContextVar``, since the autograd
+#: engine recomputes a checkpointed layer on its own device thread, which
+#: sees no context variable of the thread that entered the mesh
+_STACK: list = []
 
 
 class PartitionSpec(tuple):
@@ -112,8 +132,15 @@ ACT_KINDS = {
 
 
 class MeshCtx:
-    def __init__(self, mesh):
+    """The logical axes of a mesh: a :class:`~repro_torch.launch.mesh.
+    MeshShape` (specs only) or a ``ProcessMesh`` (a program runs on it).
+    ``replicated_batch``: every process holds the whole batch (the
+    reference's global batch that does not split over ``(pod, data)``,
+    as at B = 1 decode) rather than its block of it."""
+
+    def __init__(self, mesh, *, replicated_batch: bool = False):
         self.mesh = mesh
+        self.replicated_batch = replicated_batch
         names = mesh.axis_names
         self.logical = {
             "batch": tuple(a for a in ("pod", "data") if a in names) or None,
@@ -164,6 +191,112 @@ def _resolve(ctx: MeshCtx, logical_dims, shape) -> P:
     while out and out[-1] is None:
         out.pop()
     return P(*out)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, *, replicated_batch: bool = False):
+    """Run the LM face on ``mesh`` inside the block (a ``ProcessMesh``;
+    the MoE layers take ``models.moe_manual``'s dispatch, the train step
+    reduces over it).  In the local view each process's inputs are its
+    own block of the global batch over ``(pod, data)``; with
+    ``replicated_batch`` every process holds the same whole batch."""
+    ctx = MeshCtx(mesh, replicated_batch=replicated_batch)
+    _STACK.append(ctx)
+    try:
+        yield
+    finally:
+        _STACK.remove(ctx)
+
+
+def current_mesh() -> MeshCtx | None:
+    return _STACK[-1] if _STACK else None
+
+
+def shard_act(x, kind: str):
+    """The reference annotates an activation with its logical layout for
+    XLA (a no-op without a mesh).  In the port's local view each process
+    already holds its own block of every activation, so this returns
+    ``x`` with or without a mesh; ``kind`` is checked."""
+    if kind not in ACT_KINDS:
+        raise KeyError(f"unknown activation kind {kind!r}")
+    return x
+
+
+def gather_params_once(params) -> Any:
+    """fp32 leaves cast to bf16, every other leaf as it is: the copy a
+    train step with ``TrainConfig.gather_once`` differentiates through
+    once for all its microbatches.  The reference also drops the copy's
+    FSDP sharding under a mesh (one all-gather a step); the port's mesh
+    keeps dense parameters whole, so the cast is all there is, with a
+    mesh or without."""
+    return tree_map_with_path(
+        lambda _, p: p.to(torch.bfloat16) if p.dtype == torch.float32
+        else p, params)
+
+
+class NamedSharding:
+    """A spec on a mesh: :meth:`shard` cuts a global tensor (or numpy
+    array) into this process's block, :meth:`gather` puts the blocks back
+    together (a collective over each sharded dim's axes)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh.dims}, {self.spec!r})"
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        return shard_shape(shape, self.spec, self.mesh)
+
+    def shard(self, x):
+        self.shard_shape(x.shape)           # raises if a dim does not split
+        idx = []
+        for i, entry in enumerate(self.spec):
+            axes = _axes(entry)
+            n = math.prod(self.mesh.shape[a] for a in axes)
+            m = x.shape[i] // n
+            k = self.mesh.axis_index(axes) if axes else 0
+            idx.append(slice(k * m, (k + 1) * m))
+        return x[tuple(idx)]
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        from repro_torch.sharding import collectives
+        out = block
+        for i, entry in enumerate(self.spec):
+            axes = _axes(entry)
+            if not axes:
+                continue
+            moved = out.movedim(i, 0).contiguous()
+            parts = collectives.gather_rows(moved, self.mesh, axes)
+            out = parts.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, i)
+        return out.contiguous()
+
+
+def named_sharding(mesh, spec) -> NamedSharding:
+    return NamedSharding(mesh, spec)
+
+
+_STACKED = re.compile(r"(^|/)period/\d+/")
+
+
+def local_specs(mesh, tree, n_experts: int) -> Any:
+    """The port's mesh layout of a parameter tree, or of an optimizer
+    state keyed by parameter names: an expert stack (``moe/wi_gate``,
+    ``wi_up``, ``wo``) is cut over :func:`expert_axes_for` on its expert
+    dim (dim 0 of a layer's leaf, dim 1 of a stacked slot's
+    ``period/{j}`` leaf, after the period), everything else is whole.
+    ``tree`` holds the global shapes or the local ones; only the paths
+    are read."""
+    ax = expert_axes_for(mesh, n_experts) if n_experts > 0 else ()
+
+    def one(path, _):
+        if not ax or not _EXPERT.search(path):
+            return P()
+        lead = 1 if _STACKED.search(path) else 0
+        return P(*([None] * lead), ax if len(ax) > 1 else ax[0])
+
+    return tree_map_with_path(one, tree)
 
 
 def act_spec(mesh, kind: str, shape) -> P:

@@ -268,25 +268,46 @@ def _ref_batch_shape(a, mesh):
 
 
 def test_adafactor_state_specs_match_reference():
-    """A MoE arch's Adafactor state (the port's per-layer factoring):
-    each leaf's spec equals the reference's ``param_specs`` of the same
-    tree, paths and shapes, on both meshes."""
-    for arch in ("qwen3-moe-30b-a3b", "jamba-v0.1-52b"):
+    """A MoE arch's Adafactor state (stacked per period slot, as the
+    reference's): leaf for leaf, the paths, shapes and specs of the
+    reference's ``init_opt_state`` on its own tree under its
+    ``param_specs``, and the per-device bytes of each leaf and of the
+    whole state, on both meshes."""
+    for arch in ("qwen3-moe-30b-a3b", "jamba-v0.1-52b", "deepseek-v3-671b"):
         cfg = configs.get(arch)
+        tcfg = dryrun.train_config_for(cfg)
+        assert tcfg.optimizer == "adafactor"
+        sds = _ref_params(arch, tcfg.param_dtype)
+        opt = jax.eval_shape(lambda p: ref_init_opt_state(
+            RefTrainConfig(optimizer="adafactor"), p), sds)
         for mp in MESHES.values():
             mesh = make_production_mesh(multi_pod=mp)
             cell = dryrun.build_cell(cfg, shapes.SHAPES["train_4k"], mesh)
             port = _port_leaves(cell.args["opt_state"])
-            tree = {}
+            ref_specs = _ref_leaves(ref_rules.param_specs(_ref_mesh(mesh),
+                                                          opt))
+            ref_sds = _ref_leaves(opt)
+            ref = {}
+            for path, sh in ref_specs.items():
+                part, head, rest = path.split("/", 2)
+                if head == "prefix":
+                    path_p = f"{part}/layers/{rest}"
+                else:
+                    path_p = path
+                ref[path_p] = (tuple(ref_sds[path].shape), _spec(sh))
+            assert port.keys() == ref.keys(), (arch, sorted(
+                port.keys() ^ ref.keys())[:5])
+            total = 0
             for path, a in port.items():
-                node = tree
-                *heads, last = path.split("/")
-                for h in heads:
-                    node = node.setdefault(h, {})
-                node[last] = jax.ShapeDtypeStruct(a.shape, jnp.float32)
-            ref = _ref_leaves(ref_rules.param_specs(_ref_mesh(mesh), tree))
-            for path, a in port.items():
-                assert tuple(a.spec) == _spec(ref[path]), (arch, path)
+                shape, spec = ref[path]
+                assert tuple(a.shape) == shape, (arch, path)
+                assert tuple(a.spec) == spec, (arch, path)
+                assert a.dtype == torch.float32, (arch, path)
+                nbytes = _local_numel(shape, spec, mesh) * 4
+                assert a.local_bytes(mesh) == nbytes, (arch, path)
+                total += nbytes
+            roles = dryrun.memory_record(cell)["argument_bytes_by_role"]
+            assert roles["opt_state"] == total, arch
 
 
 def test_cache_specs_head_vs_seq_fallback():

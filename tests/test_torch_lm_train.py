@@ -416,6 +416,18 @@ def test_launcher_resume_is_bitwise(tmp_path):
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        launch_train.main(["--arch", "qwen2.5-3b", "--device", "cpu",
-                           "--mesh", "2x2"])
+    """``--mesh``, once refused, trains on a process mesh; a mesh of one
+    process joins no world and takes the single-device step's numbers
+    (qwen2.5-3b has no experts to cut), and a larger mesh without a
+    launch environment in a process that is one of its ranks refuses."""
+    argv = ["--arch", "qwen2.5-3b", "--device", "cpu", "--steps", "2",
+            "--seq", "16"]
+    one = launch_train.main(argv + ["--mesh", "1x1"])
+    plain = launch_train.main(argv)
+    assert one["losses"] == plain["losses"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_PROC_ID", "0")
+        for k in ("REPRO_COORD_ADDR", "REPRO_NUM_PROC", "SLURM_PROCID"):
+            mp.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="needs 4 processes"):
+            launch_train.main(argv + ["--mesh", "2x2"])

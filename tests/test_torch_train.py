@@ -199,17 +199,33 @@ def test_train_step_matches_reference(reference_classifier, microbatches):
     assert not any(p.requires_grad for p in new.values())
 
 
-def test_train_step_refuses_gather_once_with_microbatches():
+def test_train_step_refuses_gather_once_with_microbatches(
+        reference_classifier):
+    """``gather_once`` with microbatches, once refused, now differentiates
+    through one bf16 copy of the parameters (``rules.gather_params_once``)
+    as the reference's step does: its loss, metrics and updated params
+    against the reference's jitted step (the gradients pass through bf16
+    in both, so the update is held at 1e-3)."""
+    rmodel, rparams, data = reference_classifier
+    kw = dict(optimizer="adamw", lr=0.05, weight_decay=0.0,
+              gather_once=True)
+    tcfg, rtcfg = TrainConfig(**kw), RefTrainConfig(**kw)
+    rp = jax.tree.map(jnp.asarray, rparams)
+    rstep = jax.jit(ref_loop.make_train_step(rmodel, rtcfg, microbatches=2))
+    rnew, _, rmet = rstep(rp, ref_opt.init_opt_state(rtcfg, rp),
+                          jax.tree.map(jnp.asarray, data), jnp.asarray(0))
     model = classify.SNNClassifier(device=CPU)
-    tcfg = TrainConfig(gather_once=True)
-    gen = torch.Generator().manual_seed(0)
-    params, opt = loop.init_train_state(model, tcfg, gen)
+    params = convert.classifier_params_from_numpy(rparams, device=CPU)
     assert params["w_in"].shape == (model.n_in, model.n_hidden)
-    batch = classify.make_dataset(gen, model, 4,
-                                  classify.make_prototypes(gen, model))
     step = loop.make_train_step(model, tcfg, microbatches=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        step(params, opt, batch, 0)
+    new, _, met = step(params, optimizer.init_opt_state(tcfg, params),
+                       _port_batch(data), 0)
+    for k in ("loss", "accuracy"):
+        np.testing.assert_allclose(float(met[k]), float(rmet[k]), rtol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(met["grad_norm"]),
+                               float(rmet["grad_norm"]), rtol=1e-3)
+    _assert_tree_close(_np(new), _np(rnew), rtol=1e-3, atol=1e-6)
     with pytest.raises(ValueError, match="w_in"):
         convert.classifier_params_from_numpy({"w_in": np.zeros(2)},
                                              device=CPU)
