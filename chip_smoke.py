@@ -180,8 +180,10 @@ The LM face on a process mesh (``launch.mesh.ProcessMesh``,
 ``models.moe_manual``, the mesh train step), after ``lm_dryrun``: four
 processes sharing the card over gloo (``core.multihost.initialize``),
 ``qwen3-moe-30b-a3b`` at published width, a (2, 2) ``("data", "model")``
-mesh (experts 4-way over ``("model", "data")``), each process drawing the
-single-device model's weights from the seed and keeping its expert block:
+mesh (experts 4-way over ``("model", "data")``, every dense leaf its
+``param_specs`` block: FSDP over ``data``, tensor parallelism over
+``model``), each process drawing the single-device model's weights from
+the seed and keeping its blocks:
 
 14e. lm_mesh - (a) a prefill of 4 x 128 seeded tokens and 4 seeded
                decode steps at capacity factor 16 (nothing drops), depth
@@ -198,7 +200,14 @@ single-device model's weights from the seed and keeping its expert block:
                single-process run, a checkpoint of global leaves, one
                Adafactor step and a loss after it; then the checkpoint
                restored onto a (1, 2) mesh of two processes and 2 more
-               steps, held to one process resumed from it.
+               steps, held to one process resumed from it; (d)
+               ``qwen2.5-3b`` at published width, LM_MESH_DENSE_LAYERS
+               deep (where four whole copies could not fit the card):
+               3 AdamW steps of 4 x 512 seeded tokens, fp32 parameters
+               and bf16 compute, held to one process (the first loss
+               within 1e-3, all within 1e-2); per-process peak memory,
+               s a step, and one reduce-scatter of the largest leaf's
+               gradient alone, by CUDA events, with its bytes.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -4948,19 +4957,22 @@ def phase_lm_dryrun() -> dict:
 
 #: the lm_mesh cell (phase 14e): qwen3-moe-30b-a3b at published width on
 #: a (2, 2) ("data", "model") mesh of four processes sharing the card
-#: over gloo; its experts 4-way over ("model", "data"), 32 a process
+#: over gloo; its experts 4-way over ("model", "data"), 32 a process, its
+#: dense leaves as their param_specs blocks (FSDP over data, TP over
+#: model)
 LM_MESH_ARCH = "qwen3-moe-30b-a3b"
 LM_MESH_DIMS, LM_MESH_AXES = (2, 2), ("data", "model")
 LM_MESH_RESTART_DIMS = (1, 2)
 #: (a)/(b) depth: the fp32 leg's single-process run holds 2.5 GB of
-#: embeddings and 2.5 GB a layer (fp32), four processes 2.5 GB and 0.68
-#: GB a layer each; 16 layers keep both under 60 GB of the 80
-LM_MESH_LAYERS = 16
+#: embeddings and 2.5 GB a layer (fp32); 4 layers (16 until the dense
+#: leg (d) took its time: every decode step now gathers the dense blocks
+#: over data through gloo's host route)
+LM_MESH_LAYERS = 4
 #: (c) depth: fp32 parameters, their gradients and AdamW's two moments
-#: (4 x 4 bytes a parameter): 10 GB of embeddings on every process (the
-#: port keeps dense parameters whole) and 2.7 GB a layer a process; 1
-#: layer keeps four processes near 65 GB with the step's transients (2
-#: passed 80 GB on an H100)
+#: (4 x 4 bytes a parameter): one process holds 10 GB of embeddings and
+#: 2.7 GB a layer, a mesh process its quarter of the dense leaves and of
+#: the experts; 1 layer keeps the single-process run and the script's
+#: time where they were
 LM_MESH_TRAIN_LAYERS = 1
 LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_DECODE = 4, 128, 4
 LM_MESH_TRAIN_STEPS, LM_MESH_RESTART_STEPS = 3, 2
@@ -4973,6 +4985,23 @@ LM_MESH_F32_RTOL = 1e-3
 #: by 0.01 x its difference, and bf16 GEMMs of other shapes round
 #: otherwise: the first step (the same parameters and batch), and all
 LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL = 1e-2, 3e-2
+#: the dense leg (d): qwen2.5-3b at published width, fp32 parameters and
+#: bf16 compute, LM_MESH_DENSE_STEPS AdamW steps of B x S seeded tokens
+#: on the (2, 2) mesh against one process at the same depth.  24 of 36
+#: layers: 2.161 B parameters x 16 B (parameter, gradient, AdamW's m and
+#: v) = 34.6 GB whole, which four whole copies could not hold (12
+#: layers, 1.236 B, is the least depth where they cannot: 19.8 GB, 79 GB
+#: for four; all 36, 49.4 GB whole, ran in the script at 14-18 s a step
+#: and left it 5 s short of 17 minutes); a process holds its 8.6 GB
+#: block
+LM_MESH_DENSE_ARCH = "qwen2.5-3b"
+LM_MESH_DENSE_LAYERS = 24
+LM_MESH_DENSE_BATCH, LM_MESH_DENSE_SEQ, LM_MESH_DENSE_STEPS = 4, 512, 3
+#: (d)'s losses against one process: a mesh sums its bf16 products in
+#: other groups (the row-parallel partials over model, the gradients'
+#: bf16 parts over data): the first loss, and all three
+LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL = 1e-3, 1e-2
+LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
 LM_MESH_WORKER = """
@@ -5049,14 +5078,15 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None) -> dict:
     params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
     prompts, dec = (_block(t, mesh) for t in _lm_mesh_tokens(cfg))
     b = prompts.shape[0]
-    cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + LM_MESH_DECODE,
-                             getattr(torch, dtype), device=DEV)
     t_loc = [b * LM_MESH_SEQ]
     ctx = (lm_rules.use_mesh(mesh) if mesh is not None
            else contextlib.nullcontext())
     routes = (_mesh_routes(replay, mesh, t_loc) if mesh is not None
               else _moe_routes())
     with ctx, routes as r:
+        # a mesh process's cache holds the kv heads it reads
+        cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + LM_MESH_DECODE,
+                                 getattr(torch, dtype), device=DEV)
         reset_launches()
         logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
         torch.cuda.synchronize()
@@ -5252,6 +5282,76 @@ def lm_mesh_restart(mesh=None) -> dict:
     return rec
 
 
+def lm_mesh_dense(mesh=None) -> dict:
+    """(d): qwen2.5-3b at published width (LM_MESH_DENSE_LAYERS deep), fp32
+    parameters with bf16 compute, LM_MESH_DENSE_STEPS AdamW steps on
+    seeded tokens; on a mesh each process holds its blocks of every leaf,
+    and one reduce-scatter of the largest leaf's gradient (the embedding
+    table's, over data, as its gather's backward runs it) is timed
+    alone by CUDA events."""
+    cfg = dataclasses.replace(lm_configs.get(LM_MESH_DENSE_ARCH),
+                              n_layers=LM_MESH_DENSE_LAYERS)
+    m = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = m.init(SEED, device=DEV, dtype=torch.float32, mesh=mesh)
+    tcfg = TrainConfig(lr=LM_MESH_LR)
+    opt = train_opt.init_opt_state(tcfg, params)
+    torch.cuda.synchronize()
+    rec = {"init_s": time.perf_counter() - t0,
+           "param_bytes_per_process": sum(
+               p.numel() * p.element_size() for p in params.parameters())}
+    step = train_loop.make_train_step(m, tcfg)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LM_MESH_DENSE_SEQ,
+                         global_batch=LM_MESH_DENSE_BATCH, seed=SEED)
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    losses, gnorms, step_s = [], [], []
+    with ctx:
+        for i in range(LM_MESH_DENSE_STEPS):
+            batch = {"tokens": _block(torch.as_tensor(
+                pipe.batch(i)["tokens"], device=DEV), mesh)}
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch, i)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+    rec.update(losses=losses, grad_norms=gnorms, step_s=step_s,
+               peak_device_mem_bytes=torch.cuda.max_memory_allocated())
+    table = params.embed.table
+    rec["largest_leaf"] = {"name": "embed.table",
+                           "global_shape": list(lm_rules.global_shape(table)),
+                           "block_shape": list(table.shape),
+                           "spec": repr(lm_rules.spec_of(table))}
+    rows, cols = table.shape
+    del params, opt, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh is not None:
+        # the cotangent of the table gathered over data: (V / model, d)
+        # in the compute dtype, reduce-scattered on d
+        g = torch.randn((rows, cols * mesh.shape["data"]),
+                        device=DEV).to(torch.bfloat16)
+        lm_coll.reduce_scatter_sum(g, mesh, ("data",), 1)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LM_MESH_RS_REPS):
+            lm_coll.reduce_scatter_sum(g, mesh, ("data",), 1)
+        end.record()
+        torch.cuda.synchronize()
+        rec["reduce_scatter"] = {
+            "ms": start.elapsed_time(end) / LM_MESH_RS_REPS,
+            "bytes": g.numel() * g.element_size(), "shape": list(g.shape),
+            "dtype": "bfloat16", "axes": ["data"],
+            "route": lm_coll.route(mesh, g)}
+        del g
+    return rec
+
+
 def lm_mesh_worker(job_json: str) -> None:
     """One process of the mesh (started by :func:`_lm_mesh_spawn`):
     joins through the launch environment, runs the job's tasks, writes
@@ -5278,6 +5378,8 @@ def lm_mesh_worker(job_json: str) -> None:
             out = lm_mesh_published(mesh)
         elif task == "train":
             out = lm_mesh_train(mesh)
+        elif task == "dense":
+            out = lm_mesh_dense(mesh)
         else:
             out = lm_mesh_restart(mesh)
         out["task_s"] = time.perf_counter() - t0
@@ -5356,6 +5458,11 @@ def phase_lm_mesh() -> dict:
     check((pub.d_model, pub.n_layers, pub.moe.n_experts, pub.moe.top_k,
            pub.vocab_size) == (2048, 48, 128, 8, 151_936),
           f"lm_mesh: {LM_MESH_ARCH} is not the published config")
+    dense = lm_configs.get(LM_MESH_DENSE_ARCH)
+    check((dense.d_model, dense.n_layers, dense.n_heads, dense.n_kv_heads,
+           dense.d_ff, dense.vocab_size, dense.tie_embeddings)
+          == (2048, 36, 16, 2, 11_008, 151_936, True),
+          f"lm_mesh: {LM_MESH_DENSE_ARCH} is not the published config")
     # the single-process runs first (the card cannot hold both at once)
     single, single_s = {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -5371,12 +5478,18 @@ def phase_lm_mesh() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_dense = lm_mesh_dense()
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s["dense"] = time.perf_counter() - t0
     print(json.dumps({"lm_mesh single-process s": single_s,
                       "device_mem_allocated_bytes":
                           torch.cuda.memory_allocated()}), flush=True)
     t0 = time.perf_counter()
     ranks = _lm_mesh_spawn("mesh", LM_MESH_DIMS, (
-        "forward_float32", "forward_bfloat16", "published", "train"))
+        "forward_float32", "forward_bfloat16", "published", "train",
+        "dense"))
     mesh_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
@@ -5448,6 +5561,31 @@ def phase_lm_mesh() -> dict:
         "ce_first_rel_err": abs(tr["ce"][0] - single_train["ce"][0])
         / single_train["ce"][0]}
     check(all(np.isfinite(tr["losses"])), f"lm_mesh train: {tr['losses']}")
+    # (d) the dense model's sharded steps against one process's
+    dn = ranks[0]["dense"]
+    check(all(r["dense"]["losses"] == dn["losses"] for r in ranks),
+          "lm_mesh dense: the processes report other losses")
+    check(all(np.isfinite(dn["losses"])), f"lm_mesh dense: {dn['losses']}")
+    rel = (np.abs(np.asarray(dn["losses"]) - single_dense["losses"])
+           / np.abs(single_dense["losses"]))
+    check(rel[0] <= LM_MESH_DENSE_FIRST_RTOL
+          and rel.max() <= LM_MESH_DENSE_RTOL,
+          f"lm_mesh dense: losses {dn['losses']} against one process's "
+          f"{single_dense['losses']}")
+    rec["dense"] = {
+        "arch": LM_MESH_DENSE_ARCH, "layers": LM_MESH_DENSE_LAYERS,
+        "published_layers": dense.n_layers, "batch": LM_MESH_DENSE_BATCH,
+        "seq": LM_MESH_DENSE_SEQ, "single": single_dense, "mesh_rank0": dn,
+        "losses_rel_err": rel.tolist(),
+        "tolerance_rel": [LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL],
+        "peak_device_mem_bytes_per_process": [
+            r["dense"]["peak_device_mem_bytes"] for r in ranks],
+        "param_bytes_per_process": [r["dense"]["param_bytes_per_process"]
+                                    for r in ranks],
+        "step_s_per_process": [r["dense"]["step_s"] for r in ranks],
+        "reduce_scatter_ms_per_process": [
+            r["dense"]["reduce_scatter"]["ms"] for r in ranks],
+        "task_s_per_process": [r["dense"]["task_s"] for r in ranks]}
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
     restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))

@@ -468,8 +468,10 @@ class CheckpointManager:
         generator is set to the saved state in place and returned.
         ``shardings`` (optional, the target's structure with a
         ``sharding.rules.NamedSharding`` at every leaf) cuts each saved
-        (global) leaf to this process's block on its mesh - the elastic
-        restart; the target then holds the blocks' shapes.
+        (global) leaf to this process's block on its mesh, on every dim
+        its spec cuts (FSDP over ``data``, tensor parallelism over
+        ``model``, experts) - the elastic restart; the target then holds
+        the blocks' shapes.
         ``step=None`` restores the newest READABLE checkpoint (walking past
         corrupted ones); a shape mismatch against the target is a caller
         error and raises ValueError without falling back.

@@ -371,9 +371,13 @@ def _zip_map(fn, tree, specs):
 def mesh_local(tree, mesh, n_experts: int):
     """A process's block of a global tree keyed by parameter names (a
     ``state_dict``, or an optimizer state ``{"m": {name: ...}, ...}``),
-    tensors or numpy arrays: the expert stacks cut over the expert axes
-    of ``mesh`` (``sharding.rules.local_specs``), every other leaf whole
-    (the same object)."""
+    tensors or numpy arrays, by the mesh's layout
+    (``sharding.rules.local_specs``): on a ``ProcessMesh`` a model of GQA
+    layers has every leaf cut by the reference's ``param_specs`` (FSDP
+    over ``data``, tensor parallelism over ``model``, the expert stacks
+    over the expert axes); another model only its expert stacks, every
+    other leaf whole (the same object).  This carries the reference's
+    parameters onto a process."""
     from repro_torch.sharding import rules
     specs = rules.local_specs(mesh, tree, n_experts)
     return _zip_map(lambda x, sp: rules.NamedSharding(mesh, sp).shard(x)
@@ -383,10 +387,13 @@ def mesh_local(tree, mesh, n_experts: int):
 def mesh_global(tree, mesh, n_experts: int, root: int):
     """The inverse of :func:`mesh_local`, called by every process of
     ``mesh`` (a collective), for process ``root`` (the one that writes a
-    checkpoint): each expert stack gathered whole from the processes'
-    blocks into ``root``'s host memory, one at a time (through host
-    memory on a gloo world), every other leaf as it is; the other
-    processes get None in the gathered stacks' place."""
+    checkpoint): each cut leaf gathered whole from the processes' blocks
+    into ``root``'s host memory, one leaf and one gather at a time (only
+    ``root`` receives; through host memory on a gloo world), every other
+    leaf as it is; the other processes get None in the gathered leaves'
+    place.  ``tree`` holds the blocks of a model
+    built on ``mesh`` (its parameters carry their specs, and an optimizer
+    state beside them is read by name)."""
     from repro_torch.sharding import rules
     specs = rules.local_specs(mesh, tree, n_experts)
 
@@ -395,8 +402,8 @@ def mesh_global(tree, mesh, n_experts: int, root: int):
             return x
         if mesh.backend == "gloo":
             x = x.cpu()
-        out = rules.NamedSharding(mesh, sp).gather(x)
-        return out.cpu() if mesh.rank == root else None
+        out = rules.NamedSharding(mesh, sp).gather(x, root)
+        return None if out is None else out.cpu()
 
     return _zip_map(one, tree, specs)
 

@@ -31,13 +31,15 @@ environment it reads (``REPRO_COORD_ADDR``, ``REPRO_NUM_PROC``,
 ``REPRO_PROC_ID``; gloo on the CPU or where the processes share a card,
 nccl where each has its own), and waits for them; a copy started with
 that environment is one of them.  Each process draws the single-device
-model's parameters and keeps its block (the expert stacks cut over the
-expert axes, every other leaf whole), cuts each global batch over ``pod
-x data`` (``rules.batch_spec``; microbatch by microbatch, as the
-reference's microbatches are cut) and trains under ``rules.use_mesh``
-(``train/loop.py``).  A checkpoint holds the global leaves (gathered, and
-written by process 0); ``--resume`` cuts them for whatever mesh it is
-given - the elastic restart.  ``--record FILE`` has process 0 write
+model's parameters and keeps its blocks (``rules.local_specs``: for a
+model of GQA layers the reference's ``param_specs``, FSDP over ``data``
+and tensor parallelism over ``model``; else the expert stacks alone),
+cuts each global batch over ``pod x data`` (``rules.batch_spec``;
+microbatch by microbatch, as the reference's microbatches are cut) and
+trains under ``rules.use_mesh`` (``train/loop.py``).  A checkpoint holds
+the global leaves (gathered, and written by process 0); ``--resume``
+cuts them for whatever mesh it is given - the elastic restart, which
+reshards the ``data`` and ``model`` cuts as well as the experts.  ``--record FILE`` has process 0 write
 ``{"start", "losses", "grad_norms", "step_s"}`` there.
 
 ``main(argv)`` returns ``{"start", "losses", "grad_norms", "step_s",

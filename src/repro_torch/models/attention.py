@@ -18,6 +18,19 @@ per-head keys and values expanded from ``c_kv`` (``q`` and ``k`` of
 through K8; its decode is the absorbed form, attention in the compressed
 space in torch ops, as the reference computes it in jnp.
 
+On a process mesh whose ``model`` axis cuts GQA's projections
+(``sharding.rules``: ``wq|wk|wv`` columns, ``wo`` rows, the biases) a
+layer is one tensor-parallel region: each process attends with its
+``n_heads / model`` query heads and the kv heads they read
+(:func:`head_split`), K8 and the cache on those heads alone, and ``wo``
+sums the heads' partial products over ``model``.  Where the spec cuts
+inside a head (``n_kv_heads``, or ``n_heads``, not a multiple of
+``model``: qwen2.5-3b's 2 kv heads on a 4-wide ``model``) the
+reference's storage is kept and the projection is gathered over
+``model`` at use, each process taking the heads it reads; where
+``n_heads`` does not split, every process attends with every head and
+``wo`` takes its rows' share.  MLA keeps its leaves whole.
+
 Unlike the reference's functional updates, the prefill and decode
 functions write the cache **in place** and return the same dict:
 rows past a sequence's position may hold an earlier wave's keys, which the
@@ -37,16 +50,23 @@ here as :func:`_sdpa_chunked`.  Serving never takes that route.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (Linear, Norm, apply_rope, init_linear,
-                                       init_norm, linear, rms_norm)
+from repro_torch.models.layers import (Linear, Norm, _affine, apply_rope,
+                                       init_linear, init_norm, linear,
+                                       rms_norm, row_parallel)
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules
 
-__all__ = ["GQA", "MLA", "gqa_init", "gqa_train", "gqa_prefill",
+__all__ = ["GQA", "MLA", "HeadSplit", "head_split", "gqa_init",
+           "gqa_train", "gqa_prefill",
            "gqa_decode", "init_gqa_cache", "mla_init", "mla_train",
            "mla_prefill", "mla_decode", "init_mla_cache", "NEG_INF"]
 
@@ -80,18 +100,122 @@ def gqa_init(p: GQA, gen: torch.Generator) -> GQA:
     return p
 
 
+class HeadSplit(NamedTuple):
+    """The heads one process attends in a tensor-parallel GQA layer:
+    query heads ``q0`` on (``nq`` of them), kv heads ``k0`` on (``nk``);
+    ``kv_index`` maps each local query head to its local kv head where
+    the regular grouping (``nq / nk`` query heads a kv head) does not."""
+    mesh: Any
+    q0: int
+    nq: int
+    k0: int
+    nk: int
+    kv_index: Any
+
+
+def head_split(cfg, mesh) -> HeadSplit:
+    """The query heads of this process along ``model`` (``n_heads /
+    model`` of them; all of them where that does not divide) and the kv
+    heads they read."""
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    m, n_m = mesh.axis_index(("model",)), mesh.shape["model"]
+    nq = h // n_m if h % n_m == 0 else h
+    q0 = m * nq if nq < h else 0
+    g = h // hk
+    k0 = q0 // g
+    nk = (q0 + nq - 1) // g + 1 - k0
+    idx = [(q0 + j) // g - k0 for j in range(nq)]
+    regular = nq % nk == 0 and idx == [j // (nq // nk) for j in range(nq)]
+    return HeadSplit(mesh, q0, nq, k0, nk, None if regular else idx)
+
+
+def _split(p: GQA, cfg) -> HeadSplit | None:
+    """The layer's :class:`HeadSplit`, None unless ``wo`` is cut over
+    ``model``."""
+    if not row_parallel(p.wo):
+        return None
+    return head_split(cfg, rules.process_mesh())
+
+
+def _whole_over_model(t, spec, dim: int, mesh):
+    """``t`` (laid out by ``spec``) whole over ``model`` on ``dim``:
+    gathered where ``spec`` cuts it there (the backward sums the
+    cotangents into the blocks), else its cotangent summed over ``model``
+    (each process reads a part of it)."""
+    if dim < len(spec) and spec[dim] == "model":
+        return coll.gather_blocks(t, mesh, ("model",), dim)
+    return coll.sum_grad(t, mesh, ("model",))
+
+
+def _heads(p: Linear, x, h0: int, n: int, dh: int, mesh, compute_dtype):
+    """The projection ``p`` of ``x`` onto heads ``h0 .. h0 + n`` (a
+    column-parallel product): this process's block where it is those
+    heads, else their columns of the matrix gathered over ``model``."""
+    w, spec = rules.gather_fsdp(p.w, compute_dtype)
+    m = mesh.axis_index(("model",))
+    if len(spec) > 1 and spec[1] == "model" and w.shape[1] == n * dh \
+            and m * w.shape[1] == h0 * dh:
+        return _affine(x, w, p.b, compute_dtype)
+    cols = slice(h0 * dh, (h0 + n) * dh)
+    w = _whole_over_model(w, spec, 1, mesh)[:, cols]
+    b = None if p.b is None else _whole_over_model(
+        p.b, rules.spec_of(p.b), 0, mesh)[cols]
+    return _affine(x, w, b, compute_dtype)
+
+
 def _qkv(p: GQA, cfg, x, positions, compute_dtype):
+    """q (B, S, nq, dh), k and v (B, S, nk, dh) of the heads this process
+    attends (every head off a tensor-parallel mesh), normed and rotated;
+    and the layer's :class:`HeadSplit` (or None)."""
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = linear(p.wq, x, compute_dtype).reshape(b, s, h, dh)
-    k = linear(p.wk, x, compute_dtype).reshape(b, s, hk, dh)
-    v = linear(p.wv, x, compute_dtype).reshape(b, s, hk, dh)
+    dh = cfg.resolved_head_dim
+    sp = _split(p, cfg)
+    q_norm = getattr(p, "q_norm", None)
+    k_norm = getattr(p, "k_norm", None)
+    if sp is None:
+        h, hk = cfg.n_heads, cfg.n_kv_heads
+        q = linear(p.wq, x, compute_dtype).reshape(b, s, h, dh)
+        k = linear(p.wk, x, compute_dtype).reshape(b, s, hk, dh)
+        v = linear(p.wv, x, compute_dtype).reshape(b, s, hk, dh)
+    else:
+        mesh = sp.mesh
+        x = coll.sum_grad(x.to(compute_dtype), mesh, ("model",))
+        q = _heads(p.wq, x, sp.q0, sp.nq, dh, mesh,
+                   compute_dtype).reshape(b, s, sp.nq, dh)
+        k = _heads(p.wk, x, sp.k0, sp.nk, dh, mesh,
+                   compute_dtype).reshape(b, s, sp.nk, dh)
+        v = _heads(p.wv, x, sp.k0, sp.nk, dh, mesh,
+                   compute_dtype).reshape(b, s, sp.nk, dh)
+        if cfg.qk_norm:       # replicated, read on this process's heads
+            q_norm = SimpleNamespace(scale=coll.sum_grad(
+                q_norm.scale, mesh, ("model",)))
+            k_norm = SimpleNamespace(scale=coll.sum_grad(
+                k_norm.scale, mesh, ("model",)))
     if cfg.qk_norm:
-        q = rms_norm(p.q_norm, q)
-        k = rms_norm(p.k_norm, k)
+        q = rms_norm(q_norm, q)
+        k = rms_norm(k_norm, k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, sp
+
+
+def _kv_heads(t, sp: HeadSplit | None):
+    """k or v (B, T, nk, dh) with a kv head for each local query head
+    where the grouping is not regular, else as it is."""
+    if sp is None or sp.kv_index is None:
+        return t
+    return t.index_select(2, torch.as_tensor(sp.kv_index, device=t.device))
+
+
+def _out(p: GQA, cfg, out, sp: HeadSplit | None, compute_dtype):
+    """``wo`` on the attention output of this process's heads (a
+    row-parallel product on a tensor-parallel mesh; where every process
+    attends with every head, its rows' share of them)."""
+    if sp is not None and sp.nq == cfg.n_heads:
+        rows = out.shape[-1] // sp.mesh.shape["model"]
+        m = sp.mesh.axis_index(("model",))
+        out = out[..., m * rows:(m + 1) * rows]
+    return linear(p.wo, out, compute_dtype)
 
 
 #: above this many score elements (S * T) the train route runs the
@@ -213,16 +337,18 @@ def gqa_train(p: GQA, cfg, x, positions, compute_dtype=torch.bfloat16, *,
               causal=True):
     """Full-sequence attention from position 0; differentiable (the
     train route of :func:`_sdpa`)."""
-    q, k, v = _qkv(p, cfg, x, positions, compute_dtype)
+    q, k, v, sp = _qkv(p, cfg, x, positions, compute_dtype)
     scale = 1.0 / np.sqrt(cfg.resolved_head_dim)
-    out = _sdpa(q, k, v, None, scale=scale, causal=causal)
-    return linear(p.wo, out, compute_dtype)
+    out = _sdpa(q, _kv_heads(k, sp), _kv_heads(v, sp), None, scale=scale,
+                causal=causal)
+    return _out(p, cfg, out, sp, compute_dtype)
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                   device):
-    """Zeroed (finite) key and value buffers."""
-    hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+                   device, kv_heads: int | None = None):
+    """Zeroed (finite) key and value buffers of ``kv_heads`` heads (a
+    tensor-parallel process's, :func:`head_split`; default all)."""
+    hk, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, max_len, hk, dh), dtype=dtype,
                          device=device),
@@ -234,27 +360,38 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 def gqa_prefill(p: GQA, cfg, x, positions, cache,
                 compute_dtype=torch.bfloat16):
     """Full causal pass that also writes cache[:, :S] (in place)."""
-    q, k, v = _qkv(p, cfg, x, positions, compute_dtype)
+    q, k, v, sp = _qkv(p, cfg, x, positions, compute_dtype)
+    _check_cache(cache, k)
     s = x.shape[1]
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
-    out = _sdpa(q, k, v, None, scale=1.0 / np.sqrt(cfg.resolved_head_dim),
-                causal=True)
-    return linear(p.wo, out, compute_dtype), cache
+    out = _sdpa(q, _kv_heads(k, sp), _kv_heads(v, sp), None,
+                scale=1.0 / np.sqrt(cfg.resolved_head_dim), causal=True)
+    return _out(p, cfg, out, sp, compute_dtype), cache
 
 
 def gqa_decode(p: GQA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
     """x: (B, 1, d); pos: (B,) current positions; writes row ``pos`` of the
     cache (in place) and attends to cache[:pos + 1]."""
-    q, k, v = _qkv(p, cfg, x, pos[:, None], compute_dtype)
+    q, k, v, sp = _qkv(p, cfg, x, pos[:, None], compute_dtype)
+    _check_cache(cache, k)
     _write_at(cache["k"], k, pos)
     _write_at(cache["v"], v, pos)
     t = cache["k"].shape[1]
     valid = torch.arange(t, device=pos.device)[None, :] <= pos[:, None]
     mask = valid[:, None, None, :]
-    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
+    out = _sdpa(q, _kv_heads(cache["k"].to(q.dtype), sp),
+                _kv_heads(cache["v"].to(q.dtype), sp), mask,
                 scale=1.0 / np.sqrt(cfg.resolved_head_dim))
-    return linear(p.wo, out, compute_dtype), cache
+    return _out(p, cfg, out, sp, compute_dtype), cache
+
+
+def _check_cache(cache, k):
+    if cache["k"].shape[2] != k.shape[2]:
+        raise ValueError(
+            f"the cache holds {cache['k'].shape[2]} kv heads, this process "
+            f"attends with {k.shape[2]}: build it with init_cache inside "
+            "rules.use_mesh of the model's process mesh")
 
 
 def _write_at(buf, val, pos):

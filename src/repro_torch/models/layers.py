@@ -18,6 +18,12 @@ sqrt(d_in)`` matrices, ``N(0, 0.02)`` embedding, zero biases, unit scales)
 from a ``torch.Generator`` on the parameters' device; the numbers differ
 from ``jax.random``'s, so parity tests carry the reference's parameters
 across instead.
+
+On a process mesh (``sharding.rules``) a matrix may be this process's
+block: :func:`linear` gathers its ``data`` (FSDP) cut at use and runs
+column-parallel where its columns are cut over ``model`` or
+row-parallel where its rows are; :func:`mlp_apply` is one
+tensor-parallel region.
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules
+
 __all__ = ["Norm", "Linear", "MLP", "rms_norm", "layer_norm", "norm_apply",
-           "linear", "matmul_f32", "bmm_f32", "F32Product", "mlp_apply",
+           "linear", "row_parallel", "matmul_f32", "bmm_f32", "F32Product", "mlp_apply",
            "rope_freqs", "apply_rope", "init_norm", "init_linear",
            "mlp_init", "embed_init"]
 
@@ -176,18 +185,52 @@ def bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
+def _affine(x, w, b, compute_dtype):
+    """``x @ w (+ b)``, both in ``compute_dtype``: fp32 accumulation,
+    rounded once; with a bias the product stays fp32 until it is added,
+    as the reference adds it before its one rounding."""
+    if b is None:
+        return torch.matmul(x, w)
+    return (matmul_f32(x, w) + b.float()).to(compute_dtype)
+
+
 def linear(p: Linear, x, compute_dtype=torch.bfloat16):
     """``x @ w (+ b)`` with fp32 accumulation, rounded once to
-    ``compute_dtype``.  With a bias the product stays fp32 until the bias
-    is added, as the reference adds it before its one rounding."""
+    ``compute_dtype``.
+
+    On a process mesh ``w`` is first gathered over ``data`` where its
+    spec cuts it (FSDP).  Columns cut over ``model`` (``("fsdp",
+    "tensor")``): column-parallel, ``x`` this process's whole input (the
+    caller has entered it through ``collectives.sum_grad``), the result
+    this process's columns, the bias its block.  Rows cut over ``model``
+    (``("tensor", "fsdp")``): row-parallel, ``x`` the inputs of this
+    process's rows; the fp32 partial product is summed over ``model`` in
+    fp32 (``collectives.psum``), then the bias is added and the sum
+    rounded once, as the single-device path rounds once."""
     x = x.to(compute_dtype)
-    w = p.w.to(compute_dtype)
-    if p.b is None:
-        return torch.matmul(x, w)
-    return (matmul_f32(x, w) + p.b.float()).to(compute_dtype)
+    w, spec = rules.gather_fsdp(p.w, compute_dtype)
+    if len(spec) and spec[0] == "model":
+        y = coll.psum(matmul_f32(x, w), rules.process_mesh(), ("model",))
+        if p.b is not None:
+            y = y + p.b.float()
+        return y.to(compute_dtype)
+    return _affine(x, w, p.b, compute_dtype)
+
+
+def row_parallel(p: Linear) -> bool:
+    """Whether ``p``'s rows are cut over ``model`` (the output of a
+    tensor-parallel region)."""
+    spec = rules.spec_of(p.w)
+    return len(spec) > 0 and spec[0] == "model"
 
 
 def mlp_apply(p: MLP, x, kind: str, compute_dtype=torch.bfloat16):
+    """The MLP; on a process mesh whose ``model`` cuts it, one
+    tensor-parallel region: ``x`` enters through ``sum_grad`` (its
+    cotangent summed over ``model``), ``wi*`` are column-parallel and
+    ``wo`` row-parallel."""
+    if row_parallel(p.wo):
+        x = coll.sum_grad(x, rules.process_mesh(), ("model",))
     if kind == "swiglu":
         g = linear(p.wi_gate, x, compute_dtype)
         u = linear(p.wi_up, x, compute_dtype)

@@ -25,18 +25,39 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.sharding import collectives as coll
 
 __all__ = ["Model", "build_model", "cross_entropy", "MOE_AUX_COEF"]
 
 MOE_AUX_COEF = 0.01
 
 
-def cross_entropy(logits, targets, *, ignore: int = -1):
-    """logits (B,S,V) fp32; targets (B,S) int; mean over non-ignored."""
+def cross_entropy(logits, targets, *, ignore: int = -1, mesh=None):
+    """logits (B,S,V) fp32; targets (B,S) int; mean over non-ignored.
+
+    With ``mesh`` (a process mesh) ``logits`` is this process's block of
+    the vocab over ``model`` (vocab-parallel): the log-sum-exp shifts by
+    the max over ``model`` (no gradient), sums the exponentials over
+    ``model``, and the gold logit comes from the process whose range
+    holds the target (zero elsewhere), summed over ``model``; every
+    process along ``model`` gets the same loss, and its cotangent is its
+    block's."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp_min(targets.long(), 0)[..., None])[..., 0]
+    tgt = torch.clamp_min(targets.long(), 0)
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    else:
+        axes = ("model",)
+        n = logits.shape[-1]
+        m = coll.pmax(logits.amax(-1), mesh, axes)
+        lse = m + torch.log(coll.psum(torch.sum(
+            torch.exp(logits - m[..., None]), dim=-1), mesh, axes))
+        local = tgt - mesh.axis_index(axes) * n
+        own = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1,
+                            local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = coll.psum(torch.where(own, gold, 0.0), mesh, axes)
     nll = lse - gold
     mask = (targets != ignore).float()
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -87,7 +108,8 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
                                                 prefix_embeds=prefix_embeds)
         if prefix_embeds is not None:
             logits = logits[:, prefix_embeds.shape[1]:]
-        ce = cross_entropy(logits, targets)
+        ce = cross_entropy(logits, targets,
+                           mesh=transformer.vocab_mesh(params))
         total = ce + MOE_AUX_COEF * aux["load_balance_loss"]
         return total, {"ce": ce, **aux}
 

@@ -38,7 +38,8 @@ the experts, :func:`moe_apply` takes :mod:`repro_torch.models.moe_manual`'s
 expert-parallel dispatch, as the reference's does; this module's path
 stays the single-device formulation and the oracle.  On such a mesh a
 :class:`MoE` holds only its process's block of the expert stacks
-(``n_local`` experts).
+(``n_local`` experts; a ``DecoderLM`` allocates it so through
+``sharding.rules.allocate_blocks``).
 """
 
 from __future__ import annotations
@@ -84,24 +85,12 @@ class MoE(nn.Module):
             self.shared = None
 
 
-def moe_init(p: MoE, gen: torch.Generator, *, block: int = 0) -> MoE:
-    """The reference's draws; an expert stack holding ``n`` of ``E``
-    experts (a mesh process's) draws the whole stack and keeps block
-    ``block`` (experts ``block * n`` on), so that every process's experts
-    are the single-device model's."""
+def moe_init(p: MoE, gen: torch.Generator) -> MoE:
+    """The reference's draws."""
     init_linear(p.router, gen)
-    n_exp = p.router.w.shape[1]
     d, ff = p.wi_gate.shape[1], p.wi_gate.shape[2]
     for w, fan_in in ((p.wi_gate, d), (p.wi_up, d), (p.wo, ff)):
-        std = float(1.0 / np.sqrt(fan_in))
-        if w.shape[0] == n_exp:
-            w.normal_(0.0, std, generator=gen)
-            continue
-        whole = torch.empty((n_exp,) + tuple(w.shape[1:]), dtype=w.dtype,
-                            device=w.device).normal_(0.0, std, generator=gen)
-        n = w.shape[0]
-        w.copy_(whole[block * n:(block + 1) * n])
-        del whole
+        w.normal_(0.0, float(1.0 / np.sqrt(fan_in)), generator=gen)
     if p.shared is not None:
         mlp_init(p.shared, gen)
     return p

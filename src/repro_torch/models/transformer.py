@@ -10,7 +10,13 @@ layer).  The reference stacks each period slot's parameters ``(n_periods,
 layer, prefix first, in a ``ModuleList`` and loops.  Its ``shard_act``
 constraints have no counterpart: under a process mesh
 (``sharding.rules.use_mesh``) each process already holds its own batch
-rows, and the MoE layers take ``models.moe_manual``'s dispatch.
+rows and its blocks of the parameters (``sharding.rules.local_specs``),
+the MoE layers take ``models.moe_manual``'s dispatch, and the layers
+whose projections ``model`` cuts are tensor-parallel regions
+(``layers.linear``, ``attention``).  The embedding is then
+vocab-parallel, and the logits of :func:`train_forward` are this
+process's block of the vocab (``models.model.cross_entropy`` takes them
+so); :func:`prefill` and :func:`decode_step` gather them whole.
 ``parallel_block``, ``layernorm``, ``gelu``, ``qk_norm``, ``qkv_bias``,
 ``tie_embeddings`` and ``prefix_embeds`` are kept.
 
@@ -45,10 +51,13 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (MLP, Linear, Norm, _param, embed_init,
                                        init_linear, init_norm, matmul_f32,
                                        mlp_apply, mlp_init, norm_apply)
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules
 
 __all__ = ["period_structure", "layer_kinds", "DecoderLayer", "DecoderLM",
            "Embedding", "init_params", "forward", "train_forward",
-           "hidden_states", "init_cache", "prefill", "decode_step"]
+           "hidden_states", "init_cache", "prefill", "decode_step",
+           "vocab_mesh"]
 
 
 # --------------------------------------------------------------------------
@@ -101,8 +110,7 @@ class DecoderLayer(nn.Module):
     (``attn``: GQA or MLA, ``mamba`` or ``rwkv``, whose parameters also
     hold the channel mix) and the ffn (``mlp`` or ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, kind, *, dtype, device,
-                 n_local_experts: int | None = None):
+    def __init__(self, cfg: ModelConfig, kind, *, dtype, device):
         super().__init__()
         mixer, ffn = self.kind = tuple(kind)
         kw = dict(dtype=dtype, device=device)
@@ -122,8 +130,7 @@ class DecoderLayer(nn.Module):
                   else cfg.d_ff)
             self.mlp = MLP(cfg.d_model, ff, cfg.mlp, **kw)
         elif ffn == "moe":
-            self.moe = moe_mod.MoE(cfg.d_model, cfg.mlp, cfg.moe,
-                                   n_local=n_local_experts, **kw)
+            self.moe = moe_mod.MoE(cfg.d_model, cfg.mlp, cfg.moe, **kw)
 
 
 class Embedding(nn.Module):
@@ -143,9 +150,10 @@ class DecoderLM(nn.Module):
     the embedding are stored in ``dtype`` (default ``cfg.dtype``; fp32
     for training, whose every use casts to ``cfg.dtype`` first as the
     reference's does), the other leaves in fp32.  On a process ``mesh``
-    (``launch.mesh.ProcessMesh``) each MoE layer holds this process's
-    block of the expert stacks (``models.moe_manual``); every other leaf
-    is whole."""
+    (``launch.mesh.ProcessMesh``) each leaf is allocated as this
+    process's block under ``sharding.rules.local_specs`` (the reference's
+    ``param_specs`` for a model of GQA layers; the expert stacks alone
+    for MLA, Mamba and RWKV-6), carrying its spec."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None,
                  mesh=None):
@@ -155,20 +163,19 @@ class DecoderLM(nn.Module):
                              "with models.encdec")
         device = resolve_device(device)
         dtype = dtype or getattr(torch, cfg.dtype)
+        at = torch.device("meta") if mesh is not None else device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype,
-                               device=device)
-        self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
+                               device=at)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device=at)
         if not cfg.tie_embeddings:
             self.unembed = Linear(cfg.d_model, cfg.vocab_size, dtype=dtype,
-                                  device=device)
-        n_local = None
-        if mesh is not None and cfg.moe is not None:
-            from repro_torch.models.moe_manual import local_experts
-            n_local = local_experts(mesh, cfg.moe.n_experts)
+                                  device=at)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, k, dtype=dtype, device=device,
-                         n_local_experts=n_local)
+            DecoderLayer(cfg, k, dtype=dtype, device=at)
             for k in layer_kinds(cfg))
+        if mesh is not None:
+            rules.allocate_blocks(self, mesh, device,
+                                  cfg.moe.n_experts if cfg.moe else 0)
         self.cfg = cfg
         self.mesh = mesh
 
@@ -189,7 +196,7 @@ class DecoderLM(nn.Module):
 
 
 def _layer_init(layer: DecoderLayer, cfg: ModelConfig,
-                gen: torch.Generator, block: int = 0) -> DecoderLayer:
+                gen: torch.Generator) -> DecoderLayer:
     """One layer's parameters in the reference's distributions."""
     init_norm(layer.norm1)
     if not cfg.parallel_block:
@@ -206,8 +213,16 @@ def _layer_init(layer: DecoderLayer, cfg: ModelConfig,
     if ffn == "dense":
         mlp_init(layer.mlp, gen)
     elif ffn == "moe":
-        moe_mod.moe_init(layer.moe, gen, block=block)
+        moe_mod.moe_init(layer.moe, gen)
     return layer
+
+
+def _keep_blocks(part: nn.Module, whole: nn.Module, mesh) -> None:
+    """``part``'s parameters (blocks carrying their specs) set to their
+    blocks of ``whole``'s, parameter by parameter."""
+    for (name, p), (_, w) in zip(part.named_parameters(),
+                                 whole.named_parameters()):
+        p.copy_(rules.NamedSharding(mesh, rules.spec_of(p)).shard(w))
 
 
 def _generator(seed, device) -> torch.Generator:
@@ -230,22 +245,32 @@ def init_params(cfg: ModelConfig, seed=0, *, device="cuda",
     drawn on ``device`` in the stored dtypes (``dtype``, see
     :class:`DecoderLM`) from ``torch.Generator`` ``seed`` (an int, or the
     generator itself).  On a process ``mesh`` every draw is the
-    single-device model's and the expert stacks keep this process's
-    block."""
+    single-device model's: each piece (the embedding, the unembedding,
+    a layer) is drawn whole, in the single-device order, and this
+    process keeps its blocks of it."""
     m = DecoderLM(cfg, device=device, dtype=dtype, mesh=mesh)
-    block = 0
-    if mesh is not None and cfg.moe is not None:
-        from repro_torch.models.moe_manual import (expert_axes_for,
-                                                   expert_block)
-        if expert_axes_for(mesh, cfg.moe.n_experts):
-            block = expert_block(mesh, cfg.moe.n_experts)
-    gen = _generator(seed, m.embed.table.device)
-    embed_init(m.embed.table, gen)
+    dev = m.final_norm.scale.device
+    gen = _generator(seed, dev)
     init_norm(m.final_norm)
+    if mesh is None:
+        embed_init(m.embed.table, gen)
+        if not cfg.tie_embeddings:
+            init_linear(m.unembed, gen, scale=1.0 / np.sqrt(cfg.d_model))
+        for layer in m.layers:
+            _layer_init(layer, cfg, gen)
+        return m
+    dtype = m.embed.table.dtype
+    whole = Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype, device=dev)
+    embed_init(whole.table, gen)
+    _keep_blocks(m.embed, whole, mesh)
     if not cfg.tie_embeddings:
-        init_linear(m.unembed, gen, scale=1.0 / np.sqrt(cfg.d_model))
+        whole = Linear(cfg.d_model, cfg.vocab_size, dtype=dtype, device=dev)
+        init_linear(whole, gen, scale=1.0 / np.sqrt(cfg.d_model))
+        _keep_blocks(m.unembed, whole, mesh)
     for layer in m.layers:
-        _layer_init(layer, cfg, gen, block)
+        whole = _layer_init(DecoderLayer(cfg, layer.kind, dtype=dtype,
+                                         device=dev), cfg, gen)
+        _keep_blocks(layer, whole, mesh)
     return m
 
 
@@ -294,8 +319,27 @@ def _apply_layer(p: DecoderLayer, cfg, x, positions, compute_dtype):
     return _block_out(p, cfg, x, h, mix, compute_dtype, cm)
 
 
+def _lookup(table, ids, compute_dtype):
+    """The rows ``ids`` of the embedding ``table`` in ``compute_dtype``.
+    On a process mesh the table's ``d`` halves are gathered over
+    ``data``, and where ``model`` cuts its vocab (vocab-parallel) each
+    process looks up the ids in its range, zero rows for the rest, and
+    the rows are summed over ``model``."""
+    t, spec = rules.gather_fsdp(table, compute_dtype)
+    ids = ids.long()
+    if not (len(spec) and spec[0] == "model"):
+        return t[ids]
+    mesh = rules.process_mesh()
+    n = t.shape[0]
+    local = ids - mesh.axis_index(("model",)) * n
+    own = (local >= 0) & (local < n)
+    rows = torch.where(own[..., None], t[local.clamp(0, n - 1)],
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+    return coll.psum(rows, mesh, ("model",))
+
+
 def _embed(params: DecoderLM, cfg, tokens, prefix_embeds, compute_dtype):
-    x = params.embed.table[tokens.long()].to(compute_dtype)
+    x = _lookup(params.embed.table, tokens, compute_dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(compute_dtype), x], dim=1)
     return x
@@ -393,10 +437,12 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
 # caches / prefill / decode
 # --------------------------------------------------------------------------
 
-def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device):
+def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device,
+                 kv_heads=None):
     mixer = kind[0]
     if mixer == "attn":
-        return attn.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
+        return attn.init_gqa_cache(cfg, batch, max_len, dtype, device=device,
+                                   kv_heads=kv_heads)
     if mixer == "mla":
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device=device)
     if mixer == "mamba":
@@ -404,13 +450,32 @@ def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device):
     return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device=device)
 
 
+def _mesh_kv_heads(cfg: ModelConfig):
+    """The kv heads a process reads where the current process mesh's
+    ``model`` cuts the GQA projections (``wo``'s rows: ``n_heads *
+    head_dim`` splits), else None (all)."""
+    ctx = rules.current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members") \
+            or "model" not in ctx.mesh.axis_names:
+        return None
+    if not rules.shards_dense({k[0] for k in layer_kinds(cfg)}) or (
+            cfg.n_heads * cfg.resolved_head_dim) % ctx.mesh.shape["model"]:
+        return None
+    return attn.head_split(cfg, ctx.mesh).nk
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device="cuda"):
     """``{"layers": [one cache per layer]}``, zeroed: ``k``/``v`` (GQA),
     ``c_kv``/``k_rope`` (MLA), ``conv``/``h`` (Mamba) or ``s``/``x_tm``/
-    ``x_cm`` (RWKV)."""
+    ``x_cm`` (RWKV).  Inside ``rules.use_mesh`` of a process mesh whose
+    ``model`` cuts the attention, a GQA cache holds the kv heads this
+    process reads (``cache_specs``' kv heads over ``model`` where they
+    split; its sequence-over-``model`` fallback is not ported)."""
     device = resolve_device(device)
-    return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device)
+    kv = _mesh_kv_heads(cfg)
+    return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device,
+                                    kv)
                        for k in layer_kinds(cfg)]}
 
 
@@ -470,16 +535,40 @@ def prefill(params: DecoderLM, cfg: ModelConfig, tokens, cache, *,
         x, cache["layers"][i] = _apply_layer_prefill(
             layer, cfg, x, positions, cache["layers"][i], compute_dtype)
     x = norm_apply(params.final_norm, x[:, -1:, :], cfg.norm)
-    return _unembed(params, cfg, x), cache
+    return _unembed(params, cfg, x, whole=True), cache
 
 
-def _unembed(params: DecoderLM, cfg, x):
-    """Logits in fp32 from x in the compute dtype."""
+def _unembed(params: DecoderLM, cfg, x, *, whole: bool = False):
+    """Logits in fp32 from x in the compute dtype; on a process mesh whose
+    ``model`` cuts the vocab, this process's block of it (a
+    column-parallel product), or, with ``whole``, every block gathered."""
     compute_dtype = getattr(torch, cfg.dtype)
     x = x.to(compute_dtype)
     if cfg.tie_embeddings:
-        return matmul_f32(x, params.embed.table.to(compute_dtype).t())
-    return matmul_f32(x, params.unembed.w.to(compute_dtype))
+        w, spec = rules.gather_fsdp(params.embed.table, compute_dtype)
+        w, cut = w.t(), len(spec) > 0 and spec[0] == "model"
+    else:
+        w, spec = rules.gather_fsdp(params.unembed.w, compute_dtype)
+        cut = len(spec) > 1 and spec[1] == "model"
+    if not cut:
+        return matmul_f32(x, w)
+    mesh = rules.process_mesh()
+    logits = matmul_f32(coll.sum_grad(x, mesh, ("model",)), w)
+    if whole:
+        return coll.gather_blocks(logits, mesh, ("model",), -1)
+    return logits
+
+
+def vocab_mesh(params: DecoderLM):
+    """The process mesh whose ``model`` cuts the logits of
+    :func:`train_forward` into vocab blocks, else None."""
+    w = (params.embed.table if params.cfg.tie_embeddings
+         else params.unembed.w)
+    spec = rules.spec_of(w)
+    dim = 0 if params.cfg.tie_embeddings else 1
+    if dim < len(spec) and spec[dim] == "model":
+        return rules.process_mesh()
+    return None
 
 
 @torch.no_grad()
@@ -487,9 +576,9 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, token, pos, cache):
     """token: (B,) ids; pos: (B,) positions.  Returns (logits (B, vocab)
     fp32, cache)."""
     compute_dtype = getattr(torch, cfg.dtype)
-    x = params.embed.table[token.long()[:, None]].to(compute_dtype)
+    x = _lookup(params.embed.table, token[:, None], compute_dtype)
     for i, layer in enumerate(params.layers):
         x, cache["layers"][i] = _apply_layer_step(
             layer, cfg, x, pos, cache["layers"][i], compute_dtype)
     x = norm_apply(params.final_norm, x, cfg.norm)
-    return _unembed(params, cfg, x)[:, 0], cache
+    return _unembed(params, cfg, x, whole=True)[:, 0], cache

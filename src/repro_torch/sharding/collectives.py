@@ -17,7 +17,18 @@ its own copy of the loss.  The gradient contract of that view:
   cotangent is its own part, once (:func:`all_gather`'s backward takes
   its own rows, it does not sum the copies), and the parts are gathered
   back or summed where the block was split (:func:`own_slice`,
-  :func:`sum_grad`).
+  :func:`sum_grad`);
+* a parameter cut into blocks (FSDP over ``data``, tensor parallelism
+  over ``model``: ``sharding.rules``) is put together where it is used
+  by :func:`gather_blocks`, whose backward is the reduce-scatter
+  (:func:`reduce_scatter`): each block's owner gets the sum of every
+  process's cotangent of its block, which over ``data`` is the sum over
+  the batch blocks' losses;
+* tensor parallelism splits one block's work over ``model`` (Megatron's
+  two operators): a column-parallel product's input enters through
+  :func:`sum_grad` (identity, its cotangent summed over ``model``), a
+  row-parallel product's partial sums leave through :func:`psum` (the
+  sum over ``model``, its cotangent passed to every part as it is).
 
 Axes are a tuple of mesh axis names, the first major
 (``ProcessMesh.axis_index``); a group of one process is the identity.
@@ -39,7 +50,12 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["all_to_all", "all_gather", "own_slice", "sum_grad", "pmean",
-           "gather_rows", "all_reduce_sum", "route"]
+           "gather_blocks", "reduce_scatter", "psum", "pmax",
+           "gather_rows", "gather_to", "all_reduce_sum", "reduce_scatter_sum",
+           "route"]
+
+
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def route(mesh, t: torch.Tensor) -> str:
@@ -141,6 +157,22 @@ def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return out if ident else out[pos]
 
 
+def gather_to(x: torch.Tensor, mesh, axes, root: int):
+    """Every process's ``x`` over ``axes`` to process ``root`` (a member
+    of this process's group, which every member calls), in logical
+    order: a list on ``root``, None on the others (no autograd).  One
+    gather, so only ``root`` receives."""
+    pg = mesh.group(axes)
+    if pg is None:
+        return [x]
+    pos, _, _ = _positions(mesh, axes)
+    x = x.contiguous()
+    parts = ([torch.empty_like(x) for _ in pos] if mesh.rank == root
+             else None)
+    tdist.gather(x, parts, dst=root, group=pg)
+    return None if parts is None else [parts[q] for q in pos]
+
+
 #: the most bytes of one tensor gathered at a time by :func:`all_reduce_sum`
 SUM_CHUNK_BYTES = 64 << 20
 
@@ -161,6 +193,72 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
         for p in parts[1:]:
             acc += p
     return out.view(x.shape)
+
+
+def reduce_scatter_sum(x: torch.Tensor, mesh, axes,
+                       dim: int = 0) -> torch.Tensor:
+    """This process's block (of index :meth:`~repro_torch.launch.mesh.
+    ProcessMesh.axis_index` over ``axes``) of the sum over ``axes`` of
+    every process's ``x``, cut into equal blocks on ``dim`` (no
+    autograd).  An all-to-all sends each block to its owner, which adds
+    the parts in logical order; a half-precision part is added in fp32
+    and the sum rounded once."""
+    if mesh.group(axes) is None:
+        return x
+    n = mesh.axis_size(axes)
+    moved = x.movedim(dim, 0)
+    if moved.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"{n} ways")
+    parts = _a2a(moved.contiguous(), mesh, axes).view(
+        n, moved.shape[0] // n, *moved.shape[1:])
+    acc = parts[0].float() if x.dtype in _HALF else parts[0].clone()
+    for part in parts[1:]:
+        acc += part
+    return acc.to(x.dtype).movedim(0, dim)
+
+
+def _gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Every process's ``x`` over ``axes`` concatenated on ``dim`` in
+    logical order (no autograd)."""
+    if mesh.group(axes) is None:
+        return x
+    moved = x.movedim(dim, 0).contiguous()
+    parts = gather_rows(moved, mesh, axes)
+    return parts.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, dim)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_sum(g, ctx.mesh, ctx.axes, ctx.dim), None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter_sum(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -264,3 +362,36 @@ def pmean(x, mesh, *, grad_axes=()):
     (:func:`sum_grad`): with the batch average of the train step, the
     global loss's gradient, each process's term once."""
     return _PMean.apply(x, mesh, tuple(grad_axes))
+
+
+def gather_blocks(x, mesh, axes, dim: int = 0):
+    """The whole of a tensor cut into blocks on ``dim`` over ``axes``
+    (``x`` this process's block): every process's block, concatenated in
+    logical order.  Backward: :func:`reduce_scatter_sum`, each block's
+    owner gets the sum of every process's cotangent of it (not the
+    token-slice contract of :func:`all_gather`)."""
+    return _GatherBlocks.apply(x, mesh, tuple(axes), dim)
+
+
+def reduce_scatter(x, mesh, axes, dim: int = 0):
+    """:func:`reduce_scatter_sum` with a gradient: the cotangents of the
+    blocks gathered, so every process gets the whole of ``x``'s."""
+    return _ReduceScatter.apply(x, mesh, tuple(axes), dim)
+
+
+def psum(x, mesh, axes):
+    """The sum over ``axes`` of every process's ``x`` (added in logical
+    order, the same bits on every process).  Backward: the cotangent as
+    it is, to every process's part (a row-parallel product's partial sums,
+    whose sum every process of ``axes`` then uses alike)."""
+    return _PSum.apply(x, mesh, tuple(axes))
+
+
+@torch.no_grad()
+def pmax(x, mesh, axes):
+    """The elementwise max over ``axes`` of every process's ``x``, no
+    gradient (the shift of a log-sum-exp, whose value it does not
+    change)."""
+    if mesh.group(tuple(axes)) is None:
+        return x.detach()
+    return gather_rows(x.detach().contiguous(), mesh, tuple(axes)).amax(0)

@@ -32,16 +32,30 @@ dim: ``None`` (replicated), a mesh axis name, or a tuple of names;
 :func:`shard_shape` gives the shape one device holds.
 
 The mesh half - :func:`use_mesh`, :func:`current_mesh`, :func:`shard_act`,
-:func:`gather_params_once`, :func:`named_sharding` - runs the LM face on
-a :class:`~repro_torch.launch.mesh.ProcessMesh` in the local view: each
-process holds its own blocks (its batch rows, its experts) and the model
-code calls the collectives of :mod:`repro_torch.sharding.collectives`
-itself, where the reference leaves the placement to XLA's partitioner.
-So ``shard_act`` places nothing.  The port's mesh keeps the dense
-parameters whole on every process (the reference shards them FSDP over
-``data`` and TP over ``model``: the same numbers, more memory; ROADMAP
-Queue 1); only the expert stacks are cut, by :func:`expert_param_spec`
-(:func:`local_specs`).
+:func:`gather_params_once`, :func:`named_sharding`, :func:`local_specs`,
+:func:`allocate_blocks` - runs the LM face on a
+:class:`~repro_torch.launch.mesh.ProcessMesh` in the local view: each
+process holds its own blocks and the model code calls the collectives of
+:mod:`repro_torch.sharding.collectives` itself, where the reference
+leaves their placement to XLA's partitioner.  So ``shard_act`` places
+nothing.  The mesh's layout is :func:`local_specs`:
+
+* on a ``ProcessMesh``, a model whose every layer mixes with GQA
+  attention (:func:`shards_dense`: qwen2.5, phi3, command-r, internlm2,
+  qwen3-moe, internvl2) holds every leaf as its block under
+  :func:`param_specs`, the reference's layout: FSDP over ``data``,
+  tensor parallelism over ``model``, the expert stacks over the expert
+  axes;
+* a model with MLA, Mamba or RWKV-6 layers, or the encoder-decoder,
+  keeps its dense leaves whole (their tensor-parallel forms are not
+  ported) and cuts only the expert stacks, by :func:`expert_param_spec`;
+  so does every model on a :class:`~repro_torch.launch.mesh.MeshShape`,
+  which runs nothing.
+
+A parameter of a model built on a process mesh (:func:`allocate_blocks`)
+carries its spec as the tensor attribute ``spec`` (:func:`spec_of`) and
+its global shape as ``global_shape``; the model code reads them where
+it uses the parameter.
 """
 
 from __future__ import annotations
@@ -57,6 +71,8 @@ from torch import nn
 __all__ = ["PartitionSpec", "P", "MeshCtx", "PARAM_RULES", "ACT_KINDS",
            "use_mesh", "current_mesh", "shard_act", "gather_params_once",
            "named_sharding", "NamedSharding", "local_specs",
+           "allocate_blocks", "spec_of", "global_shape", "process_mesh",
+           "gather_fsdp", "shards_dense", "mixers_of",
            "param_specs", "cache_specs", "batch_spec", "act_spec",
            "expert_axes_for", "expert_param_spec", "shard_shape",
            "tree_map_with_path"]
@@ -225,19 +241,92 @@ def shard_act(x, kind: str):
 def gather_params_once(params) -> Any:
     """fp32 leaves cast to bf16, every other leaf as it is: the copy a
     train step with ``TrainConfig.gather_once`` differentiates through
-    once for all its microbatches.  The reference also drops the copy's
-    FSDP sharding under a mesh (one all-gather a step); the port's mesh
-    keeps dense parameters whole, so the cast is all there is, with a
-    mesh or without."""
-    return tree_map_with_path(
-        lambda _, p: p.to(torch.bfloat16) if p.dtype == torch.float32
-        else p, params)
+    once for all its microbatches.  Under a process mesh each copy's
+    ``data`` (FSDP) dims are also gathered, as the reference drops them:
+    one all-gather a leaf and step, whose backward is one reduce-scatter
+    a leaf (:func:`gather_fsdp`); the copy carries the spec that is left
+    (the ``model`` and expert cuts)."""
+    def one(_, p):
+        out, spec = gather_fsdp(p, torch.bfloat16 if p.dtype == torch.float32
+                                else None)
+        if hasattr(p, "spec"):
+            out.spec, out.global_shape = spec, p.global_shape
+        return out
+
+    return tree_map_with_path(one, params)
+
+
+_WHOLE = PartitionSpec()
+
+
+def spec_of(t) -> P:
+    """The spec a parameter of a model built on a process mesh carries;
+    ``P()`` (whole) for any other tensor."""
+    return getattr(t, "spec", _WHOLE)
+
+
+def global_shape(t) -> tuple[int, ...]:
+    """The shape of the whole leaf of which ``t`` is a block."""
+    return tuple(getattr(t, "global_shape", t.shape))
+
+
+def process_mesh():
+    """The ``ProcessMesh`` of the innermost :func:`use_mesh`: where a
+    parameter cut into blocks is used."""
+    ctx = current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members"):
+        raise RuntimeError("a parameter cut into blocks is used outside "
+                           "rules.use_mesh of its process mesh")
+    return ctx.mesh
+
+
+def gather_fsdp(t, dtype=None):
+    """``(t whole over data, its spec less the data cuts)``: ``t`` cast
+    to ``dtype`` first (the gather moves the compute dtype's bytes), then
+    each dim its spec cuts over ``data`` gathered
+    (``collectives.gather_blocks``: the backward sums the cotangents over
+    ``data`` into each block's owner)."""
+    spec = spec_of(t)
+    if dtype is not None:
+        t = t.to(dtype)
+    dims = [i for i, e in enumerate(spec) if e == "data"]
+    if not dims:
+        return t, spec
+    from repro_torch.sharding import collectives
+    mesh = process_mesh()
+    for i in dims:
+        t = collectives.gather_blocks(t, mesh, ("data",), i)
+    return t, P(*(None if e == "data" else e for e in spec))
+
+
+#: the layers' mixers, read from their parameters' names
+_MIXER_NAMES = (("mla", re.compile(r"(^|/)attn/wq_a/")),
+                ("attn", re.compile(r"(^|/)attn/wq/")),
+                ("mamba", re.compile(r"(^|/)mamba/")),
+                ("rwkv", re.compile(r"(^|/)rwkv/")),
+                ("encdec", re.compile(r"(^|/)(encoder|decoder)/")))
+
+
+def mixers_of(names) -> set[str]:
+    """The mixers (``attn``, ``mla``, ``mamba``, ``rwkv``; ``encdec`` for
+    the encoder-decoder) of the layers whose parameters ``names`` holds
+    (paths joined by ``/``)."""
+    return {m for n in names for m, pat in _MIXER_NAMES if pat.search(n)}
+
+
+def shards_dense(mixers) -> bool:
+    """The slice rule: a process mesh cuts a model's dense leaves by
+    :func:`param_specs` iff every layer mixes with GQA attention (its
+    ffn dense or MoE; ``transformer.layer_kinds``' mixer ``attn``).  MLA,
+    Mamba, RWKV-6 and the encoder-decoder keep them whole: their
+    tensor-parallel forms are not ported (ROADMAP Queue 1)."""
+    return set(mixers) <= {"attn"}
 
 
 class NamedSharding:
     """A spec on a mesh: :meth:`shard` cuts a global tensor (or numpy
     array) into this process's block, :meth:`gather` puts the blocks back
-    together (a collective over each sharded dim's axes)."""
+    together on one process (a collective over the spec's axes)."""
 
     def __init__(self, mesh, spec):
         self.mesh = mesh
@@ -249,28 +338,50 @@ class NamedSharding:
     def shard_shape(self, shape) -> tuple[int, ...]:
         return shard_shape(shape, self.spec, self.mesh)
 
+    def _index(self, coords) -> tuple[int, ...]:
+        """The block index, on each dim the spec names, of the process at
+        ``coords`` (axis -> coordinate)."""
+        idx = []
+        for entry in self.spec:
+            k = 0
+            for a in _axes(entry):
+                k = k * self.mesh.shape[a] + coords[a]
+            idx.append(k)
+        return tuple(idx)
+
     def shard(self, x):
         self.shard_shape(x.shape)           # raises if a dim does not split
         idx = []
-        for i, entry in enumerate(self.spec):
-            axes = _axes(entry)
-            n = math.prod(self.mesh.shape[a] for a in axes)
-            m = x.shape[i] // n
-            k = self.mesh.axis_index(axes) if axes else 0
+        for i, k in enumerate(self._index(self.mesh.coords)):
+            m = x.shape[i] // math.prod(
+                self.mesh.shape[a] for a in _axes(self.spec[i]))
             idx.append(slice(k * m, (k + 1) * m))
         return x[tuple(idx)]
 
-    def gather(self, block: torch.Tensor) -> torch.Tensor:
+    def gather(self, block: torch.Tensor, root: int):
+        """The whole tensor on process ``root``, from every process's
+        ``block`` (one gather over the spec's axes, called by every
+        process); None elsewhere.  A process whose group over those axes
+        does not hold ``root`` holds copies of its blocks, and sends
+        nothing."""
         from repro_torch.sharding import collectives
-        out = block
-        for i, entry in enumerate(self.spec):
-            axes = _axes(entry)
-            if not axes:
-                continue
-            moved = out.movedim(i, 0).contiguous()
-            parts = collectives.gather_rows(moved, self.mesh, axes)
-            out = parts.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, i)
-        return out.contiguous()
+        axes = tuple(a for entry in self.spec for a in _axes(entry))
+        if root not in self.mesh.members(axes):
+            return None
+        parts = collectives.gather_to(block, self.mesh, axes, root)
+        if parts is None:
+            return None
+        shape = [n * math.prod(self.mesh.shape[a] for a in _axes(e))
+                 for n, e in zip(block.shape, self.spec)]
+        out = block.new_empty(shape + list(block.shape[len(self.spec):]))
+        mine = dict(self.mesh.coords)
+        for k, part in enumerate(parts):
+            coords = dict(mine)
+            for a in reversed(axes):
+                k, coords[a] = divmod(k, self.mesh.shape[a])
+            out[tuple(slice(i * n, (i + 1) * n) for i, n in zip(
+                self._index(coords), block.shape))] = part
+        return out
 
 
 def named_sharding(mesh, spec) -> NamedSharding:
@@ -280,23 +391,91 @@ def named_sharding(mesh, spec) -> NamedSharding:
 _STACKED = re.compile(r"(^|/)period/\d+/")
 
 
-def local_specs(mesh, tree, n_experts: int) -> Any:
-    """The port's mesh layout of a parameter tree, or of an optimizer
-    state keyed by parameter names: an expert stack (``moe/wi_gate``,
-    ``wi_up``, ``wo``) is cut over :func:`expert_axes_for` on its expert
-    dim (dim 0 of a layer's leaf, dim 1 of a stacked slot's
-    ``period/{j}`` leaf, after the period), everything else is whole.
-    ``tree`` holds the global shapes or the local ones; only the paths
-    are read."""
-    ax = expert_axes_for(mesh, n_experts) if n_experts > 0 else ()
+#: the optimizer state's parts keyed by parameter name
+_STATE_PARTS = ("m", "v", "master", "v_row", "v_col")
 
-    def one(path, _):
-        if not ax or not _EXPERT.search(path):
+
+def _state_name(path: str) -> tuple[str, str]:
+    """``(state part or "", parameter name)`` of a leaf's path in a
+    parameter tree, an optimizer state, or a ``(params, state)`` pair."""
+    parts = path.split("/")
+    if parts and parts[0].isdigit():
+        parts = parts[1:]
+    if parts and parts[0] in _STATE_PARTS:
+        return parts[0], "/".join(parts[1:])
+    return "", "/".join(parts)
+
+
+def local_specs(mesh, tree, n_experts: int) -> Any:
+    """The mesh's layout of a parameter tree, of an optimizer state keyed
+    by parameter names, or of a ``(params, state)`` pair (module
+    docstring):
+
+    * an expert stack (``moe/wi_gate``, ``wi_up``, ``wo``; every state
+      leaf of it) is cut over :func:`expert_axes_for` on its expert dim
+      (dim 0 of a layer's leaf, dim 1 of a stacked slot's ``period/{j}``
+      leaf, after the period);
+    * under :func:`shards_dense` on a ``ProcessMesh`` every other leaf
+      has its parameter's :func:`param_specs` spec, save Adafactor's
+      factored moments (``v_col``, and ``v_row`` of a leaf of two dims or
+      more, or of a stacked slot), which every process holds whole;
+    * else every other leaf is whole.
+
+    A parameter's spec is the one its tensor carries (a model built on
+    the mesh, whose leaves are blocks; the state's leaves are then found
+    by name), or else the rule's on its own shape (a tree of global
+    leaves)."""
+    ax = expert_axes_for(mesh, n_experts) if n_experts > 0 else ()
+    carried, names = {}, []
+
+    def scan(path, leaf):
+        part, name = _state_name(path)
+        names.append(name)
+        if not part and hasattr(leaf, "spec"):
+            carried[name] = (leaf.spec, leaf.dim())
+
+    tree_map_with_path(scan, tree)
+    sharded = hasattr(mesh, "members") and shards_dense(mixers_of(names))
+
+    def one(path, leaf):
+        if ax and _EXPERT.search(path):
+            lead = 1 if _STACKED.search(path) else 0
+            return P(*([None] * lead), ax if len(ax) > 1 else ax[0])
+        if not sharded:
             return P()
-        lead = 1 if _STACKED.search(path) else 0
-        return P(*([None] * lead), ax if len(ax) > 1 else ax[0])
+        part, name = _state_name(path)
+        if part == "v_col" or (part == "v_row" and _STACKED.search(path)):
+            return P()
+        if name in carried:
+            spec, ndim = carried[name]
+        elif carried:
+            raise KeyError(f"{path}: no parameter {name!r} in the tree")
+        else:
+            spec = _leaf_spec(mesh, name, tuple(leaf.shape))
+            ndim = _rule_dims(name, leaf.dim())
+        if part == "v_row" and leaf.dim() < ndim:
+            return P()
+        return spec
 
     return tree_map_with_path(one, tree)
+
+
+def allocate_blocks(module: nn.Module, mesh, device, n_experts: int) -> None:
+    """Allocate (uninitialised, on ``device``) each parameter of
+    ``module``, built on ``meta`` at the global shapes, as this process's
+    block under :func:`local_specs`; each carries its ``spec`` and
+    ``global_shape``."""
+    specs = local_specs(mesh, dict(module.named_parameters()), n_experts)
+    for mod_name, mod in module.named_modules():
+        for key, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            spec = specs[f"{mod_name}.{key}" if mod_name else key]
+            block = nn.Parameter(torch.empty(
+                shard_shape(p.shape, spec, mesh), dtype=p.dtype,
+                device=device), requires_grad=False)
+            block.spec, block.global_shape = spec, tuple(p.shape)
+            mod._parameters[key] = block
 
 
 def act_spec(mesh, kind: str, shape) -> P:
@@ -369,26 +548,35 @@ def param_specs(mesh, params) -> Any:
 
     Leading extra dims are replicated: rules address the *trailing*
     dims."""
-    ctx = MeshCtx(mesh)
+    return tree_map_with_path(
+        lambda pstr, leaf: _leaf_spec(mesh, pstr, tuple(leaf.shape)), params)
 
-    def one(pstr, leaf):
-        shape = tuple(leaf.shape)
-        # expert tensors: specs must match the manual EP dispatch exactly
-        m_moe = _EXPERT.search(pstr)
-        if m_moe and len(shape) >= 3:
-            which = "wo" if m_moe.group(1) == "wo" else "wi"
-            lead = len(shape) - 3
-            return expert_param_spec(mesh, shape[lead], which,
-                                     lead_dims=lead)
-        for pat, logical in _COMPILED_RULES:
-            if pat.search(pstr):
-                nlead = len(shape) - len(logical)
-                if nlead < 0:
-                    return P()
-                return _resolve(ctx, (None,) * nlead + tuple(logical), shape)
-        return P()
 
-    return tree_map_with_path(one, params)
+def _leaf_spec(mesh, pstr: str, shape) -> P:
+    """The spec of the leaf at path ``pstr`` of global ``shape``."""
+    # expert tensors: specs must match the manual EP dispatch exactly
+    m_moe = _EXPERT.search(pstr)
+    if m_moe and len(shape) >= 3:
+        which = "wo" if m_moe.group(1) == "wo" else "wi"
+        lead = len(shape) - 3
+        return expert_param_spec(mesh, shape[lead], which, lead_dims=lead)
+    for pat, logical in _COMPILED_RULES:
+        if pat.search(pstr):
+            nlead = len(shape) - len(logical)
+            if nlead < 0:
+                return P()
+            return _resolve(MeshCtx(mesh), (None,) * nlead + tuple(logical),
+                            shape)
+    return P()
+
+
+def _rule_dims(pstr: str, default: int) -> int:
+    """The dims of the first rule that matches ``pstr`` (a parameter's
+    own; a factored moment has fewer)."""
+    for pat, logical in _COMPILED_RULES:
+        if pat.search(pstr):
+            return len(logical)
+    return default
 
 
 def cache_specs(mesh, cache, *, seq_shard: bool = False) -> Any:

@@ -33,24 +33,26 @@ before clipping.
 
 **On a process mesh** (``sharding.rules.use_mesh`` with a
 ``ProcessMesh``), each process runs the step on its own batch block and
-its own block of the expert stacks, in the local view of
-:mod:`repro_torch.sharding.collectives`:
+its own blocks of the parameters (``sharding.rules.local_specs``: for a
+model of GQA layers the reference's ``param_specs``, FSDP over ``data``
+and tensor parallelism over ``model``; else the expert stacks alone), in
+the local view of :mod:`repro_torch.sharding.collectives`:
 
-* a dense (replicated) parameter's gradient is the full gradient of the
-  process's block loss; it is averaged over the batch axes (``pod``,
-  ``data``), so the processes along ``model``, which hold the same block,
-  hold the same bits;
+* a leaf cut over ``data`` is gathered where it is used, and the
+  gather's backward already summed its gradient over ``data``; it is
+  summed over ``pod`` only and divided by the batch blocks;
+* a replicated or ``model``-only leaf's gradient is the full gradient
+  of the process's block loss; it is averaged over the batch axes
+  (``pod``, ``data``), so the processes along ``model``, which hold the
+  same block, hold the same bits;
 * an expert stack's gradient stays with its owner: summed over the axes
   that do not own the experts (where those hold copies) and divided by
   the batch blocks, the global loss's gradient;
-* the global norm of ``clip_by_norm`` counts each expert once (their
-  squares summed over the expert axes), and Adafactor's RMS clip of an
-  expert leaf runs over the whole global leaf;
+* the global norm of ``clip_by_norm`` counts every leaf once (a block's
+  squares summed over the axes that cut it), Adafactor's RMS clip runs
+  over each whole global leaf, and its factored moments are the means
+  over the global leaf (:class:`FactoredCut`);
 * the loss and the metrics are averaged over the batch axes.
-
-The reference shards the dense parameters FSDP over ``data`` and TP over
-``model``; the port keeps them whole on every process (the same numbers,
-more memory: ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -188,48 +190,112 @@ def _is_expert(name: str, exp_ax) -> bool:
     return bool(exp_ax) and bool(_EXPERT_NAME.search(name))
 
 
-def _reduce_over_mesh(mesh, exp_ax, loss, metrics, grads: dict):
+def _cut_axes(spec, dims=None) -> tuple[str, ...]:
+    """The mesh axes that cut a spec's entries (those of ``dims``)."""
+    out = []
+    for i, e in enumerate(spec):
+        if dims is None or i in dims:
+            out += rules._axes(e)
+    return tuple(out)
+
+
+def _reduce_over_mesh(mesh, exp_ax, specs, loss, metrics, grads: dict):
     """The local gradients (by parameter name) as the global loss's:
-    dense ones averaged over the batch axes, expert stacks summed over
-    the axes that do not own them and divided by the batch blocks; the
-    loss and metrics averaged over the batch axes."""
+    a leaf cut over ``data`` summed over ``pod``, a replicated or
+    ``model``-only leaf over ``pod`` and ``data``, an expert stack over
+    the axes that do not own it; each then divided by the batch blocks.
+    The loss and metrics averaged over the batch axes."""
     batch_ax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     n_b = mesh.axis_size(batch_ax)
     other = tuple(a for a in mesh.axis_names if a not in exp_ax)
     out = {}
     for name in list(grads):
-        axes = other if _is_expert(name, exp_ax) else batch_ax
+        if _is_expert(name, exp_ax):
+            axes = other
+        else:
+            cut = _cut_axes(specs[name])
+            axes = tuple(a for a in batch_ax if a not in cut)
         out[name] = coll.all_reduce_sum(grads.pop(name), mesh, axes) / n_b
     mean = lambda t: coll.all_reduce_sum(t, mesh, batch_ax) / n_b
     return mean(loss), opt_mod.tree_map(mean, metrics), out
 
 
-def _expert_sq(mesh, exp_ax):
-    """``update_module``'s ``reduce_sq``: an expert leaf's (or slot's)
-    sum of squares and element count over the whole global leaf."""
+class FactoredCut:
+    """Adafactor's factored moments of a block whose last two dims are
+    cut over ``row_axes`` and ``col_axes`` (of a leaf with ``rows`` x
+    ``cols`` global): :meth:`means` gives the row and column means of the
+    squared gradient over the global leaf, whole on every process, and
+    :meth:`block` this process's rows and columns of them."""
+
+    def __init__(self, mesh, row_axes, col_axes, rows: int, cols: int):
+        self.mesh, self.rows, self.cols = mesh, rows, cols
+        self.row_axes, self.col_axes = row_axes, col_axes
+
+    def means(self, g2):
+        mesh = self.mesh
+        r = coll.all_reduce_sum(g2.sum(-1), mesh, self.col_axes) / self.cols
+        c = coll.all_reduce_sum(g2.sum(-2), mesh, self.row_axes) / self.rows
+        return (coll.gather_blocks(r, mesh, self.row_axes, -1),
+                coll.gather_blocks(c, mesh, self.col_axes, -1))
+
+    def block(self, r, c):
+        return (_own(r, self.mesh, self.row_axes),
+                _own(c, self.mesh, self.col_axes))
+
+
+def _own(t, mesh, axes):
+    """This process's block of ``t``'s last dim over ``axes``."""
+    n = t.shape[-1] // mesh.axis_size(axes)
+    i = mesh.axis_index(axes)
+    return t[..., i * n:(i + 1) * n]
+
+
+def _mesh_hooks(mesh, module, specs):
+    """``update_module``'s ``reduce_sq`` and ``factored`` hooks for the
+    blocks of ``module``'s leaves (a stacked slot by its layers' spec)."""
+    named = dict(module.named_parameters())
+    slots = opt_mod.stacked_slots(module)
+    first = {slot: names[0] for slot, names in slots.items()}
+
     def reduce_sq(name, sq_sum, count):
-        if not _is_expert(name, exp_ax):
-            return sq_sum, count
-        return (coll.all_reduce_sum(sq_sum, mesh, exp_ax),
-                count * mesh.axis_size(exp_ax))
-    return reduce_sq
+        axes = _cut_axes(specs[first.get(name, name)])
+        return (coll.all_reduce_sum(sq_sum, mesh, axes),
+                count * mesh.axis_size(axes))
+
+    def factored(name):
+        p = named[first.get(name, name)]
+        spec, shape = specs[first.get(name, name)], rules.global_shape(p)
+        if name in first and p.dim() == 1:      # the stacked (n, d) leaf
+            rows, cols = (), _cut_axes(spec, (0,))
+            sizes = (len(slots[name]), shape[0])
+        elif p.dim() >= 2:
+            rows = _cut_axes(spec, (p.dim() - 2,))
+            cols = _cut_axes(spec, (p.dim() - 1,))
+            sizes = shape[-2:]
+        else:
+            return None
+        if not rows and not cols:
+            return None
+        return FactoredCut(mesh, rows, cols, *sizes)
+
+    return reduce_sq, factored
 
 
 @torch.no_grad()
-def _mesh_norm(mesh, grads: dict, exp_ax):
-    """The global gradient norm, each expert counted once."""
+def _mesh_norm(mesh, grads: dict, specs):
+    """The global gradient norm, each leaf counted once: the squares of
+    the leaves cut by the same axes summed over them."""
     dev = next(iter(grads.values())).device
-    dense, experts = (torch.zeros((), dtype=torch.float32, device=dev)
-                      for _ in range(2))
+    by_axes = {}
     for name, g in grads.items():
-        sq = torch.sum(torch.square(g.to(torch.float32)))
-        if _is_expert(name, exp_ax):
-            experts = experts + sq
-        else:
-            dense = dense + sq
-    if exp_ax:
-        dense = dense + coll.all_reduce_sum(experts, mesh, exp_ax)
-    return torch.sqrt(dense)
+        axes = _cut_axes(specs[name])
+        by_axes[axes] = by_axes.get(axes, torch.zeros(
+            (), dtype=torch.float32, device=dev)) + torch.sum(
+                torch.square(g.to(torch.float32)))
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for axes in sorted(by_axes):
+        total = total + coll.all_reduce_sum(by_axes[axes], mesh, axes)
+    return torch.sqrt(total)
 
 
 def make_train_step(model, tcfg: TrainConfig, *, microbatches: int = 1,
@@ -268,24 +334,25 @@ def make_train_step(model, tcfg: TrainConfig, *, microbatches: int = 1,
                 lambda *m: torch.mean(torch.stack(m)), *mets)
 
         mesh = _process_mesh()
-        norm = reduce_sq = None
+        norm = reduce_sq = factored = None
         if mesh is not None:
             if not isinstance(params, nn.Module):
                 raise TypeError("a train step on a process mesh updates "
                                 "a module's parameters")
-            exp_ax = _expert_axes(model, mesh)
-            loss, metrics, grads = _reduce_over_mesh(mesh, exp_ax, loss,
-                                                     metrics, grads)
-            reduce_sq = _expert_sq(mesh, exp_ax)
+            specs = {n: rules.spec_of(p) for n, p in tree.items()}
+            loss, metrics, grads = _reduce_over_mesh(
+                mesh, _expert_axes(model, mesh), specs, loss, metrics, grads)
+            reduce_sq, factored = _mesh_hooks(mesh, params, specs)
         if grad_transform is not None:
             grads = grad_transform(grads)
         if isinstance(params, nn.Module):
             if mesh is not None:
-                norm = _mesh_norm(mesh, grads, exp_ax)
+                norm = _mesh_norm(mesh, grads, specs)
             grads, gnorm = opt_mod.clip_by_norm_(grads, tcfg.grad_clip,
                                                  norm=norm)
             new_params, new_opt = opt_mod.update_module(
-                tcfg, params, grads, opt_state, step, reduce_sq=reduce_sq)
+                tcfg, params, grads, opt_state, step, reduce_sq=reduce_sq,
+                factored=factored)
         else:
             grads, gnorm = opt_mod.clip_by_norm(grads, tcfg.grad_clip)
             new_params, new_opt = opt_mod.apply_updates(

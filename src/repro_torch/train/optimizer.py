@@ -27,6 +27,17 @@ is stacked (``n_periods * d`` fp32 values), since its column moment is a
 mean across the layers.  Prefix layers, the embeddings, the unembedding,
 AdamW and SGD are elementwise or unstacked, and are updated leaf by leaf.
 
+On a process mesh a leaf may be a block of the global leaf (FSDP over
+``data``, tensor parallelism over ``model``, experts over the expert
+axes; ``sharding.rules``).  AdamW and SGD are elementwise, so a block's
+state is its block of the global state.  Adafactor's factored moments
+(``v_row``, ``v_col``) are held whole over the factored dims (the last
+two; the leading ones, such as the experts, stay cut): they are means
+over the global leaf, which the train step's ``factored`` hook takes
+across the processes (``train.loop``), and they are small; each process
+then reads its rows and columns of them.  The RMS clip of an update
+runs over the whole global leaf through the ``reduce_sq`` hook.
+
 Every function runs under ``torch.no_grad()``: it updates leaves that a
 train step differentiated, it is not itself differentiated.
 """
@@ -39,6 +50,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.sharding.rules import global_shape
 
 __all__ = ["init_opt_state", "apply_updates", "update_module", "global_norm",
            "clip_by_norm", "clip_by_norm_", "stacked_slots", "tree_map", "tree_leaves",
@@ -130,11 +142,14 @@ def stacked_slots(params) -> dict[str, list[str]]:
     return slots() if callable(slots) else {}
 
 
-def _factored_zeros(p, shape):
-    """Adafactor's ``(v_row, v_col)`` of a leaf of ``shape`` on ``p``'s
-    device: factored over the last two dims from 2 dims up."""
-    shape = tuple(shape)
+def _factored_zeros(p, lead=()):
+    """Adafactor's ``(v_row, v_col)`` of leaf ``p`` stacked under ``lead``
+    dims, on ``p``'s device: factored over the last two dims from 2 dims
+    up, whose global sizes it takes (a block's factored moments are held
+    whole)."""
+    shape = tuple(lead) + tuple(p.shape)
     if len(shape) >= 2:
+        shape = shape[:-2] + (tuple(lead) + global_shape(p))[-2:]
         return (_zeros32(p, shape[:-1]),
                 _zeros32(p, shape[:-2] + shape[-1:]))
     return _zeros32(p, shape), _zeros32(p, (1,))
@@ -155,11 +170,10 @@ def init_opt_state(cfg: TrainConfig, params) -> dict[str, Any]:
         for name, p in params.items():
             if name not in in_slot:
                 state["v_row"][name], state["v_col"][name] = \
-                    _factored_zeros(p, p.shape)
+                    _factored_zeros(p)
         for slot, names in slots.items():
-            p = params[names[0]]
             state["v_row"][slot], state["v_col"][slot] = _factored_zeros(
-                p, (len(names),) + tuple(p.shape))
+                params[names[0]], (len(names),))
         return state
     if cfg.optimizer == "adamw":
         state = {"m": tree_map(_zeros32, params),
@@ -253,21 +267,27 @@ def _adafactor_decay(t):
     return 1.0 - t ** -0.8   # Shazeer-Stern schedule
 
 
-def _adafactor_moments(g32, vr, vc, decay, factored: bool):
-    """The new ``(v_row, v_col)`` of a leaf's gradient ``g32``."""
+def _adafactor_moments(g32, vr, vc, decay, factored: bool, cut=None):
+    """The new ``(v_row, v_col)`` of a leaf's gradient ``g32``; ``cut``
+    (a block of a leaf whose factored dims are cut) takes the row and
+    column means over the global leaf."""
     g2 = torch.square(g32) + _AF_EPS
     if factored:
-        return (decay * vr + (1 - decay) * torch.mean(g2, dim=-1),
-                decay * vc + (1 - decay) * torch.mean(g2, dim=-2))
+        rm, cm = ((torch.mean(g2, dim=-1), torch.mean(g2, dim=-2))
+                  if cut is None else cut.means(g2))
+        return decay * vr + (1 - decay) * rm, decay * vc + (1 - decay) * cm
     return decay * vr + (1 - decay) * g2, vc
 
 
-def _adafactor_u(g32, vr_n, vc_n, factored: bool):
-    """The unclipped update of a leaf from its new moments."""
+def _adafactor_u(g32, vr_n, vc_n, factored: bool, cut=None):
+    """The unclipped update of a leaf (or of ``cut``'s block of it) from
+    its new moments."""
     if factored:
         # factored approximation: V ~ (vr / mean(vr)) outer vc
         r = vr_n / torch.clamp(torch.mean(vr_n, dim=-1, keepdim=True),
                                min=_AF_EPS)
+        if cut is not None:
+            r, vc_n = cut.block(r, vc_n)
         denom = torch.sqrt(r[..., None] * vc_n[..., None, :])
         return g32 / torch.clamp(denom, min=_AF_EPS)
     return g32 / torch.clamp(torch.sqrt(vr_n), min=_AF_EPS)
@@ -285,19 +305,26 @@ def _no_reduce(name, sq_sum, count):
     return sq_sum, count
 
 
+def _no_cut(name):
+    return None
+
+
 @torch.no_grad()
 def update_module(cfg: TrainConfig, module: nn.Module, grads: dict,
                   state: dict, step, *,
-                  reduce_sq: Callable | None = None):
+                  reduce_sq: Callable | None = None,
+                  factored: Callable | None = None):
     """:func:`apply_updates` on a module, written into its parameters and
     into ``state`` in place, holding one leaf's new values at a time
     (``grads`` is emptied as it goes).  Adafactor updates a stacked slot
     as the reference's stacked leaf (module docstring).
     ``reduce_sq(name, sum of squares, element count)`` gives a leaf's sum
     of squared updates and element count over the whole leaf where a rank
-    holds a block of it (a mesh's expert leaves); by default the block is
-    the leaf."""
+    holds a block of it (a mesh's cut leaves); ``factored(name)`` gives
+    the cut (``means``, ``block``) of a leaf or slot whose factored dims
+    a mesh cuts, else None; by default the block is the leaf."""
     reduce_sq = reduce_sq or _no_reduce
+    factored = factored or _no_cut
     named = dict(module.named_parameters())
     slots = stacked_slots(module) if cfg.optimizer == "adafactor" else {}
     if slots and not set(slots) <= set(state["v_row"]):
@@ -314,10 +341,10 @@ def update_module(cfg: TrainConfig, module: nn.Module, grads: dict,
         if cfg.optimizer == "adafactor":
             g32 = g.to(torch.float32)
             vr, vc = state["v_row"][name], state["v_col"][name]
-            factored = p.dim() >= 2
+            fac, cut = p.dim() >= 2, factored(name)
             vr_n, vc_n = _adafactor_moments(g32, vr, vc,
-                                            _adafactor_decay(t), factored)
-            u = _adafactor_u(g32, vr_n, vc_n, factored)
+                                            _adafactor_decay(t), fac, cut)
+            u = _adafactor_u(g32, vr_n, vc_n, fac, cut)
             sq, n = reduce_sq(name, torch.sum(torch.square(u)), u.numel())
             p.copy_(_adafactor_write(cfg, p, u,
                                      torch.sqrt(sq / n + _AF_EPS)))
@@ -330,21 +357,24 @@ def update_module(cfg: TrainConfig, module: nn.Module, grads: dict,
             state[part][name] = new_s[part][name]
     for slot, names in slots.items():
         _update_slot(cfg, slot, [named[n] for n in names],
-                     [grads.pop(n) for n in names], state, t, reduce_sq)
+                     [grads.pop(n) for n in names], state, t, reduce_sq,
+                     factored(slot))
     return module, state
 
 
 def _update_slot(cfg: TrainConfig, slot: str, ps: list, gs: list,
-                 state: dict, t, reduce_sq) -> None:
+                 state: dict, t, reduce_sq, cut) -> None:
     """Adafactor on the stacked leaf ``(len(ps), *p.shape)`` of one slot,
-    its moments ``state[...][slot]`` updated in place."""
+    its moments ``state[...][slot]`` updated in place (``cut``: the
+    slot's factored cut, of the stacked leaf for 1-d leaves and of each
+    layer's leaf otherwise)."""
     decay = _adafactor_decay(t)
     vr, vc = state["v_row"][slot], state["v_col"][slot]
     if ps[0].dim() == 1:
         # the column moment is a mean across the layers: stack the slot
         g32 = torch.stack([g.to(torch.float32) for g in gs])
-        vr_n, vc_n = _adafactor_moments(g32, vr, vc, decay, True)
-        u = _adafactor_u(g32, vr_n, vc_n, True)
+        vr_n, vc_n = _adafactor_moments(g32, vr, vc, decay, True, cut)
+        u = _adafactor_u(g32, vr_n, vc_n, True, cut)
         sq, n = reduce_sq(slot, torch.sum(torch.square(u)), u.numel())
         rms = torch.sqrt(sq / n + _AF_EPS)
         for p, u_p in zip(ps, u):
@@ -357,13 +387,13 @@ def _update_slot(cfg: TrainConfig, slot: str, ps: list, gs: list,
     sq = torch.zeros((), dtype=torch.float32, device=vr.device)
     for i, g in enumerate(gs):
         g32 = g.to(torch.float32)
-        vr_n, vc_n = _adafactor_moments(g32, vr[i], vc[i], decay, True)
+        vr_n, vc_n = _adafactor_moments(g32, vr[i], vc[i], decay, True, cut)
         vr[i].copy_(vr_n)
         vc[i].copy_(vc_n)
         sq = sq + torch.sum(torch.square(_adafactor_u(g32, vr_n, vc_n,
-                                                      True)))
+                                                      True, cut)))
     sq, n = reduce_sq(slot, sq, len(ps) * ps[0].numel())
     rms = torch.sqrt(sq / n + _AF_EPS)
     for i, (p, g) in enumerate(zip(ps, gs)):
-        u = _adafactor_u(g.to(torch.float32), vr[i], vc[i], True)
+        u = _adafactor_u(g.to(torch.float32), vr[i], vc[i], True, cut)
         p.copy_(_adafactor_write(cfg, p, u, rms))
