@@ -207,7 +207,18 @@ the seed and keeping its blocks:
                and bf16 compute, held to one process (the first loss
                within 1e-3, all within 1e-2); per-process peak memory,
                s a step, and one reduce-scatter of the largest leaf's
-               gradient alone, by CUDA events, with its bytes.
+               gradient alone, by CUDA events, with its bytes; (e)
+               ``jamba-v0.1-52b`` (8 layers) and ``deepseek-v3-671b``
+               (4) at published width in bf16, MoE dropless (capacity
+               factor at least E / k), a prefill of 4 x 128 and 2 decode
+               steps held to one process (the routes replayed; within
+               0.1, or twice the one-process run's distance from itself
+               run row by row), K8 on each process's local heads, and
+               no token dropped; deepseek-v3's MLA in fp32 (its 3 dense
+               layers, a prefill) within 1e-3 of one process's largest
+               logit; (f)
+               ``rwkv6-3b`` at published width, 2 layers, 3 AdamW steps
+               held to one process as (d).
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -4987,20 +4998,70 @@ LM_MESH_F32_RTOL = 1e-3
 LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL = 1e-2, 3e-2
 #: the dense leg (d): qwen2.5-3b at published width, fp32 parameters and
 #: bf16 compute, LM_MESH_DENSE_STEPS AdamW steps of B x S seeded tokens
-#: on the (2, 2) mesh against one process at the same depth.  24 of 36
-#: layers: 2.161 B parameters x 16 B (parameter, gradient, AdamW's m and
-#: v) = 34.6 GB whole, which four whole copies could not hold (12
-#: layers, 1.236 B, is the least depth where they cannot: 19.8 GB, 79 GB
-#: for four; all 36, 49.4 GB whole, ran in the script at 14-18 s a step
-#: and left it 5 s short of 17 minutes); a process holds its 8.6 GB
-#: block
+#: on the (2, 2) mesh against one process at the same depth.  12 of 36
+#: layers, the least depth at which four whole copies cannot fit: 1.236 B
+#: parameters x 16 B (parameter, gradient, AdamW's m and v) = 19.8 GB
+#: whole, 79 GB for four (24 layers, 34.6 GB whole, ran until the
+#: families' legs (e) and (f) took the script's time; all 36, 49.4 GB,
+#: ran at 14-18 s a step); a process holds its block
 LM_MESH_DENSE_ARCH = "qwen2.5-3b"
-LM_MESH_DENSE_LAYERS = 24
+LM_MESH_DENSE_LAYERS = 12
 LM_MESH_DENSE_BATCH, LM_MESH_DENSE_SEQ, LM_MESH_DENSE_STEPS = 4, 512, 3
 #: (d)'s losses against one process: a mesh sums its bf16 products in
 #: other groups (the row-parallel partials over model, the gradients'
 #: bf16 parts over data): the first loss, and all three
 LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL = 1e-3, 1e-2
+#: the training legs on the (2, 2) mesh against one process, each at its
+#: published width, fp32 parameters and bf16 compute, LM_MESH_DENSE_STEPS
+#: AdamW steps of B x S seeded tokens, gated as (d): (d) qwen2.5-3b at
+#: LM_MESH_DENSE_LAYERS; (f) rwkv6-3b (d 2560, 40 heads of 64, d_ff
+#: 8960, vocab 65536) at 2 of 32 layers: 0.50 B parameters x 16 B = 8.0
+#: GB whole, each process its FSDP x TP blocks, 20 heads a process over
+#: model; cut for the script's time, as its recurrence steps one token
+#: at a time under autograd (8 layers took 20 s on the mesh and left the
+#: script at 17 min 17 s; 4 took 11.4 s, and the script 16-17.5 min with
+#: (a)/(b) at 4 layers).  (f) trains at lr 1e-5: its random weights
+#: jump at LM_MESH_LR (``scripts/rwkv_mesh_probe.py lr``, one process at
+#: 8 layers: losses 11.72, 24.67, 18.46 at 1e-3; 11.72, 15.49, 11.84,
+#: 11.08 at 1e-4; 11.72, 8.72, 10.57, 8.52 at 3e-5), and after such a
+#: jump the mesh and one process part by more than rounding moves a
+#: descending run; at 1e-5 they descend (11.72, 10.65, 9.56, 9.01)
+LM_MESH_TRAIN_LEGS = {
+    "dense": dict(arch=LM_MESH_DENSE_ARCH, layers=LM_MESH_DENSE_LAYERS,
+                  batch=LM_MESH_DENSE_BATCH, seq=LM_MESH_DENSE_SEQ),
+    "rwkv": dict(arch="rwkv6-3b", layers=2, batch=4, seq=128, lr=1e-5),
+}
+#: the served families leg (e): each arch at its published width in bf16,
+#: MoE dropless (``_family_cfg``), LM_MESH_BATCH x LM_MESH_SEQ seeded
+#: prompts and ``decode`` decode tokens on the (2, 2) mesh against one
+#: process at the same depth, the routes of the one-process run replayed
+#: (as (a)), the logits within LM_LOGIT_ATOL or LM_CHAIN_FLOOR_FACTOR
+#: times the one-process run's distance from itself run row by row
+#: where that is larger (``_chain_vs_forward``'s rule: jamba's random
+#: bf16 network moves its logits past 0.1 under another rounding);
+#: K8's launches a process a prefill (its attention layers), on the
+#: local heads.  jamba at 8 of 32 layers, one period (7 Mamba, 1 GQA
+#: of 32 / 8 heads, 4 MoE layers of 16 experts, 4 a process); deepseek-v3
+#: at 4 of 61 (3 dense MLA + MLP, then MLA + MoE of 256 experts and the
+#: shared expert, 64 a process; 128 MLA heads, 64 a process), its
+#: parameters drawn one process at a time (``in_turn``).  And
+#: deepseek-v3's MLA in fp32, its 3 dense layers (MLA + MLP; the config
+#: builds its dense prefix whatever ``n_layers`` says), a prefill: within
+#: LM_MESH_F32_RTOL of one process's largest logit, as (a), so that a
+#: wrong cut of the heads fails whatever bf16 rounding does (the bf16
+#: prefill's distance read 0.69 in one card run and 0.042 in the next,
+#: its decode steps bitwise the same in both: PERF.md §6)
+LM_MESH_FAMILIES = {
+    "jamba-v0.1-52b": dict(arch="jamba-v0.1-52b", layers=8, k8_prefill=1,
+                           heads=16, dtype="bfloat16", decode=2,
+                           in_turn=True),
+    "deepseek-v3-671b": dict(arch="deepseek-v3-671b", layers=4,
+                             k8_prefill=4, heads=64, dtype="bfloat16",
+                             decode=2, in_turn=True),
+    "deepseek-v3-671b-fp32": dict(arch="deepseek-v3-671b", layers=3,
+                                  k8_prefill=3, heads=64, dtype="float32",
+                                  decode=0, in_turn=False),
+}
 LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
@@ -5066,16 +5127,59 @@ def _mesh_routes(replay, mesh, t_loc: list):
         lm_moe_manual._route = inner
 
 
-def lm_mesh_forward(dtype: str, mesh=None, replay=None) -> dict:
-    """(a): the prefill's last logits and each decode step's, of the
-    whole batch (``mesh`` None: recorded routes in ``routes``) or of this
-    process's block (the routes of ``replay`` taken); K8's launches in
-    the prefill; peak memory."""
-    cfg = _lm_mesh_cfg(dtype, LM_MESH_LAYERS)
+def _init_in_turn(cfg, mesh):
+    """``init_params`` on ``mesh``, one process at a time: each draws
+    every piece whole (a layer, the embedding) and keeps its blocks, and
+    deepseek-v3's MoE layer is 22.5 GB whole in bf16, which four
+    processes at once would not hold beside their blocks."""
+    params = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        lm_coll.all_reduce_sum(torch.zeros((), device=DEV), mesh,
+                               mesh.axis_names)
+    return params
+
+
+@contextlib.contextmanager
+def _k8_heads():
+    """Yields the query heads of each K8 call from the attention layers
+    (the local heads on a tensor-parallel mesh)."""
+    heads, inner = [], lm_attn.flash_attention
+
+    def fa(q, k, v, **kw):
+        heads.append(int(q.shape[2]))
+        return inner(q, k, v, **kw)
+    lm_attn.flash_attention = fa
+    try:
+        yield heads
+    finally:
+        lm_attn.flash_attention = inner
+
+
+def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
+                    n_decode: int = LM_MESH_DECODE, floor: bool = False,
+                    in_turn: bool = False) -> dict:
+    """(a), and (e) with ``cfg``: the prefill's last logits and each of
+    ``n_decode`` decode steps', of the whole batch (``mesh`` None:
+    recorded routes in ``routes``, and with ``floor`` the same logits
+    with each row run alone in ``rows_alone`` and the prefill's probes,
+    :func:`_prefill_probes`, in ``probes``) or of this process's block (the routes of
+    ``replay`` taken; ``in_turn``: the parameters drawn one process at a
+    time); K8's launches in the prefill and its query heads; the largest
+    MoE drop fraction; the prefill's and each decode step's seconds; peak
+    memory from the parameters on, and the parameters' bytes."""
+    cfg = cfg or _lm_mesh_cfg(dtype, LM_MESH_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
+    params = (_init_in_turn(cfg, mesh) if in_turn
+              else lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     prompts, dec = (_block(t, mesh) for t in _lm_mesh_tokens(cfg))
     b = prompts.shape[0]
     t_loc = [b * LM_MESH_SEQ]
@@ -5083,30 +5187,108 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None) -> dict:
            else contextlib.nullcontext())
     routes = (_mesh_routes(replay, mesh, t_loc) if mesh is not None
               else _moe_routes())
-    with ctx, routes as r:
-        # a mesh process's cache holds the kv heads it reads
-        cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + LM_MESH_DECODE,
+    with ctx, routes as r, _k8_heads() as heads, _moe_drops() as drops:
+        # a mesh process's cache holds the heads and channels it runs
+        cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + n_decode,
                                  getattr(torch, dtype), device=DEV)
         reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
         torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
         k8 = read_launches()["flash_attention"]
-        out = [logits[:, 0]]
+        out, t_dec = [logits[:, 0]], []
         t_loc[0] = b
-        for i in range(LM_MESH_DECODE):
+        for i in range(n_decode):
             pos = torch.full((b,), LM_MESH_SEQ + i, dtype=torch.int64,
                              device=DEV)
+            t0 = time.perf_counter()
             lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            torch.cuda.synchronize()
+            t_dec.append(time.perf_counter() - t0)
             out.append(lg)
     torch.cuda.synchronize()
     rec = {"logits": torch.stack(out).float().cpu(), "k8_prefill": k8,
+           "k8_heads": sorted(set(heads)), "prefill_s": t_pre,
+           "drop_frac_max": max((float(x) for x in drops), default=None),
+           "prefill_tokens_per_s": b * LM_MESH_SEQ / t_pre,
+           "decode_step_s": t_dec,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
            "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
     if mesh is None:
         rec["routes"] = [x.cpu() for x in r["idx"]]
+        if floor:
+            rec["rows_alone"] = _rows_alone(params, cfg, prompts, dec,
+                                            n_decode, r["idx"])
+            rec["probes"] = _prefill_probes(params, cfg, prompts, r["idx"])
     else:
         rec.update(routes_moved=r["moved"], routes_tokens=r["tokens"])
     del params, cache
     return rec
+
+
+def _rows_alone(params, cfg, prompts, dec, n_decode, routes):
+    """The logits of :func:`lm_mesh_forward`'s one-process run with each
+    row run alone (the batch run's routes taken): other GEMM shapes, so
+    another rounding of the same function, whose distance from the
+    batch run is this network's noise floor (the rule of
+    ``_chain_vs_forward``)."""
+    b, s = prompts.shape
+    out = []
+    for i in range(b):
+        rows = [x[i * s:(i + 1) * s] if x.shape[0] == b * s else x[i:i + 1]
+                for x in routes]
+        with _moe_routes(rows):
+            cache = lm_tr.init_cache(cfg, 1, s + n_decode,
+                                     getattr(torch, cfg.dtype), device=DEV)
+            lg, cache = lm_tr.prefill(params, cfg, prompts[i:i + 1], cache)
+            row = [lg[:, 0]]
+            for j in range(n_decode):
+                pos = torch.full((1,), s + j, dtype=torch.int64, device=DEV)
+                lg, cache = lm_tr.decode_step(params, cfg, dec[i:i + 1, j],
+                                              pos, cache)
+                row.append(lg)
+        out.append(torch.stack(row).float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def _prefill_probes(params, cfg, prompts, routes):
+    """The one-process prefill of :func:`lm_mesh_forward` (its routes
+    taken) three times more, each's last logits: ``again`` as it ran (is
+    it deterministic), ``twin`` with K8's twin in its place, ``cf16`` at
+    LM_DROPLESS_CF (dropless only where E / k <= 16; deepseek-v3's 256 /
+    8 is 32) with its largest drop fraction."""
+    b, s = prompts.shape
+    pre = [x for x in routes if x.shape[0] == b * s]
+    cf16 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=LM_DROPLESS_CF))
+    out = {}
+    for name, c, swap in (("again", cfg, contextlib.nullcontext()),
+                          ("twin", cfg, _k8_twin()),
+                          ("cf16", cf16, contextlib.nullcontext())):
+        with swap, _moe_routes(pre), _moe_drops() as drops:
+            cache = lm_tr.init_cache(c, b, s, getattr(torch, c.dtype),
+                                     device=DEV)
+            lg, _ = lm_tr.prefill(params, c, prompts, cache)
+        out[name] = lg[:, 0].float().cpu()
+        if name == "cf16":
+            out["cf16_drop_frac_max"] = max(float(x) for x in drops)
+    return out
+
+
+def _family_cfg(leg: str):
+    """(e)'s config of LM_MESH_FAMILIES' ``leg``: its arch published, cut
+    to its depth, in its dtype, MoE dropless (``_chain_vs_forward``'s
+    capacity factor: at least E / k, so that capacity covers every token,
+    and at least LM_DROPLESS_CF)."""
+    spec = LM_MESH_FAMILIES[leg]
+    pub = lm_configs.get(spec["arch"])
+    return dataclasses.replace(
+        pub, n_layers=spec["layers"], dtype=spec["dtype"],
+        moe=dataclasses.replace(pub.moe, capacity_factor=max(
+            LM_DROPLESS_CF, pub.moe.n_experts / pub.moe.top_k)))
 
 
 def lm_mesh_published(mesh) -> dict:
@@ -5282,30 +5464,31 @@ def lm_mesh_restart(mesh=None) -> dict:
     return rec
 
 
-def lm_mesh_dense(mesh=None) -> dict:
-    """(d): qwen2.5-3b at published width (LM_MESH_DENSE_LAYERS deep), fp32
-    parameters with bf16 compute, LM_MESH_DENSE_STEPS AdamW steps on
-    seeded tokens; on a mesh each process holds its blocks of every leaf,
-    and one reduce-scatter of the largest leaf's gradient (the embedding
-    table's, over data, as its gather's backward runs it) is timed
-    alone by CUDA events."""
-    cfg = dataclasses.replace(lm_configs.get(LM_MESH_DENSE_ARCH),
-                              n_layers=LM_MESH_DENSE_LAYERS)
+def lm_mesh_dense(mesh=None, leg: str = "dense") -> dict:
+    """A training leg of LM_MESH_TRAIN_LEGS ((d) qwen2.5-3b, (f)
+    rwkv6-3b) at published width, fp32 parameters with bf16 compute,
+    LM_MESH_DENSE_STEPS AdamW steps on seeded tokens; on a mesh each
+    process holds its blocks of every leaf, and in (d) one reduce-scatter
+    of the largest leaf's gradient (the embedding table's, over data, as
+    its gather's backward runs it) is timed alone by CUDA events."""
+    spec = LM_MESH_TRAIN_LEGS[leg]
+    cfg = dataclasses.replace(lm_configs.get(spec["arch"]),
+                              n_layers=spec["layers"])
     m = build_model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = m.init(SEED, device=DEV, dtype=torch.float32, mesh=mesh)
-    tcfg = TrainConfig(lr=LM_MESH_LR)
+    tcfg = TrainConfig(lr=spec.get("lr", LM_MESH_LR))
     opt = train_opt.init_opt_state(tcfg, params)
     torch.cuda.synchronize()
     rec = {"init_s": time.perf_counter() - t0,
            "param_bytes_per_process": sum(
                p.numel() * p.element_size() for p in params.parameters())}
     step = train_loop.make_train_step(m, tcfg)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LM_MESH_DENSE_SEQ,
-                         global_batch=LM_MESH_DENSE_BATCH, seed=SEED)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                         global_batch=spec["batch"], seed=SEED)
     ctx = (lm_rules.use_mesh(mesh) if mesh is not None
            else contextlib.nullcontext())
     losses, gnorms, step_s = [], [], []
@@ -5320,6 +5503,9 @@ def lm_mesh_dense(mesh=None) -> dict:
             step_s.append(time.perf_counter() - t0)
     rec.update(losses=losses, grad_norms=gnorms, step_s=step_s,
                peak_device_mem_bytes=torch.cuda.max_memory_allocated())
+    if leg != "dense":
+        del params, opt
+        return rec
     table = params.embed.table
     rec["largest_leaf"] = {"name": "embed.table",
                            "global_shape": list(lm_rules.global_shape(table)),
@@ -5380,6 +5566,17 @@ def lm_mesh_worker(job_json: str) -> None:
             out = lm_mesh_train(mesh)
         elif task == "dense":
             out = lm_mesh_dense(mesh)
+        elif task == "rwkv_train":
+            out = lm_mesh_dense(mesh, "rwkv")
+        elif task.startswith("family:"):
+            leg = task.split(":", 1)[1]
+            spec = LM_MESH_FAMILIES[leg]
+            replay = [torch.from_numpy(a) for a in np.load(os.path.join(
+                LM_MESH_DIR, f"routes_{leg}.npz")).values()]
+            out = lm_mesh_forward(spec["dtype"], mesh, replay,
+                                  _family_cfg(leg), spec["decode"],
+                                  in_turn=spec["in_turn"])
+            arrays[f"logits_{leg}"] = out.pop("logits").numpy()
         else:
             out = lm_mesh_restart(mesh)
         out["task_s"] = time.perf_counter() - t0
@@ -5448,7 +5645,7 @@ def _rel_first(got, want, first_tol, tol, what):
 
 
 def phase_lm_mesh() -> dict:
-    """Phase 14e; returns K8's launches per process in (a)."""
+    """Phase 14e; returns K8's launches per process in (a) and (e)."""
     t_phase = time.perf_counter()
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
     os.makedirs(LM_MESH_DIR)
@@ -5458,6 +5655,15 @@ def phase_lm_mesh() -> dict:
     check((pub.d_model, pub.n_layers, pub.moe.n_experts, pub.moe.top_k,
            pub.vocab_size) == (2048, 48, 128, 8, 151_936),
           f"lm_mesh: {LM_MESH_ARCH} is not the published config")
+    for arch, want in (
+            ("jamba-v0.1-52b", (4096, 32, 32, 8, 14_336, 65_536, 16)),
+            ("deepseek-v3-671b", (7168, 61, 128, 128, 18_432, 129_280,
+                                  256)),
+            ("rwkv6-3b", (2560, 32, 40, 40, 8960, 65_536, None))):
+        c = lm_configs.get(arch)
+        check((c.d_model, c.n_layers, c.n_heads, c.n_kv_heads, c.d_ff,
+               c.vocab_size, c.moe.n_experts if c.moe else None) == want,
+              f"lm_mesh: {arch} is not the published config")
     dense = lm_configs.get(LM_MESH_DENSE_ARCH)
     check((dense.d_model, dense.n_layers, dense.n_heads, dense.n_kv_heads,
            dense.d_ff, dense.vocab_size, dense.tie_embeddings)
@@ -5483,13 +5689,30 @@ def phase_lm_mesh() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s["dense"] = time.perf_counter() - t0
+    # (e) and (f) in one process, the routes of (e) for the mesh to replay
+    single_fam = {}
+    for leg, spec in LM_MESH_FAMILIES.items():
+        t0 = time.perf_counter()
+        single_fam[leg] = lm_mesh_forward(
+            spec["dtype"], cfg=_family_cfg(leg), n_decode=spec["decode"],
+            floor=spec["dtype"] == "bfloat16")
+        np.savez(os.path.join(LM_MESH_DIR, f"routes_{leg}.npz"),
+                 *[x.numpy() for x in single_fam[leg].pop("routes")])
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s[f"family:{leg}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_rwkv = lm_mesh_dense(leg="rwkv")
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s["rwkv_train"] = time.perf_counter() - t0
     print(json.dumps({"lm_mesh single-process s": single_s,
                       "device_mem_allocated_bytes":
                           torch.cuda.memory_allocated()}), flush=True)
     t0 = time.perf_counter()
     ranks = _lm_mesh_spawn("mesh", LM_MESH_DIMS, (
         "forward_float32", "forward_bfloat16", "published", "train",
-        "dense"))
+        "dense", *(f"family:{a}" for a in LM_MESH_FAMILIES), "rwkv_train"))
     mesh_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
@@ -5573,9 +5796,9 @@ def phase_lm_mesh() -> dict:
           f"lm_mesh dense: losses {dn['losses']} against one process's "
           f"{single_dense['losses']}")
     rec["dense"] = {
-        "arch": LM_MESH_DENSE_ARCH, "layers": LM_MESH_DENSE_LAYERS,
-        "published_layers": dense.n_layers, "batch": LM_MESH_DENSE_BATCH,
-        "seq": LM_MESH_DENSE_SEQ, "single": single_dense, "mesh_rank0": dn,
+        **LM_MESH_TRAIN_LEGS["dense"],
+        "published_layers": dense.n_layers, "single": single_dense,
+        "mesh_rank0": dn,
         "losses_rel_err": rel.tolist(),
         "tolerance_rel": [LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL],
         "peak_device_mem_bytes_per_process": [
@@ -5586,6 +5809,107 @@ def phase_lm_mesh() -> dict:
         "reduce_scatter_ms_per_process": [
             r["dense"]["reduce_scatter"]["ms"] for r in ranks],
         "task_s_per_process": [r["dense"]["task_s"] for r in ranks]}
+    # (e) the served families against one process, routes replayed
+    rec["families"] = {}
+    for leg, spec in LM_MESH_FAMILIES.items():
+        one, task = single_fam[leg], f"family:{leg}"
+        want = one["logits"]                      # (1 + decode, B, V)
+        got = torch.zeros_like(want)
+        rows = LM_MESH_BATCH // LM_MESH_DIMS[0]
+        for r in ranks:
+            d = r["coords"]["data"]
+            arr = torch.from_numpy(np.load(os.path.join(
+                LM_MESH_DIR, f"mesh_rank{r['rank']}.npz"))[f"logits_{leg}"])
+            if r["coords"]["model"] == 0:
+                got[:, d * rows:(d + 1) * rows] = arr
+            else:      # the processes of one block agree bit for bit
+                check(torch.equal(got[:, d * rows:(d + 1) * rows], arr),
+                      f"lm_mesh {leg}: the processes of batch block {d} "
+                      "differ")
+        err = (got - want).abs().amax((1, 2))
+        k8 = [r[task]["k8_prefill"] for r in ranks]
+        heads = [r[task]["k8_heads"] for r in ranks]
+        check(k8 == [spec["k8_prefill"]] * len(ranks) and one["k8_prefill"]
+              == spec["k8_prefill"], f"lm_mesh {leg}: K8 launched {k8} "
+              f"times a process (one process: {one['k8_prefill']})")
+        check(heads == [[spec["heads"]]] * len(ranks), f"lm_mesh {leg}: "
+              f"K8 ran on {heads} heads a process")
+        fam = {"arch": spec["arch"], "layers": spec["layers"],
+               "dtype": spec["dtype"], "decode_steps": spec["decode"],
+               "max_abs_err_prefill": float(err[0]),
+               "max_abs_err_decode": err[1:].tolist(),
+               "max_abs_logit": float(want.abs().max())}
+        if spec["dtype"] == "float32":
+            limit = LM_MESH_F32_RTOL * float(want.abs().max())
+            check(bool((err <= limit).all()), f"lm_mesh {leg}: logits "
+                  f"differ from one process's by {err.tolist()}, limit "
+                  f"{limit}")
+            fam.update(tolerance_rel=LM_MESH_F32_RTOL)
+        else:
+            floor_ = (one["rows_alone"] - want).abs().amax((1, 2))
+            vs_rows = (got - one["rows_alone"]).abs().amax((1, 2))
+            limit = torch.clamp_min(LM_CHAIN_FLOOR_FACTOR * floor_,
+                                    LM_LOGIT_ATOL)
+            drops = [one["drop_frac_max"]] + [r[task]["drop_frac_max"]
+                                              for r in ranks]
+            check(drops == [0.0] * len(drops), f"lm_mesh {leg}: the "
+                  f"dropless runs dropped {drops} (one process, then each "
+                  "process)")
+            check(bool((err <= limit).all()), f"lm_mesh {leg}: prefill and "
+                  f"decode logits differ from one process's by "
+                  f"{err.tolist()}, limits {limit.tolist()}")
+            probes = one["probes"]
+            fam.update(
+                capacity_factor=_family_cfg(leg).moe.capacity_factor,
+                drop_frac_max=drops,
+                rows_alone_vs_batch_err=floor_.tolist(),
+                mesh_vs_rows_alone_err=vs_rows.tolist(),
+                limit_by_position=limit.tolist(),
+                tolerance_abs=LM_LOGIT_ATOL,
+                one_process_prefill_probes={
+                    "again_max_abs_err": float(
+                        (probes["again"] - want[0]).abs().max()),
+                    "k8_twin_max_abs_err": float(
+                        (probes["twin"] - want[0]).abs().max()),
+                    "cf16_capacity_factor": LM_DROPLESS_CF,
+                    "cf16_drop_frac_max": probes["cf16_drop_frac_max"],
+                    "cf16_max_abs_err": float(
+                        (probes["cf16"] - want[0]).abs().max())},
+                routes_moved=sum(r[task]["routes_moved"] for r in ranks),
+                routes_tokens=sum(r[task]["routes_tokens"] for r in ranks))
+        fam.update({
+            "k8_prefill_per_process": k8, "k8_heads_per_process": heads,
+            "k8_heads_single": one["k8_heads"],
+            "single": {k: one[k] for k in (
+                "prefill_s", "prefill_tokens_per_s", "decode_step_s",
+                "param_bytes", "peak_device_mem_bytes")},
+            **{f"{k}_per_process": [r[task][k] for r in ranks] for k in (
+                "prefill_s", "prefill_tokens_per_s", "decode_step_s",
+                "param_bytes", "peak_device_mem_bytes", "task_s")}})
+        rec["families"][leg] = fam
+    # (f) rwkv6-3b's sharded steps against one process's
+    rw = ranks[0]["rwkv_train"]
+    check(all(r["rwkv_train"]["losses"] == rw["losses"] for r in ranks),
+          "lm_mesh rwkv: the processes report other losses")
+    check(all(np.isfinite(rw["losses"])), f"lm_mesh rwkv: {rw['losses']}")
+    rel = (np.abs(np.asarray(rw["losses"]) - single_rwkv["losses"])
+           / np.abs(single_rwkv["losses"]))
+    check(rel[0] <= LM_MESH_DENSE_FIRST_RTOL
+          and rel.max() <= LM_MESH_DENSE_RTOL,
+          f"lm_mesh rwkv: losses {rw['losses']} against one process's "
+          f"{single_rwkv['losses']}")
+    rec["rwkv_train"] = {
+        **LM_MESH_TRAIN_LEGS["rwkv"],
+        "published_layers": lm_configs.get("rwkv6-3b").n_layers,
+        "single": single_rwkv, "mesh_rank0": rw,
+        "losses_rel_err": rel.tolist(),
+        "tolerance_rel": [LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL],
+        "peak_device_mem_bytes_per_process": [
+            r["rwkv_train"]["peak_device_mem_bytes"] for r in ranks],
+        "param_bytes_per_process": [
+            r["rwkv_train"]["param_bytes_per_process"] for r in ranks],
+        "step_s_per_process": [r["rwkv_train"]["step_s"] for r in ranks],
+        "task_s_per_process": [r["rwkv_train"]["task_s"] for r in ranks]}
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
     restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))
@@ -5612,7 +5936,9 @@ def phase_lm_mesh() -> dict:
           "phase_s": time.perf_counter() - t_phase})
     return {"per_process": rec["forward_bfloat16"]["k8_prefill_per_process"],
             "float32_per_process":
-                rec["forward_float32"]["k8_prefill_per_process"]}
+                rec["forward_float32"]["k8_prefill_per_process"],
+            **{f"family {arch} per_process": fam["k8_prefill_per_process"]
+               for arch, fam in rec["families"].items()}}
 
 
 def main() -> None:

@@ -32,8 +32,9 @@ environment it reads (``REPRO_COORD_ADDR``, ``REPRO_NUM_PROC``,
 nccl where each has its own), and waits for them; a copy started with
 that environment is one of them.  Each process draws the single-device
 model's parameters and keeps its blocks (``rules.local_specs``: for a
-model of GQA layers the reference's ``param_specs``, FSDP over ``data``
-and tensor parallelism over ``model``; else the expert stacks alone),
+decoder-only arch, GQA, MLA, Mamba or RWKV-6, the reference's
+``param_specs``, FSDP over ``data`` and tensor parallelism over
+``model``; for the encoder-decoder the expert stacks alone),
 cuts each global batch over ``pod x data`` (``rules.batch_spec``;
 microbatch by microbatch, as the reference's microbatches are cut) and
 trains under ``rules.use_mesh`` (``train/loop.py``).  A checkpoint holds

@@ -29,7 +29,17 @@ inside a head (``n_kv_heads``, or ``n_heads``, not a multiple of
 reference's storage is kept and the projection is gathered over
 ``model`` at use, each process taking the heads it reads; where
 ``n_heads`` does not split, every process attends with every head and
-``wo`` takes its rows' share.  MLA keeps its leaves whole.
+``wo`` takes its rows' share.
+
+MLA on such a mesh (``wq_b`` and ``wkv_b`` columns, ``wo`` rows cut over
+``model``; ``wq_a`` and ``wkv_a`` over ``data`` only) attends with its
+``n_heads / model`` heads: the down-projections and their norms run
+whole, and the normed q latent, the normed ``c_kv`` and the shared rope
+key enter the local heads through ``sum_grad`` (each read by every
+process for its own heads).  K8 runs the prefill on the local heads; the
+absorbed decode reads the local heads' columns of ``wkv_b``.  The cache
+``c_kv`` / ``k_rope`` stays whole on every process (the reference cuts
+its sequence over ``model``: ROADMAP Queue 1).
 
 Unlike the reference's functional updates, the prefill and decode
 functions write the cache **in place** and return the same dict:
@@ -436,12 +446,23 @@ def mla_init(p: MLA, gen: torch.Generator) -> MLA:
     return p
 
 
-def _mla_q(p: MLA, cfg, x, positions, compute_dtype):
+def _mla_heads(cfg, mesh) -> int:
+    return cfg.n_heads if mesh is None else \
+        cfg.n_heads // mesh.shape["model"]
+
+
+def _enter_heads(t, mesh):
+    """A replicated tensor read by each process for its own heads: its
+    cotangent summed over ``model`` (``t`` itself off a mesh)."""
+    return t if mesh is None else coll.sum_grad(t, mesh, ("model",))
+
+
+def _mla_q(p: MLA, cfg, x, positions, compute_dtype, mesh=None):
     m = cfg.mla
     b, s, _ = x.shape
-    q = linear(p.wq_b, rms_norm(p.q_a_norm, linear(p.wq_a, x, compute_dtype)),
-               compute_dtype).reshape(b, s, cfg.n_heads,
-                                      m.qk_nope_dim + m.qk_rope_dim)
+    cq = rms_norm(p.q_a_norm, linear(p.wq_a, x, compute_dtype))
+    q = linear(p.wq_b, _enter_heads(cq, mesh), compute_dtype).reshape(
+        b, s, _mla_heads(cfg, mesh), m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -460,11 +481,15 @@ def _mla_ckv(p: MLA, cfg, x, positions, compute_dtype):
 
 def _mla_attend(p: MLA, cfg, x, positions, c_kv, k_rope, compute_dtype):
     """Causal attention from position 0 with the per-head keys and values
-    expanded from ``c_kv``; the rope key is shared by every head."""
+    expanded from ``c_kv``; the rope key is shared by every head.  On a
+    tensor-parallel mesh the heads are this process's, ``wo``
+    row-parallel."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, compute_dtype)
+    mesh = rules.tp_mesh(p.wo.w, cfg, "mla")
+    h = _mla_heads(cfg, mesh)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, compute_dtype, mesh)
+    c_kv, k_rope = _enter_heads(c_kv, mesh), _enter_heads(k_rope, mesh)
     kv = linear(p.wkv_b, c_kv, compute_dtype).reshape(
         b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = torch.split(kv, [m.qk_nope_dim, m.v_head_dim], dim=-1)
@@ -521,12 +546,13 @@ def mla_decode(p: MLA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
     reference rounds it; writes row ``pos`` of the cache (in place)."""
     m = cfg.mla
     b = x.shape[0]
-    h = cfg.n_heads
-    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None], compute_dtype)
+    mesh = rules.tp_mesh(p.wo.w, cfg, "mla")
+    h = _mla_heads(cfg, mesh)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None], compute_dtype, mesh)
     c_kv_new, k_rope_new = _mla_ckv(p, cfg, x, pos[:, None], compute_dtype)
     _write_at(cache["c_kv"], c_kv_new, pos)
     _write_at(cache["k_rope"], k_rope_new, pos)
-    wkv_b = p.wkv_b.w.to(compute_dtype).reshape(
+    wkv_b = rules.gather_fsdp(p.wkv_b.w, compute_dtype)[0].reshape(
         m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
     w_uk = wkv_b[:, :, :m.qk_nope_dim]                     # (r, h, dn)
     w_uv = wkv_b[:, :, m.qk_nope_dim:]                     # (r, h, dv)

@@ -14,6 +14,19 @@ each time step saves its state: nothing in the loop writes in place, and
 the layer's remat (``transformer._remat_layer``) bounds what the backward
 holds.  Decode carries ``(conv window, state)`` per layer, updated in
 place, without grad.
+
+On a process mesh whose ``model`` axis cuts ``d_inner`` (``sharding.
+rules``: ``in_proj`` columns, ``conv_w`` / ``conv_b`` / ``dt_proj`` /
+``dt_bias_init`` / ``a_log`` / ``d_skip`` channels, ``x_proj`` and
+``out_proj`` rows) a layer is one tensor-parallel region: each process
+runs the conv and the scan on its ``d_inner / model`` channels, and its
+cache holds those channels' window and state.  ``in_proj``'s block is
+contiguous in the reference's ``(x_in, z)`` columns, so its output is
+regrouped by an all-to-all over ``model`` (:func:`_own_channels`) into
+this process's channels of ``x_in`` and of ``z``.  ``x_proj`` is
+row-parallel: its fp32 partials are summed over ``model``, and the
+replicated ``(dt, B, C)`` it gives, read by every process for its own
+channels, has its cotangent summed over ``model`` once.
 """
 
 from __future__ import annotations
@@ -24,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import Linear, _param, init_linear, linear
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules
 
 __all__ = ["Mamba", "mamba_init", "mamba_train", "mamba_prefill",
            "mamba_decode", "init_mamba_cache"]
@@ -77,22 +92,62 @@ def mamba_init(p: Mamba, gen: torch.Generator) -> Mamba:
     return p
 
 
-def _ssm_params(p: Mamba, cfg, xc, compute_dtype):
-    """xc: (..., di) post-conv activations -> (dt, B, C), fp32."""
+def _own_channels(xz, mesh):
+    """``(x_in, z)`` of this process's channels from its block of
+    ``in_proj``'s output (B, T, 2 di / M): that block is chunks ``2r``
+    and ``2r + 1`` of the ``2M`` chunks of ``di / M`` columns, chunk
+    ``c`` being channels ``c mod M`` of ``x_in`` (``c < M``) or of ``z``;
+    each chunk goes to process ``c mod M`` (an all-to-all of unequal
+    blocks over ``model``, whose backward sends the cotangents back)."""
+    n_m, r = mesh.shape["model"], mesh.axis_index(("model",))
+    b, t, w = xz.shape
+    dc, rows = w // 2, b * t
+    dest = [(2 * r + j) % n_m for j in range(2)]
+    send, recv = [0] * n_m, [0] * n_m
+    for q in dest:
+        send[q] += rows
+    for c in (r, n_m + r):        # x_in's chunk, then z's (source order)
+        recv[c // 2] += rows
+    x = xz.reshape(rows, 2, dc).transpose(0, 1)
+    if dest[1] < dest[0]:         # the rows grouped by destination
+        x = x.flip(0)
+    out = coll.all_to_all_v(x.reshape(2 * rows, dc), mesh, ("model",),
+                            send, recv)
+    return out[:rows].reshape(b, t, dc), out[rows:].reshape(b, t, dc)
+
+
+def _in_proj(p: Mamba, x, compute_dtype, mesh):
+    """``(x_in, z)`` (B, T, di) off a mesh, or this process's channels of
+    them: ``in_proj`` column-parallel on the whole input (its cotangent
+    summed over ``model``), then regrouped."""
+    if mesh is None:
+        return torch.chunk(linear(p.in_proj, x, compute_dtype), 2, dim=-1)
+    x = coll.sum_grad(x.to(compute_dtype), mesh, ("model",))
+    return _own_channels(linear(p.in_proj, x, compute_dtype), mesh)
+
+
+def _ssm_params(p: Mamba, cfg, xc, compute_dtype, mesh=None):
+    """xc: (..., di) post-conv activations (this process's channels on a
+    mesh) -> (dt, B, C), fp32.  On a mesh ``x_proj``'s partials are summed
+    over ``model`` and the sum's cotangent too, once: ``dt_r`` enters the
+    column-parallel ``dt_proj`` through that one sum."""
     m = cfg.mamba
     dtr = _dt_rank(cfg)
     proj = linear(p.x_proj, xc, compute_dtype)
+    if mesh is not None:
+        proj = coll.sum_grad(proj, mesh, ("model",))
     dt_r, b, c = torch.split(proj, [dtr, m.d_state, m.d_state], dim=-1)
     dt = F.softplus(linear(p.dt_proj, dt_r, compute_dtype).float()
                     + p.dt_bias_init.float())
     return dt, b.float(), c.float()
 
 
-def _scan_chunk(p: Mamba, cfg, h0, xc_chunk, z_chunk, compute_dtype):
+def _scan_chunk(p: Mamba, cfg, h0, xc_chunk, z_chunk, compute_dtype,
+                mesh=None):
     """The selective scan over xc: (B, L, di) from the state h0 (B, di,
     N), step by step -> (final state, y (B, L, di) in compute_dtype)."""
     a = -torch.exp(p.a_log.float())                       # (di, N)
-    dt, bmat, cmat = _ssm_params(p, cfg, xc_chunk, compute_dtype)
+    dt, bmat, cmat = _ssm_params(p, cfg, xc_chunk, compute_dtype, mesh)
     xf = xc_chunk.float()
     h, ys = h0, []
     for i in range(xc_chunk.shape[1]):
@@ -122,12 +177,12 @@ def _mix(p: Mamba, cfg, x, compute_dtype):
     """(in-projected input, y, final state) of the scan from zero."""
     m = cfg.mamba
     b = x.shape[0]
-    xz = linear(p.in_proj, x, compute_dtype)
-    xin, z = torch.chunk(xz, 2, dim=-1)
+    mesh = rules.tp_mesh(p.in_proj.w, cfg, "mamba")
+    xin, z = _in_proj(p, x, compute_dtype, mesh)
     xc = _causal_conv(p, cfg, xin, compute_dtype)
     h0 = torch.zeros((b, xin.shape[-1], m.d_state), dtype=torch.float32,
                      device=x.device)
-    h, y = _scan_chunk(p, cfg, h0, xc, z, compute_dtype)
+    h, y = _scan_chunk(p, cfg, h0, xc, z, compute_dtype, mesh)
     return xin, linear(p.out_proj, y, compute_dtype), h
 
 
@@ -137,8 +192,11 @@ def mamba_train(p: Mamba, cfg, x, compute_dtype=torch.bfloat16):
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, *, device):
+    """The zeroed conv window and state of the channels a process runs:
+    its ``d_inner / model`` inside ``rules.use_mesh`` of a process mesh
+    that cuts them (``rules.model_blocks``), else all."""
     m = cfg.mamba
-    di = m.expand * cfg.d_model
+    di = m.expand * cfg.d_model // rules.model_blocks(cfg, "mamba")
     return {
         "conv": torch.zeros((batch, m.d_conv - 1, di), dtype=dtype,
                             device=device),
@@ -167,14 +225,19 @@ def mamba_prefill(p: Mamba, cfg, x, cache, compute_dtype=torch.bfloat16):
 
 def mamba_decode(p: Mamba, cfg, x, cache, compute_dtype=torch.bfloat16):
     """One-token step. x: (B, 1, d); the cache is updated in place."""
-    xz = linear(p.in_proj, x, compute_dtype)
-    xin, z = torch.chunk(xz, 2, dim=-1)                   # (B, 1, di)
+    mesh = rules.tp_mesh(p.in_proj.w, cfg, "mamba")
+    xin, z = _in_proj(p, x, compute_dtype, mesh)          # (B, 1, di)
+    if cache["h"].shape[1] != xin.shape[-1]:
+        raise ValueError(
+            f"the cache holds {cache['h'].shape[1]} channels, this process "
+            f"scans {xin.shape[-1]}: build it with init_cache inside "
+            "rules.use_mesh of the model's process mesh")
     window = torch.cat([cache["conv"].to(compute_dtype), xin],
                        dim=1)                             # (B, K, di)
     w = p.conv_w.to(compute_dtype)
     conv = torch.einsum("bkd,kd->bd", window.float(), w.float())
     xc = F.silu(conv.to(compute_dtype) + p.conv_b.to(compute_dtype))
-    dt, bmat, cmat = _ssm_params(p, cfg, xc, compute_dtype)
+    dt, bmat, cmat = _ssm_params(p, cfg, xc, compute_dtype, mesh)
     a = -torch.exp(p.a_log.float())
     da = torch.exp(dt[..., None] * a)
     h = da * cache["h"] + (dt * xc.float())[..., None] * bmat[:, None, :]

@@ -17,6 +17,18 @@ and leaves the forward's values as they are; the port steps one plain
 loop over time in torch ops.  Under autograd (training) each time step
 saves its state; nothing in the loop writes in place.  The decode cache
 (``s``, ``x_tm``, ``x_cm``) is updated in place, without grad.
+
+On a process mesh whose ``model`` axis cuts the heads (``sharding.
+rules``: ``wr``, ``wk``, ``wv``, ``wg`` and ``cm_k`` columns, ``wo`` and
+``cm_v`` rows) the time mix and the channel mix are tensor-parallel
+regions: each process runs the recurrence, the GroupNorm and the gate on
+its ``H / model`` heads, its cache holds their states (the shifts stay
+whole).  The LoRAs and the mixes are replicated and run whole on the
+replicated input; the streams enter the column-parallel products through
+``sum_grad``, and the replicated tensors each process reads on its heads
+alone (the decay ``wx``, ``bonus_u``, ``gn_scale``, ``gn_bias``) are
+sliced after a ``sum_grad`` of the whole, so their cotangents are summed
+over ``model`` once.
 """
 
 from __future__ import annotations
@@ -26,7 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Linear, _param, init_linear, linear
+from repro_torch.models.layers import (Linear, _param, init_linear, linear,
+                                       row_parallel)
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules
 
 __all__ = ["RWKV", "rwkv_init", "rwkv_time_mix_train",
            "rwkv_time_mix_prefill", "rwkv_time_mix_decode",
@@ -91,6 +106,15 @@ def rwkv_init(p: RWKV, gen: torch.Generator) -> RWKV:
     return p
 
 
+def _local(t, mesh, dim: int):
+    """This process's block over ``model`` on ``dim`` of a replicated
+    ``t`` that it reads there alone: the whole ``t`` through ``sum_grad``
+    (its cotangent summed over ``model``), then sliced."""
+    t = coll.sum_grad(t, mesh, ("model",))
+    n = t.shape[dim] // mesh.shape["model"]
+    return t.narrow(dim, mesh.axis_index(("model",)) * n, n)
+
+
 def _token_shift(x, last):
     """shifted[t] = x[t-1]; last: (B, 1, d) carry from the previous
     segment."""
@@ -105,24 +129,34 @@ def _ddlerp(p: RWKV, x, xs, compute_dtype):
     z = torch.tanh(linear(p.mix_lora.a, x + 0.5 * (xs - x), compute_dtype))
     off = linear(p.mix_lora.b, z, compute_dtype)          # (B, T, 5d)
     mix = base + off.reshape(*x.shape[:-1], 5, d)         # (B, T, 5, d)
-    streams = x[..., None, :] + (xs - x)[..., None, :] * mix
-    return streams.unbind(-2)
+    return x[..., None, :] + (xs - x)[..., None, :] * mix
 
 
-def _group_norm(p: RWKV, y, eps=64e-5):
+def _group_norm(y, scale, bias, eps=64e-5):
     """Per-head layer norm on (B, T, H, dh), fp32."""
     yf = y.float()
     mu = yf.mean(-1, keepdim=True)
     var = torch.square(yf - mu).mean(-1, keepdim=True)
-    return (yf - mu) * torch.rsqrt(var + eps) * p.gn_scale + p.gn_bias
+    return (yf - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
 def _time_mix_core(p: RWKV, cfg, x, xs, s0, compute_dtype):
     """The recurrence from state s0 (B, H, dh, dh). x: (B, T, d) -> (y,
-    final state)."""
+    final state).  On a tensor-parallel mesh the heads are this
+    process's (module docstring)."""
     h, dh = _heads(cfg)
     b, t, d = x.shape
-    xr, xk, xv, xg, xw = _ddlerp(p, x, xs, compute_dtype)
+    mesh = rules.tp_mesh(p.wr.w, cfg, "rwkv")
+    streams = _ddlerp(p, x, xs, compute_dtype)           # (B, T, 5, d)
+    xw = streams[..., 4, :]
+    rkvg = streams[..., :4, :]
+    u, gn_scale, gn_bias = p.bonus_u, p.gn_scale, p.gn_bias
+    if mesh is not None:
+        h = h // mesh.shape["model"]
+        rkvg = coll.sum_grad(rkvg, mesh, ("model",))
+        u, gn_scale, gn_bias = (_local(v, mesh, 0)
+                                for v in (u, gn_scale, gn_bias))
+    xr, xk, xv, xg = rkvg.unbind(-2)
     r = linear(p.wr, xr, compute_dtype).reshape(b, t, h, dh).float()
     k = linear(p.wk, xk, compute_dtype).reshape(b, t, h, dh).float()
     v = linear(p.wv, xv, compute_dtype).reshape(b, t, h, dh).float()
@@ -131,28 +165,39 @@ def _time_mix_core(p: RWKV, cfg, x, xs, s0, compute_dtype):
         p.decay_lora.b, torch.tanh(linear(p.decay_lora.a, xw,
                                           compute_dtype)),
         compute_dtype).float()
+    if mesh is not None:
+        wx = _local(wx, mesh, -1)
     w = torch.exp(-torch.exp(wx)).reshape(b, t, h, dh)   # in (0, 1)
-    u = p.bonus_u.float()[..., None]
+    u = u.float()[..., None]
     s, ys = s0, []
     for i in range(t):
         kv = k[:, i, :, :, None] * v[:, i, :, None, :]     # (B, H, dh, dh)
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, i], s + u * kv))
         s = w[:, i, :, :, None] * s + kv
     y = torch.stack(ys, dim=1)                            # (B, T, H, dh)
-    y = _group_norm(p, y).reshape(b, t, d).to(compute_dtype)
+    y = _group_norm(y, gn_scale, gn_bias).reshape(b, t, h * dh).to(
+        compute_dtype)
     return linear(p.wo, y * g, compute_dtype), s
 
 
-def _zero_state(cfg, x):
-    h, dh = _heads(cfg)
-    return torch.zeros((x.shape[0], h, dh, dh), dtype=torch.float32,
-                       device=x.device)
+def _local_heads(p: RWKV, cfg) -> int:
+    """The heads this process runs (all of them off a mesh that cuts
+    them)."""
+    h, _ = _heads(cfg)
+    mesh = rules.tp_mesh(p.wr.w, cfg, "rwkv")
+    return h if mesh is None else h // mesh.shape["model"]
+
+
+def _zero_state(p: RWKV, cfg, x):
+    _, dh = _heads(cfg)
+    return torch.zeros((x.shape[0], _local_heads(p, cfg), dh, dh),
+                       dtype=torch.float32, device=x.device)
 
 
 def rwkv_time_mix_train(p: RWKV, cfg, x, compute_dtype=torch.bfloat16):
     """x: (B, T, d) from position 0: the recurrence from the zero state."""
     xs = _token_shift(x, torch.zeros_like(x[:, :1]))
-    return _time_mix_core(p, cfg, x, xs, _zero_state(cfg, x),
+    return _time_mix_core(p, cfg, x, xs, _zero_state(p, cfg, x),
                           compute_dtype)[0]
 
 
@@ -164,14 +209,19 @@ def rwkv_time_mix_prefill(p: RWKV, cfg, x, cache,
     position 0, from the zero state and a zero shift, whatever the cache
     held (the reference is only ever given a zeroed cache)."""
     xs = _token_shift(x, torch.zeros_like(x[:, :1]))
-    y, s = _time_mix_core(p, cfg, x, xs, _zero_state(cfg, x), compute_dtype)
+    y, s = _time_mix_core(p, cfg, x, xs, _zero_state(p, cfg, x),
+                          compute_dtype)
     cache["s"].copy_(s)
     cache["x_tm"].copy_(x[:, -1:])
     return y, cache
 
 
 def init_rwkv_cache(cfg, batch: int, dtype=torch.bfloat16, *, device):
+    """The zeroed states of the heads a process runs (its ``H / model``
+    inside ``rules.use_mesh`` of a process mesh that cuts them,
+    ``rules.model_blocks``; else all) and the whole shifts."""
     h, dh = _heads(cfg)
+    h //= rules.model_blocks(cfg, "rwkv")
     return {
         "s": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
                          device=device),
@@ -185,6 +235,11 @@ def init_rwkv_cache(cfg, batch: int, dtype=torch.bfloat16, *, device):
 def rwkv_time_mix_decode(p: RWKV, cfg, x, cache,
                          compute_dtype=torch.bfloat16):
     """x: (B, 1, d) one token; O(1) state update, in place."""
+    if cache["s"].shape[1] != _local_heads(p, cfg):
+        raise ValueError(
+            f"the cache holds {cache['s'].shape[1]} heads' states: build "
+            "it with init_cache inside rules.use_mesh of the model's "
+            "process mesh")
     y, s = _time_mix_core(p, cfg, x, cache["x_tm"].to(x.dtype), cache["s"],
                           compute_dtype)
     cache["s"].copy_(s)
@@ -193,8 +248,13 @@ def rwkv_time_mix_decode(p: RWKV, cfg, x, cache,
 
 
 def _channel_mix(p: RWKV, x, xs, compute_dtype):
+    """The squared-ReLU MLP on the shifted mix; on a mesh whose ``model``
+    cuts it, one tensor-parallel region (``cm_k`` column-parallel, its
+    input through ``sum_grad``; ``cm_v`` row-parallel)."""
     mix = p.cm_mix.to(compute_dtype)
     xk = x + (xs - x) * mix[0]
+    if row_parallel(p.cm_v):
+        xk = coll.sum_grad(xk, rules.process_mesh(), ("model",))
     k = torch.square(F.relu(linear(p.cm_k, xk, compute_dtype)))
     return linear(p.cm_v, k, compute_dtype)
 

@@ -13,7 +13,8 @@ constraints have no counterpart: under a process mesh
 rows and its blocks of the parameters (``sharding.rules.local_specs``),
 the MoE layers take ``models.moe_manual``'s dispatch, and the layers
 whose projections ``model`` cuts are tensor-parallel regions
-(``layers.linear``, ``attention``).  The embedding is then
+(``layers.linear``; GQA and MLA heads in ``attention``, Mamba's
+channels, RWKV-6's heads).  The embedding is then
 vocab-parallel, and the logits of :func:`train_forward` are this
 process's block of the vocab (``models.model.cross_entropy`` takes them
 so); :func:`prefill` and :func:`decode_step` gather them whole.
@@ -152,8 +153,8 @@ class DecoderLM(nn.Module):
     reference's does), the other leaves in fp32.  On a process ``mesh``
     (``launch.mesh.ProcessMesh``) each leaf is allocated as this
     process's block under ``sharding.rules.local_specs`` (the reference's
-    ``param_specs`` for a model of GQA layers; the expert stacks alone
-    for MLA, Mamba and RWKV-6), carrying its spec."""
+    ``param_specs``, whatever the layers' mixers: GQA, MLA, Mamba or
+    RWKV-6), carrying its spec."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None,
                  mesh=None):
@@ -437,12 +438,16 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
 # caches / prefill / decode
 # --------------------------------------------------------------------------
 
-def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device,
-                 kv_heads=None):
+def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device):
+    """One layer's cache, of the heads or channels this process runs
+    (``rules.model_blocks``: all of them off a process mesh)."""
     mixer = kind[0]
     if mixer == "attn":
+        kv = None
+        if rules.model_blocks(cfg, "attn") > 1:
+            kv = attn.head_split(cfg, rules.process_mesh()).nk
         return attn.init_gqa_cache(cfg, batch, max_len, dtype, device=device,
-                                   kv_heads=kv_heads)
+                                   kv_heads=kv)
     if mixer == "mla":
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device=device)
     if mixer == "mamba":
@@ -450,32 +455,19 @@ def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device,
     return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device=device)
 
 
-def _mesh_kv_heads(cfg: ModelConfig):
-    """The kv heads a process reads where the current process mesh's
-    ``model`` cuts the GQA projections (``wo``'s rows: ``n_heads *
-    head_dim`` splits), else None (all)."""
-    ctx = rules.current_mesh()
-    if ctx is None or not hasattr(ctx.mesh, "members") \
-            or "model" not in ctx.mesh.axis_names:
-        return None
-    if not rules.shards_dense({k[0] for k in layer_kinds(cfg)}) or (
-            cfg.n_heads * cfg.resolved_head_dim) % ctx.mesh.shape["model"]:
-        return None
-    return attn.head_split(cfg, ctx.mesh).nk
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device="cuda"):
     """``{"layers": [one cache per layer]}``, zeroed: ``k``/``v`` (GQA),
     ``c_kv``/``k_rope`` (MLA), ``conv``/``h`` (Mamba) or ``s``/``x_tm``/
     ``x_cm`` (RWKV).  Inside ``rules.use_mesh`` of a process mesh whose
-    ``model`` cuts the attention, a GQA cache holds the kv heads this
-    process reads (``cache_specs``' kv heads over ``model`` where they
-    split; its sequence-over-``model`` fallback is not ported)."""
+    ``model`` cuts the layers (``cache_specs``' head and channel cuts), a
+    GQA cache holds the kv heads this process reads (where ``n_heads *
+    head_dim`` splits), a Mamba cache its ``d_inner / model`` channels'
+    window and state, an RWKV-6 cache its ``H / model`` heads' states
+    (the shifts whole); an MLA cache is whole (``cache_specs`` cuts its
+    sequence over ``model``; that fallback, and GQA's, is not ported)."""
     device = resolve_device(device)
-    kv = _mesh_kv_heads(cfg)
-    return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device,
-                                    kv)
+    return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device)
                        for k in layer_kinds(cfg)]}
 
 

@@ -49,8 +49,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as tdist
 
-__all__ = ["all_to_all", "all_gather", "own_slice", "sum_grad", "pmean",
-           "gather_blocks", "reduce_scatter", "psum", "pmax",
+__all__ = ["all_to_all", "all_to_all_v", "all_gather", "own_slice",
+           "sum_grad", "pmean", "gather_blocks", "reduce_scatter", "psum", "pmax",
            "gather_rows", "gather_to", "all_reduce_sum", "reduce_scatter_sum",
            "route"]
 
@@ -140,6 +140,28 @@ def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if not ident:                 # back to logical order
         out = out[pos]
     return out.view(x.shape)
+
+
+def _a2a_v(x: torch.Tensor, mesh, axes, send, recv) -> torch.Tensor:
+    """:func:`all_to_all_v`'s exchange (no autograd)."""
+    if mesh.group(axes) is None:
+        return x
+    pos, inv, ident = _positions(mesh, axes)
+    x = x.contiguous()
+    row = x[0].numel() * x.element_size()
+    if not ident:                 # logical blocks in group-rank order
+        blocks = x.split(list(send))
+        x = torch.cat([blocks[k] for k in inv])
+    src = _send(mesh, x)
+    dst = _host(mesh, x, sum(recv) * row, "recv_v")
+    tdist.all_to_all_single(dst, src, [recv[k] * row for k in inv],
+                            [send[k] * row for k in inv],
+                            group=mesh.group(axes))
+    out = _back(dst, x, (sum(recv),) + tuple(x.shape[1:]))
+    if not ident:                 # back to logical order
+        parts = out.split([recv[k] for k in inv])
+        out = torch.cat([parts[pos[k]] for k in range(len(pos))])
+    return out
 
 
 def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -272,6 +294,18 @@ class _AllToAll(torch.autograd.Function):
         return _a2a(g, ctx.mesh, ctx.axes), None, None
 
 
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, send, recv):
+        ctx.mesh, ctx.axes, ctx.send, ctx.recv = mesh, axes, send, recv
+        return _a2a_v(x, mesh, axes, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_a2a_v(g, ctx.mesh, ctx.axes, ctx.recv, ctx.send), None,
+                None, None, None)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -333,6 +367,16 @@ def all_to_all(x, mesh, axes):
     ``k`` over ``axes``; block ``k`` of the result came from it.  Its
     backward is the same exchange."""
     return _AllToAll.apply(x, mesh, tuple(axes))
+
+
+def all_to_all_v(x, mesh, axes, send, recv):
+    """Rows of ``x`` (dim 0, grouped by destination in logical order) to
+    their owners over ``axes``: ``send[k]`` rows to the process of index
+    ``k``; the result holds ``recv[k]`` rows from the process of index
+    ``k``, in logical order (an exchange of blocks of unequal sizes, some
+    of them empty).  Backward: the inverse exchange, each cotangent row
+    back to the process that sent it."""
+    return _AllToAllV.apply(x, mesh, tuple(axes), tuple(send), tuple(recv))
 
 
 def all_gather(x, mesh, axes):

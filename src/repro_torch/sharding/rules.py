@@ -40,17 +40,16 @@ process holds its own blocks and the model code calls the collectives of
 leaves their placement to XLA's partitioner.  So ``shard_act`` places
 nothing.  The mesh's layout is :func:`local_specs`:
 
-* on a ``ProcessMesh``, a model whose every layer mixes with GQA
-  attention (:func:`shards_dense`: qwen2.5, phi3, command-r, internlm2,
-  qwen3-moe, internvl2) holds every leaf as its block under
-  :func:`param_specs`, the reference's layout: FSDP over ``data``,
-  tensor parallelism over ``model``, the expert stacks over the expert
-  axes;
-* a model with MLA, Mamba or RWKV-6 layers, or the encoder-decoder,
-  keeps its dense leaves whole (their tensor-parallel forms are not
-  ported) and cuts only the expert stacks, by :func:`expert_param_spec`;
-  so does every model on a :class:`~repro_torch.launch.mesh.MeshShape`,
-  which runs nothing.
+* on a ``ProcessMesh``, a decoder-only model (:func:`shards_dense`:
+  every mixer, GQA ``attn``, ``mla``, ``mamba`` or ``rwkv``) holds every
+  leaf as its block under :func:`param_specs`, the reference's layout:
+  FSDP over ``data``, tensor parallelism over ``model`` (attention and
+  MLA heads, Mamba's ``d_inner`` channels, RWKV-6's heads, the MLP's
+  hidden units, the vocab), the expert stacks over the expert axes;
+* the encoder-decoder keeps its dense leaves whole (its mesh path and
+  tensor-parallel form are not ported, ROADMAP Queue 1) and cuts only
+  the expert stacks, by :func:`expert_param_spec`; so does every model
+  on a :class:`~repro_torch.launch.mesh.MeshShape`, which runs nothing.
 
 A parameter of a model built on a process mesh (:func:`allocate_blocks`)
 carries its spec as the tensor attribute ``spec`` (:func:`spec_of`) and
@@ -72,7 +71,8 @@ __all__ = ["PartitionSpec", "P", "MeshCtx", "PARAM_RULES", "ACT_KINDS",
            "use_mesh", "current_mesh", "shard_act", "gather_params_once",
            "named_sharding", "NamedSharding", "local_specs",
            "allocate_blocks", "spec_of", "global_shape", "process_mesh",
-           "gather_fsdp", "shards_dense", "mixers_of",
+           "gather_fsdp", "shards_dense", "mixers_of", "model_blocks",
+           "tp_mesh",
            "param_specs", "cache_specs", "batch_spec", "act_spec",
            "expert_axes_for", "expert_param_spec", "shard_shape",
            "tree_map_with_path"]
@@ -315,12 +315,77 @@ def mixers_of(names) -> set[str]:
 
 
 def shards_dense(mixers) -> bool:
-    """The slice rule: a process mesh cuts a model's dense leaves by
-    :func:`param_specs` iff every layer mixes with GQA attention (its
-    ffn dense or MoE; ``transformer.layer_kinds``' mixer ``attn``).  MLA,
-    Mamba, RWKV-6 and the encoder-decoder keep them whole: their
-    tensor-parallel forms are not ported (ROADMAP Queue 1)."""
-    return set(mixers) <= {"attn"}
+    """The rule: a process mesh cuts a model's dense leaves by
+    :func:`param_specs` iff it is decoder-only, whatever its layers' mixers
+    (``transformer.layer_kinds``' ``attn``, ``mla``, ``mamba``, ``rwkv``).
+    The encoder-decoder (``encdec``) keeps them whole: ``EncDecLM`` has
+    no mesh path, nor its tensor-parallel form (ROADMAP Queue 1)."""
+    return "encdec" not in set(mixers)
+
+
+def _tp_leaves(cfg, mixer: str):
+    """A decoder mixer's leaves whose cut over ``model`` cuts its heads or
+    channels: ``(path, global shape, dim)`` each, and the count of those
+    heads or channels (None: GQA, whose cuts may fall inside a head)."""
+    d = cfg.d_model
+    if mixer == "attn":
+        return [("attn/wo/w", (cfg.n_heads * cfg.resolved_head_dim, d),
+                 0)], None
+    if mixer == "mla":
+        m = cfg.mla
+        return [("attn/wo/w", (cfg.n_heads * m.v_head_dim, d), 0),
+                ("attn/wq_b/w", (m.q_lora_rank, cfg.n_heads * (
+                    m.qk_nope_dim + m.qk_rope_dim)), 1),
+                ("attn/wkv_b/w", (m.kv_lora_rank, cfg.n_heads * (
+                    m.qk_nope_dim + m.v_head_dim)), 1)], cfg.n_heads
+    if mixer == "mamba":
+        di = cfg.mamba.expand * d
+        return [("mamba/conv_w", (cfg.mamba.d_conv, di), 1),
+                ("mamba/in_proj/w", (d, 2 * di), 1)], di
+    if mixer == "rwkv":
+        return [("rwkv/wr/w", (d, d), 1)], d // cfg.rwkv.head_dim
+    raise ValueError(f"no tensor-parallel rule for the mixer {mixer!r}")
+
+
+def model_blocks(cfg, mixer: str, mesh=None) -> int:
+    """How many blocks over ``model`` :func:`param_specs` cuts a ``mixer``
+    layer's heads (``attn``, ``mla``, ``rwkv``) or channels (``mamba``)
+    into on ``mesh`` (default: the current process mesh; 1 off one, or
+    where ``model`` does not cut them).  The one rule that a layer built
+    on the mesh (:func:`tp_mesh`) and its cache (``transformer.
+    init_cache``) both follow.  A cut inside an MLA or RWKV-6 head, or
+    one of Mamba's ``in_proj`` and ``conv_w`` cut without the other, is
+    not ported and raises; GQA's cut inside a head is
+    (``attention.head_split``)."""
+    if mesh is None:
+        ctx = current_mesh()
+        if ctx is None or not hasattr(ctx.mesh, "members"):
+            return 1
+        mesh = ctx.mesh
+    if "model" not in mesh.axis_names:
+        return 1
+    leaves, units = _tp_leaves(cfg, mixer)
+    cuts = {"model" in _axes(spec[dim]) if dim < len(spec) else False
+            for spec, dim in ((_leaf_spec(mesh, path, shape), dim)
+                              for path, shape, dim in leaves)}
+    if len(cuts) > 1:
+        raise ValueError(f"{mixer}: model cuts some of {leaves} and not "
+                         "the others; such a layout is not ported")
+    n = mesh.shape["model"] if cuts.pop() else 1
+    if units is not None and units % n:
+        raise ValueError(f"{mixer}: {units} heads or channels on a {n}-wide "
+                         "model axis: a cut inside a head is not ported")
+    return n
+
+
+def tp_mesh(leaf, cfg, mixer: str):
+    """The process mesh whose ``model`` axis cuts the heads or channels of
+    the ``mixer`` layer that holds ``leaf`` (:func:`model_blocks`), else
+    None (a layer built whole, or one ``model`` does not cut)."""
+    if not hasattr(leaf, "spec"):
+        return None
+    mesh = process_mesh()
+    return mesh if model_blocks(cfg, mixer, mesh) > 1 else None
 
 
 class NamedSharding:

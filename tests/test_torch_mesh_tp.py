@@ -26,24 +26,30 @@ bias) and qwen3-moe (untied, qk-norm, experts):
   vocab-parallel cross-entropy;
 * a spec that cuts inside a head: qwen2.5-3b's 2 kv heads on a (1, 4)
   mesh, against one process;
-* rwkv6-3b and deepseek-v3 (not in this slice) keep their dense leaves
-  whole on a mesh.
+* rwkv6-3b and deepseek-v3 hold their ``param_specs`` blocks too (their
+  mesh runs: ``test_torch_mesh_tp_ssm.py``, ``test_torch_mesh_tp_mla.py``);
+  only the encoder-decoder keeps whole dense leaves.
+
+The ranks and the reference's run are ``tests/_mesh_tp_harness.py``.
 """
 
 import dataclasses
 import json
-import os
-import socket
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from _mesh_tp_harness import (AF_STEPS, AXES, BATCH, BF16_GRAD_RTOL,
+                              DROPLESS_CF, LR, MESH, RESTART, RESTART_MESH,
+                              RTOL, SEED, SEQ, STEPS)
+from _mesh_tp_harness import load as _load
+from _mesh_tp_harness import ranks as _ranks
+from _mesh_tp_harness import ref_tree_flat as _ref_tree_flat
+from _mesh_tp_harness import reference as _reference
+from _mesh_tp_harness import rel as _rel
+from _mesh_tp_harness import wait as _wait
 from repro import configs as ref_configs
 from repro.models.model import build_model as ref_build_model
 from repro_torch import configs, convert
@@ -55,342 +61,12 @@ from repro_torch.models.model import cross_entropy
 from repro_torch.sharding import rules
 from repro_torch.train import optimizer as opt_mod
 
-SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCHS = ("qwen2.5-3b", "qwen3-moe-30b-a3b")
-SEQ, BATCH, SEED, LR = 16, 4, 5, 2e-3
-STEPS, AF_STEPS, RESTART = 3, 2, 2
-MESH, RESTART_MESH, AXES = (2, 2), (1, 2), ("data", "model")
-RTOL = 1e-5
 #: the collectives' fp64 gradients against one process's
 F64_RTOL = 1e-12
 #: ``cross_entropy`` computes in fp32 (as the reference's): its vocab
 #: blocks' sums part from one process's by fp32 roundings
 CE_RTOL = 1e-6
-#: gather_once differentiates through a bf16 copy, so every gradient is
-#: rounded to bf16 (the copy's cotangent) and its microbatches' parts
-#: added in bf16: the batch blocks of a mesh group those sums otherwise
-#: than one device or XLA does, a small gradient of cancelling parts
-#: (a bias, a norm scale) moves by some 1e-3 of itself, and AdamW's
-#: per-element step carries that into the next losses (the first loss is
-#: held at RTOL; ``test_torch_mesh_train``'s band for the same case)
-BF16_GRAD_RTOL = 1e-3
-#: the MoE capacity factor of the logits' comparison with one process: a
-#: mesh counts capacity per token slice, one process per chunk (the
-#: reference's semantics, ROADMAP Queue 3), and the two agree where
-#: nothing drops
-DROPLESS_CF = 16.0
-
-RANK_CODE = textwrap.dedent("""
-    import dataclasses, json, sys
-    import numpy as np
-    import torch
-    import torch.distributed as tdist
-    from repro_torch import configs, convert
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.launch.mesh import ProcessMesh
-    from repro_torch.launch.train import batch_block
-    from repro_torch.models import transformer
-    from repro_torch.models.model import build_model, cross_entropy
-    from repro_torch.sharding import collectives as coll, rules
-    from repro_torch.train import loop, optimizer as opt_mod
-    job = json.loads(sys.argv[1])
-    rank, world, addr = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-    torch.set_num_threads(1)
-    tdist.init_process_group("gloo", init_method=f"tcp://{addr}",
-                             world_size=world, rank=rank)
-    mesh = ProcessMesh(job["axes"], job["dims"])
-    out = {"coords": mesh.coords}
-
-    def t(x):
-        return x.detach().numpy().tolist()
-
-    def collectives():
-        # fp64, every process's inputs from one seed (the test redoes the
-        # whole computation in one process)
-        g = np.random.default_rng(7)
-        w = torch.from_numpy(g.standard_normal((4, 6)))
-        a = torch.from_numpy(g.standard_normal((4, 4, 6)))
-        x = torch.from_numpy(g.standard_normal((4, 4, 3)))
-        b = torch.from_numpy(g.standard_normal((4, 2, 3)))
-        h = torch.from_numpy(g.standard_normal((3, 5)))
-        w1 = torch.from_numpy(g.standard_normal((5, 8)))
-        w2 = torch.from_numpy(g.standard_normal((8, 4)))
-        tt = torch.from_numpy(g.standard_normal((3, 4)))
-        logits = torch.from_numpy(g.standard_normal((2, 5, 10)))
-        d, m = mesh.coords["data"], mesh.coords["model"]
-        res = {}
-        # the FSDP gather over data on dim 0
-        blk = w[2 * d:2 * d + 2].clone().requires_grad_(True)
-        whole = coll.gather_blocks(blk, mesh, ("data",), 0)
-        torch.sum(torch.tanh(whole) * a[rank]).backward()
-        res["gather"] = t(blk.grad)
-        # the reduce-scatter over data on dim 0
-        xr = x[rank].clone().requires_grad_(True)
-        y = coll.reduce_scatter(xr, mesh, ("data",), 0)
-        torch.sum(torch.tanh(y) * b[rank]).backward()
-        res["reduce_scatter"] = t(xr.grad)
-        res["reduce_scatter_y"] = t(y)
-        # a column-parallel product (w1's columns) and a row-parallel one
-        # (w2's rows) over model: every process the same loss
-        hr = h.clone().requires_grad_(True)
-        b1 = w1[:, 4 * m:4 * m + 4].clone().requires_grad_(True)
-        b2 = w2[4 * m:4 * m + 4].clone().requires_grad_(True)
-        z = coll.psum(torch.tanh(coll.sum_grad(hr, mesh, ("model",)) @ b1)
-                      @ b2, mesh, ("model",))
-        loss = torch.sum(torch.tanh(z) * tt)
-        loss.backward()
-        res.update(tp_loss=float(loss), tp_dh=t(hr.grad), tp_dw1=t(b1.grad),
-                   tp_dw2=t(b2.grad))
-        # the vocab-parallel cross-entropy: targets in both halves and
-        # one ignored
-        tgt = torch.tensor([[0, 4, 5, 9, -1], [7, 2, 2, 6, 1]])
-        lb = logits[..., 5 * m:5 * m + 5].clone().requires_grad_(True)
-        ce = cross_entropy(lb, tgt, mesh=mesh)
-        ce.backward()
-        res.update(ce=float(ce), ce_grad=t(lb.grad))
-        return res
-
-    def dropless(cfg):
-        if cfg.moe is None:
-            return cfg
-        return dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=job["dropless_cf"]))
-
-    def reshard(params, tree):
-        with torch.no_grad():
-            for name, p in params.named_parameters():
-                p.copy_(tree[name])
-
-    def train(arch, opt_name, steps, mb, gather_once, save=None):
-        cfg = configs.get_smoke(arch)
-        n_exp = cfg.moe.n_experts if cfg.moe else 0
-        params = transformer.DecoderLM(cfg, device="cpu",
-                                       dtype=torch.float32, mesh=mesh)
-        tcfg = TrainConfig(optimizer=opt_name, lr=job["lr"],
-                           gather_once=gather_once)
-        opt = opt_mod.init_opt_state(tcfg, params)
-        start = 0
-        if job.get("ckpt"):
-            target = (loop.param_tree(params), opt)
-            sh = rules.tree_map_with_path(
-                lambda _, sp: rules.NamedSharding(mesh, sp),
-                rules.local_specs(mesh, target, n_exp))
-            (tree, opt), meta = CheckpointManager(
-                job["ckpt"][arch]).restore(target, shardings=sh)
-            start = meta["step"]
-        else:
-            tree = convert.mesh_local(torch.load(job["init"][arch]), mesh,
-                                      n_exp)
-        reshard(params, tree)
-        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=job["seq"],
-                             global_batch=job["batch"], seed=job["seed"])
-        step = loop.make_train_step(build_model(cfg), tcfg, microbatches=mb)
-        losses, gnorms = [], []
-        with rules.use_mesh(mesh):
-            for i in range(start, start + steps):
-                batch = {"tokens": batch_block(
-                    torch.from_numpy(pipe.batch(i)["tokens"]), mesh, mb)}
-                params, opt, met = step(params, opt, batch, i)
-                losses.append(float(met["loss"]))
-                gnorms.append(float(met["grad_norm"]))
-        if save:
-            state = convert.mesh_global((loop.param_tree(params), opt),
-                                        mesh, n_exp, 0)
-            if rank == 0:
-                CheckpointManager(save).save(start + steps, state,
-                                             metadata={"step": start + steps})
-        return {"losses": losses, "grad_norms": gnorms}
-
-    def serve(arch):
-        cfg = dropless(configs.get_smoke(arch))
-        params = transformer.init_params(cfg, 0, device="cpu", mesh=mesh)
-        toks = torch.from_numpy(np.random.default_rng(11).integers(
-            0, cfg.vocab_size, (job["batch"], 13)))
-        mine = batch_block(toks, mesh)
-        with rules.use_mesh(mesh):
-            cache = transformer.init_cache(cfg, mine.shape[0], 16,
-                                           torch.float32, device="cpu")
-            pre, cache = transformer.prefill(params, cfg, mine[:, :12],
-                                             cache)
-            dec, cache = transformer.decode_step(
-                params, cfg, mine[:, 12], torch.full((mine.shape[0],), 12),
-                cache)
-        return {"prefill": t(pre[:, 0]), "decode": t(dec),
-                "cache_kv_heads": cache["layers"][0]["k"].shape[2]}
-
-    def layout(arch):
-        cfg = configs.get_smoke(arch)
-        params = transformer.DecoderLM(cfg, device="cpu",
-                                       dtype=torch.float32, mesh=mesh)
-        return {n: [list(p.shape), list(p.global_shape), repr(p.spec)]
-                for n, p in params.named_parameters()}
-
-    for task in job["tasks"]:
-        kind, arch = (task.split(":") + [None])[:2]
-        if kind == "collectives":
-            out[task] = collectives()
-        elif kind == "serve":
-            out[task] = serve(arch)
-        elif kind == "layout":
-            out[task] = layout(arch)
-        elif kind == "adamw":
-            out[task] = train(arch, "adamw", job["steps"], 1, False,
-                              save=job["save"][arch])
-        elif kind == "adafactor":
-            out[task] = train(arch, "adafactor", job["af_steps"], 1, False)
-        elif kind == "gather_once":
-            out[task] = train(arch, "adamw", job["steps"], 2, True)
-        elif kind == "restart":
-            out[task] = train(arch, "adamw", job["restart"], 1, False)
-    with open(f"{job['out']}_{rank}.json", "w") as f:
-        json.dump(out, f)
-    tdist.barrier()
-    tdist.destroy_process_group()
-""")
-
-REF_CODE = textwrap.dedent("""
-    import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import numpy as np
-    import jax, jax.numpy as jnp
-    from repro import configs
-    from repro.configs.base import TrainConfig
-    from repro.data.pipeline import TokenPipeline
-    from repro.models.model import build_model
-    from repro.sharding import rules
-    from repro.train.loop import make_train_step
-    from repro.train.optimizer import init_opt_state
-    job = json.loads(sys.argv[1])
-    cfg = configs.get_smoke(job["arch"])
-    m = build_model(cfg)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=job["seq"],
-                         global_batch=job["batch"], seed=job["seed"])
-
-    def unflat(flat):
-        tree = {}
-        for key, arr in flat.items():
-            node, parts = tree, key.split("/")
-            for p_ in parts[:-1]:
-                node = node.setdefault(p_, {})
-            node[parts[-1]] = jnp.asarray(arr)
-        if "period" in tree:
-            tree["period"] = [tree["period"][str(j)]
-                              for j in range(len(tree["period"]))]
-        return tree
-
-    def sharded(tree):
-        return sum(not x.sharding.is_fully_replicated
-                   for x in jax.tree.leaves(tree))
-
-    out = {}
-    for run in job["runs"]:
-        tcfg = TrainConfig(optimizer=run["opt"], lr=job["lr"],
-                           gather_once=run["gather_once"])
-        n = int(np.prod(run["dims"]))
-        # a mesh built from jax.devices(), as the reference's own
-        # test_distributed_train places its leaves
-        mesh = jax.sharding.Mesh(
-            np.array(jax.devices()[:n]).reshape(run["dims"]),
-            tuple(run["axes"]))
-        with rules.use_mesh(mesh):
-            if run.get("state"):
-                st = dict(np.load(run["state"]))
-                params = unflat({k[2:]: v for k, v in st.items()
-                                 if k.startswith("p/")})
-                opt = {"m": unflat({k[2:]: v for k, v in st.items()
-                                    if k.startswith("m/")}),
-                       "v": unflat({k[2:]: v for k, v in st.items()
-                                    if k.startswith("v/")})}
-            else:
-                params = m.init(jax.random.key(0))
-                opt = init_opt_state(tcfg, params)
-            params = jax.tree.map(jax.device_put, params, rules.param_specs(
-                mesh, jax.eval_shape(lambda: params)))
-            opt = jax.tree.map(jax.device_put, opt, rules.param_specs(
-                mesh, jax.eval_shape(lambda: opt)))
-            rec = {"sharded": sharded(params),
-                   "leaves": len(jax.tree.leaves(params)),
-                   "opt_sharded": sharded(opt)}
-            step = jax.jit(make_train_step(m, tcfg,
-                                           microbatches=run["mb"]))
-            losses, gnorms = [], []
-            for i in range(run["start"], run["start"] + run["steps"]):
-                batch = {"tokens": jnp.asarray(pipe.batch(i)["tokens"])}
-                params, opt, met = step(params, opt, batch, jnp.asarray(i))
-                losses.append(float(met["loss"]))
-                gnorms.append(float(met["grad_norm"]))
-            rec.update(losses=losses, grad_norms=gnorms,
-                       sharded_after=sharded(params))
-        out[run["name"]] = rec
-    with open(job["out"], "w") as f:
-        json.dump(out, f)
-""")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env():
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    env.pop("XLA_FLAGS", None)
-    return env
-
-
-def _ranks(job, dims):
-    world = int(np.prod(dims))
-    addr = f"127.0.0.1:{_free_port()}"
-    job = dict(job, dims=list(dims), axes=list(AXES))
-    return [subprocess.Popen(
-        [sys.executable, "-c", RANK_CODE, json.dumps(job), str(r),
-         str(world), addr], env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
-
-
-def _reference(arch, runs, out):
-    job = dict(arch=arch, seq=SEQ, batch=BATCH, seed=SEED, lr=LR, runs=runs,
-               out=str(out))
-    return subprocess.Popen([sys.executable, "-c", REF_CODE,
-                             json.dumps(job)], env=_env(),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-
-
-def _wait(procs, timeout=300):
-    try:
-        errs = [p.communicate(timeout=timeout)[1] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, err in zip(procs, errs):
-        assert p.returncode == 0, err[-3000:]
-
-
-def _load(prefix, world):
-    return [json.loads(Path(f"{prefix}_{r}.json").read_text())
-            for r in range(world)]
-
-
-def _ref_tree_flat(sd: dict, cfg) -> dict:
-    """A port state dict (global, by parameter name) as the reference's
-    stacked tree, flattened to ``/`` paths with ``period/{j}``."""
-    prefix, period, n_periods = transformer.period_structure(cfg)
-    assert not prefix
-    out = {}
-    for j in range(len(period)):
-        for key in [k for k in sd if k.startswith(f"layers.{j}.")]:
-            leaf = key.split(".", 2)[2]
-            out[f"period/{j}/" + leaf.replace(".", "/")] = np.stack([
-                sd[f"layers.{p * len(period) + j}.{leaf}"].numpy()
-                for p in range(n_periods)])
-    for key, t in sd.items():
-        if not key.startswith("layers."):
-            out[key.replace(".", "/")] = t.numpy()
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -461,11 +137,6 @@ def runs(tmp_path_factory):
     return res
 
 
-def _rel(a, b):
-    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
-    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
-
-
 # --------------------------------------------------------------------------
 # the layout
 # --------------------------------------------------------------------------
@@ -504,16 +175,28 @@ def test_every_leaf_is_its_param_specs_block(runs, arch):
 
 @pytest.mark.parametrize("arch", ("rwkv6-3b", "deepseek-v3-671b"))
 def test_families_outside_the_slice_keep_whole_leaves(runs, arch):
-    """MLA, Mamba and RWKV-6 keep every dense leaf whole on a process
-    mesh (``rules.shards_dense``); only the expert stacks are cut."""
+    """RWKV-6 and MLA (with MoE) hold every leaf as its ``param_specs``
+    block on a process mesh, as the GQA archs do (``rules.shards_dense``
+    is true for every decoder-only set of mixers); only the
+    encoder-decoder keeps whole dense leaves."""
+    cfg = configs.get_smoke(arch)
+    meta = transformer.DecoderLM(cfg, device="meta", dtype=torch.float32)
+    mesh = make_test_mesh(MESH)
+    want = rules.param_specs(mesh, dict(meta.named_parameters()))
     for rank in runs["m22"]:
-        for name, (shape, whole, spec) in rank[f"layout:{arch}"].items():
-            if ".moe.w" in name:
-                assert shape[0] < whole[0], name
-            else:
-                assert shape == whole and spec == repr(rules.P()), name
-    assert not rules.shards_dense({"attn", "mla"})
-    assert rules.shards_dense({"attn"})
+        got = rank[f"layout:{arch}"]
+        assert set(got) == set(want)
+        for name, (shape, whole, spec) in got.items():
+            assert tuple(shape) == rules.shard_shape(whole, want[name],
+                                                     mesh), name
+            assert spec == repr(want[name]), name
+        assert sum(shape != whole for shape, whole, _ in got.values()) > \
+            len(got) // 4
+    for mixers in ({"attn"}, {"mla"}, {"mamba", "attn"}, {"rwkv"},
+                   {"attn", "mla", "mamba", "rwkv"}):
+        assert rules.shards_dense(mixers)
+    assert not rules.shards_dense({"encdec"})
+    assert not rules.shards_dense({"attn", "encdec"})
 
 
 # --------------------------------------------------------------------------
