@@ -218,7 +218,14 @@ the seed and keeping its blocks:
                layers, a prefill) within 1e-3 of one process's largest
                logit; (f)
                ``rwkv6-3b`` at published width, 2 layers, 3 AdamW steps
-               held to one process as (d).
+               held to one process as (d); (g) ``whisper-tiny`` at
+               published width and depth (4 + 4 layers, 3 of 6 heads a
+               process, the 51 865-row table cut over data on d): a
+               prefill of 4 x 128 seeded tokens and (4, 1500, 384) seeded
+               frames and 2 decode steps, fp32 within 1e-3 of one
+               process's largest logit and bf16 as (e), K8 12 times a
+               prefill and 4 a decode token in each process; 3 AdamW
+               steps held to one process as (d), no K8 launch.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -4975,10 +4982,11 @@ LM_MESH_ARCH = "qwen3-moe-30b-a3b"
 LM_MESH_DIMS, LM_MESH_AXES = (2, 2), ("data", "model")
 LM_MESH_RESTART_DIMS = (1, 2)
 #: (a)/(b) depth: the fp32 leg's single-process run holds 2.5 GB of
-#: embeddings and 2.5 GB a layer (fp32); 4 layers (16 until the dense
-#: leg (d) took its time: every decode step now gathers the dense blocks
-#: over data through gloo's host route)
-LM_MESH_LAYERS = 4
+#: embeddings and 2.5 GB a layer (fp32); 2 layers (4 until the
+#: encoder-decoder leg (g) came, with the script at 17 min 15 s; 16 until
+#: the dense leg (d) took its time: every decode step gathers the dense
+#: blocks over data through gloo's host route)
+LM_MESH_LAYERS = 2
 #: (c) depth: fp32 parameters, their gradients and AdamW's two moments
 #: (4 x 4 bytes a parameter): one process holds 10 GB of embeddings and
 #: 2.7 GB a layer, a mesh process its quarter of the dense leaves and of
@@ -5062,6 +5070,23 @@ LM_MESH_FAMILIES = {
                                   k8_prefill=3, heads=64, dtype="float32",
                                   decode=0, in_turn=False),
 }
+#: the encoder-decoder leg (g): whisper-tiny at published width and depth
+#: (4 + 4 layers, d 384, 6 heads, 3 a process over model, d_ff 1536, vocab
+#: 51 865, which model cannot cut: the table is cut over data on d, the
+#: tied unembedding whole over model; 1 500 frames) on the (2, 2) mesh
+#: against one process: LM_MESH_BATCH x LM_MESH_SEQ seeded prompts and
+#: seeded frames, a prefill and LM_MESH_ENCDEC_DECODE decode tokens, in
+#: fp32 (within LM_MESH_F32_RTOL of one process's largest logit, as (a))
+#: and bf16 (within LM_LOGIT_ATOL, or LM_CHAIN_FLOOR_FACTOR times one
+#: process's distance from itself row by row, as (e)); K8's launches a
+#: process pinned (LM_MESH_ENCDEC_K8: a prefill's 4 encoder, 4 causal
+#: self and 4 cross-attentions, a decode token's 4 cross-attentions at
+#: S = 1, each on 3 of the 6 heads); and LM_MESH_DENSE_STEPS AdamW steps
+#: of fp32 parameters and bf16 compute on B x S seeded tokens and the
+#: launcher's frames, gated as (d), with no K8 launch (the train route)
+LM_MESH_ENCDEC_ARCH = "whisper-tiny"
+LM_MESH_ENCDEC_DECODE = 2
+LM_MESH_ENCDEC_K8 = {"prefill": 12, "decode": 4, "heads": 3, "train": 0}
 LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
@@ -5538,6 +5563,124 @@ def lm_mesh_dense(mesh=None, leg: str = "dense") -> dict:
     return rec
 
 
+def _encdec_inputs(cfg):
+    """(g)'s global prompts (B, S), frames (B, encoder_seq, d) and decode
+    tokens (B, LM_MESH_ENCDEC_DECODE), seeded."""
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(1, cfg.vocab_size, (LM_MESH_BATCH, LM_MESH_SEQ))
+    frames = rng.standard_normal((LM_MESH_BATCH, cfg.encoder_seq,
+                                  cfg.d_model)).astype(np.float32)
+    dec = rng.integers(1, cfg.vocab_size,
+                       (LM_MESH_BATCH, LM_MESH_ENCDEC_DECODE))
+    return tuple(torch.from_numpy(a).to(DEV) for a in (prompts, frames, dec))
+
+
+def _encdec_serve(m, params, prompts, frames, dec):
+    """A prefill of ``prompts`` and ``frames`` and a decode step of each
+    column of ``dec``: the logits (1 + decode, B, V), K8's launches and
+    the seconds of the prefill and of each decode step."""
+    b, s = prompts.shape
+    cache = m.init_cache(b, s + dec.shape[1], getattr(torch, m.cfg.dtype),
+                         device=DEV)
+    out, k8, secs = [], [], []
+    for i in range(1 + dec.shape[1]):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            lg, cache = m.prefill(params, {"tokens": prompts,
+                                           "frames": frames}, cache)
+            lg = lg[:, 0]
+        else:
+            lg, cache = m.decode(params, cache, dec[:, i - 1], torch.full(
+                (b,), s + i - 1, dtype=torch.int64, device=DEV))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append(lg)
+        k8.append(read_launches()["flash_attention"])
+    return torch.stack(out).float().cpu(), k8, secs
+
+
+def lm_mesh_encdec(dtype: str, mesh=None, floor: bool = False) -> dict:
+    """(g) served: the prefill's last logits and each decode step's, of
+    the whole batch (``mesh`` None; with ``floor`` also each row run alone
+    in ``rows_alone``) or of this process's block; K8's launches in the
+    prefill and in each decode step, and their query heads; the prefill's
+    and each decode step's seconds; peak memory from the parameters on,
+    and the parameters' bytes."""
+    cfg = dataclasses.replace(lm_configs.get(LM_MESH_ENCDEC_ARCH),
+                              dtype=dtype)
+    m = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = m.init(SEED, device=DEV, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts, frames, dec = (_block(t, mesh) for t in _encdec_inputs(cfg))
+    b = prompts.shape[0]
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx, _k8_heads() as heads:
+        # warm: the gloo groups and the kernels' first launches
+        _encdec_serve(m, params, prompts[:, :8], frames, dec[:, :1])
+        heads.clear()
+        logits, k8, secs = _encdec_serve(m, params, prompts, frames, dec)
+        if floor:
+            alone = torch.cat([_encdec_serve(
+                m, params, prompts[i:i + 1], frames[i:i + 1],
+                dec[i:i + 1])[0] for i in range(b)], dim=1)
+    rec = {"logits": logits, "k8_prefill": k8[0], "k8_decode": k8[1:],
+           "k8_heads": sorted(set(heads)), "prefill_s": secs[0],
+           "prefill_tokens_per_s": b * LM_MESH_SEQ / secs[0],
+           "decode_step_s": secs[1:],
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    if floor:
+        rec["rows_alone"] = alone
+    del params
+    return rec
+
+
+def lm_mesh_encdec_train(mesh=None) -> dict:
+    """(g) trained: LM_MESH_DENSE_STEPS AdamW steps of whisper-tiny at
+    published width and depth, fp32 parameters and bf16 compute, on B x
+    S seeded tokens and the launcher's frames (``launch.train.
+    make_batch``); K8's launches in the steps, peak memory, s a step."""
+    cfg = lm_configs.get(LM_MESH_ENCDEC_ARCH)
+    m = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = m.init(SEED, device=DEV, dtype=torch.float32, mesh=mesh)
+    tcfg = TrainConfig(lr=LM_MESH_LR)
+    opt = train_opt.init_opt_state(tcfg, params)
+    step = train_loop.make_train_step(m, tcfg)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LM_MESH_SEQ,
+                         global_batch=LM_MESH_BATCH, seed=SEED)
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    losses, gnorms, step_s = [], [], []
+    with ctx:
+        reset_launches()
+        for i in range(LM_MESH_DENSE_STEPS):
+            batch = {k: _block(v, mesh) for k, v in launch_train.make_batch(
+                cfg, pipe, i, DEV).items()}
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch, i)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+        k8 = read_launches()["flash_attention"]
+    rec = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+           "k8_train": k8,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt
+    return rec
+
+
 def lm_mesh_worker(job_json: str) -> None:
     """One process of the mesh (started by :func:`_lm_mesh_spawn`):
     joins through the launch environment, runs the job's tasks, writes
@@ -5568,6 +5711,13 @@ def lm_mesh_worker(job_json: str) -> None:
             out = lm_mesh_dense(mesh)
         elif task == "rwkv_train":
             out = lm_mesh_dense(mesh, "rwkv")
+        elif task.startswith("encdec_"):
+            kind = task.split("_", 1)[1]
+            if kind == "train":
+                out = lm_mesh_encdec_train(mesh)
+            else:
+                out = lm_mesh_encdec(kind, mesh)
+                arrays[task] = out.pop("logits").numpy()
         elif task.startswith("family:"):
             leg = task.split(":", 1)[1]
             spec = LM_MESH_FAMILIES[leg]
@@ -5644,6 +5794,98 @@ def _rel_first(got, want, first_tol, tol, what):
     return float(rel.max())
 
 
+def _check_encdec(ranks, single) -> dict:
+    """(g): each process's served logits against its rows of one
+    process's (fp32 within LM_MESH_F32_RTOL of the largest logit, bf16
+    within LM_LOGIT_ATOL or LM_CHAIN_FLOOR_FACTOR times one process's
+    distance from itself row by row), K8's launches and heads a process
+    pinned, and the train steps gated as (d); its record."""
+    want_k8 = LM_MESH_ENCDEC_K8
+    rows = LM_MESH_BATCH // LM_MESH_DIMS[0]
+    out = {"arch": LM_MESH_ENCDEC_ARCH, "batch": LM_MESH_BATCH,
+           "seq": LM_MESH_SEQ, "decode_steps": LM_MESH_ENCDEC_DECODE}
+    for dtype in ("float32", "bfloat16"):
+        one, task = single[dtype], f"encdec_{dtype}"
+        want = one["logits"]                      # (1 + decode, B, V)
+        got = torch.zeros_like(want)
+        for r in ranks:
+            d = r["coords"]["data"]
+            arr = torch.from_numpy(np.load(os.path.join(
+                LM_MESH_DIR, f"mesh_rank{r['rank']}.npz"))[task])
+            if r["coords"]["model"] == 0:
+                got[:, d * rows:(d + 1) * rows] = arr
+            else:      # the processes of one block agree bit for bit
+                check(torch.equal(got[:, d * rows:(d + 1) * rows], arr),
+                      f"lm_mesh encdec {dtype}: the processes of batch "
+                      f"block {d} differ")
+        err = (got - want).abs().amax((1, 2))
+        k8 = [[r[task]["k8_prefill"]] + r[task]["k8_decode"] for r in ranks]
+        heads = [r[task]["k8_heads"] for r in ranks]
+        per = [want_k8["prefill"]] + [want_k8["decode"]] * \
+            LM_MESH_ENCDEC_DECODE
+        check(k8 == [per] * len(ranks) and [one["k8_prefill"]]
+              + one["k8_decode"] == per, f"lm_mesh encdec {dtype}: K8 "
+              f"launched {k8} times a process, prefill then each decode "
+              f"token (one process: {one['k8_prefill']}, "
+              f"{one['k8_decode']})")
+        check(heads == [[want_k8["heads"]]] * len(ranks)
+              and one["k8_heads"] == [2 * want_k8["heads"]],
+              f"lm_mesh encdec {dtype}: K8 ran on {heads} heads a process "
+              f"(one process: {one['k8_heads']})")
+        leg = {"max_abs_err_prefill": float(err[0]),
+               "max_abs_err_decode": err[1:].tolist(),
+               "max_abs_logit": float(want.abs().max()),
+               "k8_per_process": k8, "k8_heads_per_process": heads,
+               "single": {k: one[k] for k in (
+                   "prefill_s", "prefill_tokens_per_s", "decode_step_s",
+                   "param_bytes", "peak_device_mem_bytes")},
+               **{f"{k}_per_process": [r[task][k] for r in ranks]
+                  for k in ("prefill_s", "prefill_tokens_per_s",
+                            "decode_step_s", "param_bytes",
+                            "peak_device_mem_bytes", "task_s")}}
+        if dtype == "float32":
+            limit = LM_MESH_F32_RTOL * leg["max_abs_logit"]
+            check(bool((err <= limit).all()), f"lm_mesh encdec fp32: "
+                  f"logits differ from one process's by {err.tolist()}, "
+                  f"limit {limit}")
+            leg["tolerance_rel"] = LM_MESH_F32_RTOL
+        else:
+            floor_ = (one["rows_alone"] - want).abs().amax((1, 2))
+            limit = torch.clamp_min(LM_CHAIN_FLOOR_FACTOR * floor_,
+                                    LM_LOGIT_ATOL)
+            check(bool((err <= limit).all()), f"lm_mesh encdec bf16: "
+                  f"logits differ from one process's by {err.tolist()}, "
+                  f"limits {limit.tolist()}")
+            leg.update(rows_alone_vs_batch_err=floor_.tolist(),
+                       limit_by_position=limit.tolist(),
+                       tolerance_abs=LM_LOGIT_ATOL)
+        out[dtype] = leg
+    tr, one = ranks[0]["encdec_train"], single["train"]
+    check(all(r["encdec_train"]["losses"] == tr["losses"] for r in ranks),
+          "lm_mesh encdec train: the processes report other losses")
+    check(all(np.isfinite(tr["losses"])),
+          f"lm_mesh encdec train: {tr['losses']}")
+    rel = np.abs(np.asarray(tr["losses"]) - one["losses"]) / np.abs(
+        one["losses"])
+    check(rel[0] <= LM_MESH_DENSE_FIRST_RTOL
+          and rel.max() <= LM_MESH_DENSE_RTOL,
+          f"lm_mesh encdec train: losses {tr['losses']} against one "
+          f"process's {one['losses']}")
+    k8 = [r["encdec_train"]["k8_train"] for r in ranks]
+    check(k8 == [want_k8["train"]] * len(ranks) and one["k8_train"]
+          == want_k8["train"], f"lm_mesh encdec train: K8 launched {k8} "
+          f"times a process (one process: {one['k8_train']})")
+    out["train"] = {
+        "steps": LM_MESH_DENSE_STEPS, "single": one, "mesh_rank0": tr,
+        "losses_rel_err": rel.tolist(),
+        "tolerance_rel": [LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL],
+        "k8_per_process": k8,
+        **{f"{k}_per_process": [r["encdec_train"][k] for r in ranks]
+           for k in ("peak_device_mem_bytes", "param_bytes", "step_s",
+                     "task_s")}}
+    return out
+
+
 def phase_lm_mesh() -> dict:
     """Phase 14e; returns K8's launches per process in (a) and (e)."""
     t_phase = time.perf_counter()
@@ -5669,6 +5911,11 @@ def phase_lm_mesh() -> dict:
            dense.d_ff, dense.vocab_size, dense.tie_embeddings)
           == (2048, 36, 16, 2, 11_008, 151_936, True),
           f"lm_mesh: {LM_MESH_DENSE_ARCH} is not the published config")
+    wh = lm_configs.get(LM_MESH_ENCDEC_ARCH)
+    check((wh.encoder_layers, wh.n_layers, wh.d_model, wh.n_heads,
+           wh.n_kv_heads, wh.d_ff, wh.vocab_size, wh.encoder_seq)
+          == (4, 4, 384, 6, 6, 1536, 51_865, 1500),
+          f"lm_mesh: {LM_MESH_ENCDEC_ARCH} is not the published config")
     # the single-process runs first (the card cannot hold both at once)
     single, single_s = {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -5706,13 +5953,28 @@ def phase_lm_mesh() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s["rwkv_train"] = time.perf_counter() - t0
+    # (g) in one process
+    single_enc = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        single_enc[dtype] = lm_mesh_encdec(dtype,
+                                           floor=dtype == "bfloat16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s[f"encdec_{dtype}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_enc["train"] = lm_mesh_encdec_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s["encdec_train"] = time.perf_counter() - t0
     print(json.dumps({"lm_mesh single-process s": single_s,
                       "device_mem_allocated_bytes":
                           torch.cuda.memory_allocated()}), flush=True)
     t0 = time.perf_counter()
     ranks = _lm_mesh_spawn("mesh", LM_MESH_DIMS, (
         "forward_float32", "forward_bfloat16", "published", "train",
-        "dense", *(f"family:{a}" for a in LM_MESH_FAMILIES), "rwkv_train"))
+        "dense", *(f"family:{a}" for a in LM_MESH_FAMILIES), "rwkv_train",
+        "encdec_float32", "encdec_bfloat16", "encdec_train"))
     mesh_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
@@ -5910,6 +6172,7 @@ def phase_lm_mesh() -> dict:
             r["rwkv_train"]["param_bytes_per_process"] for r in ranks],
         "step_s_per_process": [r["rwkv_train"]["step_s"] for r in ranks],
         "task_s_per_process": [r["rwkv_train"]["task_s"] for r in ranks]}
+    rec["encdec"] = _check_encdec(ranks, single_enc)
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
     restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))
@@ -5938,7 +6201,9 @@ def phase_lm_mesh() -> dict:
             "float32_per_process":
                 rec["forward_float32"]["k8_prefill_per_process"],
             **{f"family {arch} per_process": fam["k8_prefill_per_process"]
-               for arch, fam in rec["families"].items()}}
+               for arch, fam in rec["families"].items()},
+            "encdec per_process": rec["encdec"]["float32"][
+                "k8_per_process"]}
 
 
 def main() -> None:

@@ -372,13 +372,13 @@ def mesh_local(tree, mesh, n_experts: int):
     """A process's block of a global tree keyed by parameter names (a
     ``state_dict``, or an optimizer state ``{"m": {name: ...}, ...}``),
     tensors or numpy arrays, by the mesh's layout
-    (``sharding.rules.local_specs``): on a ``ProcessMesh`` a decoder-only
-    model (GQA, MLA, Mamba or RWKV-6 layers) has every leaf cut by the
-    reference's ``param_specs`` (FSDP over ``data``, tensor parallelism
-    over ``model``, the expert stacks over the expert axes); the
-    encoder-decoder only its expert stacks, every other leaf whole (the
-    same object).  This carries the reference's parameters onto a
-    process."""
+    (``sharding.rules.local_specs``): on a ``ProcessMesh`` every model
+    (GQA, MLA, Mamba or RWKV-6 layers, or the encoder-decoder's two
+    stacks) has every leaf cut by the reference's ``param_specs`` (FSDP
+    over ``data``, tensor parallelism over ``model``, the expert stacks
+    over the expert axes), a whole leaf kept as the same object.  This
+    carries the reference's parameters onto a process (an
+    ``encdec_params_from_numpy`` tree too)."""
     from repro_torch.sharding import rules
     specs = rules.local_specs(mesh, tree, n_experts)
     return _zip_map(lambda x, sp: rules.NamedSharding(mesh, sp).shard(x)

@@ -178,7 +178,7 @@ def train_classifier(model: SNNClassifier, tcfg: TrainConfig, *,
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(
             "data_parallel over more than one card is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+            "(ROADMAP Queue 1 item 9)")
     gen = torch.Generator()     # on the CPU: the same draws on any device
     gen.manual_seed(int(seed))
     params, opt_state = loop_mod.init_train_state(model, tcfg, gen)

@@ -34,7 +34,7 @@ cell this module:
      ``data`` shards them).  Each once a step: XLA hoists parameter
      gathers out of the microbatch loop.  Ring volumes are ``(n-1)/n``.
      Tensor-parallel activation traffic and the MoE all-to-all are not
-     counted (ROADMAP Queue 1 item 7);
+     counted (ROADMAP Queue 1 item 8);
   6. adds the roofline terms at an H100 SXM's rates
      (:func:`repro_torch.launch.roofline.roofline_terms`).
 

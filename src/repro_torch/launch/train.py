@@ -31,11 +31,11 @@ environment it reads (``REPRO_COORD_ADDR``, ``REPRO_NUM_PROC``,
 ``REPRO_PROC_ID``; gloo on the CPU or where the processes share a card,
 nccl where each has its own), and waits for them; a copy started with
 that environment is one of them.  Each process draws the single-device
-model's parameters and keeps its blocks (``rules.local_specs``: for a
-decoder-only arch, GQA, MLA, Mamba or RWKV-6, the reference's
+model's parameters and keeps its blocks (``rules.local_specs``: for
+every arch, decoder-only or the encoder-decoder, the reference's
 ``param_specs``, FSDP over ``data`` and tensor parallelism over
-``model``; for the encoder-decoder the expert stacks alone),
-cuts each global batch over ``pod x data`` (``rules.batch_spec``;
+``model``), cuts each global batch (the tokens, and whisper's
+``frames`` with them) over ``pod x data`` (``rules.batch_spec``;
 microbatch by microbatch, as the reference's microbatches are cut) and
 trains under ``rules.use_mesh`` (``train/loop.py``).  A checkpoint holds
 the global leaves (gathered, and written by process 0); ``--resume``

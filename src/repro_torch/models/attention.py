@@ -8,7 +8,9 @@ Ports ``src/repro/models/attention.py``:
   of :func:`gqa_prefill` / :func:`mla_prefill`, which additionally fill
   the cache;
 * :func:`gqa_decode` / :func:`mla_decode` - one token per row against a
-  static-length cache.
+  static-length cache;
+* :func:`cross_attend` (:func:`cross_kv`, :func:`cross_attend_cached`) -
+  the encoder-decoder's cross-attention, rope-free and mask-free.
 
 GQA's cache is ``k / v: (B, S_max, H_kv, dh)``; MLA's is the compressed
 ``c_kv: (B, S_max, r_kv)`` and the shared rope key ``k_rope: (B, S_max,
@@ -29,7 +31,9 @@ inside a head (``n_kv_heads``, or ``n_heads``, not a multiple of
 reference's storage is kept and the projection is gathered over
 ``model`` at use, each process taking the heads it reads; where
 ``n_heads`` does not split, every process attends with every head and
-``wo`` takes its rows' share.
+``wo`` takes its rows' share.  The encoder-decoder's cross-attention is
+the same region: q of ``x`` and k, v of the encoder's memory on the
+local heads, each input entering through one ``sum_grad``.
 
 MLA on such a mesh (``wq_b`` and ``wkv_b`` columns, ``wo`` rows cut over
 ``model``; ``wq_a`` and ``wkv_a`` over ``data`` only) attends with its
@@ -77,7 +81,8 @@ from repro_torch.sharding import rules
 
 __all__ = ["GQA", "MLA", "HeadSplit", "head_split", "gqa_init",
            "gqa_train", "gqa_prefill",
-           "gqa_decode", "init_gqa_cache", "mla_init", "mla_train",
+           "gqa_decode", "cross_kv", "cross_attend_cached", "cross_attend",
+           "init_gqa_cache", "mla_init", "mla_train",
            "mla_prefill", "mla_decode", "init_mla_cache", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -352,6 +357,52 @@ def gqa_train(p: GQA, cfg, x, positions, compute_dtype=torch.bfloat16, *,
     out = _sdpa(q, _kv_heads(k, sp), _kv_heads(v, sp), None, scale=scale,
                 causal=causal)
     return _out(p, cfg, out, sp, compute_dtype)
+
+
+def cross_kv(p: GQA, cfg, memory, compute_dtype=torch.bfloat16):
+    """The cross-attention's keys and values (B, T, nk, dh) of the
+    encoder ``memory``, on the kv heads this process reads (every head
+    off a tensor-parallel mesh; there ``memory`` enters through one
+    ``sum_grad``); no rope."""
+    b, t, _ = memory.shape
+    dh = cfg.resolved_head_dim
+    sp = _split(p, cfg)
+    if sp is None:
+        hk = cfg.n_kv_heads
+        return (linear(p.wk, memory, compute_dtype).reshape(b, t, hk, dh),
+                linear(p.wv, memory, compute_dtype).reshape(b, t, hk, dh))
+    memory = coll.sum_grad(memory.to(compute_dtype), sp.mesh, ("model",))
+    return tuple(_heads(w, memory, sp.k0, sp.nk, dh, sp.mesh,
+                        compute_dtype).reshape(b, t, sp.nk, dh)
+                 for w in (p.wk, p.wv))
+
+
+def cross_attend_cached(p: GQA, cfg, x, kv, compute_dtype=torch.bfloat16):
+    """Cross-attention of ``x``'s rows against the keys and values ``kv``
+    (:func:`cross_kv`, or a cache of them): no mask, no rope (K8,
+    non-causal); on a tensor-parallel mesh ``x`` enters through one
+    ``sum_grad``, q is this process's heads, and ``wo`` is row-parallel
+    (:func:`_out`)."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    sp = _split(p, cfg)
+    if sp is None:
+        q = linear(p.wq, x, compute_dtype).reshape(b, s, cfg.n_heads, dh)
+    else:
+        x = coll.sum_grad(x.to(compute_dtype), sp.mesh, ("model",))
+        q = _heads(p.wq, x, sp.q0, sp.nq, dh, sp.mesh,
+                   compute_dtype).reshape(b, s, sp.nq, dh)
+    out = _sdpa(q, _kv_heads(kv["k"].to(q.dtype), sp),
+                _kv_heads(kv["v"].to(q.dtype), sp), None,
+                scale=1.0 / np.sqrt(dh))
+    return _out(p, cfg, out, sp, compute_dtype)
+
+
+def cross_attend(p: GQA, cfg, x, memory, compute_dtype=torch.bfloat16):
+    """Cross-attention: q from ``x``, k and v from the encoder
+    ``memory``."""
+    k, v = cross_kv(p, cfg, memory, compute_dtype)
+    return cross_attend_cached(p, cfg, x, {"k": k, "v": v}, compute_dtype)
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,

@@ -18,6 +18,19 @@ The token table and the position table are kept in fp32: the reference
 adds the two in fp32 and rounds once (the tied unembedding casts the
 token table to the compute dtype, as the reference does).  The caches are
 written in place (``cross_kv`` at prefill, ``self`` at every step).
+
+On a process mesh (``EncDecLM(..., mesh=)``, ``sharding.rules``) every
+leaf is this process's ``param_specs`` block: FSDP over ``data`` and
+tensor parallelism over ``model``.  The encoder's attention, the
+decoder's self-attention and its cross-attention each run on this
+process's heads (``attention``'s tensor-parallel regions), the MLPs are
+column- and row-parallel, and the self and cross caches hold the local
+kv heads.  The token table is vocab-parallel where ``model`` cuts its
+vocab (the lookup and the tied unembedding, ``transformer._lookup`` and
+``transformer.unembed_tied``): :func:`train_forward`'s logits are then
+this process's vocab block (:func:`vocab_mesh`), and :func:`prefill` and
+:func:`decode_step` gather them whole.  The position table matches no
+rule and stays whole.
 :func:`train_forward` is the loss's forward (it carries gradients; K8
 then gives way to attention's train route); :func:`encode`,
 :func:`forward`, :func:`prefill` and :func:`decode_step` run without
@@ -26,7 +39,6 @@ grad.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -34,13 +46,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import transformer
 from repro_torch.models.layers import (MLP, Norm, embed_init, init_norm,
-                                       linear, matmul_f32, mlp_apply,
-                                       mlp_init, norm_apply)
-from repro_torch.models.transformer import Embedding, _generator
+                                       mlp_apply, mlp_init, norm_apply)
+from repro_torch.models.transformer import (Embedding, _generator,
+                                            _keep_blocks, _lookup)
+from repro_torch.sharding import rules
 
 __all__ = ["EncDecLM", "init_params", "encode", "forward", "train_forward",
-           "init_cache", "prefill", "decode_step"]
+           "init_cache", "prefill", "decode_step", "vocab_mesh"]
 
 
 class EncoderLayer(nn.Module):
@@ -73,23 +87,30 @@ class DecoderLayer(nn.Module):
 class EncDecLM(nn.Module):
     """``embed`` and ``pos_dec`` (fp32 tables), ``encoder``, ``enc_norm``,
     ``decoder``, ``final_norm``; allocated uninitialised, the matrices in
-    ``dtype`` (default ``cfg.dtype``, fp32 for training)."""
+    ``dtype`` (default ``cfg.dtype``, fp32 for training).  On a process
+    ``mesh`` (``launch.mesh.ProcessMesh``) each leaf is allocated as this
+    process's block under ``sharding.rules.local_specs`` (the reference's
+    ``param_specs``), carrying its spec."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None,
+                 mesh=None):
         super().__init__()
         device = resolve_device(device)
         dtype = dtype or getattr(torch, cfg.dtype)
-        f32 = dict(dtype=torch.float32, device=device)
+        at = torch.device("meta") if mesh is not None else device
+        f32 = dict(dtype=torch.float32, device=at)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **f32)
         self.pos_dec = Embedding(cfg.max_seq, cfg.d_model, **f32)
         self.encoder = nn.ModuleList(
-            EncoderLayer(cfg, dtype=dtype, device=device)
+            EncoderLayer(cfg, dtype=dtype, device=at)
             for _ in range(cfg.encoder_layers))
-        self.enc_norm = Norm(cfg.d_model, cfg.norm, device=device)
+        self.enc_norm = Norm(cfg.d_model, cfg.norm, device=at)
         self.decoder = nn.ModuleList(
-            DecoderLayer(cfg, dtype=dtype, device=device)
+            DecoderLayer(cfg, dtype=dtype, device=at)
             for _ in range(cfg.n_layers))
-        self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device=at)
+        if mesh is not None:
+            rules.allocate_blocks(self, mesh, device, 0)
 
     def period_slots(self) -> dict[str, list[str]]:
         """The reference's stacked leaves: ``{"encoder.<leaf>": [the
@@ -107,21 +128,42 @@ class EncDecLM(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed=0, *, device="cuda",
-                dtype=None) -> EncDecLM:
+                dtype=None, mesh=None) -> EncDecLM:
     """An :class:`EncDecLM` with the reference's initial distributions
     (positions ``N(0, 0.01)``), drawn on ``device`` from
-    ``torch.Generator`` ``seed`` (an int, or the generator itself)."""
-    m = EncDecLM(cfg, device=device, dtype=dtype)
-    gen = _generator(seed, m.embed.table.device)
-    embed_init(m.embed.table, gen)
-    m.pos_dec.table.normal_(0.0, 0.01, generator=gen)
+    ``torch.Generator`` ``seed`` (an int, or the generator itself).  On a
+    process ``mesh`` every draw is the single-device model's: each piece
+    (a table, an attention, an MLP) is drawn whole, in the single-device
+    order, and this process keeps its blocks of it."""
+    m = EncDecLM(cfg, device=device, dtype=dtype, mesh=mesh)
+    dev = m.enc_norm.scale.device
+    gen = _generator(seed, dev)
+    kw = dict(dtype=m.encoder[0].attn.wq.w.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def draw(part, whole, init):
+        # ``init`` on ``part``, or on the ``whole()`` piece of which this
+        # process keeps its blocks
+        if mesh is None:
+            init(part)
+        else:
+            piece = whole()
+            init(piece)
+            _keep_blocks(part, piece, mesh)
+
+    draw(m.embed, lambda: Embedding(cfg.vocab_size, cfg.d_model, **f32),
+         lambda e: embed_init(e.table, gen))
+    draw(m.pos_dec, lambda: Embedding(cfg.max_seq, cfg.d_model, **f32),
+         lambda e: e.table.normal_(0.0, 0.01, generator=gen))
+    gqa = lambda: attn.GQA(cfg, **kw)
     for layer in m.encoder:
-        attn.gqa_init(layer.attn, gen)
+        draw(layer.attn, gqa, lambda a: attn.gqa_init(a, gen))
     for layer in m.decoder:
-        attn.gqa_init(layer.self_attn, gen)
-        attn.gqa_init(layer.cross, gen)
+        draw(layer.self_attn, gqa, lambda a: attn.gqa_init(a, gen))
+        draw(layer.cross, gqa, lambda a: attn.gqa_init(a, gen))
     for layer in (*m.encoder, *m.decoder):
-        mlp_init(layer.mlp, gen)
+        draw(layer.mlp, lambda: MLP(cfg.d_model, cfg.d_ff, cfg.mlp, **kw),
+             lambda p: mlp_init(p, gen))
     for mod in m.modules():
         if isinstance(mod, Norm):
             init_norm(mod)
@@ -146,41 +188,31 @@ def _encode(params: EncDecLM, cfg: ModelConfig, frames):
     return norm_apply(params.enc_norm, x, cfg.norm)
 
 
-def _cross_kv(p: attn.GQA, cfg, memory, compute_dtype):
-    b, t, _ = memory.shape
-    hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = linear(p.wk, memory, compute_dtype).reshape(b, t, hk, dh)
-    v = linear(p.wv, memory, compute_dtype).reshape(b, t, hk, dh)
-    return k, v
-
-
-def _cross_attend_cached(p: attn.GQA, cfg, x, kv, compute_dtype):
-    """Cross-attention of x's rows against cached keys and values: no
-    mask, no rope (K8, non-causal)."""
-    b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.resolved_head_dim
-    q = linear(p.wq, x, compute_dtype).reshape(b, s, h, dh)
-    out = attn._sdpa(q, kv["k"].to(q.dtype), kv["v"].to(q.dtype), None,
-                     scale=1.0 / np.sqrt(dh))
-    return linear(p.wo, out, compute_dtype)
-
-
-def _cross_attend(p: attn.GQA, cfg, x, memory, compute_dtype):
-    """Cross-attention: q from x, k/v from the encoder memory."""
-    k, v = _cross_kv(p, cfg, memory, compute_dtype)
-    return _cross_attend_cached(p, cfg, x, {"k": k, "v": v}, compute_dtype)
-
-
 def _embed(params: EncDecLM, cfg, tokens, positions, compute_dtype):
-    """Token and position embeddings added in fp32, rounded once."""
-    return (params.embed.table[tokens.long()]
-            + params.pos_dec.table[positions.long()]).to(compute_dtype)
+    """Token and position embeddings added in the tables' dtype (fp32),
+    rounded once: each row looked up uncast (``transformer._lookup``: on
+    a process mesh the tables' ``data`` cuts gathered, a vocab cut over
+    ``model`` looked up in its range and summed over ``model``)."""
+    table = params.embed.table
+    return (_lookup(table, tokens, table.dtype)
+            + _lookup(params.pos_dec.table, positions, table.dtype)
+            ).to(compute_dtype)
 
 
-def _unembed(params: EncDecLM, cfg, x):
-    compute_dtype = getattr(torch, cfg.dtype)
-    return matmul_f32(x.to(compute_dtype),
-                      params.embed.table.to(compute_dtype).t())
+def _unembed(params: EncDecLM, cfg, x, *, whole: bool = False):
+    """The tied unembedding (the token table, whatever
+    ``cfg.tie_embeddings`` says: the encoder-decoder has no other):
+    fp32 logits, on a mesh whose ``model`` cuts the vocab this
+    process's block of them, or with ``whole`` every block gathered."""
+    return transformer.unembed_tied(params.embed.table, x,
+                                    getattr(torch, cfg.dtype), whole=whole)
+
+
+def vocab_mesh(params: EncDecLM):
+    """The process mesh whose ``model`` cuts the logits of
+    :func:`train_forward` into vocab blocks (the token table's vocab),
+    else None."""
+    return transformer.vocab_cut_mesh(params.embed.table, 0)
 
 
 def _mlp_block(p, cfg, x, compute_dtype):
@@ -199,7 +231,7 @@ def _decoder_layer(p: DecoderLayer, cfg, x, positions, memory,
     h = norm_apply(p.norm1, x, cfg.norm)
     x = x + attn.gqa_train(p.self_attn, cfg, h, positions, compute_dtype)
     hx = norm_apply(p.norm_x, x, cfg.norm)
-    x = x + _cross_attend(p.cross, cfg, hx, memory, compute_dtype)
+    x = x + attn.cross_attend(p.cross, cfg, hx, memory, compute_dtype)
     return _mlp_block(p, cfg, x, compute_dtype)
 
 
@@ -236,13 +268,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device="cuda"):
     """``{"self": [{"k", "v"}], "cross_kv": [{"k", "v"}]}``, one entry per
     decoder layer, zeroed; the cross keys and values span
-    ``encoder_seq`` frames."""
+    ``encoder_seq`` frames.  Inside ``rules.use_mesh`` of a process mesh
+    whose ``model`` cuts the attention (``rules.model_blocks``), both
+    hold the kv heads this process reads (``attention.head_split``)."""
     device = resolve_device(device)
     hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    if rules.model_blocks(cfg, "attn") > 1:
+        hk = attn.head_split(cfg, rules.process_mesh()).nk
     shape = (batch, cfg.encoder_seq, hk, dh)
     return {
         "self": [attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                     device=device)
+                                     device=device, kv_heads=hk)
                  for _ in range(cfg.n_layers)],
         "cross_kv": [{"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -266,13 +302,14 @@ def prefill(params: EncDecLM, cfg: ModelConfig, tokens, frames, cache):
         x = x + mix
         hx = norm_apply(p.norm_x, x, cfg.norm)
         kv = cache["cross_kv"][i]
-        k, v = _cross_kv(p.cross, cfg, memory, compute_dtype)
+        k, v = attn.cross_kv(p.cross, cfg, memory, compute_dtype)
         kv["k"].copy_(k)
         kv["v"].copy_(v)
-        x = x + _cross_attend_cached(p.cross, cfg, hx, kv, compute_dtype)
+        x = x + attn.cross_attend_cached(p.cross, cfg, hx, kv,
+                                         compute_dtype)
         x = _mlp_block(p, cfg, x, compute_dtype)
     x = norm_apply(params.final_norm, x[:, -1:, :], cfg.norm)
-    return _unembed(params, cfg, x), cache
+    return _unembed(params, cfg, x, whole=True), cache
 
 
 @torch.no_grad()
@@ -287,8 +324,8 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, token, pos, cache):
             p.self_attn, cfg, h, pos, cache["self"][i], compute_dtype)
         x = x + mix
         hx = norm_apply(p.norm_x, x, cfg.norm)
-        x = x + _cross_attend_cached(p.cross, cfg, hx, cache["cross_kv"][i],
-                                     compute_dtype)
+        x = x + attn.cross_attend_cached(p.cross, cfg, hx,
+                                         cache["cross_kv"][i], compute_dtype)
         x = _mlp_block(p, cfg, x, compute_dtype)
     x = norm_apply(params.final_norm, x, cfg.norm)
-    return _unembed(params, cfg, x)[:, 0], cache
+    return _unembed(params, cfg, x, whole=True)[:, 0], cache

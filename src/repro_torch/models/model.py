@@ -128,10 +128,10 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
-    def init(seed=0, *, device=None, dtype=None):
+    def init(seed=0, *, device=None, dtype=None, mesh=None):
         return encdec.init_params(cfg, seed,
                                   device=_init_device(seed, device),
-                                  dtype=dtype)
+                                  dtype=dtype, mesh=mesh)
 
     def loss(params, batch):
         batch = _on(params, batch)
@@ -139,7 +139,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         logits, aux = encdec.train_forward(params, cfg, inputs,
                                            batch["frames"])
-        ce = cross_entropy(logits, targets)
+        ce = cross_entropy(logits, targets, mesh=encdec.vocab_mesh(params))
         return ce, {"ce": ce, **aux}
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, *, device="cuda"):

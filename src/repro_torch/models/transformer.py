@@ -58,7 +58,7 @@ from repro_torch.sharding import rules
 __all__ = ["period_structure", "layer_kinds", "DecoderLayer", "DecoderLM",
            "Embedding", "init_params", "forward", "train_forward",
            "hidden_states", "init_cache", "prefill", "decode_step",
-           "vocab_mesh"]
+           "vocab_mesh", "unembed_tied", "vocab_cut_mesh"]
 
 
 # --------------------------------------------------------------------------
@@ -535,13 +535,28 @@ def _unembed(params: DecoderLM, cfg, x, *, whole: bool = False):
     ``model`` cuts the vocab, this process's block of it (a
     column-parallel product), or, with ``whole``, every block gathered."""
     compute_dtype = getattr(torch, cfg.dtype)
-    x = x.to(compute_dtype)
     if cfg.tie_embeddings:
-        w, spec = rules.gather_fsdp(params.embed.table, compute_dtype)
-        w, cut = w.t(), len(spec) > 0 and spec[0] == "model"
-    else:
-        w, spec = rules.gather_fsdp(params.unembed.w, compute_dtype)
-        cut = len(spec) > 1 and spec[1] == "model"
+        return unembed_tied(params.embed.table, x, compute_dtype,
+                            whole=whole)
+    w, spec = rules.gather_fsdp(params.unembed.w, compute_dtype)
+    return _vocab_product(x.to(compute_dtype), w,
+                          len(spec) > 1 and spec[1] == "model", whole)
+
+
+def unembed_tied(table, x, compute_dtype, *, whole: bool = False):
+    """Logits in fp32 of ``x`` against the embedding ``table`` (tied),
+    both in ``compute_dtype``: the table's ``d`` gathered over ``data``,
+    and where ``model`` cuts its vocab this process's block of the logits
+    (or, with ``whole``, every block gathered)."""
+    w, spec = rules.gather_fsdp(table, compute_dtype)
+    return _vocab_product(x.to(compute_dtype), w.t(),
+                          len(spec) > 0 and spec[0] == "model", whole)
+
+
+def _vocab_product(x, w, cut: bool, whole: bool):
+    """``x @ w`` in fp32 where ``w`` (d, vocab) is whole, else a
+    column-parallel product over ``model`` (``x`` entering through
+    ``sum_grad``), gathered over ``model`` with ``whole``."""
     if not cut:
         return matmul_f32(x, w)
     mesh = rules.process_mesh()
@@ -554,10 +569,15 @@ def _unembed(params: DecoderLM, cfg, x, *, whole: bool = False):
 def vocab_mesh(params: DecoderLM):
     """The process mesh whose ``model`` cuts the logits of
     :func:`train_forward` into vocab blocks, else None."""
-    w = (params.embed.table if params.cfg.tie_embeddings
-         else params.unembed.w)
+    if params.cfg.tie_embeddings:
+        return vocab_cut_mesh(params.embed.table, 0)
+    return vocab_cut_mesh(params.unembed.w, 1)
+
+
+def vocab_cut_mesh(w, dim: int):
+    """The process mesh whose ``model`` cuts dim ``dim`` (the vocab) of
+    the output matrix ``w``, else None."""
     spec = rules.spec_of(w)
-    dim = 0 if params.cfg.tie_embeddings else 1
     if dim < len(spec) and spec[dim] == "model":
         return rules.process_mesh()
     return None

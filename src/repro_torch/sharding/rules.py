@@ -40,16 +40,17 @@ process holds its own blocks and the model code calls the collectives of
 leaves their placement to XLA's partitioner.  So ``shard_act`` places
 nothing.  The mesh's layout is :func:`local_specs`:
 
-* on a ``ProcessMesh``, a decoder-only model (:func:`shards_dense`:
-  every mixer, GQA ``attn``, ``mla``, ``mamba`` or ``rwkv``) holds every
-  leaf as its block under :func:`param_specs`, the reference's layout:
-  FSDP over ``data``, tensor parallelism over ``model`` (attention and
-  MLA heads, Mamba's ``d_inner`` channels, RWKV-6's heads, the MLP's
-  hidden units, the vocab), the expert stacks over the expert axes;
-* the encoder-decoder keeps its dense leaves whole (its mesh path and
-  tensor-parallel form are not ported, ROADMAP Queue 1) and cuts only
-  the expert stacks, by :func:`expert_param_spec`; so does every model
-  on a :class:`~repro_torch.launch.mesh.MeshShape`, which runs nothing.
+* on a ``ProcessMesh`` every model (:func:`shards_dense`: whatever its
+  mixers, GQA ``attn``, ``mla``, ``mamba``, ``rwkv``, or the
+  encoder-decoder's ``encdec``) holds every leaf as its block under
+  :func:`param_specs`, the reference's layout: FSDP over ``data``,
+  tensor parallelism over ``model`` (attention and MLA heads, the
+  encoder's and decoder's attention and cross-attention heads, Mamba's
+  ``d_inner`` channels, RWKV-6's heads, the MLP's hidden units, the
+  vocab), the expert stacks over the expert axes;
+* on a :class:`~repro_torch.launch.mesh.MeshShape`, which runs nothing,
+  every dense leaf is whole and only the expert stacks are cut, by
+  :func:`expert_param_spec`.
 
 A parameter of a model built on a process mesh (:func:`allocate_blocks`)
 carries its spec as the tensor attribute ``spec`` (:func:`spec_of`) and
@@ -71,7 +72,7 @@ __all__ = ["PartitionSpec", "P", "MeshCtx", "PARAM_RULES", "ACT_KINDS",
            "use_mesh", "current_mesh", "shard_act", "gather_params_once",
            "named_sharding", "NamedSharding", "local_specs",
            "allocate_blocks", "spec_of", "global_shape", "process_mesh",
-           "gather_fsdp", "shards_dense", "mixers_of", "model_blocks",
+           "gather_fsdp", "shards_dense", "MIXERS", "model_blocks",
            "tp_mesh",
            "param_specs", "cache_specs", "batch_spec", "act_spec",
            "expert_axes_for", "expert_param_spec", "shard_shape",
@@ -299,34 +300,29 @@ def gather_fsdp(t, dtype=None):
     return t, P(*(None if e == "data" else e for e in spec))
 
 
-#: the layers' mixers, read from their parameters' names
-_MIXER_NAMES = (("mla", re.compile(r"(^|/)attn/wq_a/")),
-                ("attn", re.compile(r"(^|/)attn/wq/")),
-                ("mamba", re.compile(r"(^|/)mamba/")),
-                ("rwkv", re.compile(r"(^|/)rwkv/")),
-                ("encdec", re.compile(r"(^|/)(encoder|decoder)/")))
-
-
-def mixers_of(names) -> set[str]:
-    """The mixers (``attn``, ``mla``, ``mamba``, ``rwkv``; ``encdec`` for
-    the encoder-decoder) of the layers whose parameters ``names`` holds
-    (paths joined by ``/``)."""
-    return {m for n in names for m, pat in _MIXER_NAMES if pat.search(n)}
+#: the layers' mixers: ``transformer.layer_kinds``' and the
+#: encoder-decoder's (``encdec``, whose encoder attention, decoder
+#: self-attention and cross-attention are GQA layers)
+MIXERS = ("attn", "mla", "mamba", "rwkv", "encdec")
 
 
 def shards_dense(mixers) -> bool:
     """The rule: a process mesh cuts a model's dense leaves by
-    :func:`param_specs` iff it is decoder-only, whatever its layers' mixers
-    (``transformer.layer_kinds``' ``attn``, ``mla``, ``mamba``, ``rwkv``).
-    The encoder-decoder (``encdec``) keeps them whole: ``EncDecLM`` has
-    no mesh path, nor its tensor-parallel form (ROADMAP Queue 1)."""
-    return "encdec" not in set(mixers)
+    :func:`param_specs` whatever its layers' mixers (:data:`MIXERS`); a
+    mixer this module does not know raises."""
+    unknown = set(mixers) - set(MIXERS)
+    if unknown:
+        raise ValueError(f"no sharding rule for the mixers {unknown}")
+    return True
 
 
 def _tp_leaves(cfg, mixer: str):
     """A decoder mixer's leaves whose cut over ``model`` cuts its heads or
     channels: ``(path, global shape, dim)`` each, and the count of those
-    heads or channels (None: GQA, whose cuts may fall inside a head)."""
+    heads or channels (None: GQA, whose cuts may fall inside a head).
+    The ``attn`` rule also serves the encoder-decoder's encoder
+    attention, decoder self-attention and cross-attention: GQA layers of
+    the same shapes, whose ``wo`` the same rule cuts."""
     d = cfg.d_model
     if mixer == "attn":
         return [("attn/wo/w", (cfg.n_heads * cfg.resolved_head_dim, d),
@@ -453,7 +449,12 @@ def named_sharding(mesh, spec) -> NamedSharding:
     return NamedSharding(mesh, spec)
 
 
-_STACKED = re.compile(r"(^|/)period/\d+/")
+#: a stacked slot's name in an optimizer state: a decoder's period slot
+#: (``period/{j}/<leaf>``, ``DecoderLM.period_slots``) or one of the
+#: encoder-decoder's two stacks (``encoder/<leaf>``, ``decoder/<leaf>``,
+#: ``EncDecLM.period_slots``; its layers' own leaves are
+#: ``encoder/{i}/<leaf>``), the reference's stacked leaves
+_STACKED = re.compile(r"(^|/)(period/\d+|encoder|decoder)/(?!\d+/)")
 
 
 #: the optimizer state's parts keyed by parameter name
@@ -480,10 +481,12 @@ def local_specs(mesh, tree, n_experts: int) -> Any:
       leaf of it) is cut over :func:`expert_axes_for` on its expert dim
       (dim 0 of a layer's leaf, dim 1 of a stacked slot's ``period/{j}``
       leaf, after the period);
-    * under :func:`shards_dense` on a ``ProcessMesh`` every other leaf
+    * on a ``ProcessMesh`` (:func:`shards_dense`) every other leaf
       has its parameter's :func:`param_specs` spec, save Adafactor's
       factored moments (``v_col``, and ``v_row`` of a leaf of two dims or
-      more, or of a stacked slot), which every process holds whole;
+      more, or of a stacked slot: ``period/{j}/``, or the
+      encoder-decoder's ``encoder/`` and ``decoder/``), which every
+      process holds whole;
     * else every other leaf is whole.
 
     A parameter's spec is the one its tensor carries (a model built on
@@ -491,16 +494,15 @@ def local_specs(mesh, tree, n_experts: int) -> Any:
     by name), or else the rule's on its own shape (a tree of global
     leaves)."""
     ax = expert_axes_for(mesh, n_experts) if n_experts > 0 else ()
-    carried, names = {}, []
+    carried = {}
 
     def scan(path, leaf):
         part, name = _state_name(path)
-        names.append(name)
         if not part and hasattr(leaf, "spec"):
             carried[name] = (leaf.spec, leaf.dim())
 
     tree_map_with_path(scan, tree)
-    sharded = hasattr(mesh, "members") and shards_dense(mixers_of(names))
+    sharded = hasattr(mesh, "members")
 
     def one(path, leaf):
         if ax and _EXPERT.search(path):

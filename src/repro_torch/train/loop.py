@@ -33,10 +33,10 @@ before clipping.
 
 **On a process mesh** (``sharding.rules.use_mesh`` with a
 ``ProcessMesh``), each process runs the step on its own batch block and
-its own blocks of the parameters (``sharding.rules.local_specs``: for a
-decoder-only model, whatever its mixers, the reference's ``param_specs``,
-FSDP over ``data`` and tensor parallelism over ``model``; for the
-encoder-decoder the expert stacks alone), in the local view of
+its own blocks of the parameters (``sharding.rules.local_specs``: for
+every model, decoder-only whatever its mixers or the encoder-decoder,
+the reference's ``param_specs``, FSDP over ``data`` and tensor
+parallelism over ``model``), in the local view of
 :mod:`repro_torch.sharding.collectives`.  A leaf is reduced, normed and
 updated by its spec alone, whatever its kind (a 1-d leaf or a
 ``conv_w`` cut over ``model``, an ``a_log`` whose rows are):

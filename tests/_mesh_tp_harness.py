@@ -6,7 +6,10 @@
   tasks (``layout``, ``serve``, ``adamw``, ``adafactor``,
   ``gather_once``, ``forced``, ``restart``, ``grad64``, ``encdec``,
   ``collectives``; a task is ``kind:arch``) and writes its record to
-  ``{out}_{rank}.json``.
+  ``{out}_{rank}.json``.  An arch is a decoder-only one or the
+  encoder-decoder (whisper-tiny, built as an ``EncDecLM``; its batches
+  carry :func:`stub_inputs`' ``frames``), and ``{arch}+v{vocab}`` is its
+  smoke config with that vocab (:func:`smoke`).
 * :data:`REF_CODE` runs the reference's ``jax.jit(make_train_step)`` on
   4 forced host devices with its parameters and state placed by
   ``param_specs``, for each of the job's runs; a run with ``dump`` writes
@@ -23,8 +26,11 @@
   process's.
 """
 
+import dataclasses
+import inspect
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -91,7 +97,36 @@ GRAD64_RTOL = 1e-10
 #: the global gradient norm: ``_mesh_norm`` squares in fp32
 NORM_RTOL = 1e-6
 
-RANK_CODE = textwrap.dedent("""
+
+
+def smoke(configs, name: str):
+    """``configs.get_smoke`` of the arch ``name`` (the port's or the
+    reference's ``configs``), its vocab replaced where ``name`` ends
+    ``+v{vocab}`` (whisper-tiny's odd-vocab variant, whose table ``model``
+    cannot cut, as the published 51 865)."""
+    arch, _, vocab = name.partition("+v")
+    cfg = configs.get_smoke(arch)
+    return dataclasses.replace(cfg, vocab_size=int(vocab)) if vocab else cfg
+
+
+def stub_inputs(cfg, batch: int, seed) -> dict:
+    """The encoder-decoder's stub input of a batch: ``frames`` (batch,
+    encoder_seq, d) fp32 from numpy's generator ``seed`` (the same in
+    both packages), ``N(0, 0.02^2)`` as the launcher draws them; ``{}``
+    for a decoder-only arch."""
+    if cfg.family != "audio":
+        return {}
+    g = np.random.default_rng(seed)
+    return {"frames": (0.02 * g.standard_normal(
+        (batch, cfg.encoder_seq, cfg.d_model))).astype(np.float32)}
+
+
+#: the functions both RANK_CODE and REF_CODE read configs and stub
+#: inputs with
+SHARED_CODE = ("import dataclasses\nimport numpy as np\n"
+               + inspect.getsource(smoke) + inspect.getsource(stub_inputs))
+
+RANK_CODE = SHARED_CODE + textwrap.dedent("""
     import dataclasses, json, sys
     import numpy as np
     import torch
@@ -102,7 +137,7 @@ RANK_CODE = textwrap.dedent("""
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch.mesh import ProcessMesh
     from repro_torch.launch.train import batch_block
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.models.model import build_model, cross_entropy
     from repro_torch.sharding import collectives as coll, rules
     from repro_torch.train import loop, optimizer as opt_mod
@@ -169,16 +204,28 @@ RANK_CODE = textwrap.dedent("""
         return dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=job["dropless_cf"]))
 
+    def module(cfg, dtype=torch.float32):
+        # the arch's model built on the mesh, uninitialised
+        ctor = (encdec.EncDecLM if cfg.family == "audio"
+                else transformer.DecoderLM)
+        return ctor(cfg, device="cpu", dtype=dtype, mesh=mesh)
+
+    def batch_at(cfg, pipe, i, mb=1):
+        # this process's rows of batch i: tokens, and frames
+        b = {"tokens": pipe.batch(i)["tokens"],
+             **stub_inputs(cfg, job["batch"], [job["seed"], i])}
+        return {k: batch_block(torch.from_numpy(v), mesh, mb)
+                for k, v in b.items()}
+
     def reshard(params, tree):
         with torch.no_grad():
             for name, p in params.named_parameters():
                 p.copy_(tree[name])
 
     def train(arch, opt_name, steps, mb, gather_once, save=None):
-        cfg = configs.get_smoke(arch)
+        cfg = smoke(configs, arch)
         n_exp = cfg.moe.n_experts if cfg.moe else 0
-        params = transformer.DecoderLM(cfg, device="cpu",
-                                       dtype=torch.float32, mesh=mesh)
+        params = module(cfg)
         tcfg = TrainConfig(optimizer=opt_name, lr=job["lr"],
                            gather_once=gather_once)
         opt = opt_mod.init_opt_state(tcfg, params)
@@ -201,8 +248,7 @@ RANK_CODE = textwrap.dedent("""
         losses, gnorms = [], []
         with rules.use_mesh(mesh):
             for i in range(start, start + steps):
-                batch = {"tokens": batch_block(
-                    torch.from_numpy(pipe.batch(i)["tokens"]), mesh, mb)}
+                batch = batch_at(cfg, pipe, i, mb)
                 params, opt, met = step(params, opt, batch, i)
                 losses.append(float(met["loss"]))
                 gnorms.append(float(met["grad_norm"]))
@@ -212,7 +258,16 @@ RANK_CODE = textwrap.dedent("""
             if rank == 0:
                 CheckpointManager(save).save(start + steps, state,
                                              metadata={"step": start + steps})
-        return {"losses": losses, "grad_norms": gnorms}
+        rec = {"losses": losses, "grad_norms": gnorms}
+        if opt_name == "adafactor":
+            # the mesh's layout of (params, state), a checkpoint's, by path
+            specs = {}
+            rules.tree_map_with_path(
+                lambda path, sp: specs.__setitem__(path, repr(sp)),
+                rules.local_specs(mesh, (loop.param_tree(params), opt),
+                                  n_exp))
+            rec["state_specs"] = specs
+        return rec
 
     def ref_tree(path, cfg, tag=None):
         # a reference's tree dumped by REF_CODE (``tag``: its p/m/v part)
@@ -288,38 +343,42 @@ RANK_CODE = textwrap.dedent("""
         return res
 
     def serve(arch):
-        cfg = dropless(configs.get_smoke(arch))
-        params = transformer.init_params(cfg, 0, device="cpu", mesh=mesh)
+        cfg = dropless(smoke(configs, arch))
+        m = build_model(cfg)
+        params = m.init(0, device="cpu", mesh=mesh)
         toks = torch.from_numpy(np.random.default_rng(11).integers(
             0, cfg.vocab_size, (job["batch"], 13)))
-        mine = batch_block(toks, mesh)
+        mine = {k: batch_block(torch.as_tensor(v), mesh) for k, v in dict(
+            tokens=toks[:, :12], **stub_inputs(cfg, job["batch"],
+                                               12)).items()}
+        b = mine["tokens"].shape[0]
         with rules.use_mesh(mesh):
-            cache = transformer.init_cache(cfg, mine.shape[0], 16,
-                                           torch.float32, device="cpu")
-            pre, cache = transformer.prefill(params, cfg, mine[:, :12],
-                                             cache)
-            dec, cache = transformer.decode_step(
-                params, cfg, mine[:, 12], torch.full((mine.shape[0],), 12),
-                cache)
-        kv = [c["k"].shape[2] for c in cache["layers"] if "k" in c]
+            cache = m.init_cache(b, 16, torch.float32, device="cpu")
+            pre, cache = m.prefill(params, mine, cache)
+            dec, cache = m.decode(params, cache,
+                                  batch_block(toks[:, 12], mesh),
+                                  torch.full((b,), 12))
+        layers = cache.get("layers") or cache["self"] + cache["cross_kv"]
+        kv = [c["k"].shape[2] for c in layers if "k" in c]
         return {"prefill": t(pre[:, 0]), "decode": t(dec),
                 "cache_kv_heads": kv[0] if kv else None,
                 "cache_shapes": [{k: list(v.shape) for k, v in c.items()}
-                                 for c in cache["layers"]]}
+                                 for c in layers]}
 
     def layout(arch):
-        cfg = configs.get_smoke(arch)
-        params = transformer.DecoderLM(cfg, device="cpu",
-                                       dtype=torch.float32, mesh=mesh)
+        params = module(smoke(configs, arch))
         return {n: [list(p.shape), list(p.global_shape), repr(p.spec)]
                 for n, p in params.named_parameters()}
 
     class CE:
-        # Model.loss less the MoE load-balance term
+        # Model.loss less the MoE load-balance term (the encoder-decoder
+        # has none: its Model.loss)
         def __init__(self, cfg):
             self.cfg = cfg
 
         def loss(self, params, batch):
+            if self.cfg.family == "audio":
+                return build_model(self.cfg).loss(params, batch)
             tok = batch["tokens"]
             logits, _ = transformer.train_forward(params, self.cfg,
                                                   tok[:, :-1])
@@ -330,27 +389,29 @@ RANK_CODE = textwrap.dedent("""
         # the model code's fp32 widenings in fp64, for this task alone
         widen, torch.Tensor.float = torch.Tensor.float, torch.Tensor.double
         try:
-            cfg = dataclasses.replace(dropless(configs.get_smoke(arch)),
+            cfg = dataclasses.replace(dropless(smoke(configs, arch)),
                                       dtype="float64")
             n_exp = cfg.moe.n_experts if cfg.moe else 0
             pipe = TokenPipeline(vocab_size=cfg.vocab_size,
                                  seq_len=job["seq"],
                                  global_batch=job["batch"],
                                  seed=job["seed"])
-            toks = torch.from_numpy(pipe.batch(0)["tokens"])
+            whole = {"tokens": pipe.batch(0)["tokens"],
+                     **stub_inputs(cfg, job["batch"], [job["seed"], 0])}
+            whole = {k: torch.from_numpy(v) for k, v in whole.items()}
             model = CE(cfg)
-            one = transformer.init_params(cfg, 0, device="cpu",
-                                          dtype=torch.float64)
-            mine = transformer.init_params(cfg, 0, device="cpu",
-                                           dtype=torch.float64, mesh=mesh)
+            m = build_model(cfg)
+            one = m.init(0, device="cpu", dtype=torch.float64)
+            mine = m.init(0, device="cpu", dtype=torch.float64, mesh=mesh)
             for p in (*one.parameters(), *mine.parameters()):
                 p.data = p.data.double()
-            _, _, want = loop._value_and_grad(model, one, {"tokens": toks})
+            _, _, want = loop._value_and_grad(model, one, whole)
             specs = {n: rules.spec_of(p)
                      for n, p in mine.named_parameters()}
             with rules.use_mesh(mesh):
                 loss, met, got = loop._value_and_grad(
-                    model, mine, {"tokens": batch_block(toks, mesh)})
+                    model, mine, {k: batch_block(v, mesh)
+                                  for k, v in whole.items()})
                 _, _, got = loop._reduce_over_mesh(
                     mesh, loop._expert_axes(model, mesh), specs, loss, met,
                     got)
@@ -407,7 +468,7 @@ RANK_CODE = textwrap.dedent("""
     tdist.destroy_process_group()
 """)
 
-REF_CODE = textwrap.dedent("""
+REF_CODE = SHARED_CODE + textwrap.dedent("""
     import json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import numpy as np
@@ -420,7 +481,7 @@ REF_CODE = textwrap.dedent("""
     from repro.train.loop import make_train_step
     from repro.train.optimizer import init_opt_state
     job = json.loads(sys.argv[1])
-    cfg = configs.get_smoke(job["arch"])
+    cfg = smoke(configs, job["arch"])
     m = build_model(cfg)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=job["seq"],
                          global_batch=job["batch"], seed=job["seed"])
@@ -494,7 +555,9 @@ REF_CODE = textwrap.dedent("""
             step = jax.jit(with_grads(tcfg, run["mb"]))
             losses, gnorms = [], []
             for i in range(run["start"], run["start"] + run["steps"]):
-                batch = {"tokens": jnp.asarray(pipe.batch(i)["tokens"])}
+                batch = {k: jnp.asarray(v) for k, v in dict(
+                    tokens=pipe.batch(i)["tokens"], **stub_inputs(
+                        cfg, job["batch"], [job["seed"], i])).items()}
                 if run.get("dump"):
                     np.savez(f"{run['dump']}/state_{i}.npz",
                              **flat(params, "p/"), **flat(opt["m"], "m/"),
@@ -603,10 +666,16 @@ def ref_tree_flat(sd: dict, cfg) -> dict:
 
 def ref_leaves_cut(cfg, specs: dict) -> int:
     """How many leaves of the reference's tree (its prefix layers, its
-    period slots stacked over the periods, the rest) the port's ``specs``
-    (by parameter name) cut."""
-    prefix, period, _ = transformer.period_structure(cfg)
+    period slots stacked over the periods, the rest; the
+    encoder-decoder's ``encoder`` and ``decoder`` stacked over their
+    layers, the rest) the port's ``specs`` (by parameter name) cut."""
     leaves = {}
+    if cfg.family == "audio":
+        for name, spec in specs.items():
+            leaves[re.sub(r"^(encoder|decoder)\.\d+\.", r"\1.", name)] = \
+                len(spec) > 0
+        return sum(leaves.values())
+    prefix, period, _ = transformer.period_structure(cfg)
     for name, spec in specs.items():
         if name.startswith("layers."):
             _, i, leaf = name.split(".", 2)
@@ -626,11 +695,13 @@ def single_restart(arch: str, ckpt: str) -> dict:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.model import build_model
     from repro_torch.train import loop
     from repro_torch.train import optimizer as opt_mod
-    cfg = configs.get_smoke(arch)
-    params = transformer.DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cfg = smoke(configs, arch)
+    ctor = EncDecLM if cfg.family == "audio" else transformer.DecoderLM
+    params = ctor(cfg, device="cpu", dtype=torch.float32)
     tcfg = TrainConfig(optimizer="adamw", lr=LR)
     target = (dict(params.named_parameters()),
               opt_mod.init_opt_state(tcfg, params))
@@ -643,8 +714,10 @@ def single_restart(arch: str, ckpt: str) -> dict:
     step = loop.make_train_step(build_model(cfg), tcfg)
     out = {"losses": [], "grad_norms": [], "start": meta["step"]}
     for i in range(meta["step"], meta["step"] + RESTART):
-        params, opt, met = step(params, opt, {"tokens": torch.from_numpy(
-            pipe.batch(i)["tokens"])}, i)
+        batch = dict(tokens=pipe.batch(i)["tokens"],
+                     **stub_inputs(cfg, BATCH, [SEED, i]))
+        params, opt, met = step(params, opt, {
+            k: torch.from_numpy(v) for k, v in batch.items()}, i)
         out["losses"].append(float(met["loss"]))
         out["grad_norms"].append(float(met["grad_norm"]))
     return out

@@ -18,6 +18,7 @@ ten times the first's, so the update's RMS passes 1 and the clip binds;
 a case at a tenth keeps it below 1.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@
 Inputs come from numpy with a seed and go to both packages.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax

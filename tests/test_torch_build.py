@@ -6,6 +6,7 @@ Every ``ShardGraph`` and ``BlockedGraph`` field it emits must be
 both connectivity modes.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import os
 

@@ -15,6 +15,7 @@ the CPU, held against the reference's ``repro.checkpoint.manager``.
   across device types), and host COPIES taken at save time.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import json
 import os

@@ -13,6 +13,7 @@ factor by FD.  Everything runs on the CPU, where ``"cuda"`` runs its
 kernels' plain twins.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax

@@ -16,6 +16,7 @@
 Both packages start from the same state through ``repro_torch.convert``.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import json
 import os

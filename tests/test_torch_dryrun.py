@@ -19,6 +19,7 @@ the reference's ``launch/dryrun_snn.py``.
   reference probe's.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import json
 import os
 import subprocess

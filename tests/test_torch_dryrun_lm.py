@@ -29,6 +29,7 @@ its ``input_specs`` is imported inside the one test that compares it, as
 ``tests/test_sharding_and_dryrun.py`` does, with ``XLA_FLAGS`` restored.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import functools
 import json

@@ -16,6 +16,7 @@ size up to 4 may sit a few ulps away: 3e-2 absolute (``LOGIT_TOL["bf16"]``)
 plus 2^-5 relative (four bf16 ulps).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import functools
 
@@ -28,7 +29,7 @@ import torch
 from repro import configs as ref_configs
 from repro.models import encdec as ref_encdec
 from repro_torch import configs, convert
-from repro_torch.models import encdec
+from repro_torch.models import attention, encdec
 from repro_torch.models.model import build_model
 
 from test_torch_lm import _perturb
@@ -86,9 +87,9 @@ def test_cross_attend_matches_reference(dtype):
     pl = jax.tree.map(lambda a: a[0], p)["cross"]
     want = ref_encdec._cross_attend(pl, rcfg, jnp.asarray(x).astype(cd_j),
                                     jnp.asarray(mem).astype(cd_j), cd_j)
-    got = encdec._cross_attend(tp.decoder[0].cross, cfg,
-                               torch.from_numpy(x).to(cd_t),
-                               torch.from_numpy(mem).to(cd_t), cd_t)
+    got = attention.cross_attend(tp.decoder[0].cross, cfg,
+                                 torch.from_numpy(x).to(cd_t),
+                                 torch.from_numpy(mem).to(cd_t), cd_t)
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 

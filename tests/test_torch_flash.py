@@ -15,6 +15,7 @@ arithmetic of the tensor-core route.
 The kernels themselves run only on the card (``tests/test_torch_gpu.py``).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import contextlib
 import types
 

@@ -15,6 +15,7 @@ The fused CUDA kernel itself needs the card: ``tests/test_torch_gpu.py``
 holds it against its twin and against K1 -> add -> K2/K4/K5 there.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax.numpy as jnp

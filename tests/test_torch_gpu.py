@@ -7,6 +7,7 @@ dependencies are installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ against the reference's (``repro.train.grad_compress``).
   without a ``"pod"`` axis.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import json
 import os
 import socket

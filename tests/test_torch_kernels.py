@@ -7,6 +7,7 @@ and handed to both.  The CUDA kernels themselves need the card:
 ``tests/test_torch_gpu.py`` holds each against its twin there.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -23,6 +23,7 @@ other side of a rounding boundary moves by an ulp (2^-7 relative at most) and
 the tolerances are stated per test.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import functools
 

@@ -28,6 +28,7 @@ with numpy.  fp32 runs differ by summation order alone (XLA's and torch's
 matmuls and reductions).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ gradient, and the load-balance loss carries its gradient to the router.
 Mamba's and RWKV-6's recurrences run step by step under autograd.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import pytest
 
 from test_torch_lm_train import check_grads, check_loss, reference_and_port

@@ -27,12 +27,13 @@ bias) and qwen3-moe (untied, qk-norm, experts):
 * a spec that cuts inside a head: qwen2.5-3b's 2 kv heads on a (1, 4)
   mesh, against one process;
 * rwkv6-3b and deepseek-v3 hold their ``param_specs`` blocks too (their
-  mesh runs: ``test_torch_mesh_tp_ssm.py``, ``test_torch_mesh_tp_mla.py``);
-  only the encoder-decoder keeps whole dense leaves.
+  mesh runs: ``test_torch_mesh_tp_ssm.py``, ``test_torch_mesh_tp_mla.py``),
+  and so does the encoder-decoder (``test_torch_mesh_tp_encdec.py``).
 
 The ranks and the reference's run are ``tests/_mesh_tp_harness.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import json
 
@@ -177,8 +178,7 @@ def test_every_leaf_is_its_param_specs_block(runs, arch):
 def test_families_outside_the_slice_keep_whole_leaves(runs, arch):
     """RWKV-6 and MLA (with MoE) hold every leaf as its ``param_specs``
     block on a process mesh, as the GQA archs do (``rules.shards_dense``
-    is true for every decoder-only set of mixers); only the
-    encoder-decoder keeps whole dense leaves."""
+    is true for every set of mixers, the encoder-decoder's too)."""
     cfg = configs.get_smoke(arch)
     meta = transformer.DecoderLM(cfg, device="meta", dtype=torch.float32)
     mesh = make_test_mesh(MESH)
@@ -193,10 +193,9 @@ def test_families_outside_the_slice_keep_whole_leaves(runs, arch):
         assert sum(shape != whole for shape, whole, _ in got.values()) > \
             len(got) // 4
     for mixers in ({"attn"}, {"mla"}, {"mamba", "attn"}, {"rwkv"},
-                   {"attn", "mla", "mamba", "rwkv"}):
+                   {"attn", "mla", "mamba", "rwkv"}, {"encdec"},
+                   {"attn", "encdec"}):
         assert rules.shards_dense(mixers)
-    assert not rules.shards_dense({"encdec"})
-    assert not rules.shards_dense({"attn", "encdec"})
 
 
 # --------------------------------------------------------------------------

@@ -21,9 +21,11 @@ with a shared expert; 4 heads):
   latents) read by each process for its own heads, its cotangent summed
   over ``model`` once, by the fp64 gradient against one process's; and
   the clip norm counting a replicated leaf once;
-* the encoder-decoder alone keeps whole dense leaves on a process mesh.
+* on the same process mesh the encoder-decoder's layout (``local_specs``
+  of an ``EncDecLM`` on ``meta``) is ``param_specs``' too.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import json
 import re
@@ -176,9 +178,18 @@ def test_clip_norm_counts_each_leaf_once(runs):
 
 
 def test_encoder_decoder_keeps_whole_leaves(runs):
-    """On the same process mesh the encoder-decoder's leaves are all
-    whole (``rules.shards_dense`` is false for it alone): its mesh path
-    and tensor-parallel form are the next slice."""
+    """On the same process mesh the encoder-decoder's leaves are their
+    ``param_specs`` blocks, as a decoder-only model's
+    (``rules.shards_dense`` is true for it too; its mesh path is
+    ``tests/test_torch_mesh_tp_encdec.py``'s): the attention and MLP
+    matrices cut over ``data`` and ``model``, the position table and
+    the norms whole."""
+    from repro_torch.models.encdec import EncDecLM
+    meta = EncDecLM(configs.get_smoke("whisper-tiny"), device="meta",
+                    dtype=torch.float32)
+    want = {n: repr(sp) for n, sp in rules.param_specs(
+        make_test_mesh(MESH), dict(meta.named_parameters())).items()}
     for r in runs["m22"]:
-        specs = r["encdec:whisper-tiny"]
-        assert specs and set(specs.values()) == {repr(rules.P())}
+        assert r["encdec:whisper-tiny"] == want
+    assert want["decoder.0.cross.wo.w"] == repr(rules.P("model", "data"))
+    assert want["pos_dec.table"] == repr(rules.P())

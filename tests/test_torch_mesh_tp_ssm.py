@@ -26,6 +26,7 @@ heads, MoE every other layer; rwkv6-3b: 2 layers of 4 heads):
   decay path), and the clip norm counting a replicated leaf once.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import json
 import re

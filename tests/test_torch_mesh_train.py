@@ -28,6 +28,7 @@ parameters; each port rank holds its batch block and its expert block
   processes, finite losses, a checkpoint of global leaves.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import json
 import os
 import socket

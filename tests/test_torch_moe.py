@@ -18,6 +18,7 @@ expert's add) and the reference rounds its bf16 segment sum after every
 add where the port rounds once.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax

@@ -28,6 +28,7 @@ experts' and the input's gradients within 1e-4 of each leaf's norm.  The
 ranks along ``model`` must hold the same router gradient bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import json
 import os
 import socket

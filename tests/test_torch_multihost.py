@@ -16,6 +16,7 @@
   fails the launch (its supervised mode: ``tests/test_torch_runtime.py``).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import inspect
 import json

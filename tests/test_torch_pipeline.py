@@ -3,6 +3,7 @@ reference's: ``TokenPipeline``'s batches and ``SpikeStimulusPipeline``'s
 drive seeds and gains bitwise, for several seeds and steps, and
 ``worker_slice`` partitioning a batch among workers."""
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import numpy as np
 import pytest
 

@@ -21,6 +21,7 @@ launcher's supervised mode), held against the reference's
   equal global-order hashes; it aborts after ``--max-restarts``.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 import os
 import time

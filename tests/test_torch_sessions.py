@@ -18,6 +18,7 @@
 Every spike comparison first requires spikes (``bits.sum() > 0``).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@
 ``test_torch_sessions.py`` (whose helpers they use) in a file of their
 own, so that the run's workers share their time."""
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import numpy as np
 import pytest
 

@@ -18,6 +18,7 @@ tolerance is 1e-5 times its largest entry.  bf16 rounds every activation:
 3e-2 absolute plus one bf16 ulp (2^-7) relative.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import functools
 
 import jax

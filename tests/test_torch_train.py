@@ -9,6 +9,7 @@ of its own so that the run's workers share its time).  Everything runs
 on the CPU (``device="cpu"``).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@
 share its time.  Runs on the CPU (``device="cpu"``).
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import pytest

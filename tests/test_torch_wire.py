@@ -7,6 +7,7 @@ port's encode also takes a batch of payloads at once (the stacked
 exchange encodes every shard in one call) and reads no value on the host.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@
 * the struct check and the state carried across for every model.
 """
 
+import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
 import dataclasses
 
 import jax
