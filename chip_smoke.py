@@ -201,9 +201,8 @@ the seed and keeping its blocks:
                Adafactor step and a loss after it; then the checkpoint
                restored onto a (1, 2) mesh of two processes and 2 more
                steps, held to one process resumed from it; (d)
-               ``qwen2.5-3b`` at published width, LM_MESH_DENSE_LAYERS
-               deep (where four whole copies could not fit the card):
-               3 AdamW steps of 4 x 512 seeded tokens, fp32 parameters
+               ``qwen2.5-3b`` at published width,
+               LM_MESH_DENSE_TRAIN_LAYERS deep: 3 AdamW steps of 4 x 512 seeded tokens, fp32 parameters
                and bf16 compute, held to one process (the first loss
                within 1e-3, all within 1e-2); per-process peak memory,
                s a step, and one reduce-scatter of the largest leaf's
@@ -214,10 +213,19 @@ the seed and keeping its blocks:
                steps held to one process (the routes replayed; within
                0.1, or twice the one-process run's distance from itself
                run row by row), K8 on each process's local heads, and
-               no token dropped; deepseek-v3's MLA in fp32 (its 3 dense
-               layers, a prefill) within 1e-3 of one process's largest
-               logit; (f)
-               ``rwkv6-3b`` at published width, 2 layers, 3 AdamW steps
+               no token dropped, each cache the reference's
+               ``cache_specs`` blocks (a quarter of one process's bytes;
+               deepseek-v3's c_kv and k_rope a block of the sequence over
+               model, its decode the distributed softmax);
+               deepseek-v3's MLA in fp32 (its 3 dense layers, a prefill
+               and 2 decode steps) within 1e-3 of one process's largest
+               logit; on the same parameters a batch-1 serve
+               (``replicated_batch``, ``seq_shard``) against one process,
+               2 decode steps: jamba into 524 288 rows (the GQA layer's
+               sequence over data, its kv heads over model), gated as
+               the bf16 leg, and deepseek-v3's fp32 MLA into 132 rows
+               (c_kv and k_rope over ("data", "model")) within 1e-3; (f)
+               ``rwkv6-3b`` at published width, 1 layer, 3 AdamW steps
                held to one process as (d); (g) ``whisper-tiny`` at
                published width and depth (4 + 4 layers, 3 of 6 heads a
                process, the 51 865-row table cut over data on d): a
@@ -225,7 +233,19 @@ the seed and keeping its blocks:
                frames and 2 decode steps, fp32 within 1e-3 of one
                process's largest logit and bf16 as (e), K8 12 times a
                prefill and 4 a decode token in each process; 3 AdamW
-               steps held to one process as (d), no K8 launch.
+               steps held to one process as (d), no K8 launch; (h)
+               ``qwen2.5-3b`` at published width, LM_MESH_DENSE_LAYERS
+               deep, on a (1, 4) mesh of four processes: its 2 kv heads
+               do not divide model, so the cache holds every kv head on a
+               quarter of the sequence and the decode is the distributed
+               softmax; fp32: 4 x 128 seeded tokens into 136 rows (34 a
+               block), 4 decode steps, logits within 1e-3 of one
+               process's largest; bf16: into 32 768 rows (0.40 GB a
+               process of 1.61 GB), 2 decode steps, within 0.1, the
+               decode's peak memory rise below 5 % of the whole cache;
+               the cache's bytes, peak memory and s a decode step a
+               process against one process's; K8 12 times a prefill on
+               4 of 16 heads, never in a decode step.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -4982,11 +5002,12 @@ LM_MESH_ARCH = "qwen3-moe-30b-a3b"
 LM_MESH_DIMS, LM_MESH_AXES = (2, 2), ("data", "model")
 LM_MESH_RESTART_DIMS = (1, 2)
 #: (a)/(b) depth: the fp32 leg's single-process run holds 2.5 GB of
-#: embeddings and 2.5 GB a layer (fp32); 2 layers (4 until the
-#: encoder-decoder leg (g) came, with the script at 17 min 15 s; 16 until
-#: the dense leg (d) took its time: every decode step gathers the dense
-#: blocks over data through gloo's host route)
-LM_MESH_LAYERS = 2
+#: embeddings and 2.5 GB a layer (fp32); 1 layer (2 until the
+#: sequence-cut leg (h) and (e)'s batch-1 serves took 106 s of the
+#: phase; 4 until the encoder-decoder leg (g) came, with the script at 17
+#: min 15 s; 16 until the dense leg (d) took its time: every decode step
+#: gathers the dense blocks over data through gloo's host route)
+LM_MESH_LAYERS = 1
 #: (c) depth: fp32 parameters, their gradients and AdamW's two moments
 #: (4 x 4 bytes a parameter): one process holds 10 GB of embeddings and
 #: 2.7 GB a layer, a mesh process its quarter of the dense leaves and of
@@ -5006,13 +5027,16 @@ LM_MESH_F32_RTOL = 1e-3
 LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL = 1e-2, 3e-2
 #: the dense leg (d): qwen2.5-3b at published width, fp32 parameters and
 #: bf16 compute, LM_MESH_DENSE_STEPS AdamW steps of B x S seeded tokens
-#: on the (2, 2) mesh against one process at the same depth.  12 of 36
-#: layers, the least depth at which four whole copies cannot fit: 1.236 B
-#: parameters x 16 B (parameter, gradient, AdamW's m and v) = 19.8 GB
-#: whole, 79 GB for four (24 layers, 34.6 GB whole, ran until the
-#: families' legs (e) and (f) took the script's time; all 36, 49.4 GB,
-#: ran at 14-18 s a step); a process holds its block
+#: on the (2, 2) mesh against one process at the same depth: 4 of 36
+#: layers, 0.62 B parameters x 16 B (parameter, gradient, AdamW's m and
+#: v) = 9.9 GB whole, a process its block (12 layers, 19.8 GB whole, the
+#: least depth at which four whole copies cannot fit, until the
+#: sequence-cut leg (h) and (e)'s batch-1 serves took 106 s of the phase;
+#: 24 layers, 34.6 GB, until the families' legs (e) and (f) took the
+#: script's time; all 36, 49.4 GB, ran at 14-18 s a step).  The serving
+#: leg (h) runs LM_MESH_DENSE_LAYERS of the same arch
 LM_MESH_DENSE_ARCH = "qwen2.5-3b"
+LM_MESH_DENSE_TRAIN_LAYERS = 4
 LM_MESH_DENSE_LAYERS = 12
 LM_MESH_DENSE_BATCH, LM_MESH_DENSE_SEQ, LM_MESH_DENSE_STEPS = 4, 512, 3
 #: (d)'s losses against one process: a mesh sums its bf16 products in
@@ -5022,22 +5046,23 @@ LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL = 1e-3, 1e-2
 #: the training legs on the (2, 2) mesh against one process, each at its
 #: published width, fp32 parameters and bf16 compute, LM_MESH_DENSE_STEPS
 #: AdamW steps of B x S seeded tokens, gated as (d): (d) qwen2.5-3b at
-#: LM_MESH_DENSE_LAYERS; (f) rwkv6-3b (d 2560, 40 heads of 64, d_ff
-#: 8960, vocab 65536) at 2 of 32 layers: 0.50 B parameters x 16 B = 8.0
-#: GB whole, each process its FSDP x TP blocks, 20 heads a process over
-#: model; cut for the script's time, as its recurrence steps one token
-#: at a time under autograd (8 layers took 20 s on the mesh and left the
-#: script at 17 min 17 s; 4 took 11.4 s, and the script 16-17.5 min with
-#: (a)/(b) at 4 layers).  (f) trains at lr 1e-5: its random weights
+#: LM_MESH_DENSE_TRAIN_LAYERS; (f) rwkv6-3b (d 2560, 40 heads of 64,
+#: d_ff 8960, vocab 65536) at 1 of 32 layers: 0.42 B parameters x 16 B =
+#: 6.8 GB whole, each process its FSDP x TP blocks, 20 heads a process
+#: over model; cut for the script's time, as its recurrence steps one
+#: token at a time under autograd (2 layers until the sequence-cut leg
+#: (h) came; 8 layers took 20 s on the mesh and left the script at 17
+#: min 17 s; 4 took 11.4 s, and the script 16-17.5 min with (a)/(b) at 4
+#: layers).  (f) trains at lr 1e-5: its random weights
 #: jump at LM_MESH_LR (``scripts/rwkv_mesh_probe.py lr``, one process at
 #: 8 layers: losses 11.72, 24.67, 18.46 at 1e-3; 11.72, 15.49, 11.84,
 #: 11.08 at 1e-4; 11.72, 8.72, 10.57, 8.52 at 3e-5), and after such a
 #: jump the mesh and one process part by more than rounding moves a
 #: descending run; at 1e-5 they descend (11.72, 10.65, 9.56, 9.01)
 LM_MESH_TRAIN_LEGS = {
-    "dense": dict(arch=LM_MESH_DENSE_ARCH, layers=LM_MESH_DENSE_LAYERS,
+    "dense": dict(arch=LM_MESH_DENSE_ARCH, layers=LM_MESH_DENSE_TRAIN_LAYERS,
                   batch=LM_MESH_DENSE_BATCH, seq=LM_MESH_DENSE_SEQ),
-    "rwkv": dict(arch="rwkv6-3b", layers=2, batch=4, seq=128, lr=1e-5),
+    "rwkv": dict(arch="rwkv6-3b", layers=1, batch=4, seq=128, lr=1e-5),
 }
 #: the served families leg (e): each arch at its published width in bf16,
 #: MoE dropless (``_family_cfg``), LM_MESH_BATCH x LM_MESH_SEQ seeded
@@ -5059,17 +5084,46 @@ LM_MESH_TRAIN_LEGS = {
 #: wrong cut of the heads fails whatever bf16 rounding does (the bf16
 #: prefill's distance read 0.69 in one card run and 0.042 in the next,
 #: its decode steps bitwise the same in both: PERF.md §6)
+#: Each cache is the reference's cache_specs layout: deepseek-v3's c_kv
+#: and k_rope a block of the sequence over model (65 of 130 rows), and
+#: the MLA decode the distributed softmax over it; its fp32 leg also
+#: decodes 2 tokens.  ``b1``: on the same parameters, a batch-1 serve
+#: under ``use_mesh(replicated_batch=True)`` (``seq_shard``): the first
+#: prompt into a cache of ``b1`` rows, a prefill and ``decode`` decode
+#: tokens against one process's (its routes replayed), gated as the leg
+#: (fp32 within LM_MESH_F32_RTOL of one process's largest logit, bf16 by
+#: the leg's limits by position): jamba's 524 288 rows (long_500k's; the
+#: GQA layer's sequence over data, its 8 kv heads over model: a quarter
+#: of 2.15 GB a process), deepseek-v3's 132 (c_kv and k_rope over
+#: ("data", "model"): 33 rows a process)
 LM_MESH_FAMILIES = {
     "jamba-v0.1-52b": dict(arch="jamba-v0.1-52b", layers=8, k8_prefill=1,
                            heads=16, dtype="bfloat16", decode=2,
-                           in_turn=True),
+                           in_turn=True, b1=524_288),
     "deepseek-v3-671b": dict(arch="deepseek-v3-671b", layers=4,
                              k8_prefill=4, heads=64, dtype="bfloat16",
                              decode=2, in_turn=True),
     "deepseek-v3-671b-fp32": dict(arch="deepseek-v3-671b", layers=3,
                                   k8_prefill=3, heads=64, dtype="float32",
-                                  decode=0, in_turn=False),
+                                  decode=2, in_turn=False, b1=132),
 }
+#: the sequence-cut leg (h): qwen2.5-3b at published width,
+#: LM_MESH_DENSE_LAYERS deep, on a (1, 4) mesh of four processes: its 2
+#: kv heads do not divide model, so cache_specs cuts the cache's sequence
+#: over model (every kv head, a quarter of the rows a process) and the
+#: decode is the distributed softmax; the 16 query heads 4 a process.
+#: fp32: LM_MESH_BATCH x LM_MESH_SEQ seeded prompts into ``rows`` = 136
+#: (34 a block, so the prompt lies in all four blocks), ``decode`` = 4
+#: steps, logits within LM_MESH_F32_RTOL of one process's largest; bf16:
+#: the same prompts into decode_32k's 32 768 rows (0.40 GB a process of
+#: 1.61 GB whole), 2 steps, logits within LM_LOGIT_ATOL; the decode's
+#: peak memory rise over what was allocated before it below
+#: LM_MESH_SEQCUT_RISE of the whole cache's bytes; K8 LM_MESH_DENSE_LAYERS
+#: times a prefill on 4 of 16 heads, never in a decode step
+LM_MESH_SEQCUT_DIMS = (1, 4)
+LM_MESH_SEQCUT = {"float32": dict(rows=136, decode=4, heads=4),
+                  "bfloat16": dict(rows=32_768, decode=2, heads=4)}
+LM_MESH_SEQCUT_RISE = 0.05
 #: the encoder-decoder leg (g): whisper-tiny at published width and depth
 #: (4 + 4 layers, d 384, 6 heads, 3 a process over model, d_ff 1536, vocab
 #: 51 865, which model cannot cut: the table is cut over data on d, the
@@ -5119,17 +5173,20 @@ def _block(t, mesh):
 
 
 @contextlib.contextmanager
-def _mesh_routes(replay, mesh, t_loc: list):
+def _mesh_routes(replay, mesh, t_loc: list, replicated: bool = False):
     """The manual dispatch's routes replaced by ``replay`` (the
     single-process run's, one (T, k) array a call): a process's slice
     takes the rows of its tokens (``t_loc[0]`` tokens in its block,
-    ``d * t_loc + j`` globally), its pad rows keep their own; ``moved``
-    counts the tokens whose own top-k set differs."""
+    ``d * t_loc + j`` globally; ``replicated``: every process the whole
+    batch, sliced over ``("data", "model")``), its pad rows keep their
+    own; ``moved`` counts the tokens whose own top-k set differs."""
     inner, calls = lm_moe_manual._route, iter(replay)
     out = {"moved": 0, "tokens": 0}
     batch_ax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     d = mesh.axis_index(batch_ax)
     m = mesh.coords["model"]
+    if replicated:
+        d, m = 0, mesh.axis_index(("data", "model"))
 
     def route(router, e, x_slice):
         probs, gate, idx = inner(router, e, x_slice)
@@ -5185,9 +5242,65 @@ def _k8_heads():
         lm_attn.flash_attention = inner
 
 
+def _cache_record(cache) -> dict:
+    """A cache's bytes, and the specs its GQA and MLA leaves carry (on a
+    process mesh: ``rules.cache_blocks``' layout)."""
+    leaves = [(k, x) for c in cache["layers"] for k, x in c.items()]
+    return {"cache_bytes": sum(x.numel() * x.element_size()
+                               for _, x in leaves),
+            "cache_specs": sorted({repr(lm_rules.spec_of(x)) for k, x in leaves
+                                   if k in ("k", "v", "c_kv", "k_rope")})}
+
+
+def _lm_mesh_b1(params, cfg, mesh, rows: int, n_decode: int,
+                replay=None) -> dict:
+    """(e)'s batch-1 serve (LM_MESH_FAMILIES' ``b1``): the first prompt
+    into a cache of ``rows`` rows, a prefill and ``n_decode`` decode steps,
+    on a mesh under ``use_mesh(replicated_batch=True)`` (``seq_shard``;
+    the routes of ``replay`` taken) or in one process (its routes
+    recorded); the logits (1 + n_decode, 1, V), K8's launches and heads,
+    the cache's bytes and specs, seconds."""
+    prompts, dec = (t[:1] for t in _lm_mesh_tokens(cfg))
+    ctx = (lm_rules.use_mesh(mesh, replicated_batch=True) if mesh is not None
+           else contextlib.nullcontext())
+    t_loc = [LM_MESH_SEQ]
+    routes = (_mesh_routes(replay, mesh, t_loc, replicated=True)
+              if mesh is not None else _moe_routes())
+    with ctx, routes as r, _k8_heads() as heads:
+        cache = lm_tr.init_cache(cfg, 1, rows, getattr(torch, cfg.dtype),
+                                 device=DEV)
+        rec = _cache_record(cache)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        rec.update(prefill_s=time.perf_counter() - t0,
+                   k8_prefill=read_launches()["flash_attention"])
+        out, t_dec = [logits[:, 0]], []
+        t_loc[0] = 1
+        for i in range(n_decode):
+            pos = torch.full((1,), LM_MESH_SEQ + i, dtype=torch.int64,
+                             device=DEV)
+            t0 = time.perf_counter()
+            lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            torch.cuda.synchronize()
+            t_dec.append(time.perf_counter() - t0)
+            out.append(lg)
+    rec.update(logits=torch.stack(out).float().cpu(), rows=rows,
+               k8_heads=sorted(set(heads)), decode_step_s=t_dec)
+    if mesh is None:
+        rec["routes"] = [x.cpu() for x in r["idx"]]
+    else:
+        rec.update(routes_moved=r["moved"], routes_tokens=r["tokens"])
+    del cache
+    return rec
+
+
 def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
                     n_decode: int = LM_MESH_DECODE, floor: bool = False,
-                    in_turn: bool = False) -> dict:
+                    in_turn: bool = False, b1: int | None = None,
+                    replay_b1=None) -> dict:
     """(a), and (e) with ``cfg``: the prefill's last logits and each of
     ``n_decode`` decode steps', of the whole batch (``mesh`` None:
     recorded routes in ``routes``, and with ``floor`` the same logits
@@ -5196,7 +5309,9 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
     ``replay`` taken; ``in_turn``: the parameters drawn one process at a
     time); K8's launches in the prefill and its query heads; the largest
     MoE drop fraction; the prefill's and each decode step's seconds; peak
-    memory from the parameters on, and the parameters' bytes."""
+    memory from the parameters on, the parameters' bytes, the cache's
+    bytes and specs; with ``b1``, :func:`_lm_mesh_b1` on the same
+    parameters into ``b1`` rows (the routes of ``replay_b1`` taken)."""
     cfg = cfg or _lm_mesh_cfg(dtype, LM_MESH_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5216,6 +5331,7 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
         # a mesh process's cache holds the heads and channels it runs
         cache = lm_tr.init_cache(cfg, b, LM_MESH_SEQ + n_decode,
                                  getattr(torch, dtype), device=DEV)
+        cache_rec = _cache_record(cache)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5241,7 +5357,9 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
            "decode_step_s": t_dec,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
-           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
+           **cache_rec}
+    del cache
     if mesh is None:
         rec["routes"] = [x.cpu() for x in r["idx"]]
         if floor:
@@ -5250,6 +5368,70 @@ def lm_mesh_forward(dtype: str, mesh=None, replay=None, cfg=None,
             rec["probes"] = _prefill_probes(params, cfg, prompts, r["idx"])
     else:
         rec.update(routes_moved=r["moved"], routes_tokens=r["tokens"])
+    if b1:
+        rec["b1"] = _lm_mesh_b1(params, cfg, mesh, b1, n_decode, replay_b1)
+    del params
+    return rec
+
+
+def _seqcut_cfg(dtype: str):
+    return dataclasses.replace(lm_configs.get(LM_MESH_DENSE_ARCH),
+                               n_layers=LM_MESH_DENSE_LAYERS, dtype=dtype)
+
+
+def lm_mesh_seqcut(dtype: str, mesh=None) -> dict:
+    """(h): qwen2.5-3b (``_seqcut_cfg``) serving LM_MESH_BATCH x
+    LM_MESH_SEQ seeded prompts into LM_MESH_SEQCUT[dtype]'s rows and
+    decode steps, in one process or on ``mesh``'s (1, 4) (this process's
+    block of the cache: every kv head, a quarter of the sequence): the
+    logits, K8's launches (prefill, decode) and heads, the cache's bytes
+    and specs, the prefill's and each decode step's seconds, the peak
+    memory from the parameters on, the memory allocated before the
+    decode and the decode's peak over it."""
+    cfg = _seqcut_cfg(dtype)
+    spec = LM_MESH_SEQCUT[dtype]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_tr.init_params(cfg, SEED, device=DEV, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts, dec = (_block(t, mesh) for t in _lm_mesh_tokens(cfg))
+    b = prompts.shape[0]
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx, _k8_heads() as heads:
+        cache = lm_tr.init_cache(cfg, b, spec["rows"], getattr(torch, dtype),
+                                 device=DEV)
+        rec = _cache_record(cache)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        k8 = read_launches()["flash_attention"]
+        peak_pre = torch.cuda.max_memory_allocated()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, t_dec = [logits[:, 0]], []
+        for i in range(spec["decode"]):
+            pos = torch.full((b,), LM_MESH_SEQ + i, dtype=torch.int64,
+                             device=DEV)
+            t0 = time.perf_counter()
+            lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            torch.cuda.synchronize()
+            t_dec.append(time.perf_counter() - t0)
+            out.append(lg)
+        peak_dec = torch.cuda.max_memory_allocated()
+    rec.update(logits=torch.stack(out).float().cpu(), k8_prefill=k8,
+               k8_decode=read_launches()["flash_attention"] - k8,
+               k8_heads=sorted(set(heads)), decode_step_s=t_dec,
+               mem_before_decode_bytes=before,
+               decode_peak_rise_bytes=peak_dec - before,
+               peak_device_mem_bytes=max(peak_pre, peak_dec),
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in params.parameters()))
     del params, cache
     return rec
 
@@ -5723,10 +5905,21 @@ def lm_mesh_worker(job_json: str) -> None:
             spec = LM_MESH_FAMILIES[leg]
             replay = [torch.from_numpy(a) for a in np.load(os.path.join(
                 LM_MESH_DIR, f"routes_{leg}.npz")).values()]
+            replay_b1 = None
+            if spec.get("b1"):
+                replay_b1 = [torch.from_numpy(a) for a in np.load(
+                    os.path.join(LM_MESH_DIR,
+                                 f"routes_{leg}_b1.npz")).values()]
             out = lm_mesh_forward(spec["dtype"], mesh, replay,
                                   _family_cfg(leg), spec["decode"],
-                                  in_turn=spec["in_turn"])
+                                  in_turn=spec["in_turn"], b1=spec.get("b1"),
+                                  replay_b1=replay_b1)
             arrays[f"logits_{leg}"] = out.pop("logits").numpy()
+            if "b1" in out:
+                arrays[f"logits_{leg}_b1"] = out["b1"].pop("logits").numpy()
+        elif task.startswith("seqcut_"):
+            out = lm_mesh_seqcut(task.split("_", 1)[1], mesh)
+            arrays[task] = out.pop("logits").numpy()
         else:
             out = lm_mesh_restart(mesh)
         out["task_s"] = time.perf_counter() - t0
@@ -5886,6 +6079,110 @@ def _check_encdec(ranks, single) -> dict:
     return out
 
 
+def _check_b1(leg: str, spec: dict, ranks, one: dict, limit) -> dict:
+    """(e)'s batch-1 serve: every process's logits bit for bit the same,
+    within LM_MESH_F32_RTOL of one process's largest logit (fp32) or the
+    leg's ``limit`` by position (bf16); K8's launches and heads a process
+    pinned; its record."""
+    task = f"family:{leg}"
+    want = one["logits"]                          # (1 + decode, 1, V)
+    arrs = [torch.from_numpy(np.load(os.path.join(
+        LM_MESH_DIR, f"mesh_rank{r['rank']}.npz"))[f"logits_{leg}_b1"])
+        for r in ranks]
+    check(all(torch.equal(a, arrs[0]) for a in arrs), f"lm_mesh {leg} b1: "
+          "the processes differ")
+    err = (arrs[0] - want).abs().amax((1, 2))
+    if limit is None:
+        limit = torch.full_like(err, LM_MESH_F32_RTOL
+                                * float(want.abs().max()))
+    check(bool((err <= limit).all()), f"lm_mesh {leg} b1: logits differ "
+          f"from one process's by {err.tolist()}, limits {limit.tolist()}")
+    k8 = [r[task]["b1"]["k8_prefill"] for r in ranks]
+    heads = [r[task]["b1"]["k8_heads"] for r in ranks]
+    check(k8 == [spec["k8_prefill"]] * len(ranks) and one["k8_prefill"]
+          == spec["k8_prefill"] and heads == [[spec["heads"]]] * len(ranks),
+          f"lm_mesh {leg} b1: K8 launched {k8} times on {heads} heads a "
+          f"process (one process: {one['k8_prefill']})")
+    return {"rows": spec["b1"], "max_abs_err": err.tolist(),
+            "limit_by_position": limit.tolist(),
+            "max_abs_logit": float(want.abs().max()),
+            "k8_prefill_per_process": k8, "k8_heads_per_process": heads,
+            "cache_bytes_single": one["cache_bytes"],
+            "cache_bytes_per_process": [r[task]["b1"]["cache_bytes"]
+                                        for r in ranks],
+            "cache_specs_per_process": [r[task]["b1"]["cache_specs"]
+                                        for r in ranks],
+            "single": {k: one[k] for k in ("prefill_s", "decode_step_s")},
+            **{f"{k}_per_process": [r[task]["b1"][k] for r in ranks]
+               for k in ("prefill_s", "decode_step_s")},
+            "routes_moved": sum(r[task]["b1"]["routes_moved"]
+                                for r in ranks)}
+
+
+def _check_seqcut(ranks, single) -> dict:
+    """(h): every process's logits bit for bit the same (one batch block)
+    and against one process's (fp32 within LM_MESH_F32_RTOL of the
+    largest logit, bf16 within LM_LOGIT_ATOL); a process's cache a
+    quarter of one process's, every kv head on a block of the sequence;
+    K8 LM_MESH_DENSE_LAYERS times a prefill on 4 of 16 heads and never in
+    a decode step; in bf16 the decode's peak rise a process below
+    LM_MESH_SEQCUT_RISE of the whole cache's bytes; its record."""
+    out = {}
+    for dtype, spec in LM_MESH_SEQCUT.items():
+        one, task = single[dtype], f"seqcut_{dtype}"
+        want = one["logits"]                      # (1 + decode, B, V)
+        arrs = [torch.from_numpy(np.load(os.path.join(
+            LM_MESH_DIR, f"mesh14_rank{r['rank']}.npz"))[task])
+            for r in ranks]
+        check(all(torch.equal(a, arrs[0]) for a in arrs),
+              f"lm_mesh seqcut {dtype}: the processes differ")
+        err = (arrs[0] - want).abs().amax((1, 2))
+        scale = float(want.abs().max())
+        limit = (LM_MESH_F32_RTOL * scale if dtype == "float32"
+                 else LM_LOGIT_ATOL)
+        check(bool((err <= limit).all()), f"lm_mesh seqcut {dtype}: logits "
+              f"differ from one process's by {err.tolist()}, limit {limit}")
+        per = [r[task] for r in ranks]
+        k8 = [p["k8_prefill"] for p in per]
+        check(k8 == [LM_MESH_DENSE_LAYERS] * len(ranks)
+              and one["k8_prefill"] == LM_MESH_DENSE_LAYERS
+              and [p["k8_decode"] for p in per] == [0] * len(ranks)
+              and [p["k8_heads"] for p in per] == [[spec["heads"]]]
+              * len(ranks) and one["k8_heads"] == [4 * spec["heads"]],
+              f"lm_mesh seqcut {dtype}: K8 launched {k8} times a prefill "
+              f"and {[p['k8_decode'] for p in per]} in the decode on "
+              f"{[p['k8_heads'] for p in per]} heads a process")
+        whole = one["cache_bytes"]
+        check([p["cache_bytes"] for p in per] == [whole // 4] * len(ranks)
+              and all(p["cache_specs"] == ["P('data', 'model')"]
+                      for p in per), f"lm_mesh seqcut {dtype}: caches "
+              f"{[(p['cache_bytes'], p['cache_specs']) for p in per]}, "
+              f"one process {whole}")
+        rise = [p["decode_peak_rise_bytes"] for p in per]
+        if dtype == "bfloat16":
+            check(max(rise) < LM_MESH_SEQCUT_RISE * whole, f"lm_mesh seqcut "
+                  f"bf16: the decode's peak rose {rise} bytes a process "
+                  f"over what was allocated before it, limit "
+                  f"{LM_MESH_SEQCUT_RISE} x {whole}")
+        out[dtype] = {
+            "arch": LM_MESH_DENSE_ARCH, "layers": LM_MESH_DENSE_LAYERS,
+            "mesh": list(LM_MESH_SEQCUT_DIMS), "rows": spec["rows"],
+            "batch": LM_MESH_BATCH, "prompt": LM_MESH_SEQ,
+            "decode_steps": spec["decode"],
+            "max_abs_err": err.tolist(), "max_abs_logit": scale,
+            "limit": limit, "k8_prefill_per_process": k8,
+            "cache_bytes_single": whole,
+            "single": {k: one[k] for k in (
+                "prefill_s", "decode_step_s", "peak_device_mem_bytes",
+                "decode_peak_rise_bytes", "mem_before_decode_bytes",
+                "param_bytes")},
+            **{f"{k}_per_process": [p[k] for p in per] for k in (
+                "cache_bytes", "cache_specs", "prefill_s", "decode_step_s",
+                "peak_device_mem_bytes", "decode_peak_rise_bytes",
+                "mem_before_decode_bytes", "param_bytes", "task_s")}}
+    return out
+
+
 def phase_lm_mesh() -> dict:
     """Phase 14e; returns K8's launches per process in (a) and (e)."""
     t_phase = time.perf_counter()
@@ -5942,9 +6239,13 @@ def phase_lm_mesh() -> dict:
         t0 = time.perf_counter()
         single_fam[leg] = lm_mesh_forward(
             spec["dtype"], cfg=_family_cfg(leg), n_decode=spec["decode"],
-            floor=spec["dtype"] == "bfloat16")
+            floor=spec["dtype"] == "bfloat16", b1=spec.get("b1"))
         np.savez(os.path.join(LM_MESH_DIR, f"routes_{leg}.npz"),
                  *[x.numpy() for x in single_fam[leg].pop("routes")])
+        if spec.get("b1"):
+            np.savez(os.path.join(LM_MESH_DIR, f"routes_{leg}_b1.npz"),
+                     *[x.numpy() for x in single_fam[leg]["b1"].pop(
+                         "routes")])
         gc.collect()
         torch.cuda.empty_cache()
         single_s[f"family:{leg}"] = time.perf_counter() - t0
@@ -5967,6 +6268,14 @@ def phase_lm_mesh() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s["encdec_train"] = time.perf_counter() - t0
+    # (h) in one process
+    single_seq = {}
+    for dtype in LM_MESH_SEQCUT:
+        t0 = time.perf_counter()
+        single_seq[dtype] = lm_mesh_seqcut(dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s[f"seqcut_{dtype}"] = time.perf_counter() - t0
     print(json.dumps({"lm_mesh single-process s": single_s,
                       "device_mem_allocated_bytes":
                           torch.cuda.memory_allocated()}), flush=True)
@@ -5976,13 +6285,18 @@ def phase_lm_mesh() -> dict:
         "dense", *(f"family:{a}" for a in LM_MESH_FAMILIES), "rwkv_train",
         "encdec_float32", "encdec_bfloat16", "encdec_train"))
     mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks14 = _lm_mesh_spawn("mesh14", LM_MESH_SEQCUT_DIMS,
+                             [f"seqcut_{d}" for d in LM_MESH_SEQCUT])
+    mesh14_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
            "backend": ranks[0]["backend"], "layers": LM_MESH_LAYERS,
            "train_layers": LM_MESH_TRAIN_LAYERS,
            "published_layers": pub.n_layers, "batch": LM_MESH_BATCH,
            "seq": LM_MESH_SEQ, "decode_steps": LM_MESH_DECODE,
-           "single_process_s": single_s, "mesh_processes_s": mesh_s}
+           "single_process_s": single_s, "mesh_processes_s": mesh_s,
+           "mesh14_processes_s": mesh14_s}
     check(rec["backend"] == "gloo" and all(
         r["device"].startswith("cuda") for r in ranks),
         f"lm_mesh: backend {rec['backend']}")
@@ -6147,7 +6461,20 @@ def phase_lm_mesh() -> dict:
                 "param_bytes", "peak_device_mem_bytes")},
             **{f"{k}_per_process": [r[task][k] for r in ranks] for k in (
                 "prefill_s", "prefill_tokens_per_s", "decode_step_s",
-                "param_bytes", "peak_device_mem_bytes", "task_s")}})
+                "param_bytes", "peak_device_mem_bytes", "task_s")},
+            "cache_bytes_single": one["cache_bytes"],
+            "cache_bytes_per_process": [r[task]["cache_bytes"]
+                                        for r in ranks],
+            "cache_specs_per_process": [r[task]["cache_specs"]
+                                        for r in ranks]})
+        check(fam["cache_bytes_per_process"] == [one["cache_bytes"] // 4]
+              * len(ranks), f"lm_mesh {leg}: the processes hold "
+              f"{fam['cache_bytes_per_process']} bytes of cache, one "
+              f"process {one['cache_bytes']}")
+        if spec.get("b1"):
+            fam["b1"] = _check_b1(leg, spec, ranks, one["b1"],
+                                  None if spec["dtype"] == "float32"
+                                  else limit)
         rec["families"][leg] = fam
     # (f) rwkv6-3b's sharded steps against one process's
     rw = ranks[0]["rwkv_train"]
@@ -6173,6 +6500,7 @@ def phase_lm_mesh() -> dict:
         "step_s_per_process": [r["rwkv_train"]["step_s"] for r in ranks],
         "task_s_per_process": [r["rwkv_train"]["task_s"] for r in ranks]}
     rec["encdec"] = _check_encdec(ranks, single_enc)
+    rec["seqcut"] = _check_seqcut(ranks14, single_seq)
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
     restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))
@@ -6203,7 +6531,12 @@ def phase_lm_mesh() -> dict:
             **{f"family {arch} per_process": fam["k8_prefill_per_process"]
                for arch, fam in rec["families"].items()},
             "encdec per_process": rec["encdec"]["float32"][
-                "k8_per_process"]}
+                "k8_per_process"],
+            **{f"family {arch} b1 per_process": fam["b1"][
+                "k8_prefill_per_process"] for arch, fam
+               in rec["families"].items() if "b1" in fam},
+            **{f"seqcut {dtype} per_process": leg["k8_prefill_per_process"]
+               for dtype, leg in rec["seqcut"].items()}}
 
 
 def main() -> None:

@@ -24,16 +24,16 @@ On a process mesh whose ``model`` axis cuts GQA's projections
 (``sharding.rules``: ``wq|wk|wv`` columns, ``wo`` rows, the biases) a
 layer is one tensor-parallel region: each process attends with its
 ``n_heads / model`` query heads and the kv heads they read
-(:func:`head_split`), K8 and the cache on those heads alone, and ``wo``
-sums the heads' partial products over ``model``.  Where the spec cuts
-inside a head (``n_kv_heads``, or ``n_heads``, not a multiple of
-``model``: qwen2.5-3b's 2 kv heads on a 4-wide ``model``) the
-reference's storage is kept and the projection is gathered over
-``model`` at use, each process taking the heads it reads; where
-``n_heads`` does not split, every process attends with every head and
-``wo`` takes its rows' share.  The encoder-decoder's cross-attention is
-the same region: q of ``x`` and k, v of the encoder's memory on the
-local heads, each input entering through one ``sum_grad``.
+(:func:`head_split`), K8 on those heads alone, and ``wo`` sums the
+heads' partial products over ``model``.  Where the spec cuts inside a
+head (``n_kv_heads``, or ``n_heads``, not a multiple of ``model``:
+qwen2.5-3b's 2 kv heads on a 4-wide ``model``) the reference's storage is
+kept and the projection is gathered over ``model`` at use, each process
+taking the heads it reads; where ``n_heads`` does not split, every
+process attends with every head and ``wo`` takes its rows' share.  The
+encoder-decoder's cross-attention is the same region: q of ``x`` and k,
+v of the encoder's memory on the local heads, each input entering
+through one ``sum_grad``.
 
 MLA on such a mesh (``wq_b`` and ``wkv_b`` columns, ``wo`` rows cut over
 ``model``; ``wq_a`` and ``wkv_a`` over ``data`` only) attends with its
@@ -41,9 +41,24 @@ MLA on such a mesh (``wq_b`` and ``wkv_b`` columns, ``wo`` rows cut over
 whole, and the normed q latent, the normed ``c_kv`` and the shared rope
 key enter the local heads through ``sum_grad`` (each read by every
 process for its own heads).  K8 runs the prefill on the local heads; the
-absorbed decode reads the local heads' columns of ``wkv_b``.  The cache
-``c_kv`` / ``k_rope`` stays whole on every process (the reference cuts
-its sequence over ``model``: ROADMAP Queue 1).
+absorbed decode reads the local heads' columns of ``wkv_b``.
+
+A decoder-only model's serving cache on a process mesh is the
+reference's ``cache_specs`` layout (``transformer.init_cache``: each leaf
+a block carrying its spec).  GQA's ``k`` / ``v`` hold the kv heads over
+``model`` where they divide it (the heads :func:`head_split` reads),
+else every kv head and a block of the sequence over ``model``; MLA's
+``c_kv`` / ``k_rope`` always a block of the sequence over ``model``; at
+global batch 1 the sequence is also cut over ``data``.  A prefill writes
+the prompt's rows that fall in the block (GQA: for every kv head the
+block holds, the heads this process does not compute gathered over
+``model``); a decode step's row is written by its owner, and attention
+over a cut sequence is a distributed softmax (:func:`_sdpa_blocks`,
+:func:`_block_softmax`): each block's fp32 scores, ``pmax`` for the
+global max, ``psum`` of the exp-sums, the weights rounded where the
+reference rounds them, and ``psum`` of the blocks' ``w . v`` in block
+order.  The encoder-decoder's caches hold its local kv heads whole
+(ROADMAP Queue 1, item 7b).
 
 Unlike the reference's functional updates, the prefill and decode
 functions write the cache **in place** and return the same dict:
@@ -128,17 +143,24 @@ class HeadSplit(NamedTuple):
     kv_index: Any
 
 
-def head_split(cfg, mesh) -> HeadSplit:
-    """The query heads of this process along ``model`` (``n_heads /
-    model`` of them; all of them where that does not divide) and the kv
-    heads they read."""
+def _head_range(cfg, m: int, n_m: int) -> tuple[int, int, int, int]:
+    """``(q0, nq, k0, nk)`` of the process at index ``m`` of an
+    ``n_m``-wide ``model`` axis (:func:`head_split`)."""
     h, hk = cfg.n_heads, cfg.n_kv_heads
-    m, n_m = mesh.axis_index(("model",)), mesh.shape["model"]
     nq = h // n_m if h % n_m == 0 else h
     q0 = m * nq if nq < h else 0
     g = h // hk
     k0 = q0 // g
-    nk = (q0 + nq - 1) // g + 1 - k0
+    return q0, nq, k0, (q0 + nq - 1) // g + 1 - k0
+
+
+def head_split(cfg, mesh) -> HeadSplit:
+    """The query heads of this process along ``model`` (``n_heads /
+    model`` of them; all of them where that does not divide) and the kv
+    heads they read."""
+    q0, nq, k0, nk = _head_range(cfg, mesh.axis_index(("model",)),
+                                 mesh.shape["model"])
+    g = cfg.n_heads // cfg.n_kv_heads
     idx = [(q0 + j) // g - k0 for j in range(nq)]
     regular = nq % nk == 0 and idx == [j // (nq // nk) for j in range(nq)]
     return HeadSplit(mesh, q0, nq, k0, nk, None if regular else idx)
@@ -420,12 +442,15 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 
 def gqa_prefill(p: GQA, cfg, x, positions, cache,
                 compute_dtype=torch.bfloat16):
-    """Full causal pass that also writes cache[:, :S] (in place)."""
+    """Full causal pass (K8 on this process's heads against the prompt's
+    own k and v) that also writes the prompt's rows of the cache (in
+    place): on a process mesh the rows of this process's block, for
+    every kv head the block holds (those its query heads do not read
+    come from the processes along ``model`` that compute them)."""
     q, k, v, sp = _qkv(p, cfg, x, positions, compute_dtype)
     _check_cache(cache, k)
-    s = x.shape[1]
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    _write_rows(cache["k"], _block_heads(k, cache["k"], cfg, sp))
+    _write_rows(cache["v"], _block_heads(v, cache["v"], cfg, sp))
     out = _sdpa(q, _kv_heads(k, sp), _kv_heads(v, sp), None,
                 scale=1.0 / np.sqrt(cfg.resolved_head_dim), causal=True)
     return _out(p, cfg, out, sp, compute_dtype), cache
@@ -433,36 +458,179 @@ def gqa_prefill(p: GQA, cfg, x, positions, cache,
 
 def gqa_decode(p: GQA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
     """x: (B, 1, d); pos: (B,) current positions; writes row ``pos`` of the
-    cache (in place) and attends to cache[:pos + 1]."""
+    cache (in place) and attends to cache[:pos + 1].  Where the cache is a
+    block of a sequence cut over processes (``rules.seq_cut``) the row's
+    owner writes it and attention is :func:`_sdpa_blocks`' distributed
+    softmax; where ``model`` cuts the sequence every process of the group
+    scores every query head (the heads it does not own come over
+    ``model``), and keeps its own heads' outputs for ``wo``."""
     q, k, v, sp = _qkv(p, cfg, x, pos[:, None], compute_dtype)
     _check_cache(cache, k)
-    _write_at(cache["k"], k, pos)
-    _write_at(cache["v"], v, pos)
-    t = cache["k"].shape[1]
-    valid = torch.arange(t, device=pos.device)[None, :] <= pos[:, None]
-    mask = valid[:, None, None, :]
-    out = _sdpa(q, _kv_heads(cache["k"].to(q.dtype), sp),
-                _kv_heads(cache["v"].to(q.dtype), sp), mask,
-                scale=1.0 / np.sqrt(cfg.resolved_head_dim))
+    _write_at(cache["k"], _block_heads(k, cache["k"], cfg, sp), pos)
+    _write_at(cache["v"], _block_heads(v, cache["v"], cfg, sp), pos)
+    scale = 1.0 / np.sqrt(cfg.resolved_head_dim)
+    axes = rules.seq_cut(cache["k"])
+    if not axes:
+        t = cache["k"].shape[1]
+        valid = torch.arange(t, device=pos.device)[None, :] <= pos[:, None]
+        out = _sdpa(q, _read_heads(cache["k"].to(q.dtype), sp),
+                    _read_heads(cache["v"].to(q.dtype), sp),
+                    valid[:, None, None, :], scale=scale)
+        return _out(p, cfg, out, sp, compute_dtype), cache
+    mesh = rules.process_mesh()
+    valid = _valid_rows(cache["k"], pos)
+    if "model" in axes and sp is not None and sp.nq < cfg.n_heads:
+        dh = cfg.resolved_head_dim
+        q = coll.gather_blocks(q, sp.mesh, ("model",), 2)
+        out = _sdpa_blocks(q, cache["k"], cache["v"], valid, mesh, axes,
+                           scale=scale)[..., sp.q0 * dh:(sp.q0 + sp.nq) * dh]
+    else:
+        out = _sdpa_blocks(q, _read_heads(cache["k"], sp),
+                           _read_heads(cache["v"], sp), valid, mesh, axes,
+                           scale=scale)
     return _out(p, cfg, out, sp, compute_dtype), cache
 
 
 def _check_cache(cache, k):
-    if cache["k"].shape[2] != k.shape[2]:
+    """The cache a layer is handed must be laid out as this process
+    reads it: a block (carrying its spec: ``transformer.init_cache`` on a
+    process mesh) of the shape its spec gives, holding the kv heads of
+    ``k`` or every kv head; else (no spec) the kv heads of ``k``."""
+    leaf = cache["k"]
+    if hasattr(leaf, "spec"):
+        rules.check_block(leaf, "the GQA cache")
+        if leaf.shape[2] not in (k.shape[2], rules.global_shape(leaf)[2]):
+            raise ValueError(f"the cache block holds {leaf.shape[2]} kv heads,"
+                             f" this process attends with {k.shape[2]}")
+        return
+    if leaf.shape[2] != k.shape[2]:
         raise ValueError(
-            f"the cache holds {cache['k'].shape[2]} kv heads, this process "
+            f"the cache holds {leaf.shape[2]} kv heads, this process "
             f"attends with {k.shape[2]}: build it with init_cache inside "
             "rules.use_mesh of the model's process mesh")
+
+
+def _all_kv_heads(t, cfg, sp: HeadSplit | None):
+    """k or v (B, S, nk, dh) of this process's kv heads -> (B, S, H_kv,
+    dh) of every kv head: each head from the first process along
+    ``model`` that computes it (one gather over ``model``, each
+    process's heads padded to the most any holds)."""
+    if sp is None or sp.nk == cfg.n_kv_heads:
+        return t
+    n_m = sp.mesh.shape["model"]
+    ranges = [_head_range(cfg, m, n_m)[2:] for m in range(n_m)]
+    most = max(nk for _, nk in ranges)
+    parts = coll.gather_rows(F.pad(t, (0, 0, 0, most - t.shape[2])),
+                             sp.mesh, ("model",))
+    heads = []
+    for j in range(cfg.n_kv_heads):
+        m, (k0, _) = next((m, r) for m, r in enumerate(ranges)
+                          if r[0] <= j < r[0] + r[1])
+        heads.append(parts[m][:, :, j - k0])
+    return torch.stack(heads, dim=2)
+
+
+def _block_heads(t, leaf, cfg, sp: HeadSplit | None):
+    """k or v of this process's kv heads -> of the kv heads the cache
+    ``leaf`` holds: ``t`` itself, or every kv head (:func:`_all_kv_heads`)
+    where the block holds them all (``cache_specs`` cuts its sequence,
+    or nothing, rather than the heads)."""
+    if leaf.shape[2] == t.shape[2]:
+        return t
+    return _all_kv_heads(t, cfg, sp)
+
+
+def _read_heads(t, sp: HeadSplit | None):
+    """A cache leaf (B, T, ., dh) -> the kv heads this process's query
+    heads read, one for each where the grouping is not regular."""
+    if sp is not None and t.shape[2] > sp.nk:
+        t = t[:, :, sp.k0:sp.k0 + sp.nk]
+    return _kv_heads(t, sp)
+
+
+def _write_rows(buf, val):
+    """buf: (B, T_block, ...) a cache leaf; val: (B, S, ...): the rows of
+    positions ``0 .. S`` written in place where they fall in this
+    process's block of the sequence (all of them in a whole cache)."""
+    s, t = val.shape[1], rules.global_shape(buf)[1]
+    if s > t:
+        raise ValueError(f"a prompt of {s} positions into a cache of {t}")
+    t0 = rules.block_start(buf, 1)
+    a, b = t0, min(t0 + buf.shape[1], s)
+    if a < b:
+        buf[:, :b - a] = val[:, a:b].to(buf.dtype)
+    return buf
 
 
 def _write_at(buf, val, pos):
     """buf: (B, T, ...); val: (B, 1, ...): row ``pos[b]`` of each batch row
     written in place.  A position past the end writes the last row, as the
-    reference's ``dynamic_update_slice`` clamps its start index."""
+    reference's ``dynamic_update_slice`` clamps its start index.  In a
+    block of a sequence cut over processes (``rules.seq_cut``) the row is
+    written by the process whose block holds it; the others keep theirs."""
     rows = torch.arange(buf.shape[0], device=buf.device)
-    idx = pos.long().clamp(0, buf.shape[1] - 1)
-    buf[rows, idx] = val[:, 0].to(buf.dtype)
+    t, tb = rules.global_shape(buf)[1], buf.shape[1]
+    idx = pos.long().clamp(0, t - 1)
+    if tb == t:
+        buf[rows, idx] = val[:, 0].to(buf.dtype)
+        return buf
+    idx = idx - rules.block_start(buf, 1)
+    own = ((idx >= 0) & (idx < tb)).view((-1,) + (1,) * (val.dim() - 2))
+    idx = idx.clamp(0, tb - 1)
+    buf[rows, idx] = torch.where(own, val[:, 0].to(buf.dtype), buf[rows, idx])
     return buf
+
+
+#: the most elements of a cache block's rows widened to fp32 at a time by
+#: the decode softmax over a cut sequence (:func:`_sdpa_blocks`)
+SEQ_CHUNK = 1 << 21
+
+
+def _block_softmax(logits, valid, mesh, axes, dtype):
+    """The softmax over the last dim of ``logits`` (fp32) whose entries
+    are this process's rows of a sequence cut over ``axes``: the rows not
+    ``valid`` as ``NEG_INF``, the global max by ``pmax``, the global
+    denominator by ``psum`` of the blocks' exp-sums, then the weights,
+    rounded to ``dtype``.  A block wholly past the position has local
+    max ``NEG_INF`` and weights ``exp(NEG_INF - M) = 0`` exactly: row 0 is
+    always valid, so ``M`` is a real logit and no sum is 0."""
+    logits = torch.where(valid, logits, NEG_INF)
+    m = coll.pmax(logits.amax(-1, keepdim=True), mesh, axes)
+    e = torch.exp(logits - m)
+    return (e / coll.psum(e.sum(-1, keepdim=True), mesh, axes)).to(dtype)
+
+
+def _sdpa_blocks(q, k, v, valid, mesh, axes, *, scale):
+    """Decode attention (q: (B, 1, H, dh)) against this process's block
+    k, v (B, T_block, Hk, dh | dv) of a sequence cut over ``axes``: the
+    scores in fp32, :func:`_block_softmax`, the weights rounded to q's
+    dtype as ``_sdpa_masked`` rounds them, this block's ``w . v`` in fp32
+    and the blocks' sums added by ``psum`` in block order, so every
+    process of the group holds the same bits.  The block's rows are
+    widened to fp32 SEQ_CHUNK elements at a time."""
+    b, s, h, dh = q.shape
+    t, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.reshape(b, s, hk, h // hk, dh).float()
+    step = max(1, SEQ_CHUNK // (b * hk * max(dh, dv)))
+    logits = torch.cat([torch.einsum(
+        "bshgd,bthd->bhgst", qg, k[:, i:i + step].to(q.dtype).float())
+        for i in range(0, t, step)], dim=-1) * scale
+    w = _block_softmax(logits, valid[:, None, None, None, :], mesh, axes,
+                       q.dtype)
+    out = None
+    for i in range(0, t, step):
+        part = torch.einsum("bhgst,bthd->bshgd", w[..., i:i + step].float(),
+                            v[:, i:i + step].to(q.dtype).float())
+        out = part if out is None else out + part
+    return coll.psum(out, mesh, axes).reshape(b, s, h * dv).to(q.dtype)
+
+
+def _valid_rows(leaf, pos):
+    """(B, T_block): which rows of this process's block of the cache leaf
+    lie at or before each row's position."""
+    t0 = rules.block_start(leaf, 1)
+    rows = t0 + torch.arange(leaf.shape[1], device=pos.device)
+    return rows[None, :] <= pos[:, None]
 
 
 # --------------------------------------------------------------------------
@@ -571,13 +739,24 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     }
 
 
+def _check_mla_cache(cache):
+    """An MLA cache block (carrying its spec) must be the shape its spec
+    gives."""
+    for name in ("c_kv", "k_rope"):
+        if hasattr(cache[name], "spec"):
+            rules.check_block(cache[name], f"the MLA cache's {name}")
+
+
 def mla_prefill(p: MLA, cfg, x, positions, cache,
                 compute_dtype=torch.bfloat16):
-    """:func:`mla_train` that also writes cache[:, :S] (in place)."""
+    """:func:`mla_train` that also writes the prompt's rows of the cache
+    (in place): on a process mesh those of this process's block of the
+    sequence, from the whole ``c_kv`` and rope key every process
+    computes."""
+    _check_mla_cache(cache)
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions, compute_dtype)
-    s = x.shape[1]
-    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
+    _write_rows(cache["c_kv"], c_kv)
+    _write_rows(cache["k_rope"], k_rope)
     return _mla_attend(p, cfg, x, positions, c_kv, k_rope,
                        compute_dtype), cache
 
@@ -594,11 +773,22 @@ def mla_decode(p: MLA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
     ``q_abs . c_kv + q_rope . k_rope`` and the readout ``(w @ c_kv) @
     w_uv``: attention in the compressed space, never materialising
     per-head keys.  Each fp32 product is rounded to x's dtype where the
-    reference rounds it; writes row ``pos`` of the cache (in place)."""
+    reference rounds it; writes row ``pos`` of the cache (in place).
+
+    Where the cache is a block of a sequence cut over processes
+    (``rules.seq_cut``: over ``model``, and ``data`` at global batch 1)
+    the row's owner writes it, the logits and the ``ctx`` readout run
+    over the block's rows with :func:`_block_softmax`'s two rounds, and
+    the blocks' fp32 ``w . c_kv`` are added by ``psum``; where ``model``
+    cuts the sequence each process scores every head (``q_abs`` and the
+    rope query of the heads it does not own come over ``model``) and
+    keeps its own heads' ``ctx`` for ``w_uv`` and ``wo``.  No process
+    holds more of the cache than its block."""
     m = cfg.mla
     b = x.shape[0]
     mesh = rules.tp_mesh(p.wo.w, cfg, "mla")
     h = _mla_heads(cfg, mesh)
+    _check_mla_cache(cache)
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None], compute_dtype, mesh)
     c_kv_new, k_rope_new = _mla_ckv(p, cfg, x, pos[:, None], compute_dtype)
     _write_at(cache["c_kv"], c_kv_new, pos)
@@ -610,14 +800,29 @@ def mla_decode(p: MLA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
     q_abs = _f32_einsum("bshd,rhd->bshr", q_nope, w_uk).to(x.dtype)
     ckv = cache["c_kv"].to(x.dtype)                        # (b, T, r)
     krope = cache["k_rope"].to(x.dtype)                    # (b, T, rr)
-    t = ckv.shape[1]
+    axes = rules.seq_cut(cache["c_kv"])
+    every = mesh is not None and "model" in axes
+    if every:                 # every head scored against this block's rows
+        q_abs = coll.gather_blocks(q_abs, mesh, ("model",), 2)
+        q_rope = coll.gather_blocks(q_rope, mesh, ("model",), 2)
     scale = 1.0 / np.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     logits = (_f32_einsum("bshr,btr->bhst", q_abs, ckv)
               + _f32_einsum("bshd,btd->bhst", q_rope, krope)) * scale
-    valid = torch.arange(t, device=pos.device)[None, :] <= pos[:, None]
-    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = _f32_einsum("bhst,btr->bshr", w, ckv).to(x.dtype)
+    if axes:
+        seq_mesh = rules.process_mesh()
+        w = _block_softmax(logits, _valid_rows(cache["c_kv"], pos)[
+            :, None, None, :], seq_mesh, axes, x.dtype)
+        ctx = coll.psum(_f32_einsum("bhst,btr->bshr", w, ckv), seq_mesh,
+                        axes).to(x.dtype)
+        if every:
+            h0 = mesh.axis_index(("model",)) * h
+            ctx = ctx[:, :, h0:h0 + h]
+    else:
+        t = ckv.shape[1]
+        valid = torch.arange(t, device=pos.device)[None, :] <= pos[:, None]
+        logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = _f32_einsum("bhst,btr->bshr", w, ckv).to(x.dtype)
     out = _f32_einsum("bshr,rhd->bshd", ctx, w_uv)
     out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
     return linear(p.wo, out, compute_dtype), cache

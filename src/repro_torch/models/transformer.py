@@ -29,7 +29,10 @@ so); :func:`prefill` and :func:`decode_step` gather them whole.
 ``torch.no_grad()`` without remat; :func:`prefill` and
 :func:`decode_step` serve, also without grad.  The caches are written in
 place; a prefill starts every row at position 0, so a recurrent layer's
-state starts from zero whatever the cache held.
+state starts from zero whatever the cache held.  On a process mesh the
+cache is the reference's ``cache_specs`` layout (:func:`init_cache`),
+and :func:`prefill` and :func:`decode_step` refuse, with the reason, a
+cache laid out by any other rule (``rules.check_cache_blocks``).
 The encoder-decoder family is :mod:`repro_torch.models.encdec`.
 """
 
@@ -45,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
@@ -439,15 +443,12 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens, *,
 # --------------------------------------------------------------------------
 
 def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device):
-    """One layer's cache, of the heads or channels this process runs
-    (``rules.model_blocks``: all of them off a process mesh)."""
+    """One layer's cache: GQA's and MLA's whole, Mamba's and RWKV-6's of
+    the channels or heads this process runs (``rules.model_blocks``: all
+    of them off a process mesh)."""
     mixer = kind[0]
     if mixer == "attn":
-        kv = None
-        if rules.model_blocks(cfg, "attn") > 1:
-            kv = attn.head_split(cfg, rules.process_mesh()).nk
-        return attn.init_gqa_cache(cfg, batch, max_len, dtype, device=device,
-                                   kv_heads=kv)
+        return attn.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
     if mixer == "mla":
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device=device)
     if mixer == "mamba":
@@ -455,20 +456,85 @@ def _layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype, device):
     return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device=device)
 
 
+#: one device: the mesh under which a layer's cache is whole
+_ONE_DEVICE = MeshShape(("data", "model"), (1, 1))
+
+
+def _block_layer_cache(cfg: ModelConfig, kind, batch, max_len, dtype,
+                       device, whole: dict, blocks: dict, mesh) -> dict:
+    """One layer's cache on a process mesh: each leaf its ``blocks``
+    block of the global ``whole`` (``rules.cache_blocks``), carrying its
+    ``spec`` and ``global_shape``.  GQA's and MLA's are allocated as the
+    blocks; Mamba's and RWKV-6's as today's local channels and heads,
+    which must be their blocks; a GQA block cut over ``model`` on the kv
+    heads must be the heads ``attention.head_split`` reads."""
+    mixer = kind[0]
+    for name, blk in blocks.items():
+        if blk.shape[0] != batch:
+            raise ValueError(
+                f"cache leaf {name}: cache_specs gives a block of "
+                f"{blk.shape[0]} of the {whole[name].shape[0]} global rows "
+                f"({blk.spec!r}), the process serves {batch}; serve the "
+                "whole batch on every process with "
+                "rules.use_mesh(replicated_batch=True) only where the "
+                "batch does not split over the batch axes")
+    if mixer in ("attn", "mla"):
+        out = {name: torch.zeros(blk.shape, dtype=whole[name].dtype,
+                                 device=device)
+               for name, blk in blocks.items()}
+        spec = blocks.get("k", blocks.get("c_kv")).spec
+        if mixer == "attn" and len(spec) > 2 and spec[2] == "model":
+            sp = attn.head_split(cfg, mesh)
+            if (blocks["k"].shape[2], blocks["k"].start[2]) != (sp.nk,
+                                                                sp.k0):
+                raise RuntimeError(
+                    f"the kv-head block {blocks['k']} is not the heads "
+                    f"{sp.k0}..{sp.k0 + sp.nk} this process's query heads "
+                    "read")
+    else:
+        out = _layer_cache(cfg, kind, batch, max_len, dtype, device)
+        for name, t in out.items():
+            if tuple(t.shape) != blocks[name].shape:
+                raise RuntimeError(f"{mixer} cache leaf {name} {tuple(t.shape)}"
+                                   f" is not its block {blocks[name]}")
+    for name, t in out.items():
+        t.spec, t.global_shape = blocks[name].spec, tuple(whole[name].shape)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device="cuda"):
     """``{"layers": [one cache per layer]}``, zeroed: ``k``/``v`` (GQA),
     ``c_kv``/``k_rope`` (MLA), ``conv``/``h`` (Mamba) or ``s``/``x_tm``/
-    ``x_cm`` (RWKV).  Inside ``rules.use_mesh`` of a process mesh whose
-    ``model`` cuts the layers (``cache_specs``' head and channel cuts), a
-    GQA cache holds the kv heads this process reads (where ``n_heads *
-    head_dim`` splits), a Mamba cache its ``d_inner / model`` channels'
-    window and state, an RWKV-6 cache its ``H / model`` heads' states
-    (the shifts whole); an MLA cache is whole (``cache_specs`` cuts its
-    sequence over ``model``; that fallback, and GQA's, is not ported)."""
+    ``x_cm`` (RWKV) of ``batch`` rows and ``max_len`` positions.  Inside
+    ``rules.use_mesh`` of a process mesh every leaf is this process's
+    block of the global cache under the reference's ``cache_specs``
+    (``rules.cache_blocks``, ``seq_shard`` at global batch 1:
+    ``rules.cache_global_batch``), carrying its ``spec`` and
+    ``global_shape``: a GQA cache holds its block of the kv heads where
+    they divide ``model``, else every kv head and its block of the
+    sequence over ``model`` (at global batch 1 the sequence also over
+    ``data``); an MLA cache its block of the sequence over ``model`` (and
+    ``data`` at global batch 1); a Mamba cache its ``d_inner / model``
+    channels' window and state, an RWKV-6 cache its ``H / model`` heads'
+    states (the shifts whole).  A spec that maps an axis twice (the
+    reference's at batch 1 on a mesh whose ``data`` is 1 wide) raises."""
     device = resolve_device(device)
-    return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device)
-                       for k in layer_kinds(cfg)]}
+    kinds = layer_kinds(cfg)
+    ctx = rules.current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members"):
+        return {"layers": [_layer_cache(cfg, k, batch, max_len, dtype, device)
+                           for k in kinds]}
+    gb = rules.cache_global_batch(batch)
+    with rules.use_mesh(_ONE_DEVICE):
+        whole = {"layers": [_layer_cache(cfg, k, gb, max_len, dtype,
+                                         torch.device("meta"))
+                            for k in kinds]}
+    blocks = rules.cache_blocks(ctx.mesh, whole, seq_shard=gb == 1)
+    return {"layers": [
+        _block_layer_cache(cfg, k, batch, max_len, dtype, device, w, b,
+                           ctx.mesh)
+        for k, w, b in zip(kinds, whole["layers"], blocks["layers"])]}
 
 
 def _apply_layer_step(p: DecoderLayer, cfg, x, pos, cache, compute_dtype):
@@ -520,6 +586,7 @@ def prefill(params: DecoderLM, cfg: ModelConfig, tokens, cache, *,
             prefix_embeds=None):
     """Full-sequence pass filling every cache; returns (last_logits (B, 1,
     vocab) fp32, cache)."""
+    rules.check_cache_blocks(cache, tokens.shape[0])
     compute_dtype = getattr(torch, cfg.dtype)
     x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
     positions = _positions(x)
@@ -587,6 +654,7 @@ def vocab_cut_mesh(w, dim: int):
 def decode_step(params: DecoderLM, cfg: ModelConfig, token, pos, cache):
     """token: (B,) ids; pos: (B,) positions.  Returns (logits (B, vocab)
     fp32, cache)."""
+    rules.check_cache_blocks(cache, token.shape[0])
     compute_dtype = getattr(torch, cfg.dtype)
     x = _lookup(params.embed.table, token[:, None], compute_dtype)
     for i, layer in enumerate(params.layers):

@@ -55,7 +55,13 @@ nothing.  The mesh's layout is :func:`local_specs`:
 A parameter of a model built on a process mesh (:func:`allocate_blocks`)
 carries its spec as the tensor attribute ``spec`` (:func:`spec_of`) and
 its global shape as ``global_shape``; the model code reads them where
-it uses the parameter.
+it uses the parameter.  So does a serving cache allocated on the mesh
+(``transformer.init_cache``): each leaf is this process's
+:func:`cache_blocks` block under :func:`cache_specs` (GQA's kv heads over
+``model`` where they divide it, else its sequence; MLA's sequence over
+``model``; with ``seq_shard``, at global batch 1, the sequence also over
+``data``), and the attention reads which axes cut its sequence
+(:func:`seq_cut`) and where its rows start (:func:`block_start`).
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from __future__ import annotations
 import contextlib
 import math
 import re
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
@@ -73,7 +79,9 @@ __all__ = ["PartitionSpec", "P", "MeshCtx", "PARAM_RULES", "ACT_KINDS",
            "named_sharding", "NamedSharding", "local_specs",
            "allocate_blocks", "spec_of", "global_shape", "process_mesh",
            "gather_fsdp", "shards_dense", "MIXERS", "model_blocks",
-           "tp_mesh",
+           "tp_mesh", "CacheBlock", "cache_blocks", "check_spec",
+           "cache_global_batch", "seq_cut", "block_start", "check_block",
+           "check_cache_blocks",
            "param_specs", "cache_specs", "batch_spec", "act_spec",
            "expert_axes_for", "expert_param_spec", "shard_shape",
            "tree_map_with_path"]
@@ -704,6 +712,125 @@ def cache_specs(mesh, cache, *, seq_shard: bool = False) -> Any:
         return _resolve_cache(ctx, dims, shape)
 
     return tree_map_with_path(one, cache)
+
+
+class CacheBlock(NamedTuple):
+    """One process's block of a cache leaf under :func:`cache_specs`: the
+    spec, the block's shape, and its first global index on each dim."""
+    spec: PartitionSpec
+    shape: tuple[int, ...]
+    start: tuple[int, ...]
+
+
+def check_spec(spec) -> None:
+    """Raise where ``spec`` maps a mesh axis more than once, as JAX
+    refuses such a spec (``DuplicateSpecError``): the reference's
+    ``cache_specs`` gives one at global batch 1 on a mesh whose ``data``
+    is 1 wide (batch and sequence both over ``data``)."""
+    seen = [a for entry in spec for a in _axes(entry)]
+    dup = sorted({a for a in seen if seen.count(a) > 1})
+    if dup:
+        raise ValueError(f"{spec!r} maps the mesh axis {dup[0]!r} more than "
+                         "once: no layout, as JAX refuses such a spec")
+
+
+def cache_blocks(mesh, cache, *, seq_shard: bool = False) -> Any:
+    """The :class:`CacheBlock` of every leaf of ``cache`` (a tree of
+    global leaves; on ``meta`` will do) that this process of ``mesh``
+    holds under :func:`cache_specs`; on a :class:`~repro_torch.launch.
+    mesh.MeshShape`, which runs nothing, device 0's.  A spec that maps an
+    axis twice, or a dim that does not split, raises."""
+    specs = {}
+    tree_map_with_path(lambda path, sp: specs.__setitem__(path, sp),
+                       cache_specs(mesh, cache, seq_shard=seq_shard))
+    coords = getattr(mesh, "coords", None)
+
+    def one(path, leaf):
+        spec = specs[path]
+        check_spec(spec)
+        shape = shard_shape(tuple(leaf.shape), spec, mesh)
+        idx = (NamedSharding(mesh, spec)._index(coords) if coords
+               else (0,) * len(spec))
+        start = tuple(i * n for i, n in zip(idx, shape)) \
+            + (0,) * (len(shape) - len(spec))
+        return CacheBlock(spec, shape, start)
+
+    return tree_map_with_path(one, cache)
+
+
+def cache_global_batch(batch: int) -> int:
+    """The global batch of ``batch`` rows a process serves: on the
+    process mesh of the innermost :func:`use_mesh` its block's rows times
+    the batch axes' size, or ``batch`` itself with ``replicated_batch``
+    (every process the whole batch) or off a process mesh.  The cache's
+    ``seq_shard`` is this being 1, as the reference's dry run sets it."""
+    ctx = current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members") \
+            or ctx.replicated_batch:
+        return batch
+    return batch * ctx.axis_size("batch")
+
+
+def seq_cut(t) -> tuple[str, ...]:
+    """The mesh axes that cut the sequence (dim 1) of a cache leaf
+    carrying its spec: ``()``, ``("model",)``, ``("data",)`` or
+    ``("data", "model")``."""
+    spec = spec_of(t)
+    return _axes(spec[1]) if len(spec) > 1 else ()
+
+
+def block_start(t, dim: int) -> int:
+    """The first global index on ``dim`` of the block ``t`` (a cache leaf
+    carrying its spec; 0 for a whole one) of the current process mesh."""
+    spec = spec_of(t)
+    if dim >= len(spec) or spec[dim] is None:
+        return 0
+    return process_mesh().axis_index(_axes(spec[dim])) * t.shape[dim]
+
+
+def check_block(t, name: str) -> None:
+    """Raise unless ``t`` (a leaf carrying its spec) is the block of its
+    global shape that its spec gives a process of the current mesh."""
+    want = shard_shape(global_shape(t), t.spec, process_mesh())
+    if tuple(t.shape) != want:
+        raise ValueError(f"{name}: the {tuple(t.shape)} block is not the "
+                         f"{want} block its spec {t.spec!r} gives")
+
+
+def check_cache_blocks(cache, batch: int) -> None:
+    """Raise, with the reason, unless every leaf of ``cache`` is laid out
+    as :func:`cache_blocks` lays it out for a global batch of
+    :func:`cache_global_batch` (``batch``) rows: on a process mesh each
+    leaf carries its spec and is its block, off one no leaf carries a
+    spec."""
+    leaves = {}
+    tree_map_with_path(lambda path, t: leaves.__setitem__(path, t), cache)
+    ctx = current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members"):
+        for path, t in leaves.items():
+            if spec_of(t) != _WHOLE:
+                raise ValueError(f"cache leaf {path} is a block ({spec_of(t)!r}"
+                                 ") of a process mesh, used off the mesh")
+        return
+    gb = cache_global_batch(batch)
+    for path, t in leaves.items():
+        if not hasattr(t, "spec"):
+            raise ValueError(
+                f"cache leaf {path} {tuple(t.shape)} carries no layout: a "
+                "process mesh serves a cache built by init_cache inside "
+                "rules.use_mesh of that mesh")
+        if global_shape(t)[0] != gb:
+            raise ValueError(f"cache leaf {path} was built for a global batch"
+                             f" of {global_shape(t)[0]}, the mesh serves {gb}")
+    whole = {p: torch.empty(global_shape(t), dtype=t.dtype, device="meta")
+             for p, t in leaves.items()}
+    want = cache_blocks(ctx.mesh, whole, seq_shard=gb == 1)
+    for path, t in leaves.items():
+        if spec_of(t) != want[path].spec:
+            raise ValueError(
+                f"cache leaf {path} is laid out by {spec_of(t)!r}; "
+                f"cache_specs gives {want[path].spec!r} at global batch {gb}")
+        check_block(t, f"cache leaf {path}")
 
 
 def _resolve_cache(ctx: MeshCtx, dims, shape) -> P:

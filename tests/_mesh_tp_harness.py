@@ -365,6 +365,64 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
                 "cache_shapes": [{k: list(v.shape) for k, v in c.items()}
                                  for c in layers]}
 
+    def serve_cache(name):
+        # a serve case of job["cache_cases"] from the reference's initial
+        # parameters (job["init"]): a prefill of S prompt tokens into a
+        # cache of T rows and a decode step at each of "pos"; the logits,
+        # and the cache's blocks after the prefill and after each step
+        case = job["cache_cases"][name]
+        cfg = dropless(smoke(configs, case["arch"]))
+        n_exp = cfg.moe.n_experts if cfg.moe else 0
+        m = build_model(cfg)
+        bsz, t_max, s = case["batch"], case["T"], case["S"]
+        toks = torch.from_numpy(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (bsz, s + len(case["pos"]))))
+        rep = bsz == 1              # global batch 1: every process, the row
+        mine = toks if rep else batch_block(toks, mesh)
+        b = mine.shape[0]
+        off_mesh = m.init_cache(b, t_max, torch.float32, device="cpu")
+        with rules.use_mesh(mesh, replicated_batch=rep):
+            if case.get("raises"):
+                try:
+                    m.init_cache(b, t_max, torch.float32, device="cpu")
+                except ValueError as e:
+                    return {"raised": str(e)}
+                return {"raised": None}
+            params = module(cfg)
+            reshard(params, convert.mesh_local(
+                torch.load(job["init"][case["arch"]]), mesh, n_exp))
+            bf16 = m.init_cache(b, t_max, device="cpu")
+            rec = {"cache_bytes_bf16": sum(
+                x.numel() * x.element_size() for c in bf16["layers"]
+                for x in c.values())}
+            del bf16
+            if case.get("refuse"):      # a cache built off the mesh
+                try:
+                    m.prefill(params, {"tokens": mine[:, :s]}, off_mesh)
+                    rec["refused"] = None
+                except ValueError as e:
+                    rec["refused"] = str(e)
+            cache = m.init_cache(b, t_max, torch.float32, device="cpu")
+            rec["specs"] = {f"layers/{i}/{k}": repr(x.spec)
+                            for i, c in enumerate(cache["layers"])
+                            for k, x in c.items()}
+            arrays = {}
+
+            def dump(step):
+                for i, c in enumerate(cache["layers"]):
+                    for k, x in c.items():
+                        arrays[f"{step}/layers/{i}/{k}"] = x.numpy().copy()
+            pre, cache = m.prefill(params, {"tokens": mine[:, :s]}, cache)
+            rec["logits"] = [t(pre[:, 0])]
+            dump(0)
+            for i, p_ in enumerate(case["pos"]):
+                lg, cache = m.decode(params, cache, mine[:, s + i],
+                                     torch.full((b,), p_))
+                rec["logits"].append(t(lg))
+                dump(i + 1)
+        np.savez(f"{job['out']}_{rank}_{name}.npz", **arrays)
+        return rec
+
     def layout(arch):
         params = module(smoke(configs, arch))
         return {n: [list(p.shape), list(p.global_shape), repr(p.spec)]
@@ -440,6 +498,8 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
             out[task] = collectives()
         elif kind == "serve":
             out[task] = serve(arch)
+        elif kind == "serve_cache":
+            out[task] = serve_cache(arch)
         elif kind == "layout":
             out[task] = layout(arch)
         elif kind == "grad64":
@@ -571,6 +631,64 @@ REF_CODE = SHARED_CODE + textwrap.dedent("""
             rec.update(losses=losses, grad_norms=gnorms,
                        sharded_after=sharded(params))
         out[run["name"]] = rec
+
+    def serve(name, case):
+        # a serve case on its mesh: parameters placed by param_specs, the
+        # cache by cache_specs (seq_shard at global batch 1), jax.jit's
+        # prefill and decode with the cache specs as out_shardings; the
+        # logits, and the whole cache after each call in {name}_{i}.npz
+        c = smoke(configs, case["arch"])
+        if c.moe is not None:
+            c = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=job["dropless_cf"]))
+        mdl = build_model(c)
+        n = int(np.prod(case["dims"]))
+        mesh = jax.sharding.Mesh(
+            np.array(jax.devices()[:n]).reshape(case["dims"]),
+            tuple(job["axes"]))
+        bsz, t_max, s = case["batch"], case["T"], case["S"]
+        toks = np.random.default_rng(11).integers(
+            0, c.vocab_size, (bsz, s + len(case["pos"])))
+        with rules.use_mesh(mesh):
+            cache = mdl.init_cache(bsz, t_max, dtype=jnp.float32)
+            try:
+                csh = rules.cache_specs(mesh, jax.eval_shape(lambda: cache),
+                                        seq_shard=bsz == 1)
+            except Exception as e:
+                return {"raised": f"{type(e).__name__}: {e}"}
+            cache = jax.device_put(cache, csh)
+            params = mdl.init(jax.random.key(0))
+            params = jax.tree.map(jax.device_put, params, rules.param_specs(
+                mesh, jax.eval_shape(lambda: params)))
+        rep = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
+
+        def pre(params, batch, cache):
+            with rules.use_mesh(mesh):
+                return mdl.prefill(params, batch, cache)
+
+        def dec(params, cache, token, pos):
+            with rules.use_mesh(mesh):
+                return mdl.decode(params, cache, token, pos)
+        pre = jax.jit(pre, out_shardings=(rep, csh))
+        dec = jax.jit(dec, out_shardings=(rep, csh))
+        specs = {}
+        for path, sh in jax.tree_util.tree_flatten_with_path(csh)[0]:
+            key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                           for k in path)
+            specs[key] = [list(e) if isinstance(e, tuple) else e
+                          for e in sh.spec]
+        lg, cache = pre(params, {"tokens": jnp.asarray(toks[:, :s])}, cache)
+        logits = [np.asarray(lg[:, 0]).tolist()]
+        np.savez(f"{job['out']}_{name}_0.npz", **flat(cache, ""))
+        for i, p_ in enumerate(case["pos"]):
+            lg, cache = dec(params, cache, jnp.asarray(toks[:, s + i]),
+                            jnp.full((bsz,), p_, jnp.int32))
+            logits.append(np.asarray(lg).tolist())
+            np.savez(f"{job['out']}_{name}_{i + 1}.npz", **flat(cache, ""))
+        return {"raised": None, "logits": logits, "specs": specs}
+
+    for name, case in job.get("serve", {}).items():
+        out[name] = serve(name, case)
     with open(job["out"], "w") as f:
         json.dump(out, f)
 """)
@@ -615,10 +733,14 @@ def ranks(job, dims):
         stderr=subprocess.PIPE, text=True) for r in range(world)]
 
 
-def reference(arch, runs, out):
-    """The reference's ``runs`` of ``arch``, their records to ``out``."""
+def reference(arch, runs, out, serve=None):
+    """The reference's ``runs`` of ``arch``, their records to ``out``;
+    and its ``serve`` cases (name -> case: ``arch``, ``dims``, ``batch``,
+    cache rows ``T``, prompt length ``S``, decode positions ``pos``), each
+    case's cache after each call beside ``out``."""
     job = dict(arch=arch, seq=SEQ, batch=BATCH, seed=SEED, lr=LR, runs=runs,
-               out=str(out))
+               out=str(out), serve=serve or {}, axes=list(AXES),
+               dropless_cf=DROPLESS_CF)
     return subprocess.Popen([sys.executable, "-c", REF_CODE,
                              json.dumps(job)], env=_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,

@@ -25,7 +25,9 @@ bias) and qwen3-moe (untied, qk-norm, experts):
   (``sum_grad``), the row-parallel output (``psum``) and the
   vocab-parallel cross-entropy;
 * a spec that cuts inside a head: qwen2.5-3b's 2 kv heads on a (1, 4)
-  mesh, against one process;
+  mesh, against one process, its cache every kv head on a block of the
+  sequence (``cache_specs``; ``test_torch_mesh_cache.py`` holds those
+  blocks to the reference's);
 * rwkv6-3b and deepseek-v3 hold their ``param_specs`` blocks too (their
   mesh runs: ``test_torch_mesh_tp_ssm.py``, ``test_torch_mesh_tp_mla.py``),
   and so does the encoder-decoder (``test_torch_mesh_tp_encdec.py``).
@@ -224,12 +226,19 @@ def _single_serve(arch):
 def test_prefill_decode_logits_equal_one_process(runs, arch, mesh):
     """The mesh's prefill and decode logits, gathered over ``model`` to
     ``(B, vocab)``, within 1e-5 relative of one process's; the processes
-    of a batch block agree bit for bit; the cache holds the local kv
-    heads.  (1, 4) cuts qwen2.5-3b's kv projections inside a head."""
+    of a batch block agree bit for bit; the cache holds its
+    ``cache_specs`` block: the local kv heads where they divide
+    ``model``, else every kv head and a block of the sequence.  (1, 4)
+    cuts qwen2.5-3b's kv projections inside a head, and its cache's
+    sequence."""
     pre, dec = _single_serve(arch)
     cfg = configs.get_smoke(arch)
     ranks = runs[mesh]
     rows = BATCH // (2 if mesh == "m22" else 1)
+    blocks = rules.cache_blocks(
+        make_test_mesh(MESH if mesh == "m22" else (1, 4)),
+        transformer.init_cache(cfg, BATCH, 16, torch.float32,
+                               device="meta"))["layers"]
     for r in ranks:
         got = r[f"serve:{arch}"]
         d = r["coords"]["data"]
@@ -239,10 +248,13 @@ def test_prefill_decode_logits_equal_one_process(runs, arch, mesh):
         same = [q for q in ranks if q["coords"]["data"] == d]
         assert got["prefill"] == same[0][f"serve:{arch}"]["prefill"]
         n_model = 2 if mesh == "m22" else 4
+        assert got["cache_shapes"] == [{k: list(b.shape) for k, b in
+                                        blk.items()} for blk in blocks]
         if cfg.n_kv_heads % n_model == 0:
             assert got["cache_kv_heads"] == cfg.n_kv_heads // n_model
-        else:                           # the one kv head its q heads read
-            assert got["cache_kv_heads"] == 1
+        else:               # every kv head, 16 / 4 rows of the sequence
+            assert got["cache_kv_heads"] == cfg.n_kv_heads
+            assert got["cache_shapes"][0]["k"][1] == 16 // n_model
 
 
 @pytest.mark.parametrize("kind", ("adamw", "adafactor", "gather_once"))

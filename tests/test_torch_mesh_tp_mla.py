@@ -13,7 +13,7 @@ with a shared expert; 4 heads):
   the reference's run places the same leaves sharded;
 * prefill and decode logits within 1e-5 relative of one process's on
   (2, 2) and (1, 4) (one head a process), the cache ``c_kv`` / ``k_rope``
-  whole;
+  a block of the sequence over ``model`` (``cache_specs``);
 * three AdamW steps from the reference's ``m.init(key(0))`` parameters
   within 1e-5 of the reference's run, and their checkpoint restored onto
   (1, 2) against one process resumed from it;
@@ -117,7 +117,8 @@ def _single_serve():
 def test_prefill_decode_logits_equal_one_process(runs, mesh):
     """The mesh's prefill (K8's route on the local heads) and absorbed
     decode logits within 1e-5 relative of one process's, the processes
-    of a batch block bit for bit equal, the MLA cache whole."""
+    of a batch block bit for bit equal, the MLA cache its block of the
+    sequence over ``model`` (16 / 2 or 16 / 4 rows)."""
     pre, dec, cache = _single_serve()
     rows = BATCH // (2 if mesh == "m22" else 1)
     for r in runs[mesh]:
@@ -128,9 +129,11 @@ def test_prefill_decode_logits_equal_one_process(runs, mesh):
         assert rel(got["decode"], dec[sl]) <= RTOL
         same = [q for q in runs[mesh] if q["coords"]["data"] == d]
         assert got["decode"] == same[0][f"serve:{ARCH}"]["decode"]
-        for mine, whole in zip(got["cache_shapes"], cache["layers"]):
-            assert mine == {k: [rows] + list(v.shape[1:])
-                            for k, v in whole.items()}
+        n_model = 2 if mesh == "m22" else 4
+        for mine, whole in zip(got["cache_shapes"], cache["layers"],
+                               strict=True):
+            assert mine == {k: [rows, v.shape[1] // n_model]
+                            + list(v.shape[2:]) for k, v in whole.items()}
 
 
 def test_mesh_training_equals_reference_sharded_mesh(runs):

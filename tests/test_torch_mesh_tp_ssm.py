@@ -189,8 +189,9 @@ def _single_serve(arch):
 def test_prefill_decode_logits_equal_one_process(runs, arch, mesh):
     """The mesh's prefill and decode logits within 1e-5 relative of one
     process's, the processes of a batch block bit for bit equal, each
-    cache of the local channels (Mamba), heads (RWKV-6, GQA) and whole
-    shifts."""
+    cache of the local channels (Mamba), heads (RWKV-6; GQA where its kv
+    heads divide ``model``, else every kv head on a block of the
+    sequence: ``cache_specs``) and whole shifts."""
     pre, dec, cache = _single_serve(arch)
     n_model = 2 if mesh == "m22" else 4
     rows = BATCH // (2 if mesh == "m22" else 1)
@@ -211,8 +212,10 @@ def test_prefill_decode_logits_equal_one_process(runs, arch, mesh):
                     want[1] //= n_model
                 elif key == "conv":
                     want[2] //= n_model
-                elif key in ("k", "v"):         # the kv heads read
-                    want[2] = max(1, want[2] // n_model)
+                elif key in ("k", "v") and want[2] % n_model == 0:
+                    want[2] //= n_model         # the kv heads read
+                elif key in ("k", "v"):         # every head, its rows
+                    want[1] //= n_model
                 assert shape == want, (key, shape, want)
 
 
