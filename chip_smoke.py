@@ -119,7 +119,7 @@ before the next:
                    second wave identical and the wave's MoE drop fraction;
                    ``qwen3-moe-30b-a3b`` (12 of 48 layers),
                    ``jamba-v0.1-52b`` (8 of 32: one period), ``rwkv6-3b``
-                   (all 32) and ``whisper-tiny`` (4 + 4, 1500 frames drawn
+                   (8 of 32) and ``whisper-tiny`` (4 + 4, 1500 frames drawn
                    from the seed) through ``Model.prefill`` and
                    ``Model.decode``.  For each: K8's launches per prefill,
                    all on ``"wgmma"`` (MLA at dh 192, dv 128, 128 KV
@@ -217,8 +217,8 @@ the seed and keeping its blocks:
                ``cache_specs`` blocks (a quarter of one process's bytes;
                deepseek-v3's c_kv and k_rope a block of the sequence over
                model, its decode the distributed softmax);
-               deepseek-v3's MLA in fp32 (its 3 dense layers, a prefill
-               and 2 decode steps) within 1e-3 of one process's largest
+               deepseek-v3's MLA in fp32 (1 dense layer, a prefill and 2
+               decode steps) within 1e-3 of one process's largest
                logit; on the same parameters a batch-1 serve
                (``replicated_batch``, ``seq_shard``) against one process,
                2 decode steps: jamba into 524 288 rows (the GQA layer's
@@ -230,10 +230,17 @@ the seed and keeping its blocks:
                published width and depth (4 + 4 layers, 3 of 6 heads a
                process, the 51 865-row table cut over data on d): a
                prefill of 4 x 128 seeded tokens and (4, 1500, 384) seeded
-               frames and 2 decode steps, fp32 within 1e-3 of one
-               process's largest logit and bf16 as (e), K8 12 times a
-               prefill and 4 a decode token in each process; 3 AdamW
-               steps held to one process as (d), no K8 launch; (h)
+               frames into 132 rows and 2 decode steps, fp32 within 1e-3
+               of one process's largest logit and bf16 as (e), K8 12 times
+               a prefill and 4 a decode token in each process, each
+               ``self`` and ``cross_kv`` leaf the reference's
+               ``cache_specs`` block (the kv heads over model: a quarter
+               of one process's bytes); the same at batch 1
+               (``seq_shard``, ``replicated_batch``: the rows and frames
+               also over data, 66 of 132 and 750 of 1 500), K8 12 times a
+               prefill and 0 a decode token (the cross-attention the
+               distributed softmax); 3 AdamW steps held to one process as
+               (d), no K8 launch; (h)
                ``qwen2.5-3b`` at published width, LM_MESH_DENSE_LAYERS
                deep, on a (1, 4) mesh of four processes: its 2 kv heads
                do not divide model, so the cache holds every kv head on a
@@ -245,7 +252,18 @@ the seed and keeping its blocks:
                decode's peak memory rise below 5 % of the whole cache;
                the cache's bytes, peak memory and s a decode step a
                process against one process's; K8 12 times a prefill on
-               4 of 16 heads, never in a decode step.
+               4 of 16 heads, never in a decode step; and whisper-tiny
+               served as (g) at batch 4 on the same (1, 4): 6 heads do
+               not divide 4, so every process attends with every head and
+               holds every head on a quarter of the rows and frames (33
+               of 132, 375 of 1 500), K8 12 times a prefill on 6 heads
+               and 0 a decode token, gated as (g).  Every task's
+               processes record the collectives they call
+               (``collectives.tally``); for (g) and (h) each prefill's,
+               each decode step's and (g)'s first train step's must equal
+               ``launch.dryrun.count_collectives``' count on ``meta`` of
+               the same arch, mesh, batch and length (the prompt's, or the
+               cache's rows), kind by kind, in bytes and in calls.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -431,6 +449,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -487,7 +506,7 @@ from repro_torch.runtime.fault import RestartPolicy  # noqa: E402
 from repro_torch.runtime.inject import FaultInjector, parse_specs  # noqa: E402
 from repro_torch.runtime.supervisor import SimulationSupervisor  # noqa: E402
 from repro_torch.serve.snn import SessionEngine  # noqa: E402
-from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.diff import classify as diff_classify  # noqa: E402
 from repro_torch.diff import inverse as diff_inverse  # noqa: E402
 from repro_torch.diff import rollout as diff_rollout  # noqa: E402
@@ -498,7 +517,8 @@ from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import optimizer as train_opt  # noqa: E402
 from repro_torch.configs.shapes import SHAPES as LM_SHAPES  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    MeshShape, make_production_mesh)
 from repro_torch.utils import op_costs  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -771,7 +791,11 @@ LM_LOGIT_ATOL = 0.1
 #: the K8/twin swap with the model in fp32: fp32 sums in another order
 LM_LOGIT_ATOL_F32 = 1e-3
 #: the lm_families cell (phase 14b): each arch at its published width,
-#: the depth run (None: all of it; a cut only where 80 GB forces one),
+#: the depth run (None: all of it; a cut where 80 GB forces one, and
+#: rwkv6-3b's, whose prefill steps a Python loop over time per layer, to
+#: 8 of 32 layers for the script's time: all 32 took 76-93 s of it, 4
+#: took 9.7 s, and the phases before lm_mesh vary by 127 s between cards
+#: of one name and power limit),
 #: K8's launches per prefill and per decode step at that depth, and
 #: whether the decode chain is held against forward in fp32 (its bf16
 #: chain measured, not held: rounding moves these two random-weight
@@ -782,8 +806,9 @@ LM_FAMILIES = {
     "qwen3-moe-30b-a3b": dict(layers=12, k8_prefill=12, k8_decode=0),
     "jamba-v0.1-52b": dict(layers=8, k8_prefill=1, k8_decode=0,
                            chain_fp32=True),
-    "rwkv6-3b": dict(layers=None, k8_prefill=0, k8_decode=0,
-                     chain_fp32=True),
+    "rwkv6-3b": dict(layers=8, k8_prefill=0, k8_decode=0,
+                     chain_fp32=True, cut="the script's time (a Python "
+                     "loop over time per layer)"),
     "whisper-tiny": dict(layers=None, k8_prefill=12, k8_decode=4),
 }
 #: the arch served through ``BatchServer`` (twice, the second wave
@@ -4451,8 +4476,9 @@ def lm_family(arch: str) -> dict:
     emit({"phase": "lm_families", "arch": arch, "layers": cfg.n_layers,
           "published_layers": pub.n_layers,
           "depth_cut": (None if cfg.n_layers == pub.n_layers else
-                        f"{cfg.n_layers} of {pub.n_layers} layers: the "
-                        "published depth does not fit 80 GB"),
+                        f"{cfg.n_layers} of {pub.n_layers} layers: "
+                        + spec.get("cut", "the published depth does not "
+                                   "fit 80 GB")),
           "layer_kinds": sorted({"+".join(k) for k in
                                  lm_tr.layer_kinds(cfg)}) if
           cfg.family != "audio" else ["encoder", "decoder"],
@@ -5078,8 +5104,10 @@ LM_MESH_TRAIN_LEGS = {
 #: at 4 of 61 (3 dense MLA + MLP, then MLA + MoE of 256 experts and the
 #: shared expert, 64 a process; 128 MLA heads, 64 a process), its
 #: parameters drawn one process at a time (``in_turn``).  And
-#: deepseek-v3's MLA in fp32, its 3 dense layers (MLA + MLP; the config
-#: builds its dense prefix whatever ``n_layers`` says), a prefill: within
+#: deepseek-v3's MLA in fp32, 1 dense layer (MLA + MLP: ``dense`` sets
+#: the config's dense prefix, which it builds whatever ``n_layers``
+#: says; its 3 until the encoder-decoder's batch-1 and (1, 4) legs took
+#: the script's time, 65.5 s of the phase), a prefill: within
 #: LM_MESH_F32_RTOL of one process's largest logit, as (a), so that a
 #: wrong cut of the heads fails whatever bf16 rounding does (the bf16
 #: prefill's distance read 0.69 in one card run and 0.042 in the next,
@@ -5103,8 +5131,9 @@ LM_MESH_FAMILIES = {
     "deepseek-v3-671b": dict(arch="deepseek-v3-671b", layers=4,
                              k8_prefill=4, heads=64, dtype="bfloat16",
                              decode=2, in_turn=True),
-    "deepseek-v3-671b-fp32": dict(arch="deepseek-v3-671b", layers=3,
-                                  k8_prefill=3, heads=64, dtype="float32",
+    "deepseek-v3-671b-fp32": dict(arch="deepseek-v3-671b", layers=1,
+                                  dense=1, k8_prefill=1, heads=64,
+                                  dtype="float32",
                                   decode=2, in_turn=False, b1=132),
 }
 #: the sequence-cut leg (h): qwen2.5-3b at published width,
@@ -5141,6 +5170,30 @@ LM_MESH_SEQCUT_RISE = 0.05
 LM_MESH_ENCDEC_ARCH = "whisper-tiny"
 LM_MESH_ENCDEC_DECODE = 2
 LM_MESH_ENCDEC_K8 = {"prefill": 12, "decode": 4, "heads": 3, "train": 0}
+#: (g)'s cache rows: the prompt and the decode tokens (130) rounded up to
+#: a multiple of 4, so that every layout below cuts the rows as it cuts
+#: the 1 500 frames
+LM_MESH_ENCDEC_ROWS = 132
+#: (g)'s served layouts, each against one process at its batch (fp32
+#: within LM_MESH_F32_RTOL of the largest logit, bf16 within the b4
+#: leg's limits by position): the spawn, the global batch, the spec every
+#: ``self`` and ``cross_kv`` leaf carries (the reference's
+#: ``cache_specs``; each a quarter of one process's cache), K8's
+#: launches a decode token and its query heads a process (a prefill's
+#: are LM_MESH_ENCDEC_K8's 12).  b4 on (2, 2): the kv heads over model,
+#: the cross-attention on K8 at S = 1; b1 (``seq_shard``,
+#: ``replicated_batch``): also the rows and frames over data, so the
+#: decode's cross-attention is the distributed softmax in torch ops; m14
+#: on (1, 4), where 6 heads do not divide 4: every head on a quarter of
+#: the rows and frames, the cross-attention the distributed softmax
+LM_MESH_ENCDEC_LAYOUTS = {
+    "b4": dict(spawn="mesh", dims=(2, 2), batch=4,
+               spec="P('data', None, 'model')", k8_decode=4, heads=3),
+    "b1": dict(spawn="mesh", dims=(2, 2), batch=1,
+               spec="P(None, 'data', 'model')", k8_decode=0, heads=3),
+    "m14": dict(spawn="mesh14", dims=(1, 4), batch=4,
+                spec="P('data', 'model')", k8_decode=0, heads=6),
+}
 LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
@@ -5244,8 +5297,10 @@ def _k8_heads():
 
 def _cache_record(cache) -> dict:
     """A cache's bytes, and the specs its GQA and MLA leaves carry (on a
-    process mesh: ``rules.cache_blocks``' layout)."""
-    leaves = [(k, x) for c in cache["layers"] for k, x in c.items()]
+    process mesh: ``rules.cache_blocks``' layout); a decoder's
+    ``layers`` or the encoder-decoder's ``self`` and ``cross_kv``."""
+    leaves = [(k, x) for part in cache.values() for c in part
+              for k, x in c.items()]
     return {"cache_bytes": sum(x.numel() * x.element_size()
                                for _, x in leaves),
             "cache_specs": sorted({repr(lm_rules.spec_of(x)) for k, x in leaves
@@ -5385,7 +5440,8 @@ def lm_mesh_seqcut(dtype: str, mesh=None) -> dict:
     decode steps, in one process or on ``mesh``'s (1, 4) (this process's
     block of the cache: every kv head, a quarter of the sequence): the
     logits, K8's launches (prefill, decode) and heads, the cache's bytes
-    and specs, the prefill's and each decode step's seconds, the peak
+    and specs, the collectives tally of the prefill and of each decode
+    step, the prefill's and each decode step's seconds, the peak
     memory from the parameters on, the memory allocated before the
     decode and the decode's peak over it."""
     cfg = _seqcut_cfg(dtype)
@@ -5407,22 +5463,28 @@ def lm_mesh_seqcut(dtype: str, mesh=None) -> dict:
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
+        with lm_coll.tally() as tl:
+            logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t0
+        rec["tally_prefill"] = tl.record()
         k8 = read_launches()["flash_attention"]
         peak_pre = torch.cuda.max_memory_allocated()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        out, t_dec = [logits[:, 0]], []
+        out, t_dec, tallies = [logits[:, 0]], [], []
         for i in range(spec["decode"]):
             pos = torch.full((b,), LM_MESH_SEQ + i, dtype=torch.int64,
                              device=DEV)
             t0 = time.perf_counter()
-            lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos, cache)
+            with lm_coll.tally() as tl:
+                lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos,
+                                              cache)
             torch.cuda.synchronize()
             t_dec.append(time.perf_counter() - t0)
+            tallies.append(tl.record())
             out.append(lg)
+        rec["tally_decode"] = tallies
         peak_dec = torch.cuda.max_memory_allocated()
     rec.update(logits=torch.stack(out).float().cpu(), k8_prefill=k8,
                k8_decode=read_launches()["flash_attention"] - k8,
@@ -5487,15 +5549,17 @@ def _prefill_probes(params, cfg, prompts, routes):
 
 def _family_cfg(leg: str):
     """(e)'s config of LM_MESH_FAMILIES' ``leg``: its arch published, cut
-    to its depth, in its dtype, MoE dropless (``_chain_vs_forward``'s
+    to its depth (and its dense prefix to ``dense`` layers where the leg
+    names it), in its dtype, MoE dropless (``_chain_vs_forward``'s
     capacity factor: at least E / k, so that capacity covers every token,
     and at least LM_DROPLESS_CF)."""
     spec = LM_MESH_FAMILIES[leg]
     pub = lm_configs.get(spec["arch"])
+    dense = ({"dense_first_n": spec["dense"]} if "dense" in spec else {})
     return dataclasses.replace(
         pub, n_layers=spec["layers"], dtype=spec["dtype"],
         moe=dataclasses.replace(pub.moe, capacity_factor=max(
-            LM_DROPLESS_CF, pub.moe.n_experts / pub.moe.top_k)))
+            LM_DROPLESS_CF, pub.moe.n_experts / pub.moe.top_k), **dense))
 
 
 def lm_mesh_published(mesh) -> dict:
@@ -5757,39 +5821,50 @@ def _encdec_inputs(cfg):
     return tuple(torch.from_numpy(a).to(DEV) for a in (prompts, frames, dec))
 
 
-def _encdec_serve(m, params, prompts, frames, dec):
-    """A prefill of ``prompts`` and ``frames`` and a decode step of each
-    column of ``dec``: the logits (1 + decode, B, V), K8's launches and
-    the seconds of the prefill and of each decode step."""
+def _encdec_serve(m, params, prompts, frames, dec) -> dict:
+    """A prefill of ``prompts`` and ``frames`` into a cache of
+    LM_MESH_ENCDEC_ROWS rows and a decode step of each column of ``dec``:
+    the logits (1 + decode, B, V), K8's launches, the seconds and the
+    collectives tally (``collectives.tally``) of the prefill and of each
+    decode step, and the cache's bytes and specs."""
     b, s = prompts.shape
-    cache = m.init_cache(b, s + dec.shape[1], getattr(torch, m.cfg.dtype),
+    cache = m.init_cache(b, LM_MESH_ENCDEC_ROWS, getattr(torch, m.cfg.dtype),
                          device=DEV)
-    out, k8, secs = [], [], []
+    rec = _cache_record(cache)
+    out, k8, secs, tallies = [], [], [], []
     for i in range(1 + dec.shape[1]):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 0:
-            lg, cache = m.prefill(params, {"tokens": prompts,
-                                           "frames": frames}, cache)
-            lg = lg[:, 0]
-        else:
-            lg, cache = m.decode(params, cache, dec[:, i - 1], torch.full(
-                (b,), s + i - 1, dtype=torch.int64, device=DEV))
+        with lm_coll.tally() as tl:
+            if i == 0:
+                lg, cache = m.prefill(params, {"tokens": prompts,
+                                               "frames": frames}, cache)
+                lg = lg[:, 0]
+            else:
+                lg, cache = m.decode(params, cache, dec[:, i - 1], torch.full(
+                    (b,), s + i - 1, dtype=torch.int64, device=DEV))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         out.append(lg)
         k8.append(read_launches()["flash_attention"])
-    return torch.stack(out).float().cpu(), k8, secs
+        tallies.append(tl.record())
+    rec.update(logits=torch.stack(out).float().cpu(), k8=k8, secs=secs,
+               tallies=tallies)
+    return rec
 
 
-def lm_mesh_encdec(dtype: str, mesh=None, floor: bool = False) -> dict:
+def lm_mesh_encdec(dtype: str, mesh=None, floor: bool = False,
+                   batch: int = LM_MESH_BATCH) -> dict:
     """(g) served: the prefill's last logits and each decode step's, of
     the whole batch (``mesh`` None; with ``floor`` also each row run alone
-    in ``rows_alone``) or of this process's block; K8's launches in the
-    prefill and in each decode step, and their query heads; the prefill's
-    and each decode step's seconds; peak memory from the parameters on,
-    and the parameters' bytes."""
+    in ``rows_alone``) or of this process's block; at ``batch`` 1 the
+    first prompt and its frames, on a mesh under ``use_mesh(
+    replicated_batch=True)`` (``seq_shard``); K8's launches in the
+    prefill and in each decode step, and their query heads; the cache's
+    bytes and specs; the collectives tally of the prefill and of each
+    decode step; the prefill's and each decode step's seconds; peak
+    memory from the parameters on, and the parameters' bytes."""
     cfg = dataclasses.replace(lm_configs.get(LM_MESH_ENCDEC_ARCH),
                               dtype=dtype)
     m = build_model(cfg)
@@ -5798,21 +5873,30 @@ def lm_mesh_encdec(dtype: str, mesh=None, floor: bool = False) -> dict:
     params = m.init(SEED, device=DEV, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prompts, frames, dec = (_block(t, mesh) for t in _encdec_inputs(cfg))
+    if batch == 1:
+        prompts, frames, dec = (t[:1] for t in _encdec_inputs(cfg))
+    else:
+        prompts, frames, dec = (_block(t, mesh)
+                                for t in _encdec_inputs(cfg))
     b = prompts.shape[0]
-    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
-           else contextlib.nullcontext())
+    ctx = (lm_rules.use_mesh(mesh, replicated_batch=batch == 1)
+           if mesh is not None else contextlib.nullcontext())
     with ctx, _k8_heads() as heads:
         # warm: the gloo groups and the kernels' first launches
         _encdec_serve(m, params, prompts[:, :8], frames, dec[:, :1])
         heads.clear()
-        logits, k8, secs = _encdec_serve(m, params, prompts, frames, dec)
+        run = _encdec_serve(m, params, prompts, frames, dec)
         if floor:
             alone = torch.cat([_encdec_serve(
                 m, params, prompts[i:i + 1], frames[i:i + 1],
-                dec[i:i + 1])[0] for i in range(b)], dim=1)
-    rec = {"logits": logits, "k8_prefill": k8[0], "k8_decode": k8[1:],
-           "k8_heads": sorted(set(heads)), "prefill_s": secs[0],
+                dec[i:i + 1])["logits"] for i in range(b)], dim=1)
+    k8, secs = run["k8"], run["secs"]
+    rec = {"logits": run["logits"], "k8_prefill": k8[0],
+           "k8_decode": k8[1:], "k8_heads": sorted(set(heads)),
+           "cache_bytes": run["cache_bytes"],
+           "cache_specs": run["cache_specs"],
+           "tally_prefill": run["tallies"][0],
+           "tally_decode": run["tallies"][1:], "prefill_s": secs[0],
            "prefill_tokens_per_s": b * LM_MESH_SEQ / secs[0],
            "decode_step_s": secs[1:],
            "param_bytes": sum(p.numel() * p.element_size()
@@ -5828,7 +5912,8 @@ def lm_mesh_encdec_train(mesh=None) -> dict:
     """(g) trained: LM_MESH_DENSE_STEPS AdamW steps of whisper-tiny at
     published width and depth, fp32 parameters and bf16 compute, on B x
     S seeded tokens and the launcher's frames (``launch.train.
-    make_batch``); K8's launches in the steps, peak memory, s a step."""
+    make_batch``); K8's launches in the steps, each step's collectives
+    tally, peak memory, s a step."""
     cfg = lm_configs.get(LM_MESH_ENCDEC_ARCH)
     m = build_model(cfg)
     gc.collect()
@@ -5842,25 +5927,76 @@ def lm_mesh_encdec_train(mesh=None) -> dict:
                          global_batch=LM_MESH_BATCH, seed=SEED)
     ctx = (lm_rules.use_mesh(mesh) if mesh is not None
            else contextlib.nullcontext())
-    losses, gnorms, step_s = [], [], []
+    losses, gnorms, step_s, tallies = [], [], [], []
     with ctx:
         reset_launches()
         for i in range(LM_MESH_DENSE_STEPS):
             batch = {k: _block(v, mesh) for k, v in launch_train.make_batch(
                 cfg, pipe, i, DEV).items()}
             t0 = time.perf_counter()
-            params, opt, met = step(params, opt, batch, i)
+            with lm_coll.tally() as tl:
+                params, opt, met = step(params, opt, batch, i)
             losses.append(float(met["loss"]))
             gnorms.append(float(met["grad_norm"]))
             step_s.append(time.perf_counter() - t0)
+            tallies.append(tl.record())
         k8 = read_launches()["flash_attention"]
     rec = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
-           "k8_train": k8,
+           "k8_train": k8, "tally_steps": tallies,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
     del params, opt
     return rec
+
+
+def _lm_mesh_task(task: str, mesh, arrays: dict) -> dict:
+    """One task of :func:`lm_mesh_worker` on ``mesh``: its record, its
+    logits put in ``arrays``."""
+    if task.startswith("forward_"):
+        dtype = task.split("_", 1)[1]
+        replay = [torch.from_numpy(a) for a in np.load(os.path.join(
+            LM_MESH_DIR, f"routes_{dtype}.npz")).values()]
+        out = lm_mesh_forward(dtype, mesh, replay)
+        arrays[f"logits_{dtype}"] = out.pop("logits").numpy()
+    elif task == "published":
+        out = lm_mesh_published(mesh)
+    elif task == "train":
+        out = lm_mesh_train(mesh)
+    elif task == "dense":
+        out = lm_mesh_dense(mesh)
+    elif task == "rwkv_train":
+        out = lm_mesh_dense(mesh, "rwkv")
+    elif task == "encdec_train":
+        out = lm_mesh_encdec_train(mesh)
+    elif task.startswith("encdec:"):
+        _, layout, dtype = task.split(":")
+        out = lm_mesh_encdec(
+            dtype, mesh, batch=LM_MESH_ENCDEC_LAYOUTS[layout]["batch"])
+        arrays[task] = out.pop("logits").numpy()
+    elif task.startswith("family:"):
+        leg = task.split(":", 1)[1]
+        spec = LM_MESH_FAMILIES[leg]
+        replay = [torch.from_numpy(a) for a in np.load(os.path.join(
+            LM_MESH_DIR, f"routes_{leg}.npz")).values()]
+        replay_b1 = None
+        if spec.get("b1"):
+            replay_b1 = [torch.from_numpy(a) for a in np.load(
+                os.path.join(LM_MESH_DIR,
+                             f"routes_{leg}_b1.npz")).values()]
+        out = lm_mesh_forward(spec["dtype"], mesh, replay,
+                              _family_cfg(leg), spec["decode"],
+                              in_turn=spec["in_turn"], b1=spec.get("b1"),
+                              replay_b1=replay_b1)
+        arrays[f"logits_{leg}"] = out.pop("logits").numpy()
+        if "b1" in out:
+            arrays[f"logits_{leg}_b1"] = out["b1"].pop("logits").numpy()
+    elif task.startswith("seqcut_"):
+        out = lm_mesh_seqcut(task.split("_", 1)[1], mesh)
+        arrays[task] = out.pop("logits").numpy()
+    else:
+        out = lm_mesh_restart(mesh)
+    return out
 
 
 def lm_mesh_worker(job_json: str) -> None:
@@ -5879,49 +6015,9 @@ def lm_mesh_worker(job_json: str) -> None:
     arrays = {}
     for task in job["tasks"]:
         t0 = time.perf_counter()
-        if task.startswith("forward_"):
-            dtype = task.split("_", 1)[1]
-            replay = [torch.from_numpy(a) for a in np.load(os.path.join(
-                LM_MESH_DIR, f"routes_{dtype}.npz")).values()]
-            out = lm_mesh_forward(dtype, mesh, replay)
-            arrays[f"logits_{dtype}"] = out.pop("logits").numpy()
-        elif task == "published":
-            out = lm_mesh_published(mesh)
-        elif task == "train":
-            out = lm_mesh_train(mesh)
-        elif task == "dense":
-            out = lm_mesh_dense(mesh)
-        elif task == "rwkv_train":
-            out = lm_mesh_dense(mesh, "rwkv")
-        elif task.startswith("encdec_"):
-            kind = task.split("_", 1)[1]
-            if kind == "train":
-                out = lm_mesh_encdec_train(mesh)
-            else:
-                out = lm_mesh_encdec(kind, mesh)
-                arrays[task] = out.pop("logits").numpy()
-        elif task.startswith("family:"):
-            leg = task.split(":", 1)[1]
-            spec = LM_MESH_FAMILIES[leg]
-            replay = [torch.from_numpy(a) for a in np.load(os.path.join(
-                LM_MESH_DIR, f"routes_{leg}.npz")).values()]
-            replay_b1 = None
-            if spec.get("b1"):
-                replay_b1 = [torch.from_numpy(a) for a in np.load(
-                    os.path.join(LM_MESH_DIR,
-                                 f"routes_{leg}_b1.npz")).values()]
-            out = lm_mesh_forward(spec["dtype"], mesh, replay,
-                                  _family_cfg(leg), spec["decode"],
-                                  in_turn=spec["in_turn"], b1=spec.get("b1"),
-                                  replay_b1=replay_b1)
-            arrays[f"logits_{leg}"] = out.pop("logits").numpy()
-            if "b1" in out:
-                arrays[f"logits_{leg}_b1"] = out["b1"].pop("logits").numpy()
-        elif task.startswith("seqcut_"):
-            out = lm_mesh_seqcut(task.split("_", 1)[1], mesh)
-            arrays[task] = out.pop("logits").numpy()
-        else:
-            out = lm_mesh_restart(mesh)
+        with lm_coll.tally() as whole:
+            out = _lm_mesh_task(task, mesh, arrays)
+        out["collectives_task"] = whole.record()
         out["task_s"] = time.perf_counter() - t0
         print(json.dumps({"task": task, "s": out["task_s"]}), flush=True)
         rec[task] = out
@@ -5987,72 +6083,155 @@ def _rel_first(got, want, first_tol, tol, what):
     return float(rel.max())
 
 
-def _check_encdec(ranks, single) -> dict:
-    """(g): each process's served logits against its rows of one
-    process's (fp32 within LM_MESH_F32_RTOL of the largest logit, bf16
-    within LM_LOGIT_ATOL or LM_CHAIN_FLOOR_FACTOR times one process's
-    distance from itself row by row), K8's launches and heads a process
-    pinned, and the train steps gated as (d); its record."""
+@functools.lru_cache(maxsize=None)
+def _dry_count(cfg, kind: str, seq: int, batch: int, dims,
+               tcfg=None) -> dict:
+    """``launch.dryrun.count_collectives`` of a cell, counted once."""
+    return lm_dryrun.count_collectives(
+        cfg, ShapeConfig("lm_mesh", kind, seq, batch),
+        MeshShape(LM_MESH_AXES, tuple(dims)), tcfg=tcfg)
+
+
+def _check_tally(what: str, got: dict, cfg, kind: str, seq: int,
+                 batch: int, dims, tcfg=None) -> dict:
+    """A process's collectives tally of one call against the dry run's
+    count on ``meta`` of the same cell (``launch.dryrun.
+    count_collectives``: the arch, the mesh, the global batch, the prompt
+    length of a prefill or the cache's rows of a decode step), kind by
+    kind, in bytes, ring volumes and calls; the count."""
+    want = _dry_count(cfg, kind, seq, batch, tuple(dims), tcfg)
+    check(got["calls_by_kind"] == want["calls_by_kind"]
+          and got["by_kind"] == want["by_kind"]
+          and got["ring_by_kind"] == want["ring_by_kind"],
+          f"lm_mesh {what}: a process ran {got} against the dry run's "
+          f"count {want}")
+    return {k: want[k] for k in ("calls_by_kind", "by_kind", "total_bytes",
+                                 "ring_total_bytes")}
+
+
+def _check_call_tallies(what: str, per: list, cfg, seq: int, rows: int,
+                        batch: int, dims) -> dict:
+    """Every process's prefill tally and each decode step's (``per``: the
+    processes' records) against the dry run's counts of the prefill cell
+    (``seq`` tokens) and of the decode cell (``rows`` of cache); the
+    counts."""
+    out = {}
+    for p in per:
+        out["prefill"] = _check_tally(f"{what} prefill", p["tally_prefill"],
+                                      cfg, "prefill", seq, batch, dims)
+        for t in p["tally_decode"]:
+            out["decode"] = _check_tally(f"{what} decode", t, cfg, "decode",
+                                         rows, batch, dims)
+    return out
+
+
+def _encdec_tasks(spawn: str) -> list:
+    """The served (g) tasks of the spawn ``spawn``: each layout of
+    LM_MESH_ENCDEC_LAYOUTS it holds, in fp32 and bf16."""
+    return [f"encdec:{layout}:{dtype}"
+            for layout, lay in LM_MESH_ENCDEC_LAYOUTS.items()
+            if lay["spawn"] == spawn for dtype in ("float32", "bfloat16")]
+
+
+def _check_encdec(ranks, ranks14, single) -> dict:
+    """(g): in each layout of LM_MESH_ENCDEC_LAYOUTS each process's
+    served logits against its rows of one process's (fp32 within
+    LM_MESH_F32_RTOL of the largest logit, bf16 within LM_LOGIT_ATOL or
+    LM_CHAIN_FLOOR_FACTOR times one process's distance from itself row by
+    row, the b4 leg's limits), the processes of a batch block bit for bit
+    the same, each cache a quarter of one process's and every leaf of it
+    the layout's spec, K8's launches and heads a process pinned, each
+    call's collectives tally the dry run's count; the train steps gated
+    as (d), the first step's tally the dry run's count; its record."""
     want_k8 = LM_MESH_ENCDEC_K8
-    rows = LM_MESH_BATCH // LM_MESH_DIMS[0]
-    out = {"arch": LM_MESH_ENCDEC_ARCH, "batch": LM_MESH_BATCH,
-           "seq": LM_MESH_SEQ, "decode_steps": LM_MESH_ENCDEC_DECODE}
-    for dtype in ("float32", "bfloat16"):
-        one, task = single[dtype], f"encdec_{dtype}"
-        want = one["logits"]                      # (1 + decode, B, V)
-        got = torch.zeros_like(want)
-        for r in ranks:
-            d = r["coords"]["data"]
-            arr = torch.from_numpy(np.load(os.path.join(
-                LM_MESH_DIR, f"mesh_rank{r['rank']}.npz"))[task])
-            if r["coords"]["model"] == 0:
-                got[:, d * rows:(d + 1) * rows] = arr
-            else:      # the processes of one block agree bit for bit
-                check(torch.equal(got[:, d * rows:(d + 1) * rows], arr),
-                      f"lm_mesh encdec {dtype}: the processes of batch "
-                      f"block {d} differ")
-        err = (got - want).abs().amax((1, 2))
-        k8 = [[r[task]["k8_prefill"]] + r[task]["k8_decode"] for r in ranks]
-        heads = [r[task]["k8_heads"] for r in ranks]
-        per = [want_k8["prefill"]] + [want_k8["decode"]] * \
-            LM_MESH_ENCDEC_DECODE
-        check(k8 == [per] * len(ranks) and [one["k8_prefill"]]
-              + one["k8_decode"] == per, f"lm_mesh encdec {dtype}: K8 "
-              f"launched {k8} times a process, prefill then each decode "
-              f"token (one process: {one['k8_prefill']}, "
-              f"{one['k8_decode']})")
-        check(heads == [[want_k8["heads"]]] * len(ranks)
-              and one["k8_heads"] == [2 * want_k8["heads"]],
-              f"lm_mesh encdec {dtype}: K8 ran on {heads} heads a process "
-              f"(one process: {one['k8_heads']})")
-        leg = {"max_abs_err_prefill": float(err[0]),
-               "max_abs_err_decode": err[1:].tolist(),
-               "max_abs_logit": float(want.abs().max()),
-               "k8_per_process": k8, "k8_heads_per_process": heads,
-               "single": {k: one[k] for k in (
-                   "prefill_s", "prefill_tokens_per_s", "decode_step_s",
-                   "param_bytes", "peak_device_mem_bytes")},
-               **{f"{k}_per_process": [r[task][k] for r in ranks]
-                  for k in ("prefill_s", "prefill_tokens_per_s",
-                            "decode_step_s", "param_bytes",
-                            "peak_device_mem_bytes", "task_s")}}
-        if dtype == "float32":
-            limit = LM_MESH_F32_RTOL * leg["max_abs_logit"]
-            check(bool((err <= limit).all()), f"lm_mesh encdec fp32: "
-                  f"logits differ from one process's by {err.tolist()}, "
-                  f"limit {limit}")
-            leg["tolerance_rel"] = LM_MESH_F32_RTOL
-        else:
-            floor_ = (one["rows_alone"] - want).abs().amax((1, 2))
-            limit = torch.clamp_min(LM_CHAIN_FLOOR_FACTOR * floor_,
-                                    LM_LOGIT_ATOL)
-            check(bool((err <= limit).all()), f"lm_mesh encdec bf16: "
-                  f"logits differ from one process's by {err.tolist()}, "
-                  f"limits {limit.tolist()}")
-            leg.update(rows_alone_vs_batch_err=floor_.tolist(),
-                       limit_by_position=limit.tolist(),
-                       tolerance_abs=LM_LOGIT_ATOL)
-        out[dtype] = leg
+    out = {"arch": LM_MESH_ENCDEC_ARCH, "seq": LM_MESH_SEQ,
+           "rows": LM_MESH_ENCDEC_ROWS,
+           "decode_steps": LM_MESH_ENCDEC_DECODE}
+    limits = {}
+    for layout, lay in LM_MESH_ENCDEC_LAYOUTS.items():
+        procs = ranks if lay["spawn"] == "mesh" else ranks14
+        bsz = lay["batch"]
+        rows = bsz // lay["dims"][0] if bsz > 1 else 1
+        out[layout] = {"mesh": list(lay["dims"]), "batch": bsz}
+        for dtype in ("float32", "bfloat16"):
+            one = single["b1" if bsz == 1 else "b4"][dtype]
+            task = f"encdec:{layout}:{dtype}"
+            what = f"encdec {layout} {dtype}"
+            want = one["logits"]                  # (1 + decode, B, V)
+            got = torch.zeros_like(want)
+            seen = set()
+            for r in procs:
+                d = r["coords"]["data"] if bsz > 1 else 0
+                arr = torch.from_numpy(np.load(os.path.join(
+                    LM_MESH_DIR, f"{lay['spawn']}_rank{r['rank']}.npz"))[
+                        task])
+                if d not in seen:
+                    got[:, d * rows:(d + 1) * rows] = arr
+                    seen.add(d)
+                else:  # the processes of one block agree bit for bit
+                    check(torch.equal(got[:, d * rows:(d + 1) * rows], arr),
+                          f"lm_mesh {what}: the processes of batch block "
+                          f"{d} differ")
+            err = (got - want).abs().amax((1, 2))
+            per = [r[task] for r in procs]
+            k8 = [[p["k8_prefill"]] + p["k8_decode"] for p in per]
+            heads = [p["k8_heads"] for p in per]
+            decode = [want_k8["decode"]] * LM_MESH_ENCDEC_DECODE
+            check(k8 == [[want_k8["prefill"]] + [lay["k8_decode"]]
+                         * LM_MESH_ENCDEC_DECODE] * len(procs)
+                  and [one["k8_prefill"]] + one["k8_decode"]
+                  == [want_k8["prefill"]] + decode,
+                  f"lm_mesh {what}: K8 launched {k8} times a process, "
+                  f"prefill then each decode token (one process: "
+                  f"{one['k8_prefill']}, {one['k8_decode']})")
+            check(heads == [[lay["heads"]]] * len(procs)
+                  and one["k8_heads"] == [2 * want_k8["heads"]],
+                  f"lm_mesh {what}: K8 ran on {heads} heads a process "
+                  f"(one process: {one['k8_heads']})")
+            check([p["cache_bytes"] for p in per]
+                  == [one["cache_bytes"] // 4] * len(procs)
+                  and all(p["cache_specs"] == [lay["spec"]] for p in per),
+                  f"lm_mesh {what}: caches "
+                  f"{[(p['cache_bytes'], p['cache_specs']) for p in per]},"
+                  f" one process {one['cache_bytes']}")
+            cfg = dataclasses.replace(lm_configs.get(LM_MESH_ENCDEC_ARCH),
+                                      dtype=dtype)
+            counts = _check_call_tallies(what, per, cfg, LM_MESH_SEQ,
+                                         LM_MESH_ENCDEC_ROWS, bsz,
+                                         lay["dims"])
+            leg = {"max_abs_err_prefill": float(err[0]),
+                   "max_abs_err_decode": err[1:].tolist(),
+                   "max_abs_logit": float(want.abs().max()),
+                   "k8_per_process": k8, "k8_heads_per_process": heads,
+                   "cache_bytes_single": one["cache_bytes"],
+                   "collectives_counted": counts,
+                   "single": {k: one[k] for k in (
+                       "prefill_s", "prefill_tokens_per_s", "decode_step_s",
+                       "param_bytes", "peak_device_mem_bytes")},
+                   **{f"{k}_per_process": [p[k] for p in per]
+                      for k in ("cache_bytes", "cache_specs", "prefill_s",
+                                "prefill_tokens_per_s", "decode_step_s",
+                                "param_bytes", "peak_device_mem_bytes",
+                                "task_s")}}
+            if dtype == "float32":
+                limit = LM_MESH_F32_RTOL * leg["max_abs_logit"]
+                check(bool((err <= limit).all()), f"lm_mesh {what}: "
+                      f"logits differ from one process's by "
+                      f"{err.tolist()}, limit {limit}")
+                leg["tolerance_rel"] = LM_MESH_F32_RTOL
+            else:
+                if layout == "b4":
+                    floor_ = (one["rows_alone"] - want).abs().amax((1, 2))
+                    limits[dtype] = torch.clamp_min(
+                        LM_CHAIN_FLOOR_FACTOR * floor_, LM_LOGIT_ATOL)
+                    leg["rows_alone_vs_batch_err"] = floor_.tolist()
+                limit = limits[dtype]
+                check(bool((err <= limit).all()), f"lm_mesh {what}: "
+                      f"logits differ from one process's by "
+                      f"{err.tolist()}, limits {limit.tolist()}")
+                leg.update(limit_by_position=limit.tolist(),
+                           tolerance_abs=LM_LOGIT_ATOL)
+            out[layout][dtype] = leg
     tr, one = ranks[0]["encdec_train"], single["train"]
     check(all(r["encdec_train"]["losses"] == tr["losses"] for r in ranks),
           "lm_mesh encdec train: the processes report other losses")
@@ -6068,11 +6247,16 @@ def _check_encdec(ranks, single) -> dict:
     check(k8 == [want_k8["train"]] * len(ranks) and one["k8_train"]
           == want_k8["train"], f"lm_mesh encdec train: K8 launched {k8} "
           f"times a process (one process: {one['k8_train']})")
+    for r in ranks:
+        counted = _check_tally(
+            "encdec train", r["encdec_train"]["tally_steps"][0],
+            lm_configs.get(LM_MESH_ENCDEC_ARCH), "train", LM_MESH_SEQ,
+            LM_MESH_BATCH, LM_MESH_DIMS, TrainConfig(lr=LM_MESH_LR))
     out["train"] = {
         "steps": LM_MESH_DENSE_STEPS, "single": one, "mesh_rank0": tr,
         "losses_rel_err": rel.tolist(),
         "tolerance_rel": [LM_MESH_DENSE_FIRST_RTOL, LM_MESH_DENSE_RTOL],
-        "k8_per_process": k8,
+        "k8_per_process": k8, "collectives_counted": counted,
         **{f"{k}_per_process": [r["encdec_train"][k] for r in ranks]
            for k in ("peak_device_mem_bytes", "param_bytes", "step_s",
                      "task_s")}}
@@ -6158,6 +6342,10 @@ def _check_seqcut(ranks, single) -> dict:
                       for p in per), f"lm_mesh seqcut {dtype}: caches "
               f"{[(p['cache_bytes'], p['cache_specs']) for p in per]}, "
               f"one process {whole}")
+        counts = _check_call_tallies(f"seqcut {dtype}", per,
+                                     _seqcut_cfg(dtype), LM_MESH_SEQ,
+                                     spec["rows"], LM_MESH_BATCH,
+                                     LM_MESH_SEQCUT_DIMS)
         rise = [p["decode_peak_rise_bytes"] for p in per]
         if dtype == "bfloat16":
             check(max(rise) < LM_MESH_SEQCUT_RISE * whole, f"lm_mesh seqcut "
@@ -6171,6 +6359,7 @@ def _check_seqcut(ranks, single) -> dict:
             "decode_steps": spec["decode"],
             "max_abs_err": err.tolist(), "max_abs_logit": scale,
             "limit": limit, "k8_prefill_per_process": k8,
+            "collectives_counted": counts,
             "cache_bytes_single": whole,
             "single": {k: one[k] for k in (
                 "prefill_s", "decode_step_s", "peak_device_mem_bytes",
@@ -6254,15 +6443,16 @@ def phase_lm_mesh() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s["rwkv_train"] = time.perf_counter() - t0
-    # (g) in one process
-    single_enc = {}
+    # (g) in one process, at batch 4 and at batch 1
+    single_enc = {"b4": {}, "b1": {}}
     for dtype in ("float32", "bfloat16"):
-        t0 = time.perf_counter()
-        single_enc[dtype] = lm_mesh_encdec(dtype,
-                                           floor=dtype == "bfloat16")
-        gc.collect()
-        torch.cuda.empty_cache()
-        single_s[f"encdec_{dtype}"] = time.perf_counter() - t0
+        for b in (4, 1):
+            t0 = time.perf_counter()
+            single_enc[f"b{b}"][dtype] = lm_mesh_encdec(
+                dtype, floor=dtype == "bfloat16" and b == 4, batch=b)
+            gc.collect()
+            torch.cuda.empty_cache()
+            single_s[f"encdec_b{b}_{dtype}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     single_enc["train"] = lm_mesh_encdec_train()
     gc.collect()
@@ -6283,11 +6473,12 @@ def phase_lm_mesh() -> dict:
     ranks = _lm_mesh_spawn("mesh", LM_MESH_DIMS, (
         "forward_float32", "forward_bfloat16", "published", "train",
         "dense", *(f"family:{a}" for a in LM_MESH_FAMILIES), "rwkv_train",
-        "encdec_float32", "encdec_bfloat16", "encdec_train"))
+        *_encdec_tasks("mesh"), "encdec_train"))
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks14 = _lm_mesh_spawn("mesh14", LM_MESH_SEQCUT_DIMS,
-                             [f"seqcut_{d}" for d in LM_MESH_SEQCUT])
+                             [f"seqcut_{d}" for d in LM_MESH_SEQCUT]
+                             + _encdec_tasks("mesh14"))
     mesh14_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
@@ -6499,7 +6690,7 @@ def phase_lm_mesh() -> dict:
             r["rwkv_train"]["param_bytes_per_process"] for r in ranks],
         "step_s_per_process": [r["rwkv_train"]["step_s"] for r in ranks],
         "task_s_per_process": [r["rwkv_train"]["task_s"] for r in ranks]}
-    rec["encdec"] = _check_encdec(ranks, single_enc)
+    rec["encdec"] = _check_encdec(ranks, ranks14, single_enc)
     rec["seqcut"] = _check_seqcut(ranks14, single_seq)
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
@@ -6530,8 +6721,10 @@ def phase_lm_mesh() -> dict:
                 rec["forward_float32"]["k8_prefill_per_process"],
             **{f"family {arch} per_process": fam["k8_prefill_per_process"]
                for arch, fam in rec["families"].items()},
-            "encdec per_process": rec["encdec"]["float32"][
-                "k8_per_process"],
+            **{f"encdec {layout} {dtype} per_process":
+               rec["encdec"][layout][dtype]["k8_per_process"]
+               for layout in LM_MESH_ENCDEC_LAYOUTS
+               for dtype in ("float32", "bfloat16")},
             **{f"family {arch} b1 per_process": fam["b1"][
                 "k8_prefill_per_process"] for arch, fam
                in rec["families"].items() if "b1" in fam},

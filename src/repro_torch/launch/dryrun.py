@@ -26,22 +26,39 @@ cell this module:
      (:class:`repro_torch.utils.op_costs.OpCounter`; K8 charged its own
      work), split evenly over the ``model`` axis, with ``by_op`` and K8's
      calls;
-  5. records ``collectives``, parameter-side only (from the specs): an
-     all-gather of each leaf's ``data``-sharded dims, and in a train step
-     the gradient's reduce-scatter (all-reduce where the leaf is
-     replicated over ``data``) and its all-reduce over ``pod``; expert
-     leaves are resident (never gathered, their gradients local where
-     ``data`` shards them).  Each once a step: XLA hoists parameter
-     gathers out of the microbatch loop.  Ring volumes are ``(n-1)/n``.
-     Tensor-parallel activation traffic and the MoE all-to-all are not
-     counted (ROADMAP Queue 1 item 8);
+  5. records ``collectives``: the collectives one device's share of the
+     cell's mesh program calls, counted from the program itself
+     (:func:`count_collectives`), as the reference reads them off its
+     partitioned HLO: the port's mesh code (``DecoderLM`` /
+     ``EncDecLM(mesh=)``, the batch block, the ``cache_blocks`` cache, the
+     mesh train step) run on ``meta`` under ``rules.use_mesh`` of a
+     :class:`~repro_torch.launch.mesh.StandInMesh` (device 0 of the
+     grid), whose collectives only tally
+     (:func:`repro_torch.sharding.collectives.tally`): each kind's calls
+     and the bytes the device sends (the byte convention is that
+     module's).  So it holds what the port calls - the FSDP gathers at
+     every use (once a step where ``TrainConfig.gather_once`` is set) and
+     their reduce-scatters, the tensor-parallel ``psum`` and
+     ``sum_grad`` all-reduces, the MoE all-to-alls, Mamba's
+     ``all_to_all_v``, the sequence-cut decode's ``pmax``, ``psum`` and
+     query gathers, the gradient reductions over the batch axes - and
+     ``collective_model`` is ``"program"``.  Beside the bytes the port
+     sends it keeps their ring volume (``ring_total_bytes``): the same
+     but for the all-reduces, which the port sums by gathering every
+     part (``(n - 1) |x|``, deterministic on gloo) where a ring sends
+     ``2 (n - 1) / n |x|``.  The cost record of step 4 is still the
+     whole share's count split evenly over ``model``, not the mesh
+     program's;
   6. adds the roofline terms at an H100 SXM's rates
-     (:func:`repro_torch.launch.roofline.roofline_terms`).
+     (:func:`repro_torch.launch.roofline.roofline_terms`), the
+     collective term from the ring volume (``roofline_bytes``): what a
+     card-side collective library would move for the same program.
 
-Counting by trip count.  A cell's count is affine in the number of
-identical periods of its layers (after a dense prefix), and affine in the
-number of microbatches of a train step (the accumulation branch; one
-microbatch takes another branch), jointly bilinear.  So the step is
+Counting by trip count.  A cell's count (of ops and of collectives) is
+affine in the number of identical periods of its layers (after a dense
+prefix), and affine in the number of microbatches of a train step (the
+accumulation branch; one microbatch takes another branch), jointly
+bilinear.  So the step is
 counted at 0 and 1 periods (1 and 2 with MoE layers) and at 2 and 3
 microbatches, and each op's calls, FLOPs and bytes are solved for the
 cell's (:func:`count_share`), exact when the layers of a period have one
@@ -50,7 +67,8 @@ shape, as they do in every config.  The count runs under
 repeated call's outputs from a cache of their shapes.  What is left is
 the period's own ops: the Mamba and RWKV mixers step a Python loop over
 time, so their cells dispatch an op or more per token and layer of a
-period, and take minutes.
+period, and take minutes (twice: once for the ops, once for the
+collectives).
 
 Results go to ``experiments/dryrun_torch_<mesh>.json``.
 
@@ -62,6 +80,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -77,16 +96,18 @@ from repro_torch import configs
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.configs.shapes import SHAPES, shape_applicable
 from repro_torch.launch import roofline
-from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.launch.mesh import (MeshShape, StandInMesh,
+                                     make_production_mesh)
 from repro_torch.models import encdec, transformer
 from repro_torch.models.model import build_model
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import rules
 from repro_torch.train.loop import make_train_step, param_tree
 from repro_torch.train.optimizer import init_opt_state, torch_dtype
 from repro_torch.utils.op_costs import DOT_OPS, MetaOpCounter
 
 __all__ = ["input_specs", "build_cell", "run_cell", "train_config_for",
-           "count_share", "param_collectives", "memory_record", "ArgSpec",
+           "count_share", "count_collectives", "memory_record", "ArgSpec",
            "Cell", "DEFAULT_RESULT_DIR", "CARD_BYTES", "main"]
 
 DEFAULT_RESULT_DIR = "experiments"
@@ -192,7 +213,6 @@ class Cell:
     args: dict
     donated: tuple[str, ...]
     run: Callable[[], Any]
-    tcfg: TrainConfig | None = None
 
 
 def _share_inputs(cfg, shape, mesh, rows: int, device, seed: int) -> dict:
@@ -222,67 +242,101 @@ def _share_inputs(cfg, shape, mesh, rows: int, device, seed: int) -> dict:
     return out
 
 
+def _ctor(cfg: ModelConfig):
+    return encdec.EncDecLM if cfg.family == "audio" else transformer.DecoderLM
+
+
 @functools.lru_cache(maxsize=16)
 def _meta_module(cfg: ModelConfig, dtype):
     """The model of ``cfg`` on ``meta`` in ``dtype``, built once: it holds
     no values, so the cells of a sweep share it."""
-    ctor = encdec.EncDecLM if cfg.family == "audio" else transformer.DecoderLM
-    return ctor(cfg, device=_META, dtype=dtype)
+    return _ctor(cfg)(cfg, device=_META, dtype=dtype)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                microbatches: int | None = None, device="meta",
-               seed: int = 0) -> Cell:
+               seed: int = 0, tcfg: TrainConfig | None = None,
+               program: bool = False) -> Cell:
     """The cell's step, on ``meta`` unless ``device`` is given (the card:
     parameters and inputs drawn from ``seed``, the optimizer state and
     the cache zeroed), at one device's share.  ``microbatches`` (train)
     takes the step with that many microbatches of the cell's microbatch
-    rows in place of the cell's own (:func:`count_share`)."""
+    rows in place of the cell's own (:func:`count_share`); ``tcfg`` a
+    train step's policy in place of :func:`train_config_for`'s.
+
+    ``program`` (on ``meta``): the step is one device's share of the
+    cell's mesh program (:func:`count_collectives`): the model built on
+    a :class:`~repro_torch.launch.mesh.StandInMesh` of ``mesh`` (every
+    leaf its block), the batch block (the whole batch on every device
+    where it does not split, as ``replicated_batch``) and the
+    ``cache_blocks`` cache, built and run under ``rules.use_mesh``.
+    ``args`` are the cell's global arguments either way."""
     device = torch.device(device)
+    if program and device.type != "meta":
+        raise ValueError("a cell's mesh program is run on meta")
     model = build_model(cfg)
     rows = share_batch(shape, mesh)
-    batch_args = input_specs(cfg, shape, mesh)
+    tcfg = tcfg or train_config_for(cfg)
+    scope = contextlib.nullcontext
+    if program:
+        stand = StandInMesh(mesh.axis_names, mesh.dims)
+        scope = functools.partial(
+            rules.use_mesh, stand,
+            replicated_batch=not _batch_divides(shape, mesh))
 
-    def make_params(dtype=None):
+    def make_params(dtype):
+        if program:
+            return _ctor(cfg)(cfg, device=_META, mesh=stand, dtype=dtype)
         if device.type == "meta":
             return _meta_module(cfg, dtype)
         return model.init(seed, device=device, dtype=dtype)
 
+    def scoped(step):
+        def run():
+            with scope():
+                return step()
+        return run
+
+    dtype = (torch_dtype(tcfg.param_dtype) if shape.kind == "train"
+             else None)
+    params_g = _meta_module(cfg, dtype)
+    args = {"params": _arg_specs(params_g, rules.param_specs(mesh,
+                                                             params_g)),
+            "batch": input_specs(cfg, shape, mesh)}
     if shape.kind == "train":
-        tcfg = train_config_for(cfg)
+        opt_g = init_opt_state(tcfg, params_g)
+        args.update(opt_state=_arg_specs(opt_g,
+                                         rules.param_specs(mesh, opt_g)),
+                    step=ArgSpec((), torch.int32, rules.P()))
         mbs = _microbatches(shape, mesh)
         n_mb = mbs if microbatches is None else microbatches
-        params = make_params(torch_dtype(tcfg.param_dtype))
-        opt = init_opt_state(tcfg, params)
-        step_fn = make_train_step(model, tcfg, microbatches=n_mb)
-        batch = _share_inputs(cfg, shape, mesh, n_mb * (rows // mbs),
-                              device, seed)
-        args = {"params": _arg_specs(params, rules.param_specs(mesh,
-                                                               params)),
-                "opt_state": _arg_specs(opt, rules.param_specs(mesh, opt)),
-                "batch": batch_args,
-                "step": ArgSpec((), torch.int32, rules.P())}
+        with scope():
+            params = make_params(dtype)
+            opt = (opt_g if params is params_g
+                   else init_opt_state(tcfg, params))
+            step_fn = make_train_step(model, tcfg, microbatches=n_mb)
+            batch = _share_inputs(cfg, shape, mesh, n_mb * (rows // mbs),
+                                  device, seed)
         return Cell(cfg, shape, mesh, mbs, rows, args,
                     ("params", "opt_state"),
-                    lambda: step_fn(params, opt, batch, 0), tcfg)
+                    scoped(lambda: step_fn(params, opt, batch, 0)))
 
-    params = make_params()
     seq = shape.seq_len
     if cfg.family == "vlm":
         seq += cfg.n_prefix_embeds  # prefix patch embeds occupy cache slots
     cache_g = model.init_cache(shape.global_batch, seq, device=_META)
-    cache = model.init_cache(rows, seq, device=device)
-    cache_sp = rules.cache_specs(mesh, cache_g,
-                                 seq_shard=shape.global_batch == 1)
-    args = {"params": _arg_specs(params, rules.param_specs(mesh, params)),
-            "cache": _arg_specs(cache_g, cache_sp), "batch": batch_args}
-    batch = _share_inputs(cfg, shape, mesh, rows, device, seed)
+    args["cache"] = _arg_specs(cache_g, rules.cache_specs(
+        mesh, cache_g, seq_shard=shape.global_batch == 1))
+    with scope():
+        params = make_params(dtype)
+        cache = model.init_cache(rows, seq, device=device)
+        batch = _share_inputs(cfg, shape, mesh, rows, device, seed)
     if shape.kind == "prefill":
         run = lambda: model.prefill(params, batch, cache)
     else:
         run = lambda: model.decode(params, cache, batch["token"],
                                    batch["pos"])
-    return Cell(cfg, shape, mesh, 1, rows, args, ("cache",), run)
+    return Cell(cfg, shape, mesh, 1, rows, args, ("cache",), scoped(run))
 
 
 # --------------------------------------------------------------------------
@@ -326,6 +380,27 @@ def _points(n: int | None, first: int) -> list:
     return [n] if n is None or n <= first + 1 else [first, first + 1]
 
 
+def _solve(counts: dict, ps: list, ms: list, n_p, n_m) -> dict:
+    """Each name's numbers at the cell's ``n_p`` periods and ``n_m``
+    microbatches, solved bilinearly from ``counts`` ((periods,
+    microbatches) -> name -> numbers) taken at the trip counts ``ps`` x
+    ``ms`` (:func:`_points`; a name missing from a count is 0 there)."""
+    p0, p1, m0, m1 = ps[0], ps[-1], ms[0], ms[-1]
+    dp = 0 if len(ps) == 1 else n_p - p0
+    dm = 0 if len(ms) == 1 else n_m - m0
+    out = {}
+    for name in sorted(set().union(*counts.values())):
+        width = next(len(c[name]) for c in counts.values() if name in c)
+        f = {k: c.get(name, [0] * width) for k, c in counts.items()}
+        out[name] = [f[p0, m0][i]
+                     + dp * (f[p1, m0][i] - f[p0, m0][i])
+                     + dm * (f[p0, m1][i] - f[p0, m0][i])
+                     + dp * dm * (f[p1, m1][i] - f[p1, m0][i]
+                                  - f[p0, m1][i] + f[p0, m0][i])
+                     for i in range(len(f[p0, m0]))]
+    return out
+
+
 def count_share(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                 shortcut: bool = True) -> tuple[dict, dict]:
     """``(by_op, info)``: op name -> ``[calls, flops, bytes]`` of one
@@ -346,22 +421,8 @@ def count_share(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         cfg_p = cfg if p == n_p else _with_periods(cfg, p)
         for m in ms:
             counts[p, m], out = _count(cfg_p, shape, mesh, m)
-    p0, p1, m0, m1 = ps[0], ps[-1], ms[0], ms[-1]
-    dp = 0 if len(ps) == 1 else n_p - p0
-    dm = 0 if len(ms) == 1 else n_m - m0
-    names = set().union(*counts.values())
-    zero = [0, 0, 0]
-    by_op = {}
-    for name in sorted(names):
-        f = {k: c.get(name, zero) for k, c in counts.items()}
-        row = [f[p0, m0][i]
-               + dp * (f[p1, m0][i] - f[p0, m0][i])
-               + dm * (f[p0, m1][i] - f[p0, m0][i])
-               + dp * dm * (f[p1, m1][i] - f[p1, m0][i] - f[p0, m1][i]
-                            + f[p0, m0][i])
-               for i in range(3)]
-        if any(row):
-            by_op[name] = row
+    by_op = {name: row for name, row in _solve(counts, ps, ms, n_p,
+                                                n_m).items() if any(row)}
     info = {"periods": n_p, "microbatches": n_m,
             "counted_at": [list(k) for k in counts],
             "metric_leaves": (len(out[2]) if shape.kind == "train"
@@ -369,8 +430,53 @@ def count_share(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     return by_op, info
 
 
+def _tally_share(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                 microbatches: int | None, tcfg: TrainConfig | None) -> dict:
+    """The collectives of one device's share of the cell's mesh program
+    (:func:`build_cell` with ``program``), run inside
+    ``collectives.tally``: ``{kind: [calls, bytes, ring bytes]}``."""
+    cell = build_cell(cfg, shape, mesh, microbatches=microbatches,
+                      tcfg=tcfg, program=True)
+    with coll.tally() as t:
+        cell.run()
+    return {k: [t.calls[k], t.bytes[k], t.ring[k]] for k in t.calls}
+
+
+def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                      tcfg: TrainConfig | None = None) -> dict:
+    """The ``collectives`` record of one device's share of the cell's
+    mesh program (module docstring, step 5): ``by_kind`` bytes sent,
+    ``calls_by_kind``, ``total_bytes``, their ring volumes
+    ``ring_by_kind`` and ``ring_total_bytes`` (which the roofline
+    prices: ``roofline_bytes``), ``collective_model`` ``"program"``.
+    Counted as :func:`count_share` counts the ops: at two
+    period counts (1 and 2: a mesh train step reads the stacked slots of
+    a first period) and two microbatch counts, each kind's calls and
+    bytes solved bilinearly for the cell's.
+    ``tcfg``: a train step's policy in place of
+    :func:`train_config_for`'s."""
+    n_p = _periods(cfg)
+    n_m = _microbatches(shape, mesh) if shape.kind == "train" else None
+    ps, ms = _points(n_p, 1), _points(n_m, 2)
+    counts = {}
+    for p in ps:
+        cfg_p = cfg if p == n_p else _with_periods(cfg, p)
+        for m in ms:
+            counts[p, m] = _tally_share(cfg_p, shape, mesh, m, tcfg)
+    by_kind = {k: v for k, v in _solve(counts, ps, ms, n_p, n_m).items()
+               if any(v)}
+    return {"collective_model": "program",
+            "by_kind": {k: v[1] for k, v in by_kind.items()},
+            "calls_by_kind": {k: v[0] for k, v in by_kind.items()},
+            "total_bytes": sum(v[1] for v in by_kind.values()),
+            "ring_by_kind": {k: v[2] for k, v in by_kind.items()},
+            "ring_total_bytes": sum(v[2] for v in by_kind.values()),
+            "roofline_bytes": "ring_total_bytes",
+            "counted_at": [list(k) for k in counts]}
+
+
 # --------------------------------------------------------------------------
-# memory and collectives, from the specs
+# memory, from the specs
 # --------------------------------------------------------------------------
 
 def _leaves(tree) -> list:
@@ -408,48 +514,6 @@ def memory_record(cell: Cell, metric_leaves: int = 0) -> dict:
             "argument_bytes_by_role": roles,
             "resident_bytes": resident, "card_bytes": CARD_BYTES,
             "fits_card": resident <= CARD_BYTES}
-
-
-def _spec_axes(spec) -> set:
-    out = set()
-    for entry in spec:
-        if entry is not None:
-            out.update(entry if isinstance(entry, tuple) else (entry,))
-    return out
-
-
-def param_collectives(cell: Cell) -> dict:
-    """Parameter-side collective bytes one device moves in one step (ring
-    volumes): the all-gather of each leaf's ``data``-sharded dims (expert
-    leaves are resident and never gathered); in a train step the
-    gradient's reduce-scatter over ``data`` (all-reduce where the leaf is
-    replicated over ``data``; an expert leaf that ``data`` shards keeps
-    its gradient local) and its all-reduce over ``pod``."""
-    mesh = cell.mesh
-    n = mesh.shape.get("data", 1)
-    pods = mesh.shape.get("pod", 1)
-    train = cell.shape.kind == "train"
-    grad_dtype = None
-    if train and cell.microbatches > 1:
-        grad_dtype = torch_dtype(cell.tcfg.acc_dtype)
-    kinds = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
-    for path, a in _leaves(cell.args["params"]):
-        local = a.local_bytes(mesh)
-        on_data = "data" in _spec_axes(a.spec)
-        expert = bool(rules._EXPERT.search(path)) and len(a.shape) >= 3
-        if on_data and not expert:
-            kinds["all-gather"] += (n - 1) * local
-        if not train:
-            continue
-        g = local // a.dtype.itemsize * (grad_dtype or a.dtype).itemsize
-        if on_data:
-            if not expert:
-                kinds["reduce-scatter"] += (n - 1) * g
-        else:
-            kinds["all-reduce"] += 2 * (n - 1) / n * g
-        kinds["all-reduce"] += 2 * (pods - 1) / pods * g
-    return {"collective_model": "parameters", "by_kind": kinds,
-            "total_bytes": sum(kinds.values())}
 
 
 # --------------------------------------------------------------------------
@@ -501,10 +565,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "flash_attention_calls": by_op.get(
                 "repro_torch::flash_attention", [0])[0],
             "by_op": by_op}
-        rec["collectives"] = param_collectives(cell)
+        t0 = time.time()
+        rec["collectives"] = count_collectives(cfg, shape, mesh)
+        rec["tally_s"] = round(time.time() - t0, 2)
         rec.update(roofline.roofline_terms(
             rec["cost"]["flops"], rec["cost"]["bytes_accessed"],
-            rec["collectives"]["total_bytes"],
+            rec["collectives"]["ring_total_bytes"],
             roofline.model_flops(cfg, shape), mesh.size))
         rec["status"] = "ok"
     except Exception as e:  # noqa: BLE001 - report, don't crash the sweep

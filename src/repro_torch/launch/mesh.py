@@ -32,7 +32,7 @@ import os
 
 import numpy as np
 
-__all__ = ["MeshShape", "ProcessMesh", "make_production_mesh",
+__all__ = ["MeshShape", "ProcessMesh", "StandInMesh", "make_production_mesh",
            "make_test_mesh", "make_snn_host_mesh", "join_process_mesh",
            "parse_mesh", "POD_SHAPE", "SINGLE_POD_SHAPE"]
 
@@ -143,6 +143,32 @@ class ProcessMesh(MeshShape):
     def group(self, axes):
         """The process group over ``axes`` (None for a group of one)."""
         return self._groups.get(frozenset(_tuple(axes)))
+
+
+class StandInMesh(ProcessMesh):
+    """Device 0 of a :class:`MeshShape` for a mesh program run on
+    ``meta``: ``coords``, ``members``, ``axis_index``, ``group`` and
+    ``shape`` as a :class:`ProcessMesh` gives them to process 0, bound to
+    no world.  The collectives of :mod:`repro_torch.sharding.collectives`
+    on it only tally (``collectives.tally``) and return ``meta`` tensors
+    of their outputs' shapes, so nothing reaches ``torch.distributed``:
+    the LM dry run counts one device's share of a step on it, as the SNN
+    dry run's ``StandInExchange`` stands in for the spike exchange."""
+
+    stand_in = True
+
+    def __init__(self, axis_names, dims):
+        MeshShape.__init__(self, tuple(axis_names),
+                           tuple(int(d) for d in dims))
+        object.__setattr__(self, "rank", 0)
+        object.__setattr__(self, "coords", {a: 0 for a in self.axis_names})
+        object.__setattr__(self, "backend", None)
+
+    def group(self, axes):
+        """A token for the group over ``axes`` (None for a group of one,
+        as :meth:`ProcessMesh.group`)."""
+        axes = _tuple(axes)
+        return None if self.axis_size(axes) == 1 else axes
 
 
 def _tuple(axes) -> tuple[str, ...]:

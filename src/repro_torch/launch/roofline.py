@@ -10,8 +10,11 @@ Core GPU datasheet; the port's one definition of them):
 
 FLOPs and traffic are the dry run's count of one device's share on
 ``meta`` (:mod:`repro_torch.launch.dryrun`: per aten op, and K8 charged
-its own work), split evenly over the ``model`` axis; the collectives are
-the parameter-side model of the same record.  MODEL_FLOPS =
+its own work), split evenly over the ``model`` axis; the collective
+bytes are the ring volume of the collectives one device's share of the
+cell's mesh program calls (the record's ``ring_total_bytes``; the bytes
+the port sends over gloo, larger for its all-reduces, are its
+``total_bytes``).  MODEL_FLOPS =
 6*N_active*tokens (train) or 2*N_active*tokens (prefill/decode); the ratio
 MODEL_FLOPS/counted FLOPs exposes remat and dispatch overhead
 ("useful-compute fraction").
@@ -111,8 +114,8 @@ def roofline_cell(arch: str, shape_name: str, mesh, *,
         flops_per_chip=cost["flops"],
         dot_flops_per_chip=cost["dot_flops"],
         traffic_bytes_per_chip=cost["bytes_accessed"],
-        collective_bytes_per_chip=coll["total_bytes"],
-        collective_by_kind=coll["by_kind"],
+        collective_bytes_per_chip=coll["ring_total_bytes"],
+        collective_by_kind=coll["ring_by_kind"],
         **{k: rec[k] for k in ("compute_s", "memory_s", "collective_s",
                                "dominant", "model_flops", "useful_fraction",
                                "roofline_fraction")},

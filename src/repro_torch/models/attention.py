@@ -9,8 +9,11 @@ Ports ``src/repro/models/attention.py``:
   the cache;
 * :func:`gqa_decode` / :func:`mla_decode` - one token per row against a
   static-length cache;
-* :func:`cross_attend` (:func:`cross_kv`, :func:`cross_attend_cached`) -
-  the encoder-decoder's cross-attention, rope-free and mask-free.
+* :func:`cross_attend` (:func:`cross_kv`), :func:`cross_prefill` and
+  :func:`cross_attend_cached` - the encoder-decoder's cross-attention,
+  rope-free and mask-free: whole, the prefill's (which writes the cache
+  and attends against what it computed), and the decode's (which reads
+  the cache).
 
 GQA's cache is ``k / v: (B, S_max, H_kv, dh)``; MLA's is the compressed
 ``c_kv: (B, S_max, r_kv)`` and the shared rope key ``k_rope: (B, S_max,
@@ -57,8 +60,10 @@ over a cut sequence is a distributed softmax (:func:`_sdpa_blocks`,
 :func:`_block_softmax`): each block's fp32 scores, ``pmax`` for the
 global max, ``psum`` of the exp-sums, the weights rounded where the
 reference rounds them, and ``psum`` of the blocks' ``w . v`` in block
-order.  The encoder-decoder's caches hold its local kv heads whole
-(ROADMAP Queue 1, item 7b).
+order.  The encoder-decoder's ``self`` and ``cross_kv`` caches are laid
+out by the same rule (``encdec.init_cache``): the decode's
+cross-attention over a cut cache is the same distributed softmax, every
+frame valid.
 
 Unlike the reference's functional updates, the prefill and decode
 functions write the cache **in place** and return the same dict:
@@ -96,7 +101,8 @@ from repro_torch.sharding import rules
 
 __all__ = ["GQA", "MLA", "HeadSplit", "head_split", "gqa_init",
            "gqa_train", "gqa_prefill",
-           "gqa_decode", "cross_kv", "cross_attend_cached", "cross_attend",
+           "gqa_decode", "cross_kv", "cross_prefill", "cross_attend_cached",
+           "cross_attend",
            "init_gqa_cache", "mla_init", "mla_train",
            "mla_prefill", "mla_decode", "init_mla_cache", "NEG_INF"]
 
@@ -399,24 +405,68 @@ def cross_kv(p: GQA, cfg, memory, compute_dtype=torch.bfloat16):
                  for w in (p.wk, p.wv))
 
 
-def cross_attend_cached(p: GQA, cfg, x, kv, compute_dtype=torch.bfloat16):
-    """Cross-attention of ``x``'s rows against the keys and values ``kv``
-    (:func:`cross_kv`, or a cache of them): no mask, no rope (K8,
-    non-causal); on a tensor-parallel mesh ``x`` enters through one
-    ``sum_grad``, q is this process's heads, and ``wo`` is row-parallel
-    (:func:`_out`)."""
+def _cross_q(p: GQA, cfg, x, compute_dtype):
+    """The cross-attention's q (B, S, nq, dh) of ``x`` on this process's
+    query heads (every head off a tensor-parallel mesh; there ``x``
+    enters through one ``sum_grad``), and the layer's
+    :class:`HeadSplit` (or None)."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     sp = _split(p, cfg)
     if sp is None:
-        q = linear(p.wq, x, compute_dtype).reshape(b, s, cfg.n_heads, dh)
-    else:
-        x = coll.sum_grad(x.to(compute_dtype), sp.mesh, ("model",))
-        q = _heads(p.wq, x, sp.q0, sp.nq, dh, sp.mesh,
-                   compute_dtype).reshape(b, s, sp.nq, dh)
-    out = _sdpa(q, _kv_heads(kv["k"].to(q.dtype), sp),
-                _kv_heads(kv["v"].to(q.dtype), sp), None,
-                scale=1.0 / np.sqrt(dh))
+        return linear(p.wq, x, compute_dtype).reshape(
+            b, s, cfg.n_heads, dh), None
+    x = coll.sum_grad(x.to(compute_dtype), sp.mesh, ("model",))
+    return _heads(p.wq, x, sp.q0, sp.nq, dh, sp.mesh,
+                  compute_dtype).reshape(b, s, sp.nq, dh), sp
+
+
+def _cross_attend_kv(p: GQA, cfg, x, k, v, compute_dtype):
+    """Cross-attention of ``x``'s rows against the whole keys and values
+    ``k``, ``v`` (B, T, nk, dh) of this process's kv heads: no mask, no
+    rope (K8, non-causal); ``wo`` row-parallel on a tensor-parallel mesh
+    (:func:`_out`)."""
+    q, sp = _cross_q(p, cfg, x, compute_dtype)
+    out = _sdpa(q, _kv_heads(k.to(q.dtype), sp), _kv_heads(v.to(q.dtype), sp),
+                None, scale=1.0 / np.sqrt(cfg.resolved_head_dim))
+    return _out(p, cfg, out, sp, compute_dtype)
+
+
+def cross_prefill(p: GQA, cfg, x, memory, kv, compute_dtype=torch.bfloat16):
+    """The prefill's cross-attention: the keys and values of the encoder
+    ``memory`` (:func:`cross_kv`) rounded to the cache's dtype, as the
+    reference attends with what it caches; this process's block of them
+    written into the cache ``kv`` (in place: the frames of its block of
+    the sequence, for every kv head the block holds, those its query
+    heads do not read gathered over ``model``); and ``x``'s attention
+    against the whole of them, which never reads the cache."""
+    k, v = cross_kv(p, cfg, memory, compute_dtype)
+    k, v = k.to(kv["k"].dtype), v.to(kv["v"].dtype)
+    _check_cache(kv, k)
+    sp = _split(p, cfg)
+    _write_rows(kv["k"], _block_heads(k, kv["k"], cfg, sp))
+    _write_rows(kv["v"], _block_heads(v, kv["v"], cfg, sp))
+    return _cross_attend_kv(p, cfg, x, k, v, compute_dtype)
+
+
+def cross_attend_cached(p: GQA, cfg, x, kv, compute_dtype=torch.bfloat16):
+    """Cross-attention of ``x``'s rows (a decode step's) against the
+    cache ``kv``: no mask, no rope.  A whole cache goes to K8
+    (non-causal) on this process's heads.  Where the cache is a block of
+    the frames cut over processes (``rules.seq_cut``) attention is
+    :func:`_sdpa_blocks`' distributed softmax with every row valid, by
+    :func:`gqa_decode`'s rule (:func:`_cut_attention`)."""
+    q, sp = _cross_q(p, cfg, x, compute_dtype)
+    scale = 1.0 / np.sqrt(cfg.resolved_head_dim)
+    k, v = kv["k"], kv["v"]
+    axes = rules.seq_cut(k)
+    if not axes:
+        out = _sdpa(q, _read_heads(k.to(q.dtype), sp),
+                    _read_heads(v.to(q.dtype), sp), None, scale=scale)
+        return _out(p, cfg, out, sp, compute_dtype)
+    valid = torch.ones((q.shape[0], k.shape[1]), dtype=torch.bool,
+                       device=q.device)
+    out = _cut_attention(q, k, v, valid, cfg, sp, axes, scale)
     return _out(p, cfg, out, sp, compute_dtype)
 
 
@@ -424,7 +474,7 @@ def cross_attend(p: GQA, cfg, x, memory, compute_dtype=torch.bfloat16):
     """Cross-attention: q from ``x``, k and v from the encoder
     ``memory``."""
     k, v = cross_kv(p, cfg, memory, compute_dtype)
-    return cross_attend_cached(p, cfg, x, {"k": k, "v": v}, compute_dtype)
+    return _cross_attend_kv(p, cfg, x, k, v, compute_dtype)
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
@@ -477,18 +527,27 @@ def gqa_decode(p: GQA, cfg, x, pos, cache, compute_dtype=torch.bfloat16):
                     _read_heads(cache["v"].to(q.dtype), sp),
                     valid[:, None, None, :], scale=scale)
         return _out(p, cfg, out, sp, compute_dtype), cache
+    out = _cut_attention(q, cache["k"], cache["v"],
+                         _valid_rows(cache["k"], pos), cfg, sp, axes, scale)
+    return _out(p, cfg, out, sp, compute_dtype), cache
+
+
+def _cut_attention(q, k, v, valid, cfg, sp: HeadSplit | None, axes,
+                   scale):
+    """Decode attention (q: (B, 1, nq, dh)) against this process's cache
+    blocks ``k``, ``v`` of a sequence cut over ``axes``
+    (:func:`_sdpa_blocks`; ``valid`` (B, T_block) its rows to attend):
+    where ``model`` cuts the sequence and this process owns fewer than
+    all the query heads, every query head is scored (the heads it does
+    not own come over ``model``) and its own heads' output kept."""
     mesh = rules.process_mesh()
-    valid = _valid_rows(cache["k"], pos)
     if "model" in axes and sp is not None and sp.nq < cfg.n_heads:
         dh = cfg.resolved_head_dim
         q = coll.gather_blocks(q, sp.mesh, ("model",), 2)
-        out = _sdpa_blocks(q, cache["k"], cache["v"], valid, mesh, axes,
-                           scale=scale)[..., sp.q0 * dh:(sp.q0 + sp.nq) * dh]
-    else:
-        out = _sdpa_blocks(q, _read_heads(cache["k"], sp),
-                           _read_heads(cache["v"], sp), valid, mesh, axes,
-                           scale=scale)
-    return _out(p, cfg, out, sp, compute_dtype), cache
+        return _sdpa_blocks(q, k, v, valid, mesh, axes, scale=scale)[
+            ..., sp.q0 * dh:(sp.q0 + sp.nq) * dh]
+    return _sdpa_blocks(q, _read_heads(k, sp), _read_heads(v, sp), valid,
+                        mesh, axes, scale=scale)
 
 
 def _check_cache(cache, k):

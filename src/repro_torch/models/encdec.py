@@ -11,8 +11,10 @@ layers rotate q and k as the reference's ``gqa_train`` does.
 K8 runs every unmasked attention: the encoder's (non-causal, S = T =
 ``encoder_seq``), the decoder's causal self-attention at prefill and the
 cross-attention (non-causal, S decoder rows against T frames; at decode
-one row, since the reference's cached cross-attention passes no mask).
-Decode's self-attention against its cache stays in torch ops.
+one row against a whole cache, since the reference's cached
+cross-attention passes no mask).  Decode's self-attention against its
+cache, and its cross-attention against a cache whose frames are cut over
+processes, stay in torch ops.
 
 The token table and the position table are kept in fp32: the reference
 adds the two in fp32 and rounds once (the tied unembedding casts the
@@ -24,12 +26,20 @@ leaf is this process's ``param_specs`` block: FSDP over ``data`` and
 tensor parallelism over ``model``.  The encoder's attention, the
 decoder's self-attention and its cross-attention each run on this
 process's heads (``attention``'s tensor-parallel regions), the MLPs are
-column- and row-parallel, and the self and cross caches hold the local
-kv heads.  The token table is vocab-parallel where ``model`` cuts its
-vocab (the lookup and the tied unembedding, ``transformer._lookup`` and
-``transformer.unembed_tied``): :func:`train_forward`'s logits are then
-this process's vocab block (:func:`vocab_mesh`), and :func:`prefill` and
-:func:`decode_step` gather them whole.  The position table matches no
+column- and row-parallel.  The ``self`` and ``cross_kv`` caches are
+the reference's ``cache_specs`` blocks (:func:`init_cache`): the kv
+heads over ``model`` where they divide it, else a block of the rows and
+frames over ``model`` (whisper-tiny's 6 heads on a 4-wide ``model``),
+and at global batch 1 the sequence also over ``data``; the prefill
+writes each block's rows and frames and attends against what it
+computed, the decode reads the blocks (a distributed softmax over a cut
+sequence, ``attention.cross_attend_cached``), and both refuse a cache
+laid out otherwise (``rules.check_cache_blocks``).  The token table is
+vocab-parallel where ``model`` cuts its vocab (the lookup and the tied
+unembedding, ``transformer._lookup`` and ``transformer.unembed_tied``):
+:func:`train_forward`'s logits are then this process's vocab block
+(:func:`vocab_mesh`), and :func:`prefill` and :func:`decode_step` gather
+them whole.  The position table matches no
 rule and stays whole.
 :func:`train_forward` is the loss's forward (it carries gradients; K8
 then gives way to attention's train route); :func:`encode`,
@@ -264,21 +274,13 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, frames):
     return train_forward(params, cfg, tokens, frames, remat=False)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, *, device="cuda"):
-    """``{"self": [{"k", "v"}], "cross_kv": [{"k", "v"}]}``, one entry per
-    decoder layer, zeroed; the cross keys and values span
-    ``encoder_seq`` frames.  Inside ``rules.use_mesh`` of a process mesh
-    whose ``model`` cuts the attention (``rules.model_blocks``), both
-    hold the kv heads this process reads (``attention.head_split``)."""
-    device = resolve_device(device)
+def _whole_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                 device) -> dict:
     hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    if rules.model_blocks(cfg, "attn") > 1:
-        hk = attn.head_split(cfg, rules.process_mesh()).nk
     shape = (batch, cfg.encoder_seq, hk, dh)
     return {
         "self": [attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                     device=device, kv_heads=hk)
+                                     device=device)
                  for _ in range(cfg.n_layers)],
         "cross_kv": [{"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -286,10 +288,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device="cuda"):
+    """``{"self": [{"k", "v"}], "cross_kv": [{"k", "v"}]}``, one entry per
+    decoder layer, zeroed: ``self`` of ``max_len`` positions, ``cross_kv``
+    of ``encoder_seq`` frames, every kv head.  Inside ``rules.use_mesh``
+    of a process mesh every leaf is this process's block of the global
+    cache (``self`` (B, max_len, Hk, dh), ``cross_kv`` (B, encoder_seq,
+    Hk, dh)) under the reference's ``cache_specs``, as
+    ``transformer.init_cache`` lays out a GQA cache (``rules.
+    cache_blocks``, ``seq_shard`` at global batch 1), carrying its
+    ``spec`` and ``global_shape``: the kv heads over ``model`` where they
+    divide it (the heads ``attention.head_split`` reads), else every kv
+    head on a block of the sequence over ``model``; at global batch 1 the
+    sequence also over ``data``.  A spec that maps an axis twice raises."""
+    device = resolve_device(device)
+    ctx = rules.current_mesh()
+    if ctx is None or not hasattr(ctx.mesh, "members"):
+        return _whole_cache(cfg, batch, max_len, dtype, device)
+    gb = rules.cache_global_batch(batch)
+    whole = _whole_cache(cfg, gb, max_len, dtype, torch.device("meta"))
+    blocks = rules.cache_blocks(ctx.mesh, whole, seq_shard=gb == 1)
+    return {part: [transformer._block_layer_cache(
+        cfg, ("attn",), batch, max_len, dtype, device, w, b, ctx.mesh)
+        for w, b in zip(whole[part], blocks[part])]
+        for part in ("self", "cross_kv")}
+
+
 @torch.no_grad()
 def prefill(params: EncDecLM, cfg: ModelConfig, tokens, frames, cache):
     """Encode, then the teacher-forced pass that fills the self and cross
-    caches (in place); returns (last_logits (B, 1, vocab) fp32, cache)."""
+    caches (in place: on a process mesh the rows and frames of each
+    leaf's block); returns (last_logits (B, 1, vocab) fp32, cache)."""
+    rules.check_cache_blocks(cache, tokens.shape[0])
     compute_dtype = getattr(torch, cfg.dtype)
     memory = encode(params, cfg, frames)
     b, s = tokens.shape
@@ -301,12 +332,8 @@ def prefill(params: EncDecLM, cfg: ModelConfig, tokens, frames, cache):
             p.self_attn, cfg, h, positions, cache["self"][i], compute_dtype)
         x = x + mix
         hx = norm_apply(p.norm_x, x, cfg.norm)
-        kv = cache["cross_kv"][i]
-        k, v = attn.cross_kv(p.cross, cfg, memory, compute_dtype)
-        kv["k"].copy_(k)
-        kv["v"].copy_(v)
-        x = x + attn.cross_attend_cached(p.cross, cfg, hx, kv,
-                                         compute_dtype)
+        x = x + attn.cross_prefill(p.cross, cfg, hx, memory,
+                                   cache["cross_kv"][i], compute_dtype)
         x = _mlp_block(p, cfg, x, compute_dtype)
     x = norm_apply(params.final_norm, x[:, -1:, :], cfg.norm)
     return _unembed(params, cfg, x, whole=True), cache
@@ -316,6 +343,7 @@ def prefill(params: EncDecLM, cfg: ModelConfig, tokens, frames, cache):
 def decode_step(params: EncDecLM, cfg: ModelConfig, token, pos, cache):
     """token: (B,) ids; pos: (B,) positions.  Returns (logits (B, vocab)
     fp32, cache)."""
+    rules.check_cache_blocks(cache, token.shape[0])
     compute_dtype = getattr(torch, cfg.dtype)
     x = _embed(params, cfg, token[:, None], pos[:, None], compute_dtype)
     for i, p in enumerate(params.decoder):

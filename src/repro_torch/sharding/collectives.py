@@ -35,6 +35,43 @@ Axes are a tuple of mesh axis names, the first major
 A tensor is cut into equal blocks along dim 0 ("tiled"), block ``i``
 belonging to the process of index ``i``.
 
+The tally (:func:`tally`): every wire primitive - the all-to-alls
+(:func:`all_to_all`, :func:`all_to_all_v`), the gathers
+(:func:`gather_rows`, and :func:`gather_blocks` and :func:`all_gather`,
+which it serves), the sums (:func:`all_reduce_sum`, which :func:`psum`,
+:func:`sum_grad`'s backward and :func:`pmean` call; :func:`pmax`) and
+:func:`reduce_scatter_sum` - adds one call and the bytes this process
+sends to every tally open in the process, under the kind of the HLO
+collective it stands for (``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``all-to-all``; :func:`gather_to`, which only
+checkpoints call, ``gather``), so that the record can be set beside the
+reference's histogram of its partitioned program.  A group of one
+process sends nothing and counts nothing.  The bytes, of ``x`` the
+primitive's input on this process and ``n`` its group's size:
+
+* ``all-gather``: ``(n - 1) |x|``, this process's block to each other
+  member (a ring's volume as well);
+* ``all-to-all``: ``(n - 1) / n |x|``, every block but its own
+  (:func:`all_to_all_v`: the rows it sends to the others);
+* ``reduce-scatter``: ``(n - 1) / n |x|``, the blocks it does not own
+  (a ring's volume as well);
+* ``all-reduce``: ``(n - 1) |x|``: the port gathers every member's
+  part and adds them here in a fixed order (deterministic, the same
+  bits everywhere), so it sends its part to each other member, not a
+  ring's ``2 (n - 1) / n |x|``;
+* ``gather``: ``|x|`` from every member but ``root``.
+
+Beside those bytes a tally keeps each kind's ring volume (``ring``):
+what a ring or a collective library's reduce-scatter-then-gather would
+send for the same call, the bytes above for every kind but
+``all-reduce``, whose ring volume is ``2 (n - 1) / n |x|`` (integer
+bytes, rounded down).  The dry run's roofline prices the ring volume
+(:mod:`repro_torch.launch.dryrun`); the bytes sent are what gloo moves.
+
+On a :class:`~repro_torch.launch.mesh.StandInMesh` (the dry run's mesh
+on ``meta``) every primitive tallies and returns a ``meta`` tensor of its
+output's shape: nothing reaches ``torch.distributed``.
+
 Routes: every collective moves bytes only (a tensor is viewed as rows of
 ``uint8``), and sums are done here, in a fixed order, so each is
 deterministic and gives every process the same bits.  A CUDA tensor on a
@@ -46,16 +83,85 @@ and retried.
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 import torch.distributed as tdist
 
 __all__ = ["all_to_all", "all_to_all_v", "all_gather", "own_slice",
            "sum_grad", "pmean", "gather_blocks", "reduce_scatter", "psum", "pmax",
            "gather_rows", "gather_to", "all_reduce_sum", "reduce_scatter_sum",
-           "route"]
+           "route", "Tally", "tally"]
 
 
 _HALF = (torch.bfloat16, torch.float16)
+
+
+class Tally:
+    """Calls and bytes sent of the collectives a process calls, by kind
+    (module docstring)."""
+
+    def __init__(self):
+        self.calls: dict[str, int] = {}
+        self.bytes: dict[str, int] = {}
+        self.ring: dict[str, int] = {}
+
+    def add(self, kind: str, nbytes: int, ring: int | None = None) -> None:
+        """One call of ``kind`` sending ``nbytes``, of ring volume
+        ``ring`` (``nbytes`` unless given)."""
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+        self.ring[kind] = self.ring.get(kind, 0) + int(
+            nbytes if ring is None else ring)
+
+    def record(self) -> dict:
+        """``by_kind`` bytes, ``calls_by_kind``, ``total_bytes``, and the
+        ring volumes ``ring_by_kind`` and ``ring_total_bytes``."""
+        return {"by_kind": dict(sorted(self.bytes.items())),
+                "calls_by_kind": dict(sorted(self.calls.items())),
+                "total_bytes": sum(self.bytes.values()),
+                "ring_by_kind": dict(sorted(self.ring.items())),
+                "ring_total_bytes": sum(self.ring.values())}
+
+
+#: the tallies open in this process: a module global, as the autograd
+#: engine runs a backward's collectives on its own device thread
+_TALLIES: list[Tally] = []
+
+
+@contextlib.contextmanager
+def tally():
+    """A :class:`Tally` of every collective this process calls inside
+    the block (tallies nest: each open one counts)."""
+    t = Tally()
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.remove(t)
+
+
+def _count(kind: str, nbytes: int, ring: int | None = None) -> None:
+    for t in _TALLIES:
+        t.add(kind, nbytes, ring)
+
+
+def _count_sum(mesh, axes, x: torch.Tensor) -> None:
+    """Tally an all-reduce of ``x`` over ``axes``: ``(n - 1) |x|`` sent,
+    a ring's ``2 (n - 1) / n |x|``."""
+    n = mesh.axis_size(axes)
+    _count("all-reduce", (n - 1) * _nbytes(x), 2 * (n - 1) * _nbytes(x) // n)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _stand_in(mesh) -> bool:
+    """Whether ``mesh`` is a stand-in that runs nothing
+    (:class:`~repro_torch.launch.mesh.StandInMesh`)."""
+    return getattr(mesh, "stand_in", False)
 
 
 def route(mesh, t: torch.Tensor) -> str:
@@ -121,7 +227,9 @@ _all_gather_single = getattr(tdist, "all_gather_single", None) or \
     tdist.all_gather_into_tensor
 
 
-def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def _a2a(x: torch.Tensor, mesh, axes, counted: bool = True) -> torch.Tensor:
+    """Block ``k`` of ``x`` to the process of index ``k`` (no autograd),
+    tallied unless it is a part of another primitive (``counted``)."""
     pg = mesh.group(axes)
     if pg is None:
         return x
@@ -129,6 +237,10 @@ def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} does not split {n} "
                          "ways")
+    if counted:
+        _count("all-to-all", (n - 1) * _nbytes(x) // n)
+    if _stand_in(mesh):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
     pos, inv, ident = _positions(mesh, axes)
     blocks = x.contiguous().view(n, -1)
     if not ident:                 # logical block pos^-1[q] to group rank q
@@ -146,9 +258,15 @@ def _a2a_v(x: torch.Tensor, mesh, axes, send, recv) -> torch.Tensor:
     """:func:`all_to_all_v`'s exchange (no autograd)."""
     if mesh.group(axes) is None:
         return x
+    row = math.prod(x.shape[1:]) * x.element_size()
+    own = mesh.axis_index(axes)
+    _count("all-to-all", row * sum(c for k, c in enumerate(send)
+                                   if k != own))
+    if _stand_in(mesh):
+        return torch.empty((sum(recv),) + tuple(x.shape[1:]),
+                           dtype=x.dtype, device="meta")
     pos, inv, ident = _positions(mesh, axes)
     x = x.contiguous()
-    row = x[0].numel() * x.element_size()
     if not ident:                 # logical blocks in group-rank order
         blocks = x.split(list(send))
         x = torch.cat([blocks[k] for k in inv])
@@ -167,10 +285,21 @@ def _a2a_v(x: torch.Tensor, mesh, axes, send, recv) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Every process's ``x`` over ``axes``, stacked on a new dim 0 in
     logical order (no autograd)."""
+    return _gather(x, mesh, axes, True)
+
+
+def _gather(x: torch.Tensor, mesh, axes, counted: bool) -> torch.Tensor:
+    """:func:`gather_rows`, tallied unless it is a part of another
+    primitive (``counted``)."""
     pg = mesh.group(axes)
     if pg is None:
         return x[None]
     n = mesh.axis_size(axes)
+    if counted:
+        _count("all-gather", (n - 1) * _nbytes(x))
+    if _stand_in(mesh):
+        return torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                           device="meta")
     pos, _, ident = _positions(mesh, axes)
     src = _send(mesh, x)
     dst = _host(mesh, x, n * src.numel(), "gather")
@@ -187,6 +316,11 @@ def gather_to(x: torch.Tensor, mesh, axes, root: int):
     pg = mesh.group(axes)
     if pg is None:
         return [x]
+    _count("gather", 0 if mesh.rank == root else _nbytes(x))
+    if _stand_in(mesh):
+        return ([torch.empty(x.shape, dtype=x.dtype, device="meta")
+                 for _ in mesh.members(axes)] if mesh.rank == root
+                else None)
     pos, _, _ = _positions(mesh, axes)
     x = x.contiguous()
     parts = ([torch.empty_like(x) for _ in pos] if mesh.rank == root
@@ -205,11 +339,14 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     goes in chunks of :data:`SUM_CHUNK_BYTES`."""
     if mesh.group(axes) is None:
         return x
+    _count_sum(mesh, axes, x)
+    if _stand_in(mesh):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
     flat = x.contiguous().view(-1)
     step = max(1, SUM_CHUNK_BYTES // x.element_size())
     out = torch.empty_like(flat)
     for i in range(0, flat.numel(), step):
-        parts = gather_rows(flat[i:i + step], mesh, axes)
+        parts = _gather(flat[i:i + step], mesh, axes, False)
         acc = out[i:i + step]
         acc.copy_(parts[0])
         for p in parts[1:]:
@@ -232,7 +369,12 @@ def reduce_scatter_sum(x: torch.Tensor, mesh, axes,
     if moved.shape[0] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"{n} ways")
-    parts = _a2a(moved.contiguous(), mesh, axes).view(
+    _count("reduce-scatter", (n - 1) * _nbytes(x) // n)
+    if _stand_in(mesh):
+        shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+        return torch.empty(shape, dtype=x.dtype,
+                           device="meta").movedim(0, dim)
+    parts = _a2a(moved.contiguous(), mesh, axes, False).view(
         n, moved.shape[0] // n, *moved.shape[1:])
     acc = parts[0].float() if x.dtype in _HALF else parts[0].clone()
     for part in parts[1:]:
@@ -438,4 +580,8 @@ def pmax(x, mesh, axes):
     change)."""
     if mesh.group(tuple(axes)) is None:
         return x.detach()
-    return gather_rows(x.detach().contiguous(), mesh, tuple(axes)).amax(0)
+    _count_sum(mesh, tuple(axes), x)
+    if _stand_in(mesh):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return _gather(x.detach().contiguous(), mesh, tuple(axes),
+                   False).amax(0)

@@ -3,13 +3,17 @@
 ``param_specs``-placed mesh run, each a subprocess on the CPU.
 
 * :data:`RANK_CODE` is one rank of a ``ProcessMesh``: it runs the job's
-  tasks (``layout``, ``serve``, ``adamw``, ``adafactor``,
-  ``gather_once``, ``forced``, ``restart``, ``grad64``, ``encdec``,
-  ``collectives``; a task is ``kind:arch``) and writes its record to
-  ``{out}_{rank}.json``.  An arch is a decoder-only one or the
-  encoder-decoder (whisper-tiny, built as an ``EncDecLM``; its batches
-  carry :func:`stub_inputs`' ``frames``), and ``{arch}+v{vocab}`` is its
-  smoke config with that vocab (:func:`smoke`).
+  tasks (``layout``, ``serve``, ``serve_cache``, ``traffic``, ``adamw``,
+  ``adafactor``, ``gather_once``, ``forced``, ``restart``, ``grad64``,
+  ``encdec``, ``collectives``; a task is ``kind:arch``, or ``kind:name``
+  of a case in the job) and writes its record to ``{out}_{rank}.json``.
+  An arch is a decoder-only one or the encoder-decoder (whisper-tiny,
+  built as an ``EncDecLM``; its batches carry :func:`stub_inputs`'
+  ``frames``), and ``{arch}+v{vocab}`` or ``{arch}+h{heads}`` is its
+  smoke config with that vocab or those heads (:func:`smoke`).
+  ``traffic`` runs one cell of ``launch.dryrun`` (a prefill, a decode
+  step or a train step) on the mesh inside ``collectives.tally`` and
+  records the tally.
 * :data:`REF_CODE` runs the reference's ``jax.jit(make_train_step)`` on
   4 forced host devices with its parameters and state placed by
   ``param_specs``, for each of the job's runs; a run with ``dump`` writes
@@ -101,12 +105,22 @@ NORM_RTOL = 1e-6
 
 def smoke(configs, name: str):
     """``configs.get_smoke`` of the arch ``name`` (the port's or the
-    reference's ``configs``), its vocab replaced where ``name`` ends
+    reference's ``configs``), its vocab replaced where ``name`` holds
     ``+v{vocab}`` (whisper-tiny's odd-vocab variant, whose table ``model``
-    cannot cut, as the published 51 865)."""
-    arch, _, vocab = name.partition("+v")
+    cannot cut, as the published 51 865) and its heads where it holds
+    ``+h{heads}`` (as many query and kv heads, each of the smoke config's
+    width: whisper-tiny's 6 heads, which a 4-wide ``model`` cuts inside a
+    head, as the published config's)."""
+    arch, *mods = name.split("+")
     cfg = configs.get_smoke(arch)
-    return dataclasses.replace(cfg, vocab_size=int(vocab)) if vocab else cfg
+    for mod in mods:
+        n = int(mod[1:])
+        if mod[0] == "v":
+            cfg = dataclasses.replace(cfg, vocab_size=n)
+        else:
+            cfg = dataclasses.replace(cfg, n_heads=n, n_kv_heads=n,
+                                      head_dim=cfg.resolved_head_dim)
+    return cfg
 
 
 def stub_inputs(cfg, batch: int, seed) -> dict:
@@ -365,11 +379,17 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
                 "cache_shapes": [{k: list(v.shape) for k, v in c.items()}
                                  for c in layers]}
 
+    def cache_leaves(cache):
+        # path -> leaf: layers/{i}/{k}, or self/{i}/{k} and cross_kv/{i}/{k}
+        return {f"{part}/{i}/{k}": x for part, lst in cache.items()
+                for i, c in enumerate(lst) for k, x in c.items()}
+
     def serve_cache(name):
         # a serve case of job["cache_cases"] from the reference's initial
-        # parameters (job["init"]): a prefill of S prompt tokens into a
-        # cache of T rows and a decode step at each of "pos"; the logits,
-        # and the cache's blocks after the prefill and after each step
+        # parameters (job["init"]): a prefill of S prompt tokens (and the
+        # encoder-decoder's frames) into a cache of T rows and a decode
+        # step at each of "pos"; the logits, and the cache's blocks after
+        # the prefill and after each step
         case = job["cache_cases"][name]
         cfg = dropless(smoke(configs, case["arch"]))
         n_exp = cfg.moe.n_experts if cfg.moe else 0
@@ -378,8 +398,12 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
         toks = torch.from_numpy(np.random.default_rng(11).integers(
             0, cfg.vocab_size, (bsz, s + len(case["pos"]))))
         rep = bsz == 1              # global batch 1: every process, the row
-        mine = toks if rep else batch_block(toks, mesh)
-        b = mine.shape[0]
+        whole = dict(tokens=toks, **{k: torch.from_numpy(v) for k, v in
+                                     stub_inputs(cfg, bsz, 13).items()})
+        mine = whole if rep else {k: batch_block(v, mesh)
+                                  for k, v in whole.items()}
+        prompt = dict(mine, tokens=mine["tokens"][:, :s])
+        b = mine["tokens"].shape[0]
         off_mesh = m.init_cache(b, t_max, torch.float32, device="cpu")
         with rules.use_mesh(mesh, replicated_batch=rep):
             if case.get("raises"):
@@ -393,35 +417,80 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
                 torch.load(job["init"][case["arch"]]), mesh, n_exp))
             bf16 = m.init_cache(b, t_max, device="cpu")
             rec = {"cache_bytes_bf16": sum(
-                x.numel() * x.element_size() for c in bf16["layers"]
-                for x in c.values())}
+                x.numel() * x.element_size()
+                for x in cache_leaves(bf16).values())}
             del bf16
             if case.get("refuse"):      # a cache built off the mesh
                 try:
-                    m.prefill(params, {"tokens": mine[:, :s]}, off_mesh)
+                    m.prefill(params, prompt, off_mesh)
                     rec["refused"] = None
                 except ValueError as e:
                     rec["refused"] = str(e)
             cache = m.init_cache(b, t_max, torch.float32, device="cpu")
-            rec["specs"] = {f"layers/{i}/{k}": repr(x.spec)
-                            for i, c in enumerate(cache["layers"])
-                            for k, x in c.items()}
+            rec["specs"] = {path: repr(x.spec)
+                            for path, x in cache_leaves(cache).items()}
             arrays = {}
 
             def dump(step):
-                for i, c in enumerate(cache["layers"]):
-                    for k, x in c.items():
-                        arrays[f"{step}/layers/{i}/{k}"] = x.numpy().copy()
-            pre, cache = m.prefill(params, {"tokens": mine[:, :s]}, cache)
+                for path, x in cache_leaves(cache).items():
+                    arrays[f"{step}/{path}"] = x.numpy().copy()
+            pre, cache = m.prefill(params, prompt, cache)
             rec["logits"] = [t(pre[:, 0])]
             dump(0)
             for i, p_ in enumerate(case["pos"]):
-                lg, cache = m.decode(params, cache, mine[:, s + i],
+                lg, cache = m.decode(params, cache, mine["tokens"][:, s + i],
                                      torch.full((b,), p_))
                 rec["logits"].append(t(lg))
                 dump(i + 1)
         np.savez(f"{job['out']}_{rank}_{name}.npz", **arrays)
         return rec
+
+    def traffic(name):
+        # a cell of job["traffic_cases"] (launch.dryrun's: arch, kind,
+        # seq, batch, microbatches, gather_once) run once on the mesh
+        # from seeded parameters and tokens, its collectives tallied
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        case = job["traffic_cases"][name]
+        cfg = smoke(configs, case["arch"])
+        m = build_model(cfg)
+        shape = ShapeConfig(name, case["kind"], case["seq"], case["batch"],
+                            case.get("microbatches", 1))
+        rep = not dryrun._batch_divides(shape, mesh)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=case["seq"],
+                             global_batch=case["batch"], seed=job["seed"])
+        with rules.use_mesh(mesh, replicated_batch=rep):
+            if case["kind"] == "train":
+                tcfg = dataclasses.replace(
+                    dryrun.train_config_for(cfg),
+                    gather_once=case.get("gather_once", False))
+                mb = dryrun._microbatches(shape, mesh)
+                params = m.init(0, device="cpu", mesh=mesh,
+                                dtype=opt_mod.torch_dtype(tcfg.param_dtype))
+                opt = opt_mod.init_opt_state(tcfg, params)
+                step = loop.make_train_step(m, tcfg, microbatches=mb)
+                batch = {k: batch_block(torch.from_numpy(v), mesh, mb)
+                         for k, v in dict(
+                             tokens=pipe.batch(0)["tokens"],
+                             **stub_inputs(cfg, case["batch"], 3)).items()}
+                with coll.tally() as tl:
+                    step(params, opt, batch, 0)
+                return tl.record()
+            params = m.init(0, device="cpu", mesh=mesh)
+            whole = {"tokens": pipe.batch(0)["tokens"][:, :case["seq"]],
+                     **stub_inputs(cfg, case["batch"], 3)}
+            mine = {k: (torch.from_numpy(v) if rep else batch_block(
+                torch.from_numpy(v), mesh)) for k, v in whole.items()}
+            b = mine["tokens"].shape[0]
+            cache = m.init_cache(b, case["seq"], device="cpu")
+            with coll.tally() as tl:
+                m.prefill(params, mine, cache)
+            if case["kind"] == "prefill":
+                return tl.record()
+            with coll.tally() as tl:
+                m.decode(params, cache, mine["tokens"][:, -1],
+                         torch.full((b,), case["seq"] - 1))
+            return tl.record()
 
     def layout(arch):
         params = module(smoke(configs, arch))
@@ -500,6 +569,8 @@ RANK_CODE = SHARED_CODE + textwrap.dedent("""
             out[task] = serve(arch)
         elif kind == "serve_cache":
             out[task] = serve_cache(arch)
+        elif kind == "traffic":
+            out[task] = traffic(arch)
         elif kind == "layout":
             out[task] = layout(arch)
         elif kind == "grad64":
@@ -635,8 +706,9 @@ REF_CODE = SHARED_CODE + textwrap.dedent("""
     def serve(name, case):
         # a serve case on its mesh: parameters placed by param_specs, the
         # cache by cache_specs (seq_shard at global batch 1), jax.jit's
-        # prefill and decode with the cache specs as out_shardings; the
-        # logits, and the whole cache after each call in {name}_{i}.npz
+        # prefill (with the encoder-decoder's frames, stub_inputs seed 13)
+        # and decode with the cache specs as out_shardings; the logits,
+        # and the whole cache after each call in {name}_{i}.npz
         c = smoke(configs, case["arch"])
         if c.moe is not None:
             c = dataclasses.replace(c, moe=dataclasses.replace(
@@ -649,6 +721,8 @@ REF_CODE = SHARED_CODE + textwrap.dedent("""
         bsz, t_max, s = case["batch"], case["T"], case["S"]
         toks = np.random.default_rng(11).integers(
             0, c.vocab_size, (bsz, s + len(case["pos"])))
+        frames = {k: jnp.asarray(v)
+                  for k, v in stub_inputs(c, bsz, 13).items()}
         with rules.use_mesh(mesh):
             cache = mdl.init_cache(bsz, t_max, dtype=jnp.float32)
             try:
@@ -677,7 +751,8 @@ REF_CODE = SHARED_CODE + textwrap.dedent("""
                            for k in path)
             specs[key] = [list(e) if isinstance(e, tuple) else e
                           for e in sh.spec]
-        lg, cache = pre(params, {"tokens": jnp.asarray(toks[:, :s])}, cache)
+        lg, cache = pre(params, {"tokens": jnp.asarray(toks[:, :s]),
+                                 **frames}, cache)
         logits = [np.asarray(lg[:, 0]).tolist()]
         np.savez(f"{job['out']}_{name}_0.npz", **flat(cache, ""))
         for i, p_ in enumerate(case["pos"]):

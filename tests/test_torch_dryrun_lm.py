@@ -19,8 +19,10 @@ against the reference, on the CPU.
   a bf16 prefill on ``meta`` takes the card's GEMMs (no fp32 operand)
   and holds one K8 op per attention layer, charged ``flash_work``;
   ``_unsafe_view`` is free;
-* the parameter collectives equal a closed form worked by hand for
-  qwen2.5-3b's smoke config on 2x2 and 2x2x2;
+* the program count of the collectives holds the FSDP traffic in a
+  closed form worked by hand for qwen2.5-3b's smoke config on 2x2 and
+  2x2x2 (``test_torch_mesh_traffic`` holds the whole count to gloo
+  ranks);
 * ``dryrun.main`` and ``roofline.main`` write a well-formed record for
   one fast cell.
 
@@ -389,7 +391,8 @@ def _deep(arch: str):
 @pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
 def test_shortcut_equals_full_count(family):
     """Counted at two depths and two microbatch counts and solved, a
-    share's calls, FLOPs and bytes equal its whole count, op by op.  The
+    share's calls, FLOPs and bytes equal its whole count, op by op, and
+    its mesh program's collectives their whole tally, kind by kind.  The
     hybrid's train step has 3 microbatches (counted as they are: its
     depth alone is solved; the MoE family, whose counts also start at one
     period, solves both)."""
@@ -402,6 +405,14 @@ def test_shortcut_equals_full_count(family):
         fast, info = dryrun.count_share(cfg, shape, mesh)
         full, _ = dryrun.count_share(cfg, shape, mesh, shortcut=False)
         assert fast == full, (family, kind)
+        # the collectives, solved the same way, against the whole program
+        solved = dryrun.count_collectives(cfg, shape, mesh)
+        whole = dryrun._tally_share(cfg, shape, mesh, None, None)
+        assert solved["calls_by_kind"] == {k: v[0] for k, v in
+                                           whole.items()}, (family, kind)
+        assert solved["by_kind"] == {k: v[1] for k, v in whole.items()}
+        assert solved["ring_by_kind"] == {k: v[2] for k, v in
+                                          whole.items()}
         if kind == "train":
             assert len(info["counted_at"]) == (2 if family in ("audio",
                                                                "hybrid")
@@ -521,11 +532,26 @@ def test_parameter_collectives_closed_form():
     """qwen2.5-3b's smoke config (d 64, 4 heads of 16, 2 kv heads, ff
     128, vocab 512 tied, 2 layers, QKV biases, fp32) on data 2 x model 2:
     the matrices shard over both axes (a quarter each a device), biases
-    over "model", norms not at all.  All-gather: the data-sharded
-    matrices' other half; a train step adds their gradient's
-    reduce-scatter and the replicated leaves' all-reduce over "data"
-    (2 (n-1)/n = 1 times their bytes), and over "pod" every leaf's
-    gradient shard once."""
+    over "model", norms not at all.  The program count
+    (``count_collectives``) of a ``gather_once`` train step of four
+    microbatches holds the FSDP traffic in closed form: one all-gather of
+    each data-sharded matrix's other half, of the bf16 copy
+    ``gather_once`` differentiates (15 leaves: the table and 7 matrices
+    a layer), and one reduce-scatter of its gradient, the same bytes,
+    with or without a ``pod`` axis (only gradient sums cross it).  A
+    prefill gathers at every use: each matrix once and the tied table
+    twice (the lookup and the unembedding), in fp32, and the logits'
+    vocab blocks once over "model".
+
+    The gradient sums (all-reduce: ``(n - 1) |x|`` sent, a ring's
+    ``2 (n - 1) / n |x|``).  On data 2 x model 1, where no tensor-parallel
+    sum is issued: each replicated leaf's gradient (biases and norms,
+    whole) once over "data", the loss and its two metrics (``ce``,
+    ``load_balance_loss``), and the norm's two partial sums of the
+    data-cut groups.  Adding ``pod`` at the same rows a device (the
+    model's sums unchanged): every matrix's gradient shard once over
+    ``pod`` (15 calls), and the replicated leaves and the three scalars
+    summed over (pod, data), four parts in place of two."""
     cfg = configs.get_smoke("qwen2.5-3b")
     d, h, hk, dh, ff, v = 64, 4, 2, 16, 128, 512
     assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -533,26 +559,50 @@ def test_parameter_collectives_closed_form():
                                                         v, 2)
     per_layer = (d * h * dh + 2 * d * hk * dh + h * dh * d + 3 * d * ff)
     matrices = v * d + 2 * per_layer            # 106 496 elements
-    # local: biases halved over "model" (h dh + 2 hk dh), norms whole
-    replicated = 2 * ((h * dh + 2 * hk * dh) // 2 + 2 * d) + d
-    f32 = 4
+    leaves = 1 + 2 * 7
+    f32, bf16 = 4, 2
     for dims, names in (((2, 2), ("data", "model")),
                         ((2, 2, 2), ("pod", "data", "model"))):
         mesh = make_test_mesh(dims, names)
-        pods = 2 if "pod" in names else 1
-        serve = dryrun.param_collectives(dryrun.build_cell(
-            cfg, ShapeConfig("p", "prefill", 8, 8), mesh))
-        assert serve["by_kind"] == {"all-gather": matrices // 4 * f32,
-                                    "reduce-scatter": 0.0,
-                                    "all-reduce": 0.0}
-        train = dryrun.param_collectives(dryrun.build_cell(
-            cfg, ShapeConfig("t", "train", 8, 16, 4), mesh))
-        shard = matrices // 4 * f32 + replicated * f32
-        assert train["by_kind"] == {
-            "all-gather": matrices // 4 * f32,
-            "reduce-scatter": matrices // 4 * f32,
-            "all-reduce": replicated * f32 + (shard if pods == 2 else 0)}
+        tcfg = dataclasses.replace(dryrun.train_config_for(cfg),
+                                   gather_once=True)
+        train = dryrun.count_collectives(
+            cfg, ShapeConfig("t", "train", 8, 16, 4), mesh, tcfg=tcfg)
+        assert train["collective_model"] == "program"
+        for kind in ("all-gather", "reduce-scatter"):
+            assert train["by_kind"][kind] == matrices // 4 * bf16, kind
+            assert train["calls_by_kind"][kind] == leaves, kind
         assert train["total_bytes"] == sum(train["by_kind"].values())
+        rows = 16 // math.prod(dims[:-1])
+        serve = dryrun.count_collectives(
+            cfg, ShapeConfig("p", "prefill", 8, 16), mesh)
+        assert serve["by_kind"]["all-gather"] == (
+            (matrices + v * d) // 4 * f32 + rows * (v // 2) * f32)
+        assert serve["calls_by_kind"]["all-gather"] == leaves + 2
+        assert "reduce-scatter" not in serve["by_kind"]
+
+    def all_reduce(dims, names, batch):
+        rec = dryrun.count_collectives(
+            cfg, ShapeConfig("t", "train", 8, batch, 4),
+            make_test_mesh(dims, names), tcfg=tcfg)
+        return (rec["calls_by_kind"]["all-reduce"],
+                rec["by_kind"]["all-reduce"],
+                rec["ring_by_kind"]["all-reduce"])
+
+    biases = h * dh + 2 * hk * dh
+    whole = 2 * (biases + 2 * d) + d            # 576 elements, 11 leaves
+    assert all_reduce((2, 1), ("data", "model"), 8) == (
+        11 + 3 + 2, (whole + 3 + 2) * f32, (whole + 3 + 2) * f32)
+    # biases halved over "model"
+    replicated = 2 * (biases // 2 + 2 * d) + d
+    calls, sent, ring = (
+        a - b for a, b in zip(
+            all_reduce((2, 2, 2), ("pod", "data", "model"), 16),
+            all_reduce((2, 2), ("data", "model"), 8)))
+    assert calls == leaves
+    assert sent == matrices // 4 * f32 + (3 - 1) * (replicated + 3) * f32
+    assert ring == (matrices // 4 * f32
+                    + (replicated + 3) * (2 * 3 * f32 // 4 - f32))
 
 
 def test_main_writes_a_record(tmp_path, monkeypatch):
@@ -574,7 +624,15 @@ def test_main_writes_a_record(tmp_path, monkeypatch):
     assert mem["resident_bytes"] == (mem["argument_bytes"]
                                      + mem["output_bytes"]
                                      - mem["alias_bytes"])
-    assert rec["collectives"]["collective_model"] == "parameters"
+    assert rec["collectives"]["collective_model"] == "program"
+    assert rec["collectives"]["total_bytes"] == sum(
+        rec["collectives"]["by_kind"].values())
+    # the roofline prices the ring volume, at most the bytes sent
+    assert rec["collectives"]["roofline_bytes"] == "ring_total_bytes"
+    assert rec["collective_s"] == (rec["collectives"]["ring_total_bytes"]
+                                   / roofline.NVLINK_BW)
+    assert 0 < (rec["collectives"]["ring_total_bytes"]
+                <= rec["collectives"]["total_bytes"])
     assert rec["cost"]["flops"] * 16 == rec["cost"]["share_flops"]
     assert rec["memory_s"] == rec["cost"]["bytes_accessed"] / roofline.HBM_BW
     skipped = dryrun.run_cell("qwen2.5-3b", "long_500k")

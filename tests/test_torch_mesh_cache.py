@@ -20,19 +20,30 @@ at 8, in every cut here), for
   (1, 4) (MLA: the sequence over ``model``) at batch 4;
 * at batch 1 (``seq_shard``, ``use_mesh(replicated_batch=True)``) on
   (2, 2): jamba (kv heads over ``model``, the sequence over ``data``),
-  deepseek-v3 (the sequence over ``("data", "model")``) and qwen2.5-3b.
+  deepseek-v3 (the sequence over ``("data", "model")``) and qwen2.5-3b;
+* the encoder-decoder (``encdec.init_cache``: its ``self`` and
+  ``cross_kv`` caches) at the harness's ``whisper-tiny+h6``, the smoke
+  config with 6 heads and 6 kv heads as the published one has (the smoke
+  config's 4 divide every mesh here), its frames the harness's
+  ``stub_inputs`` (seed 13) in both packages: on (2, 2) at batch 4 (the
+  kv heads over ``model``, 3 a process), at batch 1 (also the rows and
+  frames over ``data``) and on (1, 4) at batch 4 (6 heads do not divide
+  4: every head on a quarter of the rows and frames, the decode's
+  cross-attention the distributed softmax), and a position past the end
+  there.
 
 Each case: (a) after the prefill and after each decode step every
 process's cache leaf (Mamba's too) is, within 1e-5 of the leaf's largest
 magnitude, the block the reference's spec gives it of the reference's
-own mesh cache; (b) the prefill and decode logits are within 1e-5 of the
+own mesh cache (the encoder-decoder's ``self`` and ``cross_kv`` too);
+(b) the prefill and decode logits are within 1e-5 of the
 reference's mesh run and of one process, and the processes of a batch
 block agree bit for bit; the bytes a process allocates for the cache
 equal the dry run's per-device cache bytes of the same cell.  And: a
 position past the end (the last row written, every row attended), held
 to the reference; a length the cut does not divide keeps the sequence
 whole; at batch 1 on (1, 4) the reference's spec maps ``data`` twice
-and both packages refuse it.
+and both packages refuse it (the encoder-decoder too).
 """
 
 import _torch_threads  # noqa: F401  (first: a worker's share of the cores)
@@ -46,19 +57,21 @@ import pytest
 import torch
 
 from _mesh_tp_harness import (DROPLESS_CF, RTOL, base_job, load, ranks,
-                              reference, rel, wait)
+                              reference, rel, smoke, stub_inputs, wait)
 from repro import configs as ref_configs
 from repro.models.model import build_model as ref_build_model
 from repro_torch import configs, convert
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.sharding import rules
 from test_torch_dryrun_lm import _port_names
 
 QWEN, VL, DS, JAMBA = ("qwen2.5-3b", "internvl2-1b", "deepseek-v3-671b",
                        "jamba-v0.1-52b")
+#: whisper-tiny's smoke config with the published config's 6 heads
+WHISPER = "whisper-tiny+h6"
 T, S, POS = 16, 7, [7, 8, 9]
 M14, M22 = (1, 4), (2, 2)
 
@@ -81,6 +94,11 @@ CASES = {
     "deepseek_m22_b1_past_end": _case(DS, M22, 1, pos=[7, 8, T + 3]),
     "qwen_m14_t18": _case(QWEN, M14, 4, t=18),
     "qwen_m14_b1": _case(QWEN, M14, 1, raises=True),
+    "whisper_m22": _case(WHISPER, M22, 4, refuse=True),
+    "whisper_m22_b1": _case(WHISPER, M22, 1),
+    "whisper_m14": _case(WHISPER, M14, 4),
+    "whisper_m14_past_end": _case(WHISPER, M14, 4, pos=[7, 8, T + 2]),
+    "whisper_m14_b1": _case(WHISPER, M14, 1, raises=True),
 }
 SERVED = [n for n, c in CASES.items() if not c.get("raises")]
 
@@ -90,10 +108,12 @@ def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh_cache")
     init = {}
     for arch in sorted({c["arch"] for c in CASES.values()}):
-        rm = ref_build_model(ref_configs.get_smoke(arch))
-        sd = convert.lm_params_from_numpy(
-            jax.tree.map(np.asarray, rm.init(jax.random.key(0))),
-            configs.get_smoke(arch), device="cpu", dtype=torch.float32)
+        rm = ref_build_model(smoke(ref_configs, arch))
+        cfg = smoke(configs, arch)
+        to_port = (convert.encdec_params_from_numpy if cfg.family == "audio"
+                   else convert.lm_params_from_numpy)
+        sd = to_port(jax.tree.map(np.asarray, rm.init(jax.random.key(0))),
+                     cfg, device="cpu", dtype=torch.float32)
         init[arch] = str(out / f"init_{arch}.pt")
         torch.save(sd, init[arch])
     ref = reference(QWEN, [], out / "ref.json", serve=CASES)
@@ -115,7 +135,7 @@ def runs(tmp_path_factory):
 
 
 def _cfg(arch):
-    cfg = configs.get_smoke(arch)
+    cfg = smoke(configs, arch)
     if cfg.moe is None:
         return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -127,18 +147,24 @@ def _single(runs, name):
     prefill's last logits and each decode step's, (1 + steps, B, V)."""
     case = CASES[name]
     cfg = _cfg(case["arch"])
-    params = transformer.DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    audio = cfg.family == "audio"
+    mod = encdec if audio else transformer
+    params = (encdec.EncDecLM if audio else transformer.DecoderLM)(
+        cfg, device="cpu", dtype=torch.float32)
     params.load_state_dict(torch.load(runs["init"][case["arch"]]))
     b = case["batch"]
     toks = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (b, S + len(case["pos"]))))
-    cache = transformer.init_cache(cfg, b, case["T"], torch.float32,
-                                   device="cpu")
-    pre, cache = transformer.prefill(params, cfg, toks[:, :S], cache)
+    cache = mod.init_cache(cfg, b, case["T"], torch.float32, device="cpu")
+    if audio:
+        frames = torch.from_numpy(stub_inputs(cfg, b, 13)["frames"])
+        pre, cache = encdec.prefill(params, cfg, toks[:, :S], frames, cache)
+    else:
+        pre, cache = transformer.prefill(params, cfg, toks[:, :S], cache)
     out = [pre[:, 0]]
     for i, p in enumerate(case["pos"]):
-        lg, cache = transformer.decode_step(params, cfg, toks[:, S + i],
-                                            torch.full((b,), p), cache)
+        lg, cache = mod.decode_step(params, cfg, toks[:, S + i],
+                                    torch.full((b,), p), cache)
         out.append(lg)
     return torch.stack(out).numpy()
 
@@ -184,7 +210,7 @@ def test_cache_blocks_are_the_references_blocks(runs, name):
             got = np.load(r["arrays"])
             for path, arr in want.items():
                 spec = ref["specs"][path]
-                stacked = path.startswith("period/")
+                stacked = path.startswith(("period/", "self/", "cross_kv/"))
                 for p, port in enumerate(_port_names(cfg, path)):
                     whole = arr[p] if stacked else arr
                     blk = _block(whole, spec[1:] if stacked else spec,
@@ -262,13 +288,43 @@ def test_sequence_cuts_follow_the_reference(runs):
         assert np.load(r["arrays"])["0/layers/0/k"].shape[1] == 18
 
 
+@pytest.mark.parametrize("name,want", [
+    ("whisper_m22", rules.P("data", None, "model")),
+    ("whisper_m22_b1", rules.P(None, "data", "model")),
+    ("whisper_m14", rules.P("data", "model")),
+])
+def test_encdec_caches_follow_the_reference(runs, name, want):
+    """The encoder-decoder's ``self`` and ``cross_kv`` leaves carry the
+    reference's ``cache_specs`` spec (without its stacked layer dim),
+    the reference's own spec of each: on (2, 2) the kv heads over
+    ``model``, at batch 1 also the rows and frames over ``data``, on
+    (1, 4) every head on a block of the rows and frames over ``model``;
+    each process holds its block of the ``T`` rows and the
+    ``encoder_seq`` frames."""
+    cfg = _cfg(WHISPER)
+    case = CASES[name]
+    ref_specs = runs["ref"][name]["specs"]
+    for part, length in (("self", case["T"]), ("cross_kv", cfg.encoder_seq)):
+        assert ref_specs[f"{part}/k"][1:] == [
+            list(e) if isinstance(e, tuple) else e for e in want]
+        seq_axes = rules._axes(want[1]) if len(want) > 1 else ()
+        cut = math.prod(dict(zip(("data", "model"), case["dims"]))[a]
+                        for a in seq_axes)
+        for r in runs["ranks"][name]:
+            for i in range(cfg.n_layers):
+                assert r["specs"][f"{part}/{i}/k"] == repr(want)
+                blk = np.load(r["arrays"])[f"0/{part}/{i}/k"]
+                assert blk.shape[1] == length // cut, (name, part)
+
+
 def test_batch_one_on_a_one_wide_data_axis_raises_in_both(runs):
     """At global batch 1 on (1, 4) the reference's spec maps ``data`` to
     the batch and the sequence both: JAX refuses it, and so does the
     port, naming the spec."""
-    assert "DuplicateSpec" in runs["ref"]["qwen_m14_b1"]["raised"]
-    for r in runs["ranks"]["qwen_m14_b1"]:
-        assert "P('data', ('data', 'model'))" in r["raised"]
+    for name in ("qwen_m14_b1", "whisper_m14_b1"):
+        assert "DuplicateSpec" in runs["ref"][name]["raised"]
+        for r in runs["ranks"][name]:
+            assert "P('data', ('data', 'model'))" in r["raised"]
     whole = transformer.init_cache(configs.get_smoke(QWEN), 1, T,
                                    device="meta")
     with pytest.raises(ValueError, match="more than once"):
@@ -279,8 +335,9 @@ def test_a_cache_laid_out_otherwise_is_refused(runs):
     """On a mesh, a cache built off it raises with the reason (in the
     ranks); off a mesh, a block of a mesh's cache raises too; on a
     ``MeshShape`` the blocks are device 0's."""
-    for r in runs["ranks"]["qwen_m14"]:
-        assert "carries no layout" in r["refused"]
+    for name in ("qwen_m14", "whisper_m22"):
+        for r in runs["ranks"][name]:
+            assert "carries no layout" in r["refused"]
     leaf = torch.zeros((2, 8, 2, 16))
     leaf.spec, leaf.global_shape = rules.P("data", "model"), (4, 16, 2, 16)
     with pytest.raises(ValueError, match="of a process mesh, used off"):
