@@ -257,13 +257,28 @@ the seed and keeping its blocks:
                not divide 4, so every process attends with every head and
                holds every head on a quarter of the rows and frames (33
                of 132, 375 of 1 500), K8 12 times a prefill on 6 heads
-               and 0 a decode token, gated as (g).  Every task's
+               and 0 a decode token, gated as (g); (i)
+               ``rwkv6-3b`` at published width, 1 layer, fp32, on a
+               (1, 16) mesh of sixteen processes: the reference's 16-wide
+               model axis cuts its 40 heads of 64 inside a head (160
+               channels a process), so every process gathers ``wr``,
+               ``wk``, ``wv`` and ``wg`` over model and runs all 40
+               heads; a prefill of 2 x 32 seeded tokens and 2 decode
+               steps within 1e-3 of one process's largest logit, one
+               AdamW step at lr 1e-5 whose loss (and the loss after it)
+               is within 1e-5 of one process's, every leaf its
+               ``param_specs`` block, the state cache whole (all 40
+               heads, the bytes of one process's).  Every task's
                processes record the collectives they call
-               (``collectives.tally``); for (g) and (h) each prefill's,
-               each decode step's and (g)'s first train step's must equal
+               (``collectives.tally``); for (g), (h) and (i) each
+               prefill's, each decode step's and the first train step's
+               of (g) and (i) must equal
                ``launch.dryrun.count_collectives``' count on ``meta`` of
                the same arch, mesh, batch and length (the prompt's, or the
-               cache's rows), kind by kind, in bytes and in calls.
+               cache's rows), kind by kind, in bytes and in calls.  Every
+               mesh's processes are forked by one fork server that
+               imported this script and ``torch._dynamo`` once, without
+               taking the card.
 
 The distributed step (``repro_torch.core.distributed``: the two-tier spike
 exchange and its wire codecs, shards stacked on the card), after the gate:
@@ -451,9 +466,11 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib
 import json
 import os
 import re
+import select
 import shutil
 import statistics
 import subprocess
@@ -5194,15 +5211,79 @@ LM_MESH_ENCDEC_LAYOUTS = {
     "m14": dict(spawn="mesh14", dims=(1, 4), batch=4,
                 spec="P('data', 'model')", k8_decode=0, heads=6),
 }
+#: the head-cut leg (i): rwkv6-3b at published width (d 2560, 40 heads of
+#: 64, d_ff 8960, vocab 65 536), 1 of 32 layers, fp32 parameters and
+#: compute, on a (1, 16) ("data", "model") mesh of sixteen processes
+#: sharing the card: the reference's production model axis, and the one
+#: mesh here on which param_specs cuts its heads inside a head (wr, wk, wv
+#: and wg 160 of 2 560 columns a process, 2.5 heads; wo 160 rows), so that
+#: every process gathers the four projections over model and runs all 40
+#: heads (``models/rwkv.py``), and the state cache holds every head, whole
+#: over model (cache_specs).  Against one process at the same depth: a
+#: prefill of ``batch`` x ``seq`` seeded tokens and ``decode`` decode
+#: tokens, logits within LM_MESH_F32_RTOL of one process's largest; one
+#: AdamW step at the (f) leg's lr on ``batch`` x ``seq`` seeded tokens,
+#: its loss and the loss after it within LM_MESH_HEADCUT_LOSS_RTOL
+#: relative of one process's; every leaf its param_specs block and ``s``
+#: whole; the cache's bytes a process against one process's (the same:
+#: nothing of it is cut over model, and data is 1 wide); every
+#: process's tally of the prefill, of each decode step and of the train
+#: step equal to ``launch.dryrun.count_collectives`` of the same cell on
+#: a (1, 16) stand-in, in calls, bytes and ring volume
+LM_MESH_HEADCUT_DIMS = (1, 16)
+LM_MESH_HEADCUT = dict(arch="rwkv6-3b", layers=1, batch=2, seq=32,
+                       decode=2, heads=40, lr=LM_MESH_TRAIN_LEGS["rwkv"]["lr"])
+LM_MESH_HEADCUT_LOSS_RTOL = 1e-5
 LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
-LM_MESH_WORKER = """
-import sys
+#: the fork server of the lm_mesh spawns (``_lm_mesh_spawn``): one
+#: process that imports this module and torch._dynamo (which the train
+#: steps' selective checkpointing imports at its first step) once, without
+#: taking the card (``torch.cuda.is_available`` by NVML), and forks each
+#: spawn's processes, each of which then takes the card and joins its
+#: mesh.  A fresh process pays those imports itself, on the card's 8-core
+#: host: torch and this module 8.5 s each with four at once and 20-23 s
+#: with sixteen (``scripts/mesh_spawn_probe.py``), torch._dynamo 8.8 s
+#: alone and 22 s each with sixteen (leg (i)'s ``dynamo_import_s``)
+LM_MESH_FORK_SERVER = """
+import importlib, json, os, sys, traceback
 sys.path.insert(0, sys.argv[1])
+import torch
 import chip_smoke
-chip_smoke.lm_mesh_worker(sys.argv[2])
+importlib.import_module("torch._dynamo")
+if torch.cuda.is_initialized():
+    sys.exit("lm_mesh fork server: the card was taken before the fork")
+# its threads: its own, and NVML's from the availability check, which
+# leaves the card untaken, so that forked processes take it themselves
+print("ready", len(os.listdir("/proc/self/task")), flush=True)
+for line in sys.stdin:
+    req = json.loads(line)
+    pids = []
+    for r, log in enumerate(req["logs"]):
+        pid = os.fork()
+        if pid == 0:
+            code = 1
+            try:
+                os.environ.update(req["env"], REPRO_PROC_ID=str(r))
+                fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+                os.dup2(fd, 1)
+                os.dup2(fd, 2)
+                chip_smoke.lm_mesh_worker(req["job"])
+                code = 0
+            except BaseException:
+                traceback.print_exc()
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(code)
+        pids.append(pid)
+    print(json.dumps([os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
+                      for pid in pids]), flush=True)
 """
+#: the running fork server (``_lm_mesh_fork_server``): its process,
+#: whether it has said it is ready, and the threads it then ran
+_LM_MESH_FORKS = {}
 
 
 def _lm_mesh_cfg(dtype: str, layers: int, cf: float | None = 16.0):
@@ -5950,6 +6031,115 @@ def lm_mesh_encdec_train(mesh=None) -> dict:
     return rec
 
 
+def _headcut_cfg():
+    spec = LM_MESH_HEADCUT
+    return dataclasses.replace(lm_configs.get(spec["arch"]),
+                               n_layers=spec["layers"], dtype="float32")
+
+
+def _headcut_layout(params, cache, mesh) -> dict:
+    """Every leaf against its param_specs block on ``mesh`` (the leaves
+    that differ, in ``wrong``), how many ``model`` cuts, ``wr``'s block,
+    and the state cache's spec and shape."""
+    whole = {n: torch.empty(lm_rules.global_shape(p), device="meta")
+             for n, p in params.named_parameters()}
+    want = lm_rules.param_specs(mesh, whole)
+    wrong, cut = [], 0
+    for n, p in params.named_parameters():
+        spec = lm_rules.spec_of(p)
+        cut += any("model" in lm_rules._axes(e) for e in spec)
+        if spec != want[n] or tuple(p.shape) != lm_rules.shard_shape(
+                tuple(whole[n].shape), want[n], mesh):
+            wrong.append([n, list(p.shape), repr(spec), repr(want[n])])
+    s = cache["layers"][0]["s"]
+    return {"leaves": len(whole), "leaves_cut_over_model": cut,
+            "wrong": wrong, "wr_block": list(params.layers[0].rwkv.wr.w.shape),
+            "s_spec": repr(lm_rules.spec_of(s)), "s_shape": list(s.shape)}
+
+
+def lm_mesh_headcut(mesh=None) -> dict:
+    """(i): rwkv6-3b (``_headcut_cfg``) in one process or on ``mesh``'s
+    (1, 16): the prefill's last logits and each decode step's, their
+    seconds and collectives tallies, the cache's bytes, K8's launches
+    (none: attention-free); on a mesh the layout (``_headcut_layout``);
+    then one AdamW step (``LM_MESH_HEADCUT``'s lr) on seeded tokens: its
+    loss, gradient norm, seconds and tally, and the loss after it; peak
+    memory and the parameters' bytes."""
+    spec = LM_MESH_HEADCUT
+    cfg = _headcut_cfg()
+    m = build_model(cfg)
+    # the train step's selective checkpointing (``cfg.remat``) imports
+    # torch._dynamo: in a fresh process the first step's largest part
+    t0 = time.perf_counter()
+    importlib.import_module("torch._dynamo")
+    dynamo_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = m.init(SEED, device=DEV, dtype=torch.float32, mesh=mesh)
+    rng = np.random.default_rng(SEED)
+    prompts, dec = (_block(torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (spec["batch"], n))).to(DEV), mesh)
+        for n in (spec["seq"], spec["decode"]))
+    b = prompts.shape[0]
+    ctx = (lm_rules.use_mesh(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    rec = {"dynamo_import_s": dynamo_s}
+    with ctx:
+        cache = lm_tr.init_cache(cfg, b, spec["seq"] + spec["decode"],
+                                 torch.float32, device=DEV)
+        rec.update(_cache_record(cache))
+        if mesh is not None:
+            rec["layout"] = _headcut_layout(params, cache, mesh)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with lm_coll.tally() as tl:
+            logits, cache = lm_tr.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        rec.update(prefill_s=time.perf_counter() - t0,
+                   tally_prefill=tl.record())
+        out, t_dec, tallies = [logits[:, 0]], [], []
+        for i in range(spec["decode"]):
+            pos = torch.full((b,), spec["seq"] + i, dtype=torch.int64,
+                             device=DEV)
+            t0 = time.perf_counter()
+            with lm_coll.tally() as tl:
+                lg, cache = lm_tr.decode_step(params, cfg, dec[:, i], pos,
+                                              cache)
+            torch.cuda.synchronize()
+            t_dec.append(time.perf_counter() - t0)
+            tallies.append(tl.record())
+            out.append(lg)
+        rec.update(logits=torch.stack(out).float().cpu(), decode_step_s=t_dec,
+                   tally_decode=tallies,
+                   k8_serve=read_launches()["flash_attention"])
+        del cache
+        tcfg = TrainConfig(lr=spec["lr"])
+        opt = train_opt.init_opt_state(tcfg, params)
+        step = train_loop.make_train_step(m, tcfg)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                             global_batch=spec["batch"], seed=SEED)
+        batch = {"tokens": _block(torch.as_tensor(pipe.batch(0)["tokens"],
+                                                  device=DEV), mesh)}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with lm_coll.tally() as tl:
+            params, opt, met = step(params, opt, batch, 0)
+        rec.update(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                   step_s=time.perf_counter() - t0, tally_train=tl.record(),
+                   k8_train=read_launches()["flash_attention"])
+        with torch.no_grad():
+            loss, _ = m.loss(params, batch)
+        rec["loss_after"] = _mesh_mean(loss, mesh)
+    rec.update(param_bytes=sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+               peak_device_mem_bytes=torch.cuda.max_memory_allocated())
+    del params, opt
+    return rec
+
+
 def _lm_mesh_task(task: str, mesh, arrays: dict) -> dict:
     """One task of :func:`lm_mesh_worker` on ``mesh``: its record, its
     logits put in ``arrays``."""
@@ -5994,6 +6184,9 @@ def _lm_mesh_task(task: str, mesh, arrays: dict) -> dict:
     elif task.startswith("seqcut_"):
         out = lm_mesh_seqcut(task.split("_", 1)[1], mesh)
         arrays[task] = out.pop("logits").numpy()
+    elif task == "headcut":
+        out = lm_mesh_headcut(mesh)
+        arrays[task] = out.pop("logits").numpy()
     else:
         out = lm_mesh_restart(mesh)
     return out
@@ -6023,6 +6216,8 @@ def lm_mesh_worker(job_json: str) -> None:
         rec[task] = out
         gc.collect()
         torch.cuda.empty_cache()
+    rec["rss_kib"] = _proc_kib("/proc/self/status",
+                               ("VmHWM", "VmRSS", "RssAnon", "RssFile"))
     name = f"{job['name']}_rank{mesh.rank}"
     np.savez(os.path.join(LM_MESH_DIR, name + ".npz"), **arrays)
     with open(os.path.join(LM_MESH_DIR, name + ".json"), "w") as f:
@@ -6031,44 +6226,94 @@ def lm_mesh_worker(job_json: str) -> None:
     tdist.destroy_process_group()
 
 
+def _proc_kib(path: str, keys) -> dict:
+    """Fields of a ``/proc`` status file (``MemAvailable``, ``VmRSS``,
+    ...) in KiB."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            k, _, v = line.partition(":")
+            if k in keys:
+                out[k] = int(v.split()[0])
+    return out
+
+
+#: each spawn's least ``MemAvailable`` of the host while its processes ran
+LM_MESH_HOST_MEM = {}
+
+
+def _lm_mesh_fork_server():
+    """The fork server (LM_MESH_FORK_SERVER), started on the first call
+    in a session of its own, with its log in LM_MESH_DIR."""
+    if not _LM_MESH_FORKS:
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTORCH_NVML_BASED_CUDA_CHECK="1",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        with open(os.path.join(LM_MESH_DIR, "fork_server.log"), "w") as log:
+            _LM_MESH_FORKS.update(ready=False, proc=subprocess.Popen(
+                [sys.executable, "-c", LM_MESH_FORK_SERVER, ROOT], cwd=ROOT,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+                text=True, env=env, start_new_session=True))
+    return _LM_MESH_FORKS
+
+
+def _lm_mesh_stop_forks() -> None:
+    """The fork server and every process it forked, ended."""
+    proc = _LM_MESH_FORKS.pop("proc", None)
+    _LM_MESH_FORKS.clear()
+    if proc is not None:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+        proc.wait()
+
+
 def _lm_mesh_spawn(name: str, dims, tasks) -> list:
-    """``prod(dims)`` worker processes on the card, joined as a mesh;
-    their records, in rank order."""
+    """``prod(dims)`` worker processes on the card, forked by the fork
+    server and joined as a mesh; their records, in rank order (the
+    host's least available memory while they ran in LM_MESH_HOST_MEM).
+    A process that fails, or a spawn that outlasts 900 s, fails the
+    check (the fork server and its processes ended)."""
     size = int(np.prod(dims))
-    env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{mh_launch._free_port()}",
-               REPRO_NUM_PROC=str(size), LOCAL_WORLD_SIZE=str(size),
-               OMP_NUM_THREADS="1",
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    env = {"REPRO_COORD_ADDR": f"127.0.0.1:{mh_launch._free_port()}",
+           "REPRO_NUM_PROC": str(size), "LOCAL_WORLD_SIZE": str(size)}
     job = json.dumps({"name": name, "dims": list(dims),
                       "axes": list(LM_MESH_AXES), "tasks": list(tasks)})
-    logs = [open(os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log"), "w")
+    logs = [os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log")
             for r in range(size)]
-    procs = [subprocess.Popen([sys.executable, "-c", LM_MESH_WORKER, ROOT,
-                               job], cwd=ROOT, stdout=logs[r],
-                              stderr=subprocess.STDOUT,
-                              env=dict(env, REPRO_PROC_ID=str(r)))
-             for r in range(size)]
+    forks = _lm_mesh_fork_server()
+    server = forks["proc"]
     deadline = time.monotonic() + 900
-    try:
-        while time.monotonic() < deadline:
-            rcs = [p.poll() for p in procs]
-            if any(rc not in (None, 0) for rc in rcs) or all(
-                    rc == 0 for rc in rcs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log")) as f:
+    avail = []
+
+    def read_line():
+        while time.monotonic() < deadline and server.poll() is None:
+            if select.select([server.stdout], [], [], 0.2)[0]:
+                return server.stdout.readline().strip()
+            avail.append(_proc_kib("/proc/meminfo", ("MemAvailable",))[
+                "MemAvailable"])
+        return None
+
+    if not forks["ready"]:
+        ready = (read_line() or "").split()
+        forks.update(ready=ready[:1] == ["ready"], threads=ready[1:])
+    rcs = None
+    if forks["ready"]:
+        server.stdin.write(json.dumps({"job": job, "env": env,
+                                       "logs": logs}) + "\n")
+        server.stdin.flush()
+        rcs = read_line()
+    if not rcs:
+        _lm_mesh_stop_forks()
+        with open(os.path.join(LM_MESH_DIR, "fork_server.log")) as f:
+            tail = f.read()[-3000:]
+        check(False, f"lm_mesh {name}: the fork server did not run the "
+              f"spawn in 900 s\n{tail}")
+    for r, rc in enumerate(json.loads(rcs)):
+        if rc != 0:
+            with open(logs[r]) as f:
                 tail = f.read()[-3000:]
-            check(False, f"lm_mesh {name}: process {r} exited "
-                  f"{p.returncode}\n{tail}")
+            check(False, f"lm_mesh {name}: process {r} exited {rc}\n{tail}")
+    LM_MESH_HOST_MEM[name] = 1024 * min(avail, default=0)
     return [json.load(open(os.path.join(LM_MESH_DIR,
                                         f"{name}_rank{r}.json")))
             for r in range(size)]
@@ -6372,11 +6617,89 @@ def _check_seqcut(ranks, single) -> dict:
     return out
 
 
+def _check_headcut(ranks, one) -> dict:
+    """(i): every process's logits bit for bit the same (one batch block)
+    and within LM_MESH_F32_RTOL of one process's largest logit; the step's
+    loss and the loss after it within LM_MESH_HEADCUT_LOSS_RTOL of one
+    process's, the same in every process; every leaf its param_specs
+    block, ``s`` whole over model (all 40 heads); a process's cache bytes
+    equal to one process's; no K8 launch; every process's tallies equal
+    to the dry run's counts; its record."""
+    spec = LM_MESH_HEADCUT
+    cfg, dims = _headcut_cfg(), LM_MESH_HEADCUT_DIMS
+    per = [r["headcut"] for r in ranks]
+    arrs = [torch.from_numpy(np.load(os.path.join(
+        LM_MESH_DIR, f"mesh16_rank{r['rank']}.npz"))["headcut"])
+        for r in ranks]
+    check(all(torch.equal(a, arrs[0]) for a in arrs),
+          "lm_mesh headcut: the processes' logits differ")
+    want = one["logits"]                          # (1 + decode, B, V)
+    err = (arrs[0] - want).abs().amax((1, 2))
+    scale = float(want.abs().max())
+    limit = LM_MESH_F32_RTOL * scale
+    check(bool((err <= limit).all()), f"lm_mesh headcut: logits differ from "
+          f"one process's by {err.tolist()}, limit {limit}")
+    losses = {k: [p[k] for p in per] for k in ("loss", "loss_after")}
+    rel = {k: abs(v[0] - one[k]) / abs(one[k]) for k, v in losses.items()}
+    check(all(v == [v[0]] * len(v) for v in losses.values())
+          and all(np.isfinite(v[0]) for v in losses.values())
+          and max(rel.values()) <= LM_MESH_HEADCUT_LOSS_RTOL,
+          f"lm_mesh headcut: losses {losses} against one process's "
+          f"{one['loss']}, {one['loss_after']}")
+    lay = [p["layout"] for p in per]
+    check(all(x["wrong"] == [] for x in lay)
+          and all(x["s_spec"] == repr(lm_rules.P("data"))
+                  and x["s_shape"][1] == spec["heads"] for x in lay)
+          and all(x["wr_block"] == [cfg.d_model, cfg.d_model // dims[1]]
+                  for x in lay),
+          f"lm_mesh headcut: layouts {lay}")
+    check([p["cache_bytes"] for p in per] == [one["cache_bytes"]] * len(per),
+          f"lm_mesh headcut: caches {[p['cache_bytes'] for p in per]} "
+          f"bytes a process, one process {one['cache_bytes']}")
+    k8 = [p["k8_serve"] + p["k8_train"] for p in per]
+    check(k8 == [0] * len(per) and one["k8_serve"] + one["k8_train"] == 0,
+          f"lm_mesh headcut: K8 launched {k8} times a process")
+    counts = _check_call_tallies("headcut", per, cfg, spec["seq"],
+                                 spec["seq"] + spec["decode"], spec["batch"],
+                                 dims)
+    tcfg = TrainConfig(lr=spec["lr"])
+    for p in per:
+        counts["train"] = _check_tally("headcut train", p["tally_train"],
+                                       cfg, "train", spec["seq"],
+                                       spec["batch"], dims, tcfg)
+    return {
+        **spec, "mesh": list(dims),
+        "published_layers": lm_configs.get(spec["arch"]).n_layers,
+        "max_abs_err": err.tolist(), "max_abs_logit": scale,
+        "limit": limit, "losses_rel_err": rel,
+        "tolerance_loss_rel": LM_MESH_HEADCUT_LOSS_RTOL,
+        "collectives_counted": counts, "layout_rank0": lay[0],
+        "k8_per_process": k8, "cache_bytes_single": one["cache_bytes"],
+        "single": {k: one[k] for k in (
+            "loss", "loss_after", "grad_norm", "prefill_s", "decode_step_s",
+            "step_s", "param_bytes", "peak_device_mem_bytes")},
+        **{f"{k}_per_process": [p[k] for p in per] for k in (
+            "dynamo_import_s", "grad_norm", "cache_bytes", "prefill_s",
+            "decode_step_s", "step_s", "param_bytes",
+            "peak_device_mem_bytes", "task_s")}}
+
+
 def phase_lm_mesh() -> dict:
     """Phase 14e; returns K8's launches per process in (a) and (e)."""
     t_phase = time.perf_counter()
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
     os.makedirs(LM_MESH_DIR)
+    # the fork server imports while the single-process runs go
+    _lm_mesh_fork_server()
+    try:
+        return _phase_lm_mesh(t_phase)
+    finally:
+        _lm_mesh_stop_forks()
+
+
+def _phase_lm_mesh(t_phase: float) -> dict:
+    """:func:`phase_lm_mesh` once its directory and fork server are
+    set up."""
     gc.collect()
     torch.cuda.empty_cache()
     pub = lm_configs.get(LM_MESH_ARCH)
@@ -6466,6 +6789,12 @@ def phase_lm_mesh() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         single_s[f"seqcut_{dtype}"] = time.perf_counter() - t0
+    # (i) in one process
+    t0 = time.perf_counter()
+    single_headcut = lm_mesh_headcut()
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s["headcut"] = time.perf_counter() - t0
     print(json.dumps({"lm_mesh single-process s": single_s,
                       "device_mem_allocated_bytes":
                           torch.cuda.memory_allocated()}), flush=True)
@@ -6480,6 +6809,9 @@ def phase_lm_mesh() -> dict:
                              [f"seqcut_{d}" for d in LM_MESH_SEQCUT]
                              + _encdec_tasks("mesh14"))
     mesh14_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks16 = _lm_mesh_spawn("mesh16", LM_MESH_HEADCUT_DIMS, ("headcut",))
+    mesh16_s = time.perf_counter() - t0
     rec = {"arch": LM_MESH_ARCH, "mesh": list(LM_MESH_DIMS),
            "axes": list(LM_MESH_AXES), "processes": len(ranks),
            "backend": ranks[0]["backend"], "layers": LM_MESH_LAYERS,
@@ -6487,7 +6819,11 @@ def phase_lm_mesh() -> dict:
            "published_layers": pub.n_layers, "batch": LM_MESH_BATCH,
            "seq": LM_MESH_SEQ, "decode_steps": LM_MESH_DECODE,
            "single_process_s": single_s, "mesh_processes_s": mesh_s,
-           "mesh14_processes_s": mesh14_s}
+           "mesh14_processes_s": mesh14_s, "mesh16_processes_s": mesh16_s,
+           "host_mem_available_min_bytes": dict(LM_MESH_HOST_MEM),
+           "fork_server_threads": _LM_MESH_FORKS.get("threads"),
+           "rss_kib_rank0": {n: r[0]["rss_kib"] for n, r in (
+               ("mesh", ranks), ("mesh14", ranks14), ("mesh16", ranks16))}}
     check(rec["backend"] == "gloo" and all(
         r["device"].startswith("cuda") for r in ranks),
         f"lm_mesh: backend {rec['backend']}")
@@ -6692,6 +7028,9 @@ def phase_lm_mesh() -> dict:
         "task_s_per_process": [r["rwkv_train"]["task_s"] for r in ranks]}
     rec["encdec"] = _check_encdec(ranks, ranks14, single_enc)
     rec["seqcut"] = _check_seqcut(ranks14, single_seq)
+    check(all(r["device"].startswith("cuda") for r in ranks16),
+          "lm_mesh headcut: a process is not on the card")
+    rec["headcut"] = _check_headcut(ranks16, single_headcut)
     # (c) the elastic restart onto (1, 2), against one process resumed
     t0 = time.perf_counter()
     restart = _lm_mesh_spawn("restart", LM_MESH_RESTART_DIMS, ("restart",))
@@ -6729,7 +7068,8 @@ def phase_lm_mesh() -> dict:
                 "k8_prefill_per_process"] for arch, fam
                in rec["families"].items() if "b1" in fam},
             **{f"seqcut {dtype} per_process": leg["k8_prefill_per_process"]
-               for dtype, leg in rec["seqcut"].items()}}
+               for dtype, leg in rec["seqcut"].items()},
+            "headcut per_process": rec["headcut"]["k8_per_process"]}
 
 
 def main() -> None:

@@ -29,6 +29,25 @@ replicated input; the streams enter the column-parallel products through
 alone (the decay ``wx``, ``bonus_u``, ``gn_scale``, ``gn_bias``) are
 sliced after a ``sum_grad`` of the whole, so their cotangents are summed
 over ``model`` once.
+
+Where ``model`` cuts the leaves inside a head (rwkv6-3b's 40 heads of 64
+on a 16-wide ``model``: 160 columns a process, 2.5 heads) the leaves
+stay their ``param_specs`` blocks, and the recurrence, which mixes a
+head's channels, runs every head on every process
+(``rules.model_blocks`` is 1), as GQA's ``attention.head_split`` does
+where ``n_heads`` does not split: ``wr``, ``wk``, ``wv`` and ``wg`` are
+gathered whole over ``model`` at use (``attention._heads`` on every head:
+``collectives.gather_blocks``, whose backward reduce-scatters the
+gradient to the block), ``bonus_u``,
+``gn_*`` and the decay are read whole, and ``wo`` takes its rows' share
+of ``y * g``, its fp32 partial products summed over ``model``.  Each
+process's cotangent of ``y * g`` is then its rows' alone, so the
+cotangents of the gathered projections, of the streams and of the whole
+replicated tensors are each a part of the whole, summed over ``model``
+once by the gathers' reduce-scatters and by ``sum_grad``.  The
+cache holds every head's state (``cache_specs``: the head dim whole over
+``model``).  The channel mix keeps its tensor-parallel region (``d_ff``
+splits).
 """
 
 from __future__ import annotations
@@ -38,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (Linear, _param, init_linear, linear,
                                        row_parallel)
 from repro_torch.sharding import collectives as coll
@@ -106,12 +126,16 @@ def rwkv_init(p: RWKV, gen: torch.Generator) -> RWKV:
     return p
 
 
-def _local(t, mesh, dim: int):
+def _local(t, mesh, dim: int, blocks: int):
     """This process's block over ``model`` on ``dim`` of a replicated
     ``t`` that it reads there alone: the whole ``t`` through ``sum_grad``
-    (its cotangent summed over ``model``), then sliced."""
+    (its cotangent summed over ``model``), then sliced into ``blocks``
+    (``rules.model_blocks``; 1: the whole, every head on every
+    process)."""
     t = coll.sum_grad(t, mesh, ("model",))
-    n = t.shape[dim] // mesh.shape["model"]
+    if blocks == 1:
+        return t
+    n = t.shape[dim] // blocks
     return t.narrow(dim, mesh.axis_index(("model",)) * n, n)
 
 
@@ -143,7 +167,8 @@ def _group_norm(y, scale, bias, eps=64e-5):
 def _time_mix_core(p: RWKV, cfg, x, xs, s0, compute_dtype):
     """The recurrence from state s0 (B, H, dh, dh). x: (B, T, d) -> (y,
     final state).  On a tensor-parallel mesh the heads are this
-    process's (module docstring)."""
+    process's, or every head where ``model`` cuts inside one (module
+    docstring)."""
     h, dh = _heads(cfg)
     b, t, d = x.shape
     mesh = rules.tp_mesh(p.wr.w, cfg, "rwkv")
@@ -151,22 +176,29 @@ def _time_mix_core(p: RWKV, cfg, x, xs, s0, compute_dtype):
     xw = streams[..., 4, :]
     rkvg = streams[..., :4, :]
     u, gn_scale, gn_bias = p.bonus_u, p.gn_scale, p.gn_bias
+    blocks = 0 if mesh is None else rules.model_blocks(cfg, "rwkv", mesh)
     if mesh is not None:
-        h = h // mesh.shape["model"]
+        h //= blocks
         rkvg = coll.sum_grad(rkvg, mesh, ("model",))
-        u, gn_scale, gn_bias = (_local(v, mesh, 0)
+        u, gn_scale, gn_bias = (_local(v, mesh, 0, blocks)
                                 for v in (u, gn_scale, gn_bias))
+
+    def proj(q, z):
+        if blocks == 1:    # model cuts inside a head: q gathered whole
+            return attn_mod._heads(q, z.to(compute_dtype), 0, h, dh, mesh,
+                                   compute_dtype)
+        return linear(q, z, compute_dtype)
     xr, xk, xv, xg = rkvg.unbind(-2)
-    r = linear(p.wr, xr, compute_dtype).reshape(b, t, h, dh).float()
-    k = linear(p.wk, xk, compute_dtype).reshape(b, t, h, dh).float()
-    v = linear(p.wv, xv, compute_dtype).reshape(b, t, h, dh).float()
-    g = F.silu(linear(p.wg, xg, compute_dtype))
+    r = proj(p.wr, xr).reshape(b, t, h, dh).float()
+    k = proj(p.wk, xk).reshape(b, t, h, dh).float()
+    v = proj(p.wv, xv).reshape(b, t, h, dh).float()
+    g = F.silu(proj(p.wg, xg))
     wx = p.decay_base.float() + linear(
         p.decay_lora.b, torch.tanh(linear(p.decay_lora.a, xw,
                                           compute_dtype)),
         compute_dtype).float()
     if mesh is not None:
-        wx = _local(wx, mesh, -1)
+        wx = _local(wx, mesh, -1, blocks)
     w = torch.exp(-torch.exp(wx)).reshape(b, t, h, dh)   # in (0, 1)
     u = u.float()[..., None]
     s, ys = s0, []
@@ -176,16 +208,19 @@ def _time_mix_core(p: RWKV, cfg, x, xs, s0, compute_dtype):
         s = w[:, i, :, :, None] * s + kv
     y = torch.stack(ys, dim=1)                            # (B, T, H, dh)
     y = _group_norm(y, gn_scale, gn_bias).reshape(b, t, h * dh).to(
-        compute_dtype)
-    return linear(p.wo, y * g, compute_dtype), s
+        compute_dtype) * g
+    if blocks == 1:                          # wo's rows: this process's
+        rows = d // mesh.shape["model"]
+        y = y.narrow(-1, mesh.axis_index(("model",)) * rows, rows)
+    return linear(p.wo, y, compute_dtype), s
 
 
 def _local_heads(p: RWKV, cfg) -> int:
     """The heads this process runs (all of them off a mesh that cuts
-    them)."""
+    them, and on one that cuts inside a head)."""
     h, _ = _heads(cfg)
     mesh = rules.tp_mesh(p.wr.w, cfg, "rwkv")
-    return h if mesh is None else h // mesh.shape["model"]
+    return h if mesh is None else h // rules.model_blocks(cfg, "rwkv", mesh)
 
 
 def _zero_state(p: RWKV, cfg, x):
@@ -219,7 +254,8 @@ def rwkv_time_mix_prefill(p: RWKV, cfg, x, cache,
 def init_rwkv_cache(cfg, batch: int, dtype=torch.bfloat16, *, device):
     """The zeroed states of the heads a process runs (its ``H / model``
     inside ``rules.use_mesh`` of a process mesh that cuts them,
-    ``rules.model_blocks``; else all) and the whole shifts."""
+    ``rules.model_blocks``; else all, as where ``model`` cuts inside a
+    head) and the whole shifts."""
     h, dh = _heads(cfg)
     h //= rules.model_blocks(cfg, "rwkv")
     return {

@@ -347,49 +347,72 @@ def _tp_leaves(cfg, mixer: str):
         return [("mamba/conv_w", (cfg.mamba.d_conv, di), 1),
                 ("mamba/in_proj/w", (d, 2 * di), 1)], di
     if mixer == "rwkv":
-        return [("rwkv/wr/w", (d, d), 1)], d // cfg.rwkv.head_dim
+        return ([(f"rwkv/{n}/w", (d, d), 1) for n in ("wr", "wk", "wv", "wg")]
+                + [("rwkv/wo/w", (d, d), 0)]), d // cfg.rwkv.head_dim
     raise ValueError(f"no tensor-parallel rule for the mixer {mixer!r}")
 
 
-def model_blocks(cfg, mixer: str, mesh=None) -> int:
-    """How many blocks over ``model`` :func:`param_specs` cuts a ``mixer``
-    layer's heads (``attn``, ``mla``, ``rwkv``) or channels (``mamba``)
-    into on ``mesh`` (default: the current process mesh; 1 off one, or
-    where ``model`` does not cut them).  The one rule that a layer built
-    on the mesh (:func:`tp_mesh`) and its cache (``transformer.
-    init_cache``) both follow.  A cut inside an MLA or RWKV-6 head, or
-    one of Mamba's ``in_proj`` and ``conv_w`` cut without the other, is
-    not ported and raises; GQA's cut inside a head is
-    (``attention.head_split``)."""
-    if mesh is None:
-        ctx = current_mesh()
-        if ctx is None or not hasattr(ctx.mesh, "members"):
-            return 1
-        mesh = ctx.mesh
+#: the ROADMAP item that keeps each mixer's unported cut inside a head
+_HEAD_CUT_ITEM = {"mla": "ROADMAP Queue 1, 'Left from done items': MLA "
+                         "heads not a multiple of model",
+                  "mamba": "ROADMAP Queue 1, 'Left from done items': "
+                           "Mamba's d_inner not a multiple of model"}
+
+
+def _model_ways(cfg, mixer: str, mesh) -> int:
+    """How many ways ``model`` cuts a ``mixer`` layer's leaves on a
+    process ``mesh`` (1 where it cuts none); a layout that cuts some of
+    them and not the others raises."""
     if "model" not in mesh.axis_names:
         return 1
-    leaves, units = _tp_leaves(cfg, mixer)
+    leaves, _ = _tp_leaves(cfg, mixer)
     cuts = {"model" in _axes(spec[dim]) if dim < len(spec) else False
             for spec, dim in ((_leaf_spec(mesh, path, shape), dim)
                               for path, shape, dim in leaves)}
     if len(cuts) > 1:
         raise ValueError(f"{mixer}: model cuts some of {leaves} and not "
                          "the others; such a layout is not ported")
-    n = mesh.shape["model"] if cuts.pop() else 1
+    return mesh.shape["model"] if cuts.pop() else 1
+
+
+def model_blocks(cfg, mixer: str, mesh=None) -> int:
+    """How many blocks over ``model`` a ``mixer`` layer's heads (``attn``,
+    ``mla``, ``rwkv``) or channels (``mamba``) are cut into on ``mesh``
+    (default: the current process mesh; 1 off one, or where ``model``
+    does not cut them): the one rule that a layer built on the mesh
+    (:func:`tp_mesh`) and its cache (``transformer.init_cache``) both
+    follow.  Where :func:`param_specs` cuts RWKV-6's leaves inside a head
+    (rwkv6-3b's 40 heads on a 16-wide ``model``) it is 1: the layer runs
+    every head on every process (``rwkv._time_mix_core``), as GQA's
+    ``attention.head_split`` does where ``n_heads`` does not split.  A
+    cut inside an MLA head, or of Mamba's ``d_inner``, is not ported and
+    raises, naming the ROADMAP item that keeps it."""
+    if mesh is None:
+        ctx = current_mesh()
+        if ctx is None or not hasattr(ctx.mesh, "members"):
+            return 1
+        mesh = ctx.mesh
+    n = _model_ways(cfg, mixer, mesh)
+    units = _tp_leaves(cfg, mixer)[1]
     if units is not None and units % n:
+        if mixer == "rwkv":
+            return 1
         raise ValueError(f"{mixer}: {units} heads or channels on a {n}-wide "
-                         "model axis: a cut inside a head is not ported")
+                         "model axis: a cut inside a head is not ported "
+                         f"({_HEAD_CUT_ITEM[mixer]})")
     return n
 
 
 def tp_mesh(leaf, cfg, mixer: str):
-    """The process mesh whose ``model`` axis cuts the heads or channels of
-    the ``mixer`` layer that holds ``leaf`` (:func:`model_blocks`), else
-    None (a layer built whole, or one ``model`` does not cut)."""
+    """The process mesh whose ``model`` axis cuts the leaves of the
+    ``mixer`` layer that holds ``leaf`` (its heads or channels
+    :func:`model_blocks` ways, or, for RWKV-6, inside a head), else None
+    (a layer built whole, or one ``model`` does not cut)."""
     if not hasattr(leaf, "spec"):
         return None
     mesh = process_mesh()
-    return mesh if model_blocks(cfg, mixer, mesh) > 1 else None
+    model_blocks(cfg, mixer, mesh)
+    return mesh if _model_ways(cfg, mixer, mesh) > 1 else None
 
 
 class NamedSharding:

@@ -110,13 +110,19 @@ def smoke(configs, name: str):
     cannot cut, as the published 51 865) and its heads where it holds
     ``+h{heads}`` (as many query and kv heads, each of the smoke config's
     width: whisper-tiny's 6 heads, which a 4-wide ``model`` cuts inside a
-    head, as the published config's)."""
+    head, as the published config's; RWKV-6's heads are ``d_model /
+    head_dim``, so ``rwkv6-3b+h6`` is 6 heads of 16 at ``d_model`` 96,
+    which a 4-wide ``model`` cuts inside a head, as a 16-wide one cuts the
+    published 40)."""
     arch, *mods = name.split("+")
     cfg = configs.get_smoke(arch)
     for mod in mods:
         n = int(mod[1:])
         if mod[0] == "v":
             cfg = dataclasses.replace(cfg, vocab_size=n)
+        elif cfg.rwkv is not None:
+            cfg = dataclasses.replace(cfg, n_heads=n, n_kv_heads=n,
+                                      d_model=n * cfg.rwkv.head_dim)
         else:
             cfg = dataclasses.replace(cfg, n_heads=n, n_kv_heads=n,
                                       head_dim=cfg.resolved_head_dim)

@@ -647,3 +647,17 @@ def test_main_writes_a_record(tmp_path, monkeypatch):
                 "traffic_bytes_per_chip", "collective_bytes_per_chip",
                 "collective_by_kind", "lever"):
         assert key in roof, key
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_every_arch_decode_cell_ends_ok(arch, mesh_name):
+    """Every arch's decode_32k cell on the reference's production meshes
+    ends ``ok``: its mesh program (``count_collectives``) builds and runs
+    on the stand-in mesh, so a layout the port refuses (rwkv6-3b's 40
+    heads on the 16-wide ``model`` until the cut inside a head was
+    ported) shows here as an ``error`` with its message."""
+    rec = dryrun.run_cell(arch, "decode_32k", multi_pod=MESHES[mesh_name])
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == mesh_name
+    assert rec["collectives"]["calls_by_kind"]

@@ -16,6 +16,9 @@ exactly, for:
 * deepseek-v3 served on (2, 2) (MLA; its cache's sequence over
   ``model``);
 * rwkv6-3b, one train step on (2, 2);
+* rwkv6-3b at the harness's ``+h6`` (6 heads of 16) on (1, 4), which
+  cuts inside a head: the four projections gathered over ``model`` and
+  ``wo``'s rows summed, served and one train step;
 * whisper-tiny (``+h6``: 6 heads) served on (2, 2) at batch 1 and on
   (1, 4) at batch 4 (the cross cache's distributed softmax);
 * qwen2.5-3b, one train step of two microbatches on (2, 2), with and
@@ -60,6 +63,8 @@ for _name, _cells in (
         ("jamba_m22", _serve("jamba-v0.1-52b", M22)),
         ("deepseek_m22", _serve("deepseek-v3-671b", M22)),
         ("rwkv_m22", _train("rwkv6-3b", M22)),
+        ("rwkv_headcut_m14", _serve("rwkv6-3b+h6", M14)
+         + _train("rwkv6-3b+h6", M14)),
         ("whisper_m22_b1", _serve("whisper-tiny+h6", M22, batch=1)),
         ("whisper_m14", _serve("whisper-tiny+h6", M14)),
         ("qwen_train_m22", _train("qwen2.5-3b", M22, batch=8,
@@ -125,6 +130,9 @@ def test_rank_tallies_equal_the_dry_runs_count(tallies, name):
     ("moe_m22_prefill", {"all-to-all"}),
     ("jamba_m22_prefill", {"all-to-all"}),
     ("qwen_m14_decode", {"all-gather", "all-reduce"}),
+    ("rwkv_headcut_m14_decode", {"all-gather", "all-reduce"}),
+    ("rwkv_headcut_m14_train", {"all-gather", "all-reduce",
+                                "reduce-scatter"}),
     ("whisper_m14_decode", {"all-gather", "all-reduce"}),
     ("qwen_train_m22_train", {"all-gather", "all-reduce",
                               "reduce-scatter"}),
@@ -132,8 +140,9 @@ def test_rank_tallies_equal_the_dry_runs_count(tallies, name):
 def test_the_count_holds_what_the_program_runs(tallies, name, kinds):
     """The kinds each mechanism sends are in the count: the MoE and
     Mamba all-to-alls, the sequence-cut decode's query gathers and its
-    softmax's sums, a train step's FSDP gathers, reduce-scatters and
-    gradient sums."""
+    softmax's sums, RWKV-6's projections gathered over ``model`` where it
+    cuts inside a head (and their reduce-scatters in a train step), a
+    train step's FSDP gathers, reduce-scatters and gradient sums."""
     assert kinds <= set(tallies[name][0]["calls_by_kind"]), name
 
 
