@@ -25,7 +25,9 @@ synapses), built on one shard and stepped by ``engine.run`` through the
 5. main     - 2000 steps of scale 1 through ``engine.run``: the fused
               kernel and K3 launched once per step and no other kernel,
               weights bounded, state finite, rate in the
-              asynchronous-irregular band; then a profiled window.
+              asynchronous-irregular band, E's and I's rates per 250
+              steps from step 500 on in the band of the JAX reference's
+              six keys (``keyed_band``); then a profiled window.
 
 The neuron-model zoo, on the same card (``python3 chip_smoke.py`` runs
 every phase; each path's launch counts are set to 0 just before it and
@@ -119,7 +121,7 @@ before the next:
                    second wave identical and the wave's MoE drop fraction;
                    ``qwen3-moe-30b-a3b`` (12 of 48 layers),
                    ``jamba-v0.1-52b`` (8 of 32: one period), ``rwkv6-3b``
-                   (8 of 32) and ``whisper-tiny`` (4 + 4, 1500 frames drawn
+                   (4 of 32) and ``whisper-tiny`` (4 + 4, 1500 frames drawn
                    from the seed) through ``Model.prefill`` and
                    ``Model.decode``.  For each: K8's launches per prefill,
                    all on ``"wgmma"`` (MLA at dh 192, dv 128, 128 KV
@@ -155,8 +157,8 @@ LM training (``Model.loss``, ``train.loop``, ``launch/train.py``), after
                 the loss falls, s/step, tokens/s, peak memory, and one
                 more step profiled by kernel class; (e) qwen3-moe-30b-a3b
                 at full width cut to 4 of 48 layers, 5 steps: s/step, peak
-                memory, the MoE drop fraction; (f) the launcher in two
-                processes, deterministic mode: 10 steps uninterrupted and 5
+                memory, the MoE drop fraction; (f) the launcher in this
+                process, deterministic mode: 10 steps uninterrupted and 5
                 + ``--resume`` + 5 of qwen3-moe's smoke config, the
                 step-10 checkpoints bitwise equal.
 
@@ -167,7 +169,7 @@ parameters and inputs drawn on the card from the seed:
 14d. lm_dryrun - ``prefill_32k`` (B 2, S 32 768), ``decode_32k`` (B 8,
                  one token against a 32 768-row cache) and ``train_4k``
                  (16 microbatches of B 1, S 4 096, fp32 AdamW; depth
-                 cut to 28 of 36 layers, which 80 GB holds); each share
+                 cut to 14 of 36 layers; 80 GB holds 28); each share
                  counted on ``meta`` by the dry run (by trip count), timed
                  on the card without the counter (peak memory), then
                  counted on the card under ``OpCounter``: the two counts
@@ -400,7 +402,8 @@ after ``sessions``:
            the checkpointed ones below the naive, wall and s per
            simulated step; (c) the reference's reduced brunel inversion
            fit with its bars (g within 0.25, eta within 0.05, the loss
-           descending), its wall and evaluations; (d) the SNN classifier,
+           descending), its wall and evaluations, run as ``examples``'
+           fit_brunel leg (phase 25: the same fit); (d) the SNN classifier,
            10 epochs, held-out accuracy at least 3x chance.  The
            reference's full fit (5 % bars, minutes) is
            ``phase_full_inversion()``, run on its own.
@@ -454,6 +457,28 @@ distributed step), after ``mh_supervised``:
              K2 and K3 against their twins at those shapes; (c) the firing probe at ``hpc_benchmark(1.0)``, 400
              steps, 4x2 rows, through ``"cuda"`` (K1 + K2 400 times).
 
+The repository's entry points (``repro_torch.examples``, the port of
+``examples/*.py``), after ``diff``, each driver's ``main`` in this process
+at the script's defaults, its launches pinned:
+
+25. examples - run_scenario: brunel 0.02 (K1 + K2 a step), with
+               ``--poisson-input`` (K1, then K2), ``--model izhikevich``
+               (K1 + K4), on a 2x2 grid (four K1 + K2 a step) and the
+               microcircuit at 0.25 for 2000 steps (K1 + K2 a step, no
+               K3), its per-population rates from step 500 on in the
+               band of the reference's six keys (``keyed_band``) and its
+               device ms a step over its last 200 steps; quickstart (rate
+               under 10 Hz, plastic weights in bounds, three finite
+               losses); simulate_marmoset at 1x1 and 2x2 (the checkpoints
+               kept, the restore bitwise, static markers too); serve_snn
+               with and without eviction (statuses and ``stats()`` those
+               of the CPU's ``"flat"`` run of the same flags); serve_lm
+               (K8 once a layer on ``simt``, the tokens the CPU's under
+               the margin rule); train_lm at its defaults, then a
+               ``--resume`` from its step-50 checkpoint to 60, bitwise the
+               whole run; fit_brunel ``--smoke --init-eta 2.2`` (phase
+               20's (c)).  The phase's seconds are on its line.
+
 Then one line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  Without a CUDA device
@@ -467,7 +492,9 @@ import dataclasses
 import functools
 import gc
 import importlib
+import io
 import json
+import math
 import os
 import re
 import select
@@ -479,12 +506,18 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
+
+# cuBLAS reads its workspace setting when the process first uses it: the
+# deterministic blocks (lm_train (f), examples' train_lm) need this one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
              "is False")
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -518,14 +551,13 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchServer  # noqa: E402
 from repro_torch.launch import multihost as mh_launch  # noqa: E402
 from repro_torch.checkpoint.manager import (  # noqa: E402
-    CheckpointManager, network_metadata)
+    CheckpointManager, network_metadata, state_items)
 from repro_torch.runtime.fault import RestartPolicy  # noqa: E402
 from repro_torch.runtime.inject import FaultInjector, parse_specs  # noqa: E402
 from repro_torch.runtime.supervisor import SimulationSupervisor  # noqa: E402
 from repro_torch.serve.snn import SessionEngine  # noqa: E402
 from repro_torch.configs.base import ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.diff import classify as diff_classify  # noqa: E402
-from repro_torch.diff import inverse as diff_inverse  # noqa: E402
 from repro_torch.diff import rollout as diff_rollout  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import dryrun_snn  # noqa: E402
@@ -537,6 +569,13 @@ from repro_torch.configs.shapes import SHAPES as LM_SHAPES  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     MeshShape, make_production_mesh)
 from repro_torch.utils import op_costs  # noqa: E402
+from repro_torch.examples import fit_brunel as ex_fit_brunel  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import run_scenario as ex_run_scenario  # noqa: E402
+from repro_torch.examples import serve_lm as ex_serve_lm  # noqa: E402
+from repro_torch.examples import serve_snn as ex_serve_snn  # noqa: E402
+from repro_torch.examples import simulate_marmoset as ex_marmoset  # noqa: E402
+from repro_torch.examples import train_lm as ex_train_lm  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -755,6 +794,16 @@ with open(os.path.join(ROOT, "scripts", "reference_zoo_rates.json")) as f:
 #: emitters draw other random numbers than the reference's
 WINDOW_BAND = (0.5, 2.0)
 MEAN_BAND = {"izhikevich": 0.10, "adex": 0.10, "lif+poisson": 0.15}
+#: the driven networks (hpc_benchmark, microcircuit) have records of six
+#: keys, whose drives differ from each other and from the port's: from
+#: ``mean_from_step`` on, each 250-step window within WINDOW_BAND of the
+#: keys' range, and the mean within KEYED_MEAN_BAND of the keys' mean, or
+#: within the keys' own relative spread where that is wider.  The onset
+#: windows before it are the first volley's timing, which the reference's
+#: own keys do not share (microcircuit's L2/3I: 29 Hz in keys 0 and 1,
+#: 1.2-9.6 Hz in keys 2-5), and two keys were too few: keys 2-5 leave the
+#: band of keys 0 and 1 (PERF.md §6)
+KEYED_MEAN_BAND = 0.15
 #: K8's cases (phase 13): (b, s, t, h, hk, dh, dv, causal, dtype); the
 #: first is qwen2.5-3b's prefill of the lm_serve wave, then the four fp32
 #: cases of tests/test_flash_attention.py (the SIMT route), then bf16 cases
@@ -810,9 +859,9 @@ LM_LOGIT_ATOL_F32 = 1e-3
 #: the lm_families cell (phase 14b): each arch at its published width,
 #: the depth run (None: all of it; a cut where 80 GB forces one, and
 #: rwkv6-3b's, whose prefill steps a Python loop over time per layer, to
-#: 8 of 32 layers for the script's time: all 32 took 76-93 s of it, 4
-#: took 9.7 s, and the phases before lm_mesh vary by 127 s between cards
-#: of one name and power limit),
+#: 4 of 32 layers for the script's time: all 32 took 76-93 s of it, 8
+#: took 18.4 s and 4 9.7 s, and the phases before lm_mesh vary by 127 s
+#: between cards of one name and power limit),
 #: K8's launches per prefill and per decode step at that depth, and
 #: whether the decode chain is held against forward in fp32 (its bf16
 #: chain measured, not held: rounding moves these two random-weight
@@ -823,7 +872,7 @@ LM_FAMILIES = {
     "qwen3-moe-30b-a3b": dict(layers=12, k8_prefill=12, k8_decode=0),
     "jamba-v0.1-52b": dict(layers=8, k8_prefill=1, k8_decode=0,
                            chain_fp32=True),
-    "rwkv6-3b": dict(layers=8, k8_prefill=0, k8_decode=0,
+    "rwkv6-3b": dict(layers=4, k8_prefill=0, k8_decode=0,
                      chain_fp32=True, cut="the script's time (a Python "
                      "loop over time per layer)"),
     "whisper-tiny": dict(layers=None, k8_prefill=12, k8_decode=4),
@@ -847,6 +896,8 @@ GEMM_F32_CASES = {"qwen3-moe-30b-a3b": (160, 2048, 768, 8),
 
 
 def emit(record: dict) -> None:
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    record.setdefault("t_s", time.perf_counter() - T_START)
     print(json.dumps(record), flush=True)
 
 
@@ -1511,11 +1562,16 @@ def phase_main(spec, stdp, g, table, n_steps: int = 2000):
     check(3.0 <= rate <= 15.0, f"main: rate {rate} Hz outside [3, 15]")
     windows = [models.firing_rate_hz(spikes[i:i + 250], spec.n_neurons)
                for i in range(0, n_steps, 250)]
+    # E and I per window from step 500 on against the reference's keys
+    ref = ZOO_REFERENCE["hpc_benchmark"]
+    rates = population_rates(spec, spikes, ref)
+    band = check_keyed_rates("main", rates, ref)
     prof = _profile(g, table, cfg, spec)
     emit({"phase": "main", "neurons": spec.n_neurons,
           "synapses": int((g.delay > 0).sum()),
           "plastic_synapses": int(plastic.sum()),
           "rate_hz_500_2000": rate, "rate_hz_per_250_steps": windows,
+          "rates_hz": rates, "rate_band": band,
           "plastic_w_min": float(w[plastic].min()),
           "plastic_w_max": float(w[plastic].max()),
           "inhibitory_w": float(w[fixed].min()), **rec, "profile": prof})
@@ -2550,9 +2606,10 @@ def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
     path through ``"cuda"`` (inference's fused K1 and K3, the spike cast
     to float), bitwise the ``main`` run; (b) the gradient of
     ``mean(spikes)`` through the rollout at ``brunel(1.0)`` on ``"flat"``,
-    naive twice and checkpointed; (c) the reference's reduced inversion
-    fit; (d) the SNN classifier.  Returns
-    (a)'s launches."""
+    naive twice and checkpointed; (d) the SNN classifier.  (c), the
+    reference's reduced inversion fit, is the same fit as ``fit_brunel
+    --smoke --init-eta 2.2`` and runs once, as that leg of
+    :func:`phase_examples`, with (c)'s bars.  Returns (a)'s launches."""
     n_steps = len(main_out["spikes"])
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
                               surrogate=DIFF_SURROGATE)
@@ -2658,25 +2715,6 @@ def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
            for f in ("peak_bytes", "wall_s", "s_per_step")})
     del runs, a, a2, c, cl, bgr, btable, v0
 
-    # (c) the reference's reduced inversion fit, on the card
-    reset_launches()
-    t0 = time.perf_counter()
-    res = diff_inverse.invert_brunel(device=DEV, **DIFF_INVERSION_SMOKE)
-    inv_wall = time.perf_counter() - t0
-    check_launches("diff inversion", read_launches(), {})
-    check(res.final_loss < res.loss_history[0],
-          f"diff inversion: loss did not descend {res.loss_history}")
-    for k, bar in DIFF_INVERSION_BARS.items():
-        check(res.rel_error[k] <= bar, f"diff inversion: relative error "
-              f"in {k} {res.rel_error[k]} above {bar}")
-    inv_rec = dict(fit=dict(DIFF_INVERSION_SMOKE,
-                            g_rounds=[list(r) for r in
-                                      DIFF_INVERSION_SMOKE["g_rounds"]]),
-                   g=res.g, eta=res.eta, rel_error=res.rel_error,
-                   bars=DIFF_INVERSION_BARS, final_loss=res.final_loss,
-                   loss_history=list(res.loss_history), n_evals=res.n_evals,
-                   wall_s=inv_wall)
-
     # (d) the SNN classifier, the reference's acceptance case
     model = diff_classify.SNNClassifier(device=DEV)
     tcfg = TrainConfig(optimizer="adamw", lr=0.05, weight_decay=0.0)
@@ -2693,7 +2731,8 @@ def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
     check(hist[-1]["train_loss"] < hist[0]["train_loss"],
           "diff classifier: train loss did not fall")
     emit({"phase": "diff", "surrogate_forward": surrogate_rec,
-          "grad_rollout": grad_rec, "inversion_smoke": inv_rec,
+          "grad_rollout": grad_rec,
+          "inversion_smoke": "the examples phase's fit_brunel leg",
           "classifier": {"epochs": DIFF_CLASSIFIER_EPOCHS,
                          "eval_accuracy": [h["eval_accuracy"] for h in hist],
                          "train_loss": [h["train_loss"] for h in hist],
@@ -2709,18 +2748,20 @@ def phase_full_inversion() -> dict:
     c.phase_full_inversion()"``."""
     reset_launches()
     t0 = time.perf_counter()
-    res = diff_inverse.invert_brunel(4.0, 2.5, device=DEV)
+    res = ex_fit_brunel.main(["--device", str(DEV)])   # the script's fit
     wall = time.perf_counter() - t0
     check_launches("full inversion", read_launches(), {})
-    out = {"phase": "full_inversion", "g": res.g, "eta": res.eta,
-           "rel_error": res.rel_error, "bars": DIFF_FULL_BARS,
-           "final_loss": res.final_loss,
-           "loss_history": list(res.loss_history), "n_evals": res.n_evals,
+    out = {"phase": "full_inversion", "g": res["g"], "eta": res["eta"],
+           "rel_error": res["rel_error"], "bars": DIFF_FULL_BARS,
+           "final_loss": res["final_loss"],
+           "loss_history": res["loss_history"], "n_evals": res["n_evals"],
            "wall_s": wall}
     emit(out)
+    check(res["ok"], f"full inversion: missed the script's {res['bar']:.0%} "
+          "bar")
     for k, bar in DIFF_FULL_BARS.items():
-        check(res.rel_error[k] <= bar, f"full inversion: relative error "
-              f"in {k} {res.rel_error[k]} above {bar}")
+        check(res["rel_error"][k] <= bar, f"full inversion: relative error "
+              f"in {k} {res['rel_error'][k]} above {bar}")
     return out
 
 
@@ -3234,6 +3275,47 @@ def check_rates(what: str, rates: dict, ref: dict, mean_band: float) -> None:
         a, b = got["mean_hz"], want["mean_hz"]
         check(abs(a - b) <= mean_band * b, f"{what}: {pop} mean rate {a} Hz "
               f"is not within {mean_band:.0%} of the reference's {b}")
+
+
+def keyed_band(ref: dict) -> dict:
+    """Per population of a record of several keys: the band ``[lo x min,
+    hi x max]`` over the keys of each window from ``mean_from_step`` on
+    (None before it), and the mean's centre and relative tolerance
+    (:data:`KEYED_MEAN_BAND` or the keys' spread)."""
+    lo, hi = WINDOW_BAND
+    first = ref["mean_from_step"] // ref["window_steps"]
+    keys = list(ref["by_key"].values())
+    out = {}
+    for pop in keys[0]["populations"]:
+        per = [k["populations"][pop] for k in keys]
+        wins = list(zip(*(p["per_window_hz"] for p in per)))
+        means = [p["mean_hz"] for p in per]
+        centre = sum(means) / len(means)
+        spread = (max(means) - min(means)) / centre if centre else 0.0
+        out[pop] = {"windows": [None if i < first else
+                                [lo * min(w), hi * max(w)]
+                                for i, w in enumerate(wins)],
+                    "mean": centre, "mean_tol": max(KEYED_MEAN_BAND, spread)}
+    return out
+
+
+def check_keyed_rates(what: str, rates: dict, ref: dict) -> dict:
+    """The port's per-population rates (``population_rates``' form) inside
+    :func:`keyed_band` of a record of several keys; returns the band."""
+    band = keyed_band(ref)
+    for pop, b in band.items():
+        got = rates[pop]
+        for i, (a, w) in enumerate(zip(got["per_window_hz"], b["windows"])):
+            if w is None:
+                continue
+            lo, hi = w
+            check(lo <= a <= hi, f"{what}: {pop} rate {a} Hz in window {i} "
+                  f"outside the reference keys' band [{lo}, {hi}]")
+        a = got["mean_hz"]
+        check(abs(a - b["mean"]) <= b["mean_tol"] * b["mean"],
+              f"{what}: {pop} mean rate {a} Hz is not within "
+              f"{b['mean_tol']:.1%} of the reference keys' {b['mean']}")
+    return band
 
 
 def phase_zoo_main(model, spec, stdp, g, table, ref: dict):
@@ -4588,19 +4670,6 @@ TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = "qwen3-moe-30b-a3b", 4, 5
 #: gather), run in deterministic mode
 TRAIN_RESUME_ARCH = "qwen3-moe-30b-a3b"
 TRAIN_RESUME_DIR = os.path.join(ROOT, "build", "lm_train_resume")
-TRAIN_RESUME_CODE = """
-import os, sys
-sys.path.insert(0, os.path.join(sys.argv[1], "src"))
-import torch
-torch.use_deterministic_algorithms(True)
-from repro_torch.launch import train
-base = sys.argv[3:]
-if sys.argv[2] == "uninterrupted":
-    train.main(base + ["--steps", "10"])
-else:
-    train.main(base + ["--steps", "5"])
-    train.main(base + ["--steps", "10", "--resume"])
-"""
 
 
 def _gemm_grads(name, m_, k_, n_, e, gen) -> dict:
@@ -4870,28 +4939,23 @@ def _ckpt_arrays(directory: str, step: int) -> dict:
 
 
 def train_resume() -> dict:
-    """(f) ``launch.train.main`` in two processes on the card, in
-    deterministic mode: 10 steps uninterrupted, and 5 steps, a resume and
-    5 more; the step-10 checkpoints (parameters and AdamW state) equal
-    bitwise."""
+    """(f) ``launch.train.main`` on the card in deterministic mode, in this
+    process: 10 steps uninterrupted, and 5 steps, a resume and 5 more; the
+    step-10 checkpoints (parameters and AdamW state) equal bitwise."""
     shutil.rmtree(TRAIN_RESUME_DIR, ignore_errors=True)
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    procs, dirs = {}, {}
+    dirs, logs = {}, {}
     t0 = time.perf_counter()
-    for leg in ("uninterrupted", "resumed"):
-        dirs[leg] = os.path.join(TRAIN_RESUME_DIR, leg)
-        argv = ["--arch", TRAIN_RESUME_ARCH, "--seq", str(TRAIN_SMOKE_SEQ),
-                "--batch", str(TRAIN_SMOKE_BATCH), "--save-every", "5",
-                "--ckpt", dirs[leg], "--device", str(DEV)]
-        procs[leg] = subprocess.Popen(
-            [sys.executable, "-c", TRAIN_RESUME_CODE, ROOT, leg, *argv],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    logs = {}
-    for leg, p in procs.items():
-        logs[leg] = p.communicate(timeout=600)[0]
-        check(p.returncode == 0, f"lm_train resume {leg}: exit "
-              f"{p.returncode}\n{logs[leg][-3000:]}")
+    with _deterministic():
+        for leg, runs in (("uninterrupted", (["--steps", "10"],)),
+                          ("resumed", (["--steps", "5"],
+                                       ["--steps", "10", "--resume"]))):
+            dirs[leg] = os.path.join(TRAIN_RESUME_DIR, leg)
+            argv = ["--arch", TRAIN_RESUME_ARCH, "--seq",
+                    str(TRAIN_SMOKE_SEQ), "--batch", str(TRAIN_SMOKE_BATCH),
+                    "--save-every", "5", "--ckpt", dirs[leg], "--device",
+                    str(DEV)]
+            logs[leg] = "".join(_quiet(launch_train.main, argv + extra)[1]
+                                for extra in runs)
     check("resumed @ 5" in logs["resumed"], "lm_train resume: the second "
           "run did not resume from step 5")
     a, b = (_ckpt_arrays(dirs[leg], 10) for leg in ("uninterrupted",
@@ -4932,8 +4996,10 @@ DRYRUN_LM_SHAPES = ("prefill_32k", "decode_32k", "train_4k")
 #: the train share's depth: 80 GB does not hold fp32 parameters, their
 #: gradients, the microbatch accumulator and AdamW's two moments of all
 #: 36 layers with S 4 096's activations (the first call ran out at 74 GB
-#: allocated), so width stays and depth is cut, on the card and on meta
-DRYRUN_LM_TRAIN_LAYERS = 28
+#: allocated), so width stays and depth is cut, on the card and on meta:
+#: to 14 for the script's time (28, which 80 GB holds, took 41.6 s of the
+#: phase)
+DRYRUN_LM_TRAIN_LAYERS = 14
 #: timed runs of a serving share (the train share's one step is timed once)
 DRYRUN_LM_SERVE_RUNS = 3
 
@@ -5070,16 +5136,13 @@ LM_MESH_F32_RTOL = 1e-3
 LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL = 1e-2, 3e-2
 #: the dense leg (d): qwen2.5-3b at published width, fp32 parameters and
 #: bf16 compute, LM_MESH_DENSE_STEPS AdamW steps of B x S seeded tokens
-#: on the (2, 2) mesh against one process at the same depth: 4 of 36
-#: layers, 0.62 B parameters x 16 B (parameter, gradient, AdamW's m and
-#: v) = 9.9 GB whole, a process its block (12 layers, 19.8 GB whole, the
-#: least depth at which four whole copies cannot fit, until the
-#: sequence-cut leg (h) and (e)'s batch-1 serves took 106 s of the phase;
-#: 24 layers, 34.6 GB, until the families' legs (e) and (f) took the
-#: script's time; all 36, 49.4 GB, ran at 14-18 s a step).  The serving
+#: on the (2, 2) mesh against one process at the same depth: 2 of 36
+#: layers, 0.41 B parameters x 16 B (parameter, gradient, AdamW's m and
+#: v) = 6.5 GB whole, a process its block; the depth is cut for the
+#: script's time (all 36, 49.4 GB, ran at 14-18 s a step).  The serving
 #: leg (h) runs LM_MESH_DENSE_LAYERS of the same arch
 LM_MESH_DENSE_ARCH = "qwen2.5-3b"
-LM_MESH_DENSE_TRAIN_LAYERS = 4
+LM_MESH_DENSE_TRAIN_LAYERS = 2
 LM_MESH_DENSE_LAYERS = 12
 LM_MESH_DENSE_BATCH, LM_MESH_DENSE_SEQ, LM_MESH_DENSE_STEPS = 4, 512, 3
 #: (d)'s losses against one process: a mesh sums its bf16 products in
@@ -7072,6 +7135,404 @@ def _phase_lm_mesh(t_phase: float) -> dict:
             "headcut per_process": rec["headcut"]["k8_per_process"]}
 
 
+# --------------------------------------------------------------------------
+# phase 25: the repository's entry points (repro_torch.examples)
+# --------------------------------------------------------------------------
+
+#: the microcircuit leg: ``run_scenario --scenario microcircuit`` at the
+#: scale and length of the reference's two-key record (19 292 neurons,
+#: 17.8 M synapses; microcircuit(1.0), about 285 M, is left to a benchmark)
+EX_MICROCIRCUIT = ZOO_REFERENCE["microcircuit"]
+#: the microcircuit's device time: its last steps under the profiler, a
+#: steady window past the onset, the build and the other steps untraced
+EX_PROFILE_STEPS = 200
+#: run_scenario's legs: (name, argv, launches a step by kernel)
+EX_SCENARIOS = (
+    ("brunel", [], {"synaptic_gather_lif": 1}),
+    ("brunel_poisson_input", ["--poisson-input"],
+     {"synaptic_gather": 1, "lif_step": 1}),
+    ("izhikevich", ["--model", "izhikevich"],
+     {"synaptic_gather_izhikevich": 1}),
+    ("brunel_grid_2x2", ["--grid", "2x2"], {"synaptic_gather_lif": 4}),
+    ("microcircuit", ["--scenario", "microcircuit", "--scale",
+                      str(EX_MICROCIRCUIT["scale"]), "--steps",
+                      str(EX_MICROCIRCUIT["steps"])],
+     {"synaptic_gather_lif": 1}),
+)
+#: simulate_marmoset's legs (its defaults: 2000 steps, a save every 500)
+EX_MARMOSET = (("marmoset", []), ("marmoset_grid_2x2", ["--grid", "2x2"]))
+#: serve_snn's legs; each session-step is one K1 + K2 launch
+EX_SESSIONS = (("sessions", ["--sessions", "4", "--steps", "400"]),
+               ("sessions_evict", ["--sessions", "4", "--steps", "400",
+                                   "--slots", "2"]))
+#: train_lm: the defaults (60 steps, a save every 25, 2 kept), then a
+#: ``--resume`` from its step-50 checkpoint to 60
+EX_TRAIN_CUT = 50
+#: fit_brunel: --smoke from phase_diff (c)'s init (the reference's
+#: tests/test_diff.py::test_brunel_inversion_smoke): the same fit as
+#: DIFF_INVERSION_SMOKE, through the entry point, held to the script's own
+#: 25 % bar and to (c)'s bars
+EX_FIT_ARGV = ["--smoke", "--init-eta", str(DIFF_INVERSION_SMOKE["init_eta"])]
+
+
+def _quiet(fn, *a, **kw):
+    """``fn``'s result with its standard output kept (returned too)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def _counted(what: str, fn, want: dict, *a, **kw):
+    """``fn(*a, **kw)`` with every launch count set to 0 just before and
+    read just after; each kernel of ``want`` launched that often and every
+    other kernel never.  Returns (result, stdout, launches, wall s)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, text = _quiet(fn, *a, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches(what, launches, want)
+    return out, text, {k: c for k, c in launches.items() if c}, wall
+
+
+def _profiling_last(make_step_fn, prof, first: int, window: dict):
+    """``make_step_fn`` whose steps from ``first`` on (0-based) run under
+    ``prof``, started on an idle device; ``window`` gets the time the
+    driver asked for its step (its build done), the time profiling began
+    and the steps profiled."""
+    def make(*a, **kw):
+        window["t_make"] = time.perf_counter()
+        step, n = make_step_fn(*a, **kw), 0
+
+        def profiled(state):
+            nonlocal n
+            if n == first:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            out = step(state)
+            n += 1
+            if n > first:
+                window["steps"] = n - first
+            return out
+        return profiled
+    return make
+
+
+def _ex_run_scenario() -> dict:
+    recs = {}
+    for name, argv, per_step in EX_SCENARIOS:
+        steps = ex_run_scenario.build_parser().parse_args(argv).steps
+        want = {k: c * steps for k, c in per_step.items()}
+        prof, window = None, {}
+        if name == "microcircuit":
+            # the last EX_PROFILE_STEPS steps profiled; the driver's read
+            # of its counts after them is the window's end
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            make = engine.make_step_fn
+            engine.make_step_fn = _profiling_last(
+                make, prof, steps - EX_PROFILE_STEPS, window)
+            t_leg = time.perf_counter()
+            try:
+                rec, text, launches, wall = _counted(
+                    f"examples {name}", ex_run_scenario.main, want,
+                    [*argv, "--device", str(DEV)])
+            finally:
+                engine.make_step_fn = make
+            window["s"] = time.perf_counter() - window["t0"]
+            prof.stop()
+        else:
+            rec, text, launches, wall = _counted(
+                f"examples {name}", ex_run_scenario.main, want,
+                [*argv, "--device", str(DEV)])
+        check(text.endswith("ok\n"), f"examples {name}: no ok line")
+        check(rec["total_spikes"] > 0, f"examples {name}: silent")
+        for pop, r in rec["populations"].items():
+            check(all(math.isfinite(x) for x in r["per_window_hz"]),
+                  f"examples {name}: {pop} rate not finite")
+        out = {"argv": argv, "steps": steps, "neurons": rec["neurons"],
+               "mean_hz": rec["mean_hz"], "wall_s": wall,
+               "driver_wall_s": rec["wall_s"], "launches": launches,
+               "rates_hz": {p: r["rate_hz"]
+                            for p, r in rec["populations"].items()}}
+        if name == "microcircuit":
+            ref = EX_MICROCIRCUIT
+            w0 = ref["mean_from_step"] // ref["window_steps"]
+            rates = {p: {"per_window_hz": r["per_window_hz"],
+                         "mean_hz": sum(r["per_window_hz"][w0:])
+                         / len(r["per_window_hz"][w0:])}
+                     for p, r in rec["populations"].items()}
+            out["rate_band"] = check_keyed_rates("examples microcircuit",
+                                                 rates, ref)
+            out["rates_by_window_hz"] = rates
+            busy = sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+                       for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA")) / 1e3
+            check(window.get("steps") == EX_PROFILE_STEPS and busy > 0,
+                  f"examples microcircuit: {window.get('steps')} steps "
+                  f"profiled, {busy} ms of device time")
+            out["profiled_steps"] = EX_PROFILE_STEPS
+            out["device_ms_per_step"] = busy / EX_PROFILE_STEPS
+            # the window holds the driver's final read of its counts too
+            out["profiled_wall_ms_per_step"] = window["s"] * 1e3 / \
+                EX_PROFILE_STEPS
+            out["device_idle_share"] = 1 - busy / (window["s"] * 1e3)
+            # the host build (network, its move to the card, the initial
+            # state) against the stepping
+            out["build_s"] = window["t_make"] - t_leg
+            out["steps_s"] = wall - out["build_s"]
+            out["synapses"] = ref["synapses"]
+        recs[name] = out
+    return recs
+
+
+def _ex_quickstart() -> dict:
+    snn_want = {k: 2000 for k in MAIN_KERNELS}
+    rec, text, launches, wall = _counted("examples quickstart snn_demo",
+                                         ex_quickstart.snn_demo, snn_want,
+                                         str(DEV))
+    check(rec["rate_hz"] < 10.0, f"examples quickstart: rate "
+          f"{rec['rate_hz']} Hz not below the paper's 10 Hz")
+    lo, hi = rec["w_bounds"]
+    check(lo <= rec["plastic_w_min"] and rec["plastic_w_max"] <= hi,
+          f"examples quickstart: plastic weights [{rec['plastic_w_min']}, "
+          f"{rec['plastic_w_max']}] left [{lo}, {hi}]")
+    check(rec["finite"], "examples quickstart: v_m not finite")
+    lm, _, lm_launches, lm_wall = _counted("examples quickstart lm_demo",
+                                           ex_quickstart.lm_demo, {},
+                                           str(DEV))
+    check(all(math.isfinite(x) for x in lm["losses"]),
+          f"examples quickstart: losses {lm['losses']}")
+    return {"snn": dict(rec, wall_s=wall, launches=launches),
+            "lm": dict(lm, wall_s=lm_wall, launches=lm_launches)}
+
+
+def _ex_marmoset(tmp: str) -> dict:
+    recs = {}
+    for name, argv in EX_MARMOSET:
+        args = ex_marmoset.build_parser().parse_args(argv)
+        steps, every = args.steps, args.save_every
+        ckpt = os.path.join(tmp, name)
+        rec, text, launches, wall = _counted(
+            f"examples {name}", ex_marmoset.main,
+            {"synaptic_gather_lif": math.prod(args.grid) * steps},
+            [*argv, "--ckpt", ckpt, "--device", str(DEV)])
+        check(rec["last_step"] == steps,
+              f"examples {name}: latest checkpoint {rec['last_step']}")
+        kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt)
+                      if re.fullmatch(r"step_\d+", d))
+        check(kept == [steps - every, steps],
+              f"examples {name}: kept {kept} (keep 2)")
+        # every leaf as the manager writes it, and the static markers
+        saved, restored = state_items(rec["state"]), state_items(
+            rec["restored"])
+        check(saved.keys() == restored.keys(),
+              f"examples {name}: restored leaves differ")
+        for k, a in saved.items():
+            b = restored[k]
+            same = (a.dtype == b.dtype and np.array_equal(a, b)
+                    if isinstance(a, np.ndarray) else a == b)
+            check(same, f"examples {name}: restored {k} differs from the "
+                  "state saved")
+        check(text.endswith("ok\n"), f"examples {name}: no ok line")
+        recs[name] = {"argv": argv, "neurons": rec["neurons"],
+                      "mean_hz": rec["mean_hz"], "spikes": rec["spikes"],
+                      "kept_steps": kept, "leaves": len(saved),
+                      "restore_bitwise": True, "wall_s": wall,
+                      "launches": launches,
+                      **{k: rec[k] for k in ("wire_bytes_per_step", "split",
+                                             "wire_overflow") if k in rec}}
+    return recs
+
+
+def _ex_sessions(tmp: str) -> dict:
+    recs = {}
+    for name, argv in EX_SESSIONS:
+        evict = "--slots" in argv
+        extra = lambda d: ["--ckpt-dir", os.path.join(tmp, d)] if evict \
+            else []
+        rec, _, launches, wall = _counted(
+            f"examples {name}", ex_serve_snn.main,
+            {"synaptic_gather_lif": 4 * 400},
+            [*argv, *extra(name), "--device", str(DEV)])
+        cpu, _ = _quiet(ex_serve_snn.main,
+                        [*argv, *extra(name + "_cpu"), "--device", "cpu",
+                         "--sweep", "flat"])
+        same = {"created": rec["created"] == cpu["created"],
+                "refused": rec["refused"] == cpu["refused"],
+                "stats": rec["stats"] == cpu["stats"],
+                "sessions": {s: (r["step"], r["status"])
+                             for s, r in rec["sessions"].items()}
+                == {s: (r["step"], r["status"])
+                    for s, r in cpu["sessions"].items()}}
+        for k, ok in same.items():
+            check(ok, f"examples {name}: {k} differ from the CPU's flat run")
+        recs[name] = {"argv": argv, "stats": rec["stats"],
+                      "statuses": {s: r["status"]
+                                   for s, r in rec["sessions"].items()},
+                      "rates_hz": {s: r["rate_hz"]
+                                   for s, r in rec["sessions"].items()},
+                      "equal_to_cpu_flat": same, "wall_s": wall,
+                      "launches": launches}
+    return recs
+
+
+def _ex_serve_lm() -> dict:
+    cfg = lm_configs.get_smoke("qwen2.5-3b")
+    params = build_model(cfg).init(SEED, device=DEV)
+    by_route = _reset_k8_routes()
+    rec, text, launches, wall = _counted(
+        "examples serve_lm", ex_serve_lm.main,
+        {"flash_attention": cfg.n_layers}, ["--device", str(DEV)],
+        params=params)
+    routes = dict(by_route)
+    check(routes == {"wgmma": 0, "simt": cfg.n_layers},
+          f"examples serve_lm: K8 routes {routes}")
+    cpu_params = lm_tr.DecoderLM(cfg, device="cpu")
+    cpu_params.load_state_dict({k: v.cpu()
+                                for k, v in params.state_dict().items()})
+    cpu, _ = _quiet(ex_serve_lm.main, ["--device", "cpu"],
+                    params=cpu_params)
+    # the margin rule: where the CPU's logits at a generated position have
+    # a clear top-2 margin, the card must pick its token; past the first
+    # unclear position the two chains may part
+    n_new = len(cpu["outputs"][0])
+    reqs = [list(r) for r in ex_serve_lm.REQUESTS]
+    s = max(len(r) for r in reqs)
+    rows = torch.zeros((len(reqs), s + n_new - 1), dtype=torch.int64)
+    for i, (r, o) in enumerate(zip(reqs, cpu["outputs"])):
+        rows[i, :len(r)] = torch.tensor(r)
+        rows[i, s:] = torch.tensor(o[:-1])
+    with torch.no_grad():
+        hid = lm_tr.hidden_states(cpu_params, cfg, rows)[:, s - 1:]
+        logits = lm_tr._unembed(cpu_params, cfg, hid)
+    clear = _clear_margin(logits, LM_LOGIT_ATOL_F32)
+    compared = parted = 0
+    for i in range(len(reqs)):
+        for j, (a, b) in enumerate(zip(rec["outputs"][i],
+                                       cpu["outputs"][i])):
+            if not bool(clear[i, j]):
+                parted += a != b
+                break
+            check(a == b, f"examples serve_lm: request {i} token {j}: card "
+                  f"{a}, CPU {b} at a clear margin")
+            compared += 1
+    check(text.endswith("ok\n"), "examples serve_lm: no ok line")
+    return {"tokens_out": rec["tokens_out"], "prefill_s": rec["prefill_s"],
+            "decode_tok_per_s": rec["decode_tok_per_s"],
+            "tokens_equal_to_cpu": rec["outputs"] == cpu["outputs"],
+            "tokens_compared": compared, "unclear_parted": parted,
+            "k8_routes": routes, "wall_s": wall, "launches": launches}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for a block (the
+    embedding's backward sums by atomics otherwise); cuBLAS's
+    deterministic workspace is set at the script's top, before its first
+    handle."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _ex_train_lm(tmp: str) -> dict:
+    runs = {}
+    with _deterministic():
+        # the uninterrupted run's step-50 checkpoint is what a run to step
+        # 50 writes: batch i is a pure function of i
+        ckpt = os.path.join(tmp, "train_lm")
+        for name, argv in (("defaults", ["--ckpt", ckpt]),
+                           ("resumed", ["--resume", "--ckpt", ckpt])):
+            rec, text, launches, wall = _counted(
+                f"examples train_lm {name}", ex_train_lm.main, {},
+                [*argv, "--device", str(DEV)])
+            check(all(math.isfinite(x) for x in rec["losses"]),
+                  f"examples train_lm {name}: a loss is not finite")
+            check(text.endswith("ok\n"), f"examples train_lm {name}: no ok")
+            runs[name] = dict(rec, wall_s=wall)
+    whole, resumed = runs["defaults"], runs["resumed"]
+    check(resumed["start"] == EX_TRAIN_CUT,
+          f"examples train_lm: resumed from {resumed['start']}")
+    steps = ex_train_lm.build_parser().get_default("steps")
+    check(len(whole["losses"]) == steps, "examples train_lm: steps")
+    check(whole["losses"][-1] < whole["losses"][0],
+          "examples train_lm: the loss did not fall")
+    a = dict(whole["params"].named_parameters())
+    b = dict(resumed["params"].named_parameters())
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not diff, f"examples train_lm: resumed parameters differ from "
+          f"the uninterrupted run's: {diff[:5]}")
+    check(resumed["losses"] == whole["losses"][EX_TRAIN_CUT:],
+          "examples train_lm: the resumed losses differ")
+    return {"model": whole["name"], "params": whole["params_count"],
+            "loss_first": whole["losses"][0], "loss_last": whole["losses"][-1],
+            "s_per_step": whole["wall_s"] / steps,
+            "resume_bitwise": True,
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+
+
+def _ex_fit_brunel() -> dict:
+    argv = [*EX_FIT_ARGV, "--device", str(DEV)]
+    rec, text, launches, wall = _counted("examples fit_brunel",
+                                         ex_fit_brunel.main, {}, argv)
+    fit = dict(init_g=4.0, init_eta=float(EX_FIT_ARGV[-1]), **rec["fit"])
+    check(fit == DIFF_INVERSION_SMOKE, f"examples fit_brunel: the fit "
+          f"{fit} is not phase_diff (c)'s {DIFF_INVERSION_SMOKE}")
+    check(rec["ok"], f"examples fit_brunel: missed the script's "
+          f"{rec['bar']:.0%} bar: {rec['rel_error']}")
+    check(rec["final_loss"] < rec["loss_history"][0],
+          f"examples fit_brunel: loss did not descend {rec['loss_history']}")
+    for k, bar in DIFF_INVERSION_BARS.items():
+        check(rec["rel_error"][k] <= bar, f"examples fit_brunel: relative "
+              f"error in {k} {rec['rel_error'][k]} above {bar}")
+    return {"argv": argv, "g": rec["g"], "eta": rec["eta"],
+            "rel_error": rec["rel_error"], "bars": DIFF_INVERSION_BARS,
+            "script_bar": rec["bar"], "final_loss": rec["final_loss"],
+            "loss_history": rec["loss_history"], "n_evals": rec["n_evals"],
+            "wall_s": wall}
+
+
+def phase_examples() -> dict:
+    """The seven entry points' ``main`` on the card, in this process: each
+    leg's launches counted (set to 0 just before, read just after) and
+    pinned, and the script's own checks plus the ones named in each leg.
+    Returns the launches by leg."""
+    t_phase = time.perf_counter()
+    tmp = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        out = {"run_scenario": _ex_run_scenario(),
+               "quickstart": _ex_quickstart(),
+               "simulate_marmoset": _ex_marmoset(tmp),
+               "serve_snn": _ex_sessions(tmp),
+               "serve_lm": _ex_serve_lm(),
+               "train_lm": _ex_train_lm(tmp),
+               "fit_brunel": _ex_fit_brunel()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    launches = {}
+    for driver, legs in out.items():
+        if not isinstance(legs, dict):
+            continue
+        for leg, r in legs.items():
+            if isinstance(r, dict) and "launches" in r:
+                launches[f"{driver} {leg}"] = r["launches"]
+        if "launches" in legs:
+            launches[driver] = legs["launches"]
+    emit({"phase": "examples", **out})
+    return launches
+
+
 def main() -> None:
     t_main = time.perf_counter()
     smi = phase_device()
@@ -7102,6 +7563,7 @@ def main() -> None:
     sess_launches = phase_sessions(len(main_out["spikes"])
                                    / main_out["wall_s"])
     diff_launches = phase_diff(spec, stdp, g, table, main_out)
+    examples_launches = phase_examples()
     del main_out
     sup_launches.update(phase_mh_supervised(mh_main_rec))
     del g, table
@@ -7134,6 +7596,8 @@ def main() -> None:
          "launches_sessions": {part: got.get(name, 0)
                                for part, got in sess_launches.items()},
          "launches_diff": diff_launches.get(name, 0),
+         "launches_examples": {leg: got.get(name, 0)
+                               for leg, got in examples_launches.items()},
          "launches_shapes": {part: got.get(name, 0)
                              for part, got in shapes_launches.items()},
          "launches_dryrun": {part: got.get(name, 0)

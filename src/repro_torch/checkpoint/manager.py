@@ -78,7 +78,8 @@ import numpy as np
 import torch
 
 __all__ = ["CheckpointManager", "CorruptCheckpointError",
-           "network_metadata", "restore_spec", "session_metadata"]
+           "network_metadata", "restore_spec", "session_metadata",
+           "state_items"]
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -165,6 +166,28 @@ def _tree_paths(tree, prefix: str = "") -> list:
     for seg, child in kids:
         out += _tree_paths(child, prefix + seg)
     return out
+
+
+def _static_paths(tree, prefix: str = "") -> dict:
+    """``{key: value}`` of every static marker in ``tree``."""
+    out = {}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        out.update({f"{prefix}.{f.name}": getattr(tree, f.name)
+                    for f in dataclasses.fields(tree)
+                    if _static(getattr(tree, f.name))})
+    for seg, child in _children(tree) or ():
+        out.update(_static_paths(child, prefix + seg))
+    return out
+
+
+def state_items(tree) -> dict:
+    """``{key: value}`` of ``tree`` by the manager's key strings: every
+    leaf as :meth:`CheckpointManager.save` writes it (a host array, a
+    generator as its state bytes) and every static marker as it stands.
+    A state and its restored copy are equal item by item."""
+    items = {k: _to_host(v)[0] for k, v in _tree_paths(tree)}
+    items.update(_static_paths(tree))
+    return items
 
 
 def _rebuild(tree, leaves):
