@@ -270,7 +270,17 @@ the seed and keeping its blocks:
                AdamW step at lr 1e-5 whose loss (and the loss after it)
                is within 1e-5 of one process's, every leaf its
                ``param_specs`` block, the state cache whole (all 40
-               heads, the bytes of one process's).  Every task's
+               heads, the bytes of one process's); (j) the SNN
+               classifier's data-parallel training,
+               ``train_classifier(data_parallel=True)`` for 10 epochs on
+               a ``("data",)`` mesh of four processes, each on its 16 rows
+               of every batch of 64: the processes' parameters bitwise
+               equal, the first step's loss within 1e-4 of ``diff`` (d)'s
+               one-process run, held-out accuracy at least 3x chance, the
+               train loss falling, each step one all-reduce a gradient
+               leaf, one for the loss and one a metric, no kernel
+               launched; s a step a process against one process's.
+               Every task's
                processes record the collectives they call
                (``collectives.tally``); for (g), (h) and (i) each
                prefill's, each decode step's and the first train step's
@@ -404,7 +414,9 @@ after ``sessions``:
            fit with its bars (g within 0.25, eta within 0.05, the loss
            descending), its wall and evaluations, run as ``examples``'
            fit_brunel leg (phase 25: the same fit); (d) the SNN classifier,
-           10 epochs, held-out accuracy at least 3x chance.  The
+           10 epochs, held-out accuracy at least 3x chance, no kernel
+           launched, each step's loss and seconds recorded (``lm_mesh``
+           (j) holds the mesh's first step to this run's).  The
            reference's full fit (5 % bars, minutes) is
            ``phase_full_inversion()``, run on its own.
 
@@ -2601,7 +2613,58 @@ def _diff_grad_run(what: str, st, g, table, cfg, n_steps: int, chunk):
                 generator=got["generator"])
 
 
-def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
+def classifier_run() -> dict:
+    """``train_classifier(data_parallel=True)`` of the SNN classifier on
+    the card for DIFF_CLASSIFIER_EPOCHS (on a mesh where ``rules.use_mesh``
+    has one): its history and parameters; each step's loss, seconds (the
+    host clock around the step and its loss read back) and collectives
+    (calls by kind, ``collectives.tally``), through the module's
+    ``make_train_step`` wrapped for the call; the kernels it launched and
+    its wall seconds."""
+    make, steps = train_loop.make_train_step, []
+
+    def recorded(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            with lm_coll.tally() as t:
+                out = step(*args)
+                loss = float(out[2]["loss"])
+            steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                          "calls": t.record()["calls_by_kind"]})
+            return out
+        return run
+
+    model = diff_classify.SNNClassifier(device=DEV)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_loop.make_train_step = recorded
+    try:
+        params, hist = diff_classify.train_classifier(
+            model, TrainConfig(optimizer="adamw", lr=0.05, weight_decay=0.0),
+            epochs=DIFF_CLASSIFIER_EPOCHS, data_parallel=True)
+    finally:
+        train_loop.make_train_step = make
+    return {"params": {k: v.cpu() for k, v in params.items()},
+            "history": hist, "steps": steps,
+            "wall_s": time.perf_counter() - t0,
+            "launches": read_launches(),
+            "chance": 1.0 / model.n_classes}
+
+
+def check_classifier(what: str, run: dict) -> None:
+    """The reference's acceptance case, and no kernel launched."""
+    hist = run["history"]
+    check_launches(what, run["launches"], {})
+    check(hist[-1]["eval_accuracy"] >= 3.0 * run["chance"],
+          f"{what}: eval accuracy {hist[-1]['eval_accuracy']} below 3x "
+          "chance")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          f"{what}: train loss did not fall")
+
+
+def phase_diff(spec, stdp, g, table, main_out: dict) -> tuple[dict, dict]:
     """Differentiable simulation: (a) the surrogate forward of the main
     path through ``"cuda"`` (inference's fused K1 and K3, the spike cast
     to float), bitwise the ``main`` run; (b) the gradient of
@@ -2609,7 +2672,8 @@ def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
     naive twice and checkpointed; (d) the SNN classifier.  (c), the
     reference's reduced inversion fit, is the same fit as ``fit_brunel
     --smoke --init-eta 2.2`` and runs once, as that leg of
-    :func:`phase_examples`, with (c)'s bars.  Returns (a)'s launches."""
+    :func:`phase_examples`, with (c)'s bars.  Returns (a)'s launches
+    and (d)'s run (:func:`classifier_run`)."""
     n_steps = len(main_out["spikes"])
     cfg = engine.EngineConfig(dt=models.DT_MS, stdp=stdp, sweep="cuda",
                               surrogate=DIFF_SURROGATE)
@@ -2715,29 +2779,25 @@ def phase_diff(spec, stdp, g, table, main_out: dict) -> dict:
            for f in ("peak_bytes", "wall_s", "s_per_step")})
     del runs, a, a2, c, cl, bgr, btable, v0
 
-    # (d) the SNN classifier, the reference's acceptance case
-    model = diff_classify.SNNClassifier(device=DEV)
-    tcfg = TrainConfig(optimizer="adamw", lr=0.05, weight_decay=0.0)
-    reset_launches()
-    t0 = time.perf_counter()
-    _, hist = diff_classify.train_classifier(
-        model, tcfg, epochs=DIFF_CLASSIFIER_EPOCHS, data_parallel=True)
-    cls_wall = time.perf_counter() - t0
-    check_launches("diff classifier", read_launches(), {})
-    chance = 1.0 / model.n_classes
-    check(hist[-1]["eval_accuracy"] >= 3.0 * chance,
-          f"diff classifier: eval accuracy {hist[-1]['eval_accuracy']} "
-          f"below 3x chance")
-    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
-          "diff classifier: train loss did not fall")
+    # (d) the SNN classifier, the reference's acceptance case, in this
+    # one process (no world: data_parallel changes nothing)
+    cls = classifier_run()
+    check_classifier("diff classifier", cls)
+    check(all(st["calls"] == {} for st in cls["steps"]),
+          "diff classifier: a one-process step called a collective")
+    hist = cls["history"]
     emit({"phase": "diff", "surrogate_forward": surrogate_rec,
           "grad_rollout": grad_rec,
           "inversion_smoke": "the examples phase's fit_brunel leg",
           "classifier": {"epochs": DIFF_CLASSIFIER_EPOCHS,
                          "eval_accuracy": [h["eval_accuracy"] for h in hist],
                          "train_loss": [h["train_loss"] for h in hist],
-                         "chance": chance, "wall_s": cls_wall}})
-    return {k: c for k, c in rec["launches"].items() if c}
+                         "chance": cls["chance"], "wall_s": cls["wall_s"],
+                         "steps": len(cls["steps"]),
+                         "first_loss": cls["steps"][0]["loss"],
+                         "s_per_step_median": statistics.median(
+                             st["s"] for st in cls["steps"])}})
+    return {k: c for k, c in rec["launches"].items() if c}, cls
 
 
 def phase_full_inversion() -> dict:
@@ -5299,6 +5359,11 @@ LM_MESH_HEADCUT = dict(arch="rwkv6-3b", layers=1, batch=2, seq=32,
 LM_MESH_HEADCUT_LOSS_RTOL = 1e-5
 LM_MESH_RS_REPS = 3
 LM_MESH_A2A_REPS = 20
+#: (j): the classifier on a ("data",) mesh of four processes, each on 16
+#: of every batch's 64 rows; its first loss against the one-process run's
+#: (the same parameters and batch, a mean of four block means)
+CLS_MESH_DIMS = (4,)
+CLS_MESH_FIRST_RTOL = 1e-4
 LM_MESH_DIR = os.path.join(ROOT, "build", "lm_mesh")
 #: the fork server of the lm_mesh spawns (``_lm_mesh_spawn``): one
 #: process that imports this module and torch._dynamo (which the train
@@ -6250,6 +6315,11 @@ def _lm_mesh_task(task: str, mesh, arrays: dict) -> dict:
     elif task == "headcut":
         out = lm_mesh_headcut(mesh)
         arrays[task] = out.pop("logits").numpy()
+    elif task == "classify":
+        with lm_rules.use_mesh(mesh):
+            out = classifier_run()
+        arrays.update({f"classify_{k}": v.numpy()
+                       for k, v in out.pop("params").items()})
     else:
         out = lm_mesh_restart(mesh)
     return out
@@ -6330,17 +6400,18 @@ def _lm_mesh_stop_forks() -> None:
         proc.wait()
 
 
-def _lm_mesh_spawn(name: str, dims, tasks) -> list:
+def _lm_mesh_spawn(name: str, dims, tasks, axes=LM_MESH_AXES) -> list:
     """``prod(dims)`` worker processes on the card, forked by the fork
-    server and joined as a mesh; their records, in rank order (the
-    host's least available memory while they ran in LM_MESH_HOST_MEM).
+    server and joined as a mesh over ``axes``; their records, in rank
+    order (the host's least available memory while they ran in
+    LM_MESH_HOST_MEM).
     A process that fails, or a spawn that outlasts 900 s, fails the
     check (the fork server and its processes ended)."""
     size = int(np.prod(dims))
     env = {"REPRO_COORD_ADDR": f"127.0.0.1:{mh_launch._free_port()}",
            "REPRO_NUM_PROC": str(size), "LOCAL_WORLD_SIZE": str(size)}
     job = json.dumps({"name": name, "dims": list(dims),
-                      "axes": list(LM_MESH_AXES), "tasks": list(tasks)})
+                      "axes": list(axes), "tasks": list(tasks)})
     logs = [os.path.join(LM_MESH_DIR, f"{name}_rank{r}.log")
             for r in range(size)]
     forks = _lm_mesh_fork_server()
@@ -6747,20 +6818,69 @@ def _check_headcut(ranks, one) -> dict:
             "peak_device_mem_bytes", "task_s")}}
 
 
-def phase_lm_mesh() -> dict:
-    """Phase 14e; returns K8's launches per process in (a) and (e)."""
+def _check_classify(ranks, one: dict, leg_s: float) -> dict:
+    """(j): the processes' parameters bitwise equal, the first step's loss
+    against ``diff`` (d)'s one-process run, the acceptance case, each
+    step's collectives against its count (one all-reduce a gradient leaf,
+    one for the loss, one a metric), no kernel launched."""
+    arrays = [np.load(os.path.join(LM_MESH_DIR, f"classify_rank{r['rank']}"
+                                   ".npz")) for r in ranks]
+    leaves = sorted(k for k in arrays[0].files if k.startswith("classify_"))
+    check(len(leaves) == len(one["params"]) and all(
+        np.array_equal(a[k], arrays[0][k]) for a in arrays for k in leaves),
+        "lm_mesh classify: the processes' parameters differ")
+    runs = [r["classify"] for r in ranks]
+    for r in runs:
+        check_classifier("lm_mesh classify", r)
+        check(r["history"] == runs[0]["history"],
+              "lm_mesh classify: the processes report other histories")
+    count = {"all-reduce": len(leaves) + 1 + 2}    # + loss, accuracy
+    calls = [st["calls"] for r in runs for st in r["steps"]]
+    check(len(calls) == len(ranks) * len(one["steps"])
+          and all(c == count for c in calls),
+          f"lm_mesh classify: a step called {calls[:2]}..., the count "
+          f"{count}")
+    first, want = runs[0]["steps"][0]["loss"], one["steps"][0]["loss"]
+    rel = abs(first - want) / abs(want)
+    check(rel <= CLS_MESH_FIRST_RTOL, f"lm_mesh classify: the first loss "
+          f"{first} against one process's {want}")
+    med = lambda r: statistics.median(st["s"] for st in r["steps"])
+    task_s = [r["task_s"] for r in runs]
+    return {
+        "dims": list(CLS_MESH_DIMS), "axes": ["data"],
+        "processes": len(ranks), "backend": ranks[0]["backend"],
+        "epochs": DIFF_CLASSIFIER_EPOCHS, "steps": len(one["steps"]),
+        "first_loss": first, "first_loss_single": want,
+        "first_loss_rel_err": rel, "tolerance_rel": CLS_MESH_FIRST_RTOL,
+        "eval_accuracy": [h["eval_accuracy"] for h in runs[0]["history"]],
+        "eval_accuracy_single": [h["eval_accuracy"]
+                                 for h in one["history"]],
+        "train_loss": [h["train_loss"] for h in runs[0]["history"]],
+        "train_loss_single": [h["train_loss"] for h in one["history"]],
+        "collectives_a_step": count,
+        "collectives_task": runs[0]["collectives_task"],
+        "s_per_step_median_per_process": [med(r) for r in runs],
+        "s_per_step_median_single": med(one),
+        "wall_s_per_process": [r["wall_s"] for r in runs],
+        "wall_s_single": one["wall_s"], "task_s_per_process": task_s,
+        "leg_s": leg_s, "spawn_s": leg_s - max(task_s)}
+
+
+def phase_lm_mesh(cls_single: dict) -> dict:
+    """Phase 14e (``cls_single``: ``diff`` (d)'s classifier run, for (j));
+    returns K8's launches per process in (a) and (e)."""
     t_phase = time.perf_counter()
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
     os.makedirs(LM_MESH_DIR)
     # the fork server imports while the single-process runs go
     _lm_mesh_fork_server()
     try:
-        return _phase_lm_mesh(t_phase)
+        return _phase_lm_mesh(t_phase, cls_single)
     finally:
         _lm_mesh_stop_forks()
 
 
-def _phase_lm_mesh(t_phase: float) -> dict:
+def _phase_lm_mesh(t_phase: float, cls_single: dict) -> dict:
     """:func:`phase_lm_mesh` once its directory and fork server are
     set up."""
     gc.collect()
@@ -7114,6 +7234,12 @@ def _phase_lm_mesh(t_phase: float) -> dict:
         "losses_max_rel_err": _rel_first(
             got["losses"], single_restart["losses"],
             LM_MESH_TRAIN_FIRST_RTOL, LM_MESH_TRAIN_RTOL, "restart")}
+    # (j) the classifier's data-parallel training on ("data",) of four
+    t0 = time.perf_counter()
+    cls = _lm_mesh_spawn("classify", CLS_MESH_DIMS, ("classify",),
+                         axes=("data",))
+    emit({"phase": "lm_mesh_classify", **_check_classify(
+        cls, cls_single, time.perf_counter() - t0)})
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "lm_mesh", **rec,
@@ -7562,7 +7688,7 @@ def main() -> None:
                                                  main_out)}
     sess_launches = phase_sessions(len(main_out["spikes"])
                                    / main_out["wall_s"])
-    diff_launches = phase_diff(spec, stdp, g, table, main_out)
+    diff_launches, cls_single = phase_diff(spec, stdp, g, table, main_out)
     examples_launches = phase_examples()
     del main_out
     sup_launches.update(phase_mh_supervised(mh_main_rec))
@@ -7577,7 +7703,7 @@ def main() -> None:
     lm_fam_launches = phase_lm_families()
     lm_train_launches = phase_lm_train()
     lm_dryrun_launches = phase_lm_dryrun()
-    lm_mesh_launches = phase_lm_mesh()
+    lm_mesh_launches = phase_lm_mesh(cls_single)
     emit({"phase": "total", "script_s": time.perf_counter() - t_main})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

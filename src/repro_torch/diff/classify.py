@@ -26,23 +26,40 @@ dataset and init are its own; the parity tests carry the reference's
 across (:mod:`repro_torch.convert`).  :func:`train_classifier` draws them
 on the CPU from its seed and moves them to the model's device, so a run on
 the card starts from the data and init of a run on the CPU.
+
+Data parallelism is the reference's batch sharding over a 1-D
+``("data",)`` mesh of every device, run as a process mesh
+(:class:`~repro_torch.launch.mesh.ProcessMesh`): every process of an
+initialised ``torch.distributed`` world draws the same data, init and
+epoch order from the seed, trains on its contiguous block of each batch
+(``launch.train.batch_block``), and the train step averages the
+gradients over ``data`` (``train.loop``'s replicated leaves), so every
+process holds the same parameters.  The backend is the world's: gloo
+where processes share a card (or on the CPU), nccl where each has its
+own.  One process driving several cards is not ported (ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import snn
 from repro_torch.core.device import resolve_device
 from repro_torch.diff import surrogate as surrogate_mod
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.launch.train import batch_block
+from repro_torch.sharding import rules
 from repro_torch.train import loop as loop_mod
 
 __all__ = ["SNNClassifier", "make_prototypes", "make_dataset",
-           "train_classifier"]
+           "data_mesh", "train_classifier"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +176,26 @@ def make_dataset(generator: torch.Generator, model: SNNClassifier,
     return {"spikes": spikes, "label": labels}
 
 
+def data_mesh(device: torch.device):
+    """The process mesh a data-parallel run lays its batches over: the
+    current ``rules.use_mesh`` process mesh where it has a ``data`` axis,
+    else ``("data",)`` over the whole world; None with no world or a world
+    of one process (where one process driving several cards raises)."""
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    if world == 1:
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                "data_parallel from one process over more than one card is "
+                "not ported (ROADMAP Queue 1 item 9); run one process a "
+                "card as a torch.distributed world")
+        return None
+    ctx = rules.current_mesh()
+    if (ctx is not None and hasattr(ctx.mesh, "members")
+            and "data" in ctx.mesh.axis_names):
+        return ctx.mesh
+    return ProcessMesh(("data",), (world,))
+
+
 def train_classifier(model: SNNClassifier, tcfg: TrainConfig, *,
                      n_train: int = 512, n_eval: int = 256,
                      batch_size: int = 64, epochs: int = 1, seed: int = 0,
@@ -168,17 +205,17 @@ def train_classifier(model: SNNClassifier, tcfg: TrainConfig, *,
     with the held-out ``eval_accuracy``.
 
     ``data_parallel=True`` is the reference's batch sharding over every
-    device: on one device it changes nothing, as the reference's does; with
-    more than one card it raises (the multi-card runs are not ported)."""
+    device: in a ``torch.distributed`` world of more than one process
+    each process trains on its block of every batch over
+    :func:`data_mesh` (module docstring), and evaluates the whole eval
+    set, so ``history`` is the same on every process; with no world it
+    changes nothing, as the reference's does on one device.  A
+    ``batch_size`` that the batch axes do not divide raises."""
     if n_train % batch_size:
         raise ValueError(f"n_train={n_train} must be a multiple of "
                          f"batch_size={batch_size}")
     dev = model._dev
-    if (data_parallel and dev.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "data_parallel over more than one card is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+    mesh = data_mesh(dev) if data_parallel else None
     gen = torch.Generator()     # on the CPU: the same draws on any device
     gen.manual_seed(int(seed))
     params, opt_state = loop_mod.init_train_state(model, tcfg, gen)
@@ -196,8 +233,12 @@ def train_classifier(model: SNNClassifier, tcfg: TrainConfig, *,
         for b in range(n_batches):
             idx = order[b * batch_size:(b + 1) * batch_size]
             batch = {k: v[idx] for k, v in train.items()}
-            params, opt_state, metrics = step_fn(
-                params, opt_state, batch, epoch * n_batches + b)
+            if mesh is not None:     # a batch_size the mesh cannot cut raises
+                batch = {k: batch_block(v, mesh) for k, v in batch.items()}
+            with (contextlib.nullcontext() if mesh is None
+                  else rules.use_mesh(mesh)):
+                params, opt_state, metrics = step_fn(
+                    params, opt_state, batch, epoch * n_batches + b)
             losses.append(float(metrics["loss"]))
             accs.append(float(metrics["accuracy"]))
         with torch.no_grad():

@@ -56,6 +56,14 @@ updated by its spec alone, whatever its kind (a 1-d leaf or a
   over each whole global leaf, and its factored moments are the means
   over the global leaf (:class:`FactoredCut`);
 * the loss and the metrics are averaged over the batch axes.
+
+A tree of tensors (a substrate model's parameters, such as the SNN
+classifier's) carries no specs: on a process mesh every leaf is
+replicated, as the reference's SPMD holds a pytree with no shardings.
+Each leaf's gradient is then the replicated leaf's above, summed over
+the batch axes and divided by the batch blocks, the same bits on every
+process; the clip reads the same global norm everywhere, and
+``optimizer.apply_updates`` updates every process's copy alike.
 """
 
 from __future__ import annotations
@@ -182,7 +190,9 @@ _EXPERT_NAME = re.compile(r"(^|\.)moe\.(wi_gate|wi_up|wo)$")
 
 
 def _expert_axes(model, mesh) -> tuple[str, ...]:
-    cfg = model.cfg
+    """The axes that own the experts; ``()`` for a model with no MoE, or
+    with no ``cfg`` at all (a substrate model)."""
+    cfg = getattr(model, "cfg", None)
     if getattr(cfg, "moe", None) is None:
         return ()
     return rules.expert_axes_for(mesh, cfg.moe.n_experts)
@@ -338,14 +348,19 @@ def make_train_step(model, tcfg: TrainConfig, *, microbatches: int = 1,
 
         mesh = _process_mesh()
         norm = reduce_sq = factored = None
-        if mesh is not None:
-            if not isinstance(params, nn.Module):
-                raise TypeError("a train step on a process mesh updates "
-                                "a module's parameters")
+        if mesh is not None and isinstance(params, nn.Module):
             specs = {n: rules.spec_of(p) for n, p in tree.items()}
             loss, metrics, grads = _reduce_over_mesh(
                 mesh, _expert_axes(model, mesh), specs, loss, metrics, grads)
             reduce_sq, factored = _mesh_hooks(mesh, params, specs)
+        elif mesh is not None:
+            # a tree of tensors: every leaf replicated (module docstring)
+            flat = dict(enumerate(opt_mod.tree_leaves(grads)))
+            loss, metrics, flat = _reduce_over_mesh(
+                mesh, _expert_axes(model, mesh),
+                dict.fromkeys(flat, rules.PartitionSpec()), loss, metrics,
+                flat)
+            grads = opt_mod.tree_unflatten(grads, list(flat.values()))
         if grad_transform is not None:
             grads = grad_transform(grads)
         if isinstance(params, nn.Module):
